@@ -31,7 +31,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+# One lock per source, so that builds of different sources run side by
+# side; `_locks_guard` only guards the dict of locks, never a build.
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build and load in this process (only the
 # load when it was already on disk), for the build report.
@@ -62,8 +65,11 @@ def library_path(source: str) -> pathlib.Path:
 def load_library(source: str) -> ctypes.CDLL:
     """Compile `csrc/<source>` (once per content) and return the loaded
     library. Raises RuntimeError with nvcc's output when the build
-    fails."""
-    with _lock:
+    fails. Calls for different sources build in parallel; calls for the
+    same source wait for one build."""
+    with _locks_guard:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         lib = _loaded.get(source)
         if lib is not None:
             return lib
