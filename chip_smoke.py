@@ -29,11 +29,19 @@ printing one line per check and failing loudly:
                 is a valid greedy choice under reference_logits within a
                 stated tie tolerance; then the host and device time of
                 one steady tick;
-  5. report   — a JSON line of every kernel, the card's name and power
+  5. paged    — PagedDecodeServer over phase 4's decoder and weights:
+                a 1025-block pool of 16-row blocks (phase 4's 4-slot
+                cache plus the trash block), attention="pallas" (the
+                paged kernels), radix prefix caching, 64-token chunked
+                prefill; the 12 requests each behind one shared 64-token
+                system prompt; the same checks as phase 4, plus the
+                radix hits, the prefill tokens saved and trash block 0
+                never handed out; then one steady paged tick's split;
+  6. report   — a JSON line of every kernel, the card's name and power
                 limit, and last the line {"ok": true, "device": {...}}.
 
-Every kernel launch count is zeroed just before each path (3, 4) and
-read just after it; a path that did not launch its kernel fails.
+Every kernel launch count is zeroed just before each path (3, 4, 5) and
+read just after it; a path that did not launch its kernels fails.
 
 Exits non-zero, and prints no result, when CUDA is unavailable, when the
 package is not beside this file, or when any phase fails. Imports
@@ -67,6 +75,10 @@ DECODE_SLOTS = 4
 GREEDY_TIE_TOL = 0.08
 # flash_decode at the decode path's tick shape: (B, Hq, Hkv, S, Dh).
 DECODE_SHAPE = (DECODE_SLOTS, 32, 8, 4096, 128)
+# The paged path: pool blocks (phase 4's 4 x 4096 rows in 16-row blocks,
+# plus trash block 0), block size, prefill chunk, and the shared system
+# prompt every request starts with.
+PAGED_BLOCKS, PAGED_BS, PAGED_CHUNK, SYSTEM_LEN = 1025, 16, 64, 64
 
 
 class SmokeError(RuntimeError):
@@ -142,6 +154,10 @@ KERNELS = [
      "defer_tpu/ops/pallas_attention.py:134"),
     ("flash_decode", "flash_decode.cu",
      "defer_tpu/ops/pallas_attention.py:341"),
+    ("paged_flash_decode", "paged_flash_decode.cu",
+     "defer_tpu/ops/pallas_attention.py:543"),
+    ("paged_flash_prefill", "paged_flash_prefill.cu",
+     "defer_tpu/ops/pallas_attention.py:769"),
 ]
 
 
@@ -149,8 +165,12 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches."""
     from defer_tpu_torch.ops.flash_attention import flash_attention
     from defer_tpu_torch.ops.flash_decode import flash_decode
+    from defer_tpu_torch.ops.paged_flash_decode import paged_flash_decode
+    from defer_tpu_torch.ops.paged_flash_prefill import paged_flash_prefill
 
-    return {"flash_attention": flash_attention, "flash_decode": flash_decode}
+    return {"flash_attention": flash_attention, "flash_decode": flash_decode,
+            "paged_flash_decode": paged_flash_decode,
+            "paged_flash_prefill": paged_flash_prefill}
 
 
 def zero_launches() -> None:
@@ -191,6 +211,31 @@ TOLERANCE = {"bfloat16": (1e-2, 1e-2), "float16": (2e-3, 2e-3),
 
 def _dtype_name(dt) -> str:
     return str(dt).replace("torch.", "")
+
+
+def _held(label, name, got, want, dtype, detail) -> float:
+    """Check a kernel's output against its plain version; returns the
+    max abs error."""
+    import torch
+
+    atol, rtol = TOLERANCE[_dtype_name(dtype)]
+    err = (got.float() - want.float()).abs()
+    max_err = err.max().item()
+    within = bool((err <= atol + rtol * want.float().abs()).all().item())
+    log(f"kernels: {name} {label} {detail} {_dtype_name(dtype)}: "
+        f"max_abs_err {max_err:.3e} (tol atol {atol:g} + rtol {rtol:g}) "
+        f"{'ok' if within else 'FAIL'}")
+    check(within and got.shape == want.shape and got.dtype == dtype
+          and bool(torch.isfinite(got).all().item()),
+          f"{name} {label} disagrees with its plain version")
+    return max_err
+
+
+def _bound(nbytes: int, flops: int) -> tuple:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
 
 
 def _bert_qkv(gen, b, h, s, dh, dtype):
@@ -235,18 +280,8 @@ def check_flash_attention() -> dict:
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()  # a fault in the kernel surfaces here
         want = flash_attention_plain(q, k, v, causal=causal)
-        atol, rtol = TOLERANCE[_dtype_name(dtype)]
-        err = (got.float() - want.float()).abs()
-        max_err = err.max().item()
-        within = bool(
-            (err <= atol + rtol * want.float().abs()).all().item()
-        )
-        log(f"kernels: flash_attention {label} q={tuple(q.shape)} "
-            f"s_k={s_k} {_dtype_name(dtype)} causal={causal}: max_abs_err "
-            f"{max_err:.3e} (tol atol {atol:g} + rtol {rtol:g}) "
-            f"{'ok' if within else 'FAIL'}")
-        check(within and got.shape == q.shape and got.dtype == dtype,
-              f"flash_attention {label} disagrees with its plain version")
+        max_err = _held(label, "flash_attention", got, want, dtype,
+                        f"q={tuple(q.shape)} s_k={s_k} causal={causal}")
         if label == "bert":
             bert_err = max_err
 
@@ -258,21 +293,14 @@ def check_flash_attention() -> dict:
     )
     nbytes = 4 * q.numel() * q.element_size()
     flops = 4 * BATCH * 12 * SEQ * SEQ * 64
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
+    bound_ms, bound_by = _bound(nbytes, flops)
     log(f"kernels: flash_attention at {tuple(q.shape)} bf16: kernel_ms "
         f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms (sdpa) "
         f"{library_ms:.5f} bound_us {bound_ms * 1e3:.3f} "
         f"({nbytes} B, {flops} FLOP)")
-    return {
-        "max_abs_err": bert_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "library_ms": library_ms,
-    }
+    return {"max_abs_err": bert_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def _decode_qkv(gen, b, hq, hkv, s, dh, dtype):
@@ -319,18 +347,9 @@ def check_flash_decode() -> dict:
         got = flash_decode(q, k, v, posv, window=window)
         torch.cuda.synchronize()  # a fault in the kernel surfaces here
         want = flash_decode_plain(q, k, v, posv, window=window)
-        atol, rtol = TOLERANCE[_dtype_name(dtype)]
-        err = (got.float() - want.float()).abs()
-        max_err = err.max().item()
-        within = bool(
-            (err <= atol + rtol * want.float().abs()).all().item()
-        )
-        log(f"kernels: flash_decode {label} q={tuple(q.shape)} "
-            f"k={tuple(k.shape)} {_dtype_name(dtype)} pos={pos} "
-            f"window={window}: max_abs_err {max_err:.3e} (tol atol "
-            f"{atol:g} + rtol {rtol:g}) {'ok' if within else 'FAIL'}")
-        check(within and got.shape == q.shape and got.dtype == dtype,
-              f"flash_decode {label} disagrees with its plain version")
+        max_err = _held(label, "flash_decode", got, want, dtype,
+                        f"q={tuple(q.shape)} k={tuple(k.shape)} pos={pos} "
+                        f"window={window}")
         if label == "mistral":
             main_err = max_err
 
@@ -354,29 +373,230 @@ def check_flash_decode() -> dict:
     itemsize = q.element_size()
     nbytes = (2 * live * hkv * dh + 2 * b * hq * dh) * itemsize
     flops = 4 * live * (hq // hkv) * hkv * dh
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
+    bound_ms, bound_by = _bound(nbytes, flops)
     log(f"kernels: flash_decode at q={tuple(q.shape)} k={tuple(k.shape)} "
         f"bf16 pos={main_pos}: kernel_ms {kernel_ms:.5f} plain_ms "
         f"{plain_ms:.5f} library_ms (sdpa over all {s} rows, enable_gqa) "
         f"{library_ms:.5f} bound_us {bound_ms * 1e3:.3f} ({live} live rows "
         f"of {b * s}: {nbytes} B, {flops} FLOP); the wrapper's host time "
         f"{wrapper_us:.2f} us a call")
-    return {
-        "max_abs_err": main_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "library_ms": library_ms,
-    }
+    return {"max_abs_err": main_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _paged_inputs(b, hq, hkv, t, dh, bs, mb, dtype, pos, seed):
+    """q as the decoder hands it to a paged kernel (a head split of
+    [B, T, Hq*Dh]; T None gives the decode kernel's [B, Hq, Dh]), one
+    layer of a pool of 1 + B * MB blocks, and tables drawn as a seeded
+    permutation of blocks 1.. (so the indirection is real) with each
+    slot's entries past its need on trash block 0. Returns (q, pool_k,
+    pool_v, tables, pos on the card, live blocks)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tq = 1 if t is None else t
+    q = torch.randn(b, tq, hq * dh, generator=gen, device="cuda").to(dtype)
+    q = q.view(b, tq, hq, dh).transpose(1, 2)
+    if t is None:
+        q = q[:, :, 0, :]
+    nb = 1 + b * mb
+    pool_k, pool_v = (
+        torch.randn(nb, hkv, bs, dh, generator=gen, device="cuda").to(dtype)
+        for _ in range(2)
+    )
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(seed))
+    tables = (perm + 1).reshape(b, mb).to(torch.int32)
+    for i, p in enumerate(pos):
+        tables[i, (p + tq - 1) // bs + 1:] = 0
+    posv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return q, pool_k, pool_v, tables.cuda(), posv
+
+
+def _gathered_view(pool, tables):
+    """The pool rows of each slot's table as one contiguous
+    [B, Hkv, MB * bs, Dh] view: the library yardstick's first call."""
+    kc = pool[tables.long()]  # [B, MB, Hkv, bs, Dh]
+    b, mb, hkv, bs, dh = kc.shape
+    return kc.transpose(1, 2).reshape(b, hkv, mb * bs, dh)
+
+
+def check_paged_flash_decode() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from defer_tpu_torch.ops.flash_decode import live_rows
+    from defer_tpu_torch.ops.paged_flash_decode import (
+        paged_flash_decode,
+        paged_flash_decode_plain,
+    )
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    main_pos = [4095, 2047, 130, 0]
+    # (label, (B, Hq, Hkv, Dh, bs, MB), dtype, pos, window): the paged
+    # tick's shape first, then the edge cases.
+    cases = [
+        ("mistral", (4, 32, 8, 128, 16, 256), bf16, main_pos, 4096),
+        ("pos0", (2, 32, 8, 128, 16, 64), bf16, [0, 0], 4096),
+        ("window_edge", (2, 32, 8, 128, 16, 64), bf16, [700, 40], 100),
+        ("g1_dh64", (2, 8, 8, 64, 16, 32), bf16, [500, 77], None),
+        ("g8", (2, 64, 8, 128, 16, 64), bf16, [1000, 300], None),
+        ("f16_bs8", (3, 16, 4, 64, 8, 64), f16, [511, 0, 100], None),
+        ("f32_bs32", (2, 32, 8, 128, 32, 32), f32, [1023, 513], 200),
+    ]
+    main_err = None
+    for seed, (label, (b, hq, hkv, dh, bs, mb), dtype, pos, window) in (
+        enumerate(cases)
+    ):
+        q, pk, pv, tables, posv = _paged_inputs(b, hq, hkv, None, dh, bs,
+                                                mb, dtype, pos, seed)
+        got = paged_flash_decode(q, pk, pv, tables, posv, window=window)
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        want = paged_flash_decode_plain(q, pk, pv, tables, posv,
+                                        window=window,
+                                        num_blocks=max(pos) // bs + 1)
+        err = _held(label, "paged_flash_decode", got, want, dtype,
+                    f"q={tuple(q.shape)} pool={tuple(pk.shape)} "
+                    f"tables={tuple(tables.shape)} pos={pos} "
+                    f"window={window}")
+        if label == "mistral":
+            main_err = err
+
+    b, hq, hkv, dh, bs, mb = cases[0][1]
+    q, pk, pv, tables, posv = _paged_inputs(b, hq, hkv, None, dh, bs, mb,
+                                            bf16, main_pos, 0)
+    kernel_ms = cuda_time_ms(
+        lambda: paged_flash_decode(q, pk, pv, tables, posv, window=4096)
+    )
+    nb_plain = max(main_pos) // bs + 1
+    plain_ms = cuda_time_ms(
+        lambda: paged_flash_decode_plain(q, pk, pv, tables, posv,
+                                         window=4096, num_blocks=nb_plain),
+        iters=5, warmup=1,
+    )
+    j = torch.arange(mb * bs, device="cuda")
+    mask = ((j[None, :] <= posv[:, None])
+            & (j[None, :] > posv[:, None] - 4096))[:, None, None, :]
+    library_ms = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], _gathered_view(pk, tables),
+            _gathered_view(pv, tables), attn_mask=mask, enable_gqa=True,
+        )
+    )
+    # The function needs each slot's live rows (the kernel stops at pos,
+    # mid-block), not their whole blocks.
+    live = sum(live_rows(p, mb * bs, 4096) for p in main_pos)
+    itemsize = q.element_size()
+    nbytes = (2 * live * hkv * dh + 2 * b * hq * dh) * itemsize
+    flops = 4 * live * hq * dh
+    bound_ms, bound_by = _bound(nbytes, flops)
+    log(f"kernels: paged_flash_decode at q={tuple(q.shape)} "
+        f"pool={tuple(pk.shape)} tables={tuple(tables.shape)} bf16 "
+        f"pos={main_pos}: kernel_ms {kernel_ms:.5f} plain_ms {plain_ms:.5f} "
+        f"library_ms (two calls: pool gather of every table column + sdpa "
+        f"enable_gqa) {library_ms:.5f} bound_us {bound_ms * 1e3:.3f} "
+        f"({live} live rows: {nbytes} B, {flops} FLOP)")
+    return {"max_abs_err": main_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_paged_flash_prefill() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from defer_tpu_torch.ops.paged_flash_prefill import (
+        paged_flash_prefill,
+        paged_flash_prefill_plain,
+    )
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    # (label, (B, Hq, Hkv, T, Dh, bs, MB), dtype, start, window): the
+    # phase-5 chunk after a 4-block hit, a deep chunk, then the edges.
+    cases = [
+        ("after_hit", (1, 32, 8, 64, 128, 16, 256), bf16, [64], 4096),
+        ("deep", (1, 32, 8, 64, 128, 16, 256), bf16, [1984], 4096),
+        ("start0", (1, 32, 8, 64, 128, 16, 256), bf16, [0], 4096),
+        ("window_edge", (2, 32, 8, 64, 128, 16, 64), bf16, [500, 37], 100),
+        ("g1_dh64", (2, 8, 8, 16, 64, 16, 32), bf16, [100, 0], None),
+        ("g8", (1, 64, 8, 32, 128, 16, 64), bf16, [300], None),
+        ("b4_t5", (4, 32, 8, 5, 128, 16, 64), bf16, [0, 17, 400, 1000],
+         None),
+        ("f16_bs8", (2, 16, 4, 24, 64, 8, 64), f16, [100, 7], None),
+        ("f32_bs32", (2, 32, 8, 40, 128, 32, 32), f32, [600, 3], 200),
+    ]
+    main_err = None
+    for seed, (label, (b, hq, hkv, t, dh, bs, mb), dtype, start, window) in (
+        enumerate(cases)
+    ):
+        q, pk, pv, tables, sv = _paged_inputs(b, hq, hkv, t, dh, bs, mb,
+                                              dtype, start, seed)
+        got = paged_flash_prefill(q, pk, pv, tables, sv, window=window)
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        want = paged_flash_prefill_plain(
+            q, pk, pv, tables, sv, window=window,
+            num_blocks=min((max(start) + t - 1) // bs + 1, mb),
+        )
+        err = _held(label, "paged_flash_prefill", got, want, dtype,
+                    f"q={tuple(q.shape)} pool={tuple(pk.shape)} "
+                    f"tables={tuple(tables.shape)} start={start} "
+                    f"window={window}")
+        if label == "after_hit":
+            main_err = err
+
+    timed = {}
+    for label, start in (("after_hit", 64), ("deep", 1984)):
+        b, hq, hkv, t, dh, bs, mb = cases[0][1]
+        q, pk, pv, tables, sv = _paged_inputs(b, hq, hkv, t, dh, bs, mb,
+                                              bf16, [start], 0)
+        kernel_ms = cuda_time_ms(
+            lambda: paged_flash_prefill(q, pk, pv, tables, sv, window=4096)
+        )
+        nb_plain = (start + t - 1) // bs + 1
+        plain_ms = cuda_time_ms(
+            lambda: paged_flash_prefill_plain(q, pk, pv, tables, sv,
+                                              window=4096,
+                                              num_blocks=nb_plain),
+            iters=5, warmup=1,
+        )
+        j = torch.arange(mb * bs, device="cuda")
+        qpos = start + torch.arange(t, device="cuda")
+        mask = ((j[None, :] <= qpos[:, None])
+                & (j[None, :] > qpos[:, None] - 4096))[None, None]
+        library_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, _gathered_view(pk, tables), _gathered_view(pv, tables),
+                attn_mask=mask, enable_gqa=True,
+            )
+        )
+        # Rows the chunk's queries attend (window 4096 reaches row 0 at
+        # these starts): each read once, q and o once each.
+        live = start + t
+        itemsize = q.element_size()
+        nbytes = (2 * live * hkv * dh + 2 * b * hq * t * dh) * itemsize
+        pairs = sum(start + i + 1 for i in range(t))  # causal (query, key)
+        bound_ms, bound_by = _bound(nbytes, 4 * pairs * hq * dh)
+        log(f"kernels: paged_flash_prefill {label} at q={tuple(q.shape)} "
+            f"pool={tuple(pk.shape)} bf16 start={start}: kernel_ms "
+            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms (two calls: "
+            f"pool gather of every table column + sdpa enable_gqa with a "
+            f"boolean mask) {library_ms:.5f} bound_us {bound_ms * 1e3:.3f} "
+            f"({live} live rows: {nbytes} B, "
+            f"{4 * pairs * hq * dh} FLOP)")
+        timed[label] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms}
+    # The JSON line reports the chunk the paged path runs most: the one
+    # right after a radix hit; the deep chunk's numbers are in the log.
+    return {"max_abs_err": main_err, **timed["after_hit"]}
 
 
 def phase_kernels() -> dict:
     return {
         "flash_attention": check_flash_attention(),
         "flash_decode": check_flash_decode(),
+        "paged_flash_decode": check_paged_flash_decode(),
+        "paged_flash_prefill": check_paged_flash_prefill(),
     }
 
 
@@ -517,6 +737,10 @@ def decode_requests(vocab: int) -> list:
 
 def _family(name: str) -> str:
     n = name.lower()
+    if "paged_decode" in n:
+        return "paged_flash_decode"
+    if "paged_prefill" in n:
+        return "paged_flash_prefill"
     if "flash_decode" in n:
         return "flash_decode"
     if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
@@ -524,26 +748,12 @@ def _family(name: str) -> str:
     return "other"
 
 
-def tick_split(dec, params, depth: int, reps: int = 5) -> dict:
-    """One steady decode tick (the batched step, the idle-slot pin and
-    the argmax, as DecodeServer._tick runs them) with every slot at
-    `depth`: the host ms to issue it on an idle card (median of
-    `reps`), its wall ms to completion, and from torch.profiler its
-    device ms by kernel family and its kernel launches. Fails if the
-    tick makes a synchronizing CUDA call."""
+def time_tick(tick, reps: int = 5) -> dict:
+    """One steady decode tick `tick()`: the host ms to issue it on an
+    idle card (median of `reps`), its wall ms to completion, and from
+    torch.profiler its device ms by kernel family and its kernel
+    launches. Fails if the tick makes a synchronizing CUDA call."""
     import torch
-
-    step = dec.make_step()
-    cache = dec.init_cache(DECODE_SLOTS)
-    active = torch.ones(DECODE_SLOTS, dtype=torch.bool, device="cuda")
-    feed = torch.zeros((DECODE_SLOTS, 1), dtype=torch.int32, device="cuda")
-
-    def tick():
-        cache["pos"] = torch.full((DECODE_SLOTS,), depth, dtype=torch.int32,
-                                  device="cuda")
-        logits, out = step(params, cache, feed)
-        torch.where(active, out["pos"], 0)
-        return torch.argmax(logits[:, -1, :], dim=-1)
 
     for _ in range(3):
         tick()
@@ -594,6 +804,68 @@ def tick_split(dec, params, depth: int, reps: int = 5) -> dict:
     }
 
 
+def flat_tick(dec, params, depth: int):
+    """One steady flat decode tick (the batched step, the idle-slot pin
+    and the argmax, as DecodeServer._tick runs them) with every slot at
+    `depth`, as a closure for `time_tick`."""
+    import torch
+
+    step = dec.make_step()
+    cache = dec.init_cache(DECODE_SLOTS)
+    active = torch.ones(DECODE_SLOTS, dtype=torch.bool, device="cuda")
+    feed = torch.zeros((DECODE_SLOTS, 1), dtype=torch.int32, device="cuda")
+
+    def tick():
+        cache["pos"] = torch.full((DECODE_SLOTS,), depth, dtype=torch.int32,
+                                  device="cuda")
+        logits, out = step(params, cache, feed)
+        torch.where(active, out["pos"], 0)
+        return torch.argmax(logits[:, -1, :], dim=-1)
+
+    return tick
+
+
+def log_split(phase: str, split: dict, depth, weight_bytes: int) -> None:
+    weight_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"{phase}: one steady tick, {DECODE_SLOTS} slots at depth {depth}: "
+        f"host {split['host_ms']:.4f} ms to issue (idle card), wall "
+        f"{split['wall_ms']:.4f} ms, device {split['device_ms']:.4f} ms of "
+        f"kernels ({split['launches']:.0f} launches, no host sync; "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split["family_ms"].items())
+        + f"); idle share {split['idle_share']:.4f}; weight read bound "
+        f"{weight_ms:.4f} ms ({weight_bytes} B at 3.35 TB/s)")
+
+
+def greedy_gaps(phase: str, dec, params, reqs, outs) -> None:
+    """Every output must echo its prompt, have the requested length, and
+    every generated token must be a valid greedy choice: its logit under
+    reference_logits (a fresh full forward) within GREEDY_TIE_TOL of its
+    row's max."""
+    import torch
+
+    gaps = []
+    for i, ((prompt, steps), out) in enumerate(zip(reqs, outs)):
+        t_in = prompt.shape[1]
+        check(tuple(out.shape) == (1, t_in + steps),
+              f"{phase} request {i}: output shape {tuple(out.shape)}")
+        check(torch.equal(out[:, :t_in].cpu(), prompt),
+              f"{phase} request {i}: the prompt does not come back verbatim")
+        rows = dec.reference_logits(params, out[:, :-1])[0, t_in - 1:]
+        toks = out[0, t_in:].long()
+        gaps.append(rows.amax(dim=-1) - rows.gather(-1, toks[:, None])[:, 0])
+    gaps = torch.cat(gaps).float().cpu()
+    q = torch.quantile(gaps, torch.tensor([0.5, 0.9, 0.99, 1.0])).tolist()
+    n_tied = int((gaps > 0).sum())
+    log(f"{phase}: every output echoes its prompt; greedy gap (reference "
+        f"row max - chosen token's logit) over {gaps.numel()} tokens: "
+        f"median {q[0]:.4g}, p90 {q[1]:.4g}, p99 {q[2]:.4g}, max "
+        f"{q[3]:.4g}; {n_tied} tokens not the reference's argmax "
+        f"(tie tolerance {GREEDY_TIE_TOL})")
+    check(q[3] <= GREEDY_TIE_TOL,
+          f"{phase}: a generated token is {q[3]:.4g} below the reference "
+          "row max")
+
+
 def phase_decode() -> dict:
     import torch
 
@@ -634,48 +906,142 @@ def phase_decode() -> dict:
     check(launches["flash_decode"] >= cfg.num_layers * srv.ticks,
           f"flash_decode launched {launches['flash_decode']} times, "
           f"expected >= {cfg.num_layers} x {srv.ticks} ticks")
-
-    gaps = []
-    for (prompt, steps), rid in zip(reqs, rids):
-        out = done[rid]
-        t_in = prompt.shape[1]
-        check(tuple(out.shape) == (1, t_in + steps),
-              f"request {rid}: output shape {tuple(out.shape)}")
-        check(torch.equal(out[:, :t_in].cpu(), prompt),
-              f"request {rid}: the prompt does not come back verbatim")
-        rows = dec.reference_logits(params, out[:, :-1])[0, t_in - 1:]
-        toks = out[0, t_in:].long()
-        gaps.append(rows.amax(dim=-1) - rows.gather(-1, toks[:, None])[:, 0])
-    gaps = torch.cat(gaps).float().cpu()
-    q = torch.quantile(gaps, torch.tensor([0.5, 0.9, 0.99, 1.0])).tolist()
-    n_tied = int((gaps > 0).sum())
     log(f"decode: {len(reqs)} requests served, {generated} tokens in "
         f"{srv.ticks} ticks ({generated / srv.ticks:.2f} tokens a tick, "
         f"{srv.solo_steps} solo steps), {wall:.3f}s, "
         f"{generated / wall:.1f} tokens/s incl. admission prefills")
     log(f"decode: flash_decode launches {launches['flash_decode']} "
         f"(>= {cfg.num_layers} x {srv.ticks} ticks)")
-    log(f"decode: every output echoes its prompt; greedy gap (reference "
-        f"row max - chosen token's logit) over {gaps.numel()} tokens: "
-        f"median {q[0]:.4g}, p90 {q[1]:.4g}, p99 {q[2]:.4g}, max "
-        f"{q[3]:.4g}; {n_tied} tokens not the reference's argmax "
-        f"(tie tolerance {GREEDY_TIE_TOL})")
-    check(q[3] <= GREEDY_TIE_TOL,
-          f"a generated token is {q[3]:.4g} below the reference row max")
+    greedy_gaps("decode", dec, params, reqs, [done[r] for r in rids])
 
     ticks = srv.ticks
     del srv, done
     torch.cuda.empty_cache()
     depth = 150
-    split = tick_split(dec, params, depth)
-    weight_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"decode: one steady tick, {DECODE_SLOTS} slots at depth {depth}: "
-        f"host {split['host_ms']:.4f} ms to issue (idle card), wall "
-        f"{split['wall_ms']:.4f} ms, device {split['device_ms']:.4f} ms of "
-        f"kernels ({split['launches']:.0f} launches, no host sync; "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in split["family_ms"].items())
-        + f"); idle share {split['idle_share']:.4f}; weight read bound "
-        f"{weight_ms:.4f} ms ({weight_bytes} B at 3.35 TB/s)")
+    log_split("decode", time_tick(flat_tick(dec, params, depth)), depth,
+              weight_bytes)
+    return {"launches": launches, "ticks": ticks, "dec": dec,
+            "params": params, "weight_bytes": weight_bytes}
+
+
+# -- phase 5 ---------------------------------------------------------------
+
+def paged_requests(vocab: int) -> list:
+    """The 12-request mix of phase 4, each prompt behind one shared
+    SYSTEM_LEN-token system prompt (prompts of 80-175 tokens)."""
+    import torch
+
+    system = torch.randint(0, vocab, (1, SYSTEM_LEN),
+                           generator=torch.Generator().manual_seed(2))
+    return [(torch.cat([system, p], dim=1), s)
+            for p, s in decode_requests(vocab)]
+
+
+def paged_tick(srv, vocab: int, depth: int, steps: int = 64):
+    """One steady paged tick through the server's public entry points:
+    seat one request a slot, each a `depth`-token prompt from a seeded
+    generator with a budget of `steps` tokens, by one `step()` (the
+    admission prefills and the first tick), then return `srv.step` as
+    the closure for `time_tick`. With nothing left to admit, a step is
+    one tick (the step through the paged kernels, the argmax, the
+    device position advance and the host bookkeeping); each advances
+    every slot one row, so the timed ticks run at depths from `depth`
+    up. `steps` outlasts time_tick's 19 ticks."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(srv.B):
+        srv.submit(torch.randint(0, vocab, (1, depth), generator=gen), steps)
+    srv.step()
+    check(not srv.pending and all(s is not None for s in srv.slots),
+          "the steady tick's requests did not all get a slot")
+    return srv.step
+
+
+def phase_paged(dec, params, weight_bytes: int) -> dict:
+    import torch
+
+    from defer_tpu_torch import PagedDecodeServer
+    from defer_tpu_torch.obs import counter_deltas
+
+    cfg = dec.cfg
+    srv = PagedDecodeServer(
+        dec, params, num_blocks=PAGED_BLOCKS, block_size=PAGED_BS,
+        max_batch=DECODE_SLOTS, attention="pallas", prefix_cache=True,
+        prefill_chunk=PAGED_CHUNK,
+    )
+    flat_bytes = (2 * cfg.num_layers * DECODE_SLOTS * cfg.kv_heads
+                  * cfg.max_len * (cfg.dim // cfg.num_heads) * 2)
+    log(f"paged: PagedDecodeServer(num_blocks={PAGED_BLOCKS}, block_size="
+        f"{PAGED_BS}, max_batch={DECODE_SLOTS}, attention='pallas', "
+        f"prefix_cache=True, prefill_chunk={PAGED_CHUNK}): pool "
+        f"{srv.pool_bytes} B (a flat {DECODE_SLOTS}-slot cache: "
+        f"{flat_bytes} B)")
+    check(srv.pool_bytes == flat_bytes * PAGED_BLOCKS // (PAGED_BLOCKS - 1),
+          f"pool of {srv.pool_bytes} B is not the flat cache plus trash")
+    reqs = paged_requests(cfg.vocab_size)
+    rids = [srv.submit(p, s) for p, s in reqs]
+    torch.cuda.synchronize()
+    zero_launches()
+    with counter_deltas() as d:
+        t0 = time.perf_counter()
+        # srv.run(), one round at a time: after each, trash block 0 is
+        # neither on the free list nor in a live slot's table up to its
+        # position (host checks; they sync nothing).
+        while srv.step():
+            check(0 not in srv.free, "trash block 0 is on the free list")
+            for i, slot in enumerate(srv.slots):
+                if slot is not None:
+                    row = srv.tables[i, : srv.pos[i] // srv.bs + 1]
+                    check(bool((row != 0).all()),
+                          f"slot {i}'s table holds trash block 0 at a live "
+                          "column")
+        done = srv.done
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    generated = sum(s for _, s in reqs)
+    hits = d.get('defer_prefix_cache_hits_total{server="paged"}', 0)
+    check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} served")
+    n_req = len(reqs) - 1
+    check(hits == n_req * SYSTEM_LEN // PAGED_BS,
+          f"{hits} radix block hits, expected {n_req} x "
+          f"{SYSTEM_LEN // PAGED_BS}")
+    check(srv.prefill_tokens_saved == n_req * SYSTEM_LEN,
+          f"prefill_tokens_saved {srv.prefill_tokens_saved}, expected "
+          f"{n_req * SYSTEM_LEN}")
+    check(launches["paged_flash_decode"] >= cfg.num_layers * srv.ticks,
+          f"paged_flash_decode launched {launches['paged_flash_decode']} "
+          f"times, expected >= {cfg.num_layers} x {srv.ticks} ticks")
+    check(launches["paged_flash_prefill"]
+          >= cfg.num_layers * srv.prefill_chunks,
+          f"paged_flash_prefill launched {launches['paged_flash_prefill']} "
+          f"times, expected >= {cfg.num_layers} x {srv.prefill_chunks} "
+          "chunks")
+    check(0 not in srv.free and srv.blocks_in_use == 0,
+          "the pool did not drain back to the free list and the cache")
+    log(f"paged: {len(reqs)} requests served (prompts of "
+        f"{min(p.shape[1] for p, _ in reqs)}-"
+        f"{max(p.shape[1] for p, _ in reqs)} tokens), {generated} tokens "
+        f"in {srv.ticks} ticks ({generated / srv.ticks:.2f} tokens a tick) "
+        f"and {srv.prefill_chunks} prefill chunks, {wall:.3f}s, "
+        f"{generated / wall:.1f} tokens/s incl. admission prefills; peak "
+        f"{srv.blocks_peak} blocks in use")
+    log(f"paged: {hits} radix block hits, {srv.prefill_tokens_saved} "
+        f"prefill tokens saved; launches paged_flash_decode "
+        f"{launches['paged_flash_decode']} (>= {cfg.num_layers} x "
+        f"{srv.ticks} ticks), paged_flash_prefill "
+        f"{launches['paged_flash_prefill']} (>= {cfg.num_layers} x "
+        f"{srv.prefill_chunks} chunks)")
+    greedy_gaps("paged", dec, params, reqs, [done[r] for r in rids])
+
+    depth = 150
+    ticks = srv.ticks
+    tick = paged_tick(srv, cfg.vocab_size, depth)
+    lo = int(srv.pos.min())
+    split = time_tick(tick)
+    log_split("paged", split, f"{lo}-{int(srv.pos.max()) - 1}",
+              weight_bytes)
     return {"launches": launches, "ticks": ticks}
 
 
@@ -703,6 +1069,9 @@ def main() -> int:
         kernels = phase_kernels()
         main_res = phase_main()
         decode_res = phase_decode()
+        paged_res = phase_paged(decode_res.pop("dec"),
+                                decode_res.pop("params"),
+                                decode_res["weight_bytes"])
         for name in ("jax", "defer_tpu"):
             check(name not in sys.modules, f"{name} was imported")
     except Exception as e:  # every phase failure ends the run non-zero
@@ -712,6 +1081,8 @@ def main() -> int:
     path_launches = {
         "flash_attention": main_res["launches"]["flash_attention"],
         "flash_decode": decode_res["launches"]["flash_decode"],
+        "paged_flash_decode": paged_res["launches"]["paged_flash_decode"],
+        "paged_flash_prefill": paged_res["launches"]["paged_flash_prefill"],
     }
     report = []
     for name, src, replaces in KERNELS:

@@ -14,6 +14,14 @@ and serves a KV-cache decoder with continuous batching:
     from defer_tpu_torch import DecodeServer, GptDecoder, mistral_config
     dec = GptDecoder(mistral_config(), compute_dtype=torch.bfloat16)
     srv = DecodeServer(dec, params, max_batch=4)
+
+or over a paged KV pool, with radix prefix sharing and chunked prefill
+through the hand-written paged kernels:
+
+    from defer_tpu_torch import PagedDecodeServer
+    srv = PagedDecodeServer(dec, params, num_blocks=1025, block_size=16,
+                            attention="pallas", prefix_cache=True,
+                            prefill_chunk=64)
 """
 
 from defer_tpu_torch.api import DEFER, run_local_inference
@@ -21,7 +29,14 @@ from defer_tpu_torch.config import DeferConfig
 from defer_tpu_torch.graph.ir import Graph, GraphBuilder, OpNode
 from defer_tpu_torch.models.gpt import GptDecoder, SamplingParams
 from defer_tpu_torch.models.llama import llama_config, mistral_config
+from defer_tpu_torch.ops.paged_flash_decode import paged_flash_decode
+from defer_tpu_torch.ops.paged_flash_prefill import paged_flash_prefill
 from defer_tpu_torch.runtime.decode_server import DecodeServer, serve_greedy
+from defer_tpu_torch.runtime.paged import (
+    PagedDecodeServer,
+    PrefixBlockCache,
+    serve_paged,
+)
 from defer_tpu_torch.graph.partition import (
     PartitionError,
     partition,
@@ -40,17 +55,22 @@ __all__ = [
     "Graph",
     "GraphBuilder",
     "OpNode",
+    "PagedDecodeServer",
     "PartitionError",
     "Pipeline",
+    "PrefixBlockCache",
     "SamplingParams",
     "llama_config",
     "mistral_config",
     "obs",
+    "paged_flash_decode",
+    "paged_flash_prefill",
     "params_from_jax",
     "partition",
     "pipeline_devices",
     "run_local_inference",
     "serve_greedy",
+    "serve_paged",
     "stage_params",
     "validate_cut_points",
 ]

@@ -603,28 +603,37 @@ class GptDecoder:
             attn = attn.reshape(b, t, h_q * dh)
         return self._attn_out(p, x, attn)
 
-    def _plan(self, pos: torch.Tensor, t: int) -> dict:
+    def _rope(self, pos: torch.Tensor, t: int):
+        """The rotary tables of a T-token step at write head `pos`
+        (scalar, or (B,) per-slot depths), or None for learned
+        positions."""
+        if self.cfg.pos_style != "rope":
+            return None
+        steps = torch.arange(t, device=pos.device)
+        positions = pos[:, None] + steps if pos.ndim == 1 else pos + steps
+        return rope_tables(
+            self.cfg.dim // self.cfg.num_heads, positions, self.cfg.rope_theta
+        )
+
+    def _plan(self, pos: torch.Tensor, t: int, s: int) -> dict:
         """Per-step tensors every layer shares, computed on the device
         from `pos` (no host sync): the cache rows to write, the rotary
-        tables, and for T > 1 the attention mask."""
+        tables, and for T > 1 the attention mask. `s` is the length of
+        the cache the step is given, which need not be max_len: the
+        paged server's gathered view holds max_blocks * block_size
+        rows, as the JAX package's `_block` takes S from the cache."""
         cfg = self.cfg
-        s = cfg.max_len
         dev = pos.device
         steps = torch.arange(t, device=dev)
         # lax.dynamic_update_slice's clamp of the write start.
         start = pos.clamp(0, s - t)
         per_slot = pos.ndim == 1
-        plan: dict = {"rope": None}
+        plan: dict = {"rope": self._rope(pos, t)}
         if per_slot:
             plan["rows"] = (start[:, None] + steps).long()  # (B, T)
             plan["bidx"] = torch.arange(pos.shape[0], device=dev)[:, None]
         else:
             plan["rows"] = (start + steps).long()  # (T,)
-        if cfg.pos_style == "rope":
-            positions = pos[:, None] + steps if per_slot else pos + steps
-            plan["rope"] = rope_tables(
-                cfg.dim // cfg.num_heads, positions, cfg.rope_theta
-            )
         if t > 1:
             j = torch.arange(s, device=dev)
             if per_slot:
@@ -652,7 +661,7 @@ class GptDecoder:
                 k_all, v_all = k_all.clone(), v_all.clone()
             t = ids.shape[1]
             pos = cache["pos"]
-            plan = self._plan(pos, t)
+            plan = self._plan(pos, t, k_all.shape[3])
             x = self._embed_tokens(params, ids, pos)
             stack = params["stack"]
             for layer in range(self.cfg.num_layers):
@@ -676,7 +685,11 @@ class GptDecoder:
             return emb.to(cd)
         steps = torch.arange(t, device=pos.device)
         if pos.ndim == 1:
-            posv = params["pos_embedding"][pos[:, None] + steps]
+            # Clamped: a paged prefill chunk's pad rows may sit past
+            # max_len (their outputs are dropped); real rows never do.
+            posv = params["pos_embedding"][
+                (pos[:, None] + steps).clamp(max=cfg.max_len - 1)
+            ]
         else:
             # lax.dynamic_slice_in_dim's clamp of the start.
             posv = params["pos_embedding"][

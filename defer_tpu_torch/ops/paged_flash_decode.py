@@ -1,0 +1,317 @@
+"""Paged flash decode: a hand-written Hopper kernel and its plain version.
+
+Replaces the TPU kernel `defer_tpu/ops/pallas_attention.py`
+(`paged_flash_decode`, body `_paged_decode_kernel`, live range
+`_decode_lo_hi`): one query token per slot attending its BLOCK TABLE.
+q [B, Hq, Dh] attends one layer of the shared block pool, pool_k/pool_v
+[NB, Hkv, bs, Dh], where row r of slot b is row r % bs of pool block
+tables[b, r // bs]; the columns are masked to `col <= pos[b]` and, with
+a window, `col > pos[b] - window`. Unallocated table entries point at
+the trash block 0 (runtime/paged.py); they lie past `pos` and are never
+read. q is pre-scaled by Dh**-0.5 in f32, the softmax runs in f32 with
+the finite `_MASK_VALUE`, and the output acc / l is cast to q's dtype.
+
+What bounds it on an H100: the bytes of the live K/V rows, as for
+`flash_decode`. The design is `csrc/flash_decode.cu`'s with the table
+indirection added: the kernel reads `pos[b]` and the table on the card
+(no host sync, so both may live there, as the paged server keeps them),
+works out the live range [max(pos - window + 1, 0), pos] in rows, cuts
+it into chunks of whole blocks over a grid of (splits, Hkv, B) fixed by
+the table span MB * bs, and each CTA reads only the pool rows of its
+chunk's live blocks; a second small kernel merges the splits. A dead
+table column is never fetched, the property the TPU kernel's clamped
+index maps give. `csrc/paged_flash_decode.cu` has the thread layout.
+
+Dispatch follows the tensor's device and nothing else: a CUDA tensor
+launches the kernel or raises; a CPU or meta tensor takes the plain
+version, the JAX package's `_blockwise_attend` fold (one table column at
+a time into an f32 online softmax). The int8 pool's per-(block, head)
+scales (`scale_k`/`scale_v`) belong to the `kv_dtype="int8"` slice and
+raise NotImplementedError here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from defer_tpu_torch.ops.flash_decode import (  # noqa: F401 (_decode_lo_hi)
+    _DTYPE_CODE,
+    _HEAD_DIMS,
+    _MASK_VALUE,
+    _decode_lo_hi,
+    _sm_count,
+)
+
+_SOURCE = "paged_flash_decode.cu"
+# Fewest live rows one split takes, rounded up to whole blocks;
+# kMinChunk in the CUDA source.
+_MIN_CHUNK = 32
+_MAX_SPLITS = 64
+
+
+def _not_ported_scales() -> NotImplementedError:
+    return NotImplementedError(
+        "the int8 pool's scale_k/scale_v are not ported yet (ROADMAP "
+        "Queue 1 item 6 (f), kv_dtype='int8')"
+    )
+
+
+def _check_pool(q, pool_k, pool_v, tables, what: str) -> None:
+    if pool_k.ndim != 4 or pool_k.shape != pool_v.shape:
+        raise ValueError(
+            f"pool_k/pool_v must be [NB, Hkv, bs, Dh] alike, got "
+            f"{tuple(pool_k.shape)} and {tuple(pool_v.shape)}"
+        )
+    if pool_k.shape[3] != q.shape[-1]:
+        raise ValueError(
+            f"{what} {tuple(q.shape)} and pool {tuple(pool_k.shape)} "
+            "disagree on head dim"
+        )
+    if q.shape[1] % pool_k.shape[1]:
+        raise ValueError(
+            f"Hq={q.shape[1]} must be a multiple of Hkv={pool_k.shape[1]}"
+        )
+    if tables.ndim != 2 or tables.shape[0] != q.shape[0]:
+        raise ValueError(
+            f"tables must be [B={q.shape[0]}, MB], got {tuple(tables.shape)}"
+        )
+
+
+def _check(q, pool_k, pool_v, tables, window) -> None:
+    if q.ndim != 3:
+        raise ValueError(f"expected q (B, Hq, Dh), got {tuple(q.shape)}")
+    _check_pool(q, pool_k, pool_v, tables, "q")
+    if window is not None and window < 1:
+        raise ValueError(f"window={window} must be None or >= 1")
+
+
+def _positions(pos, b: int, device) -> torch.Tensor:
+    """pos as a (B,) tensor on `device` (an int or a 0-d tensor
+    broadcasts)."""
+    return torch.as_tensor(pos, device=device).reshape(-1).expand(b)
+
+
+def folded_blocks(pos: torch.Tensor, t: int, bs: int, mb: int) -> int:
+    """Table columns a fold must visit so that every slot's deepest
+    query row (pos + t - 1) is covered: the JAX package's traced
+    `nb_live` bound. Reads pos on the host."""
+    return min(int(pos.max()) + t - 1, mb * bs - 1) // bs + 1
+
+
+def paged_flash_decode_plain(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    tables: torch.Tensor,
+    pos,
+    *,
+    window: int | None = None,
+    num_blocks: int | None = None,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, as the JAX package's
+    `_blockwise_attend` computes it: table columns 0..num_blocks-1 fold
+    one at a time into f32 (m, l, acc) with `_MASK_VALUE` on masked
+    columns, one cast at the end. Columns past a slot's live range add
+    exactly nothing. `num_blocks` defaults to the deepest slot's live
+    block + 1 for CPU tensors (read on the host) and to the whole table
+    elsewhere. Returns [B, Hq, Dh] in q's dtype."""
+    _check(q, pool_k, pool_v, tables, window)
+    b, hq, dh = q.shape
+    hkv, bs = pool_k.shape[1], pool_k.shape[2]
+    mb = tables.shape[1]
+    g = hq // hkv
+    posv = _positions(pos, b, q.device)
+    if num_blocks is None:
+        num_blocks = (
+            folded_blocks(posv, 1, bs, mb) if q.device.type == "cpu" else mb
+        )
+    qg = q.float().reshape(b, hkv, g, dh) * dh**-0.5
+    m = torch.full((b, hkv, g), _MASK_VALUE, device=q.device)
+    l = torch.zeros((b, hkv, g), device=q.device)
+    acc = torch.zeros((b, hkv, g, dh), device=q.device)
+    span = torch.arange(bs, device=q.device)
+    for j in range(num_blocks):
+        blk = tables[:, j].long()
+        k = pool_k[blk].float()  # [B, Hkv, bs, Dh]
+        v = pool_v[blk].float()
+        s = torch.einsum("bkgd,bksd->bkgs", qg, k)
+        cols = j * bs + span
+        live = cols[None, :] <= posv[:, None]  # [B, bs]
+        if window is not None:
+            live &= cols[None, :] > posv[:, None] - window
+        s = s.masked_fill(~live[:, None, None, :], _MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgs,bksd->bkgd", p, v)
+        m = m_new
+    out = acc / l[..., None]
+    return out.to(q.dtype).reshape(b, hq, dh)
+
+
+@functools.cache
+def _kernel():
+    """The built library's entry point, typed once."""
+    from defer_tpu_torch.utils.nvcc import load_library
+
+    fn = load_library(_SOURCE).defer_paged_flash_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    return fn
+
+
+def _num_splits(device: torch.device, ctas: int, bs: int, mb: int) -> int:
+    """Splits of each slot's live range: enough CTAs for about four a
+    streaming multiprocessor, no more than the table span holds chunks
+    of whole blocks of at least `_MIN_CHUNK` rows. Depends on shapes
+    only, never on pos."""
+    want = math.ceil(4 * _sm_count(device.index or 0) / ctas)
+    chunk_blocks = math.ceil(_MIN_CHUNK / bs)
+    return max(1, min(want, math.ceil(mb / chunk_blocks), _MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(q_shape, q_stride, pool_shape, k_stride, v_stride,
+                 tables_stride, dtypes, device):
+    """What a launch needs beyond the pointers, checked and computed
+    once per shape: (splits, element strides as a ctypes array, the row
+    alignment in bytes). Raises on what the kernel does not take."""
+    b, hq, dh = q_shape
+    hkv, bs = pool_shape[1], pool_shape[2]
+    mb = tables_stride[1]
+    dtype = dtypes[0]
+    if dtype not in _DTYPE_CODE or len(set(dtypes)) != 1:
+        raise TypeError(
+            "the CUDA paged flash-decode kernel takes float32, float16 or "
+            f"bfloat16 q/pool of one dtype; got {'/'.join(map(str, dtypes))}"
+        )
+    if dh not in _HEAD_DIMS:
+        raise ValueError(
+            f"the CUDA paged flash-decode kernel takes Dh in {_HEAD_DIMS}, "
+            f"got {dh}"
+        )
+    itemsize = dtype.itemsize
+    align = min(16, dh // 32 * itemsize)
+    for name, stride in (("q", q_stride), ("pool_k", k_stride),
+                         ("pool_v", v_stride)):
+        if stride[-1] != 1:
+            raise ValueError(f"{name} needs a unit Dh stride")
+        if any(st * itemsize % align for st in stride[:-1]):
+            raise ValueError(f"{name} rows are not {align}-byte aligned")
+    splits = _num_splits(device, b * hkv * math.ceil(hq // hkv / 8), bs, mb)
+    strides = (ctypes.c_longlong * 11)(
+        q_stride[0], q_stride[1], *k_stride[:3], *v_stride[:3],
+        tables_stride[0], hq * dh, dh,
+    )
+    return splits, strides, align
+
+
+def _decode_cuda(q, pool_k, pool_v, tables, pos, window) -> torch.Tensor:
+    """Launch the sm_90a kernel on q's current stream; tables and pos
+    stay on the card."""
+    b, hq, dh = q.shape
+    if not (q.device == pool_k.device == pool_v.device == tables.device):
+        raise ValueError(
+            f"q/pool/tables on different devices: {q.device}/"
+            f"{pool_k.device}/{pool_v.device}/{tables.device}"
+        )
+    if tables.dtype != torch.int32 or tables.stride(1) != 1:
+        tables = tables.to(torch.int32).contiguous()  # on the card
+    splits, strides, align = _launch_plan(
+        tuple(q.shape), q.stride(), tuple(pool_k.shape), pool_k.stride(),
+        pool_v.stride(), (tables.stride(0), tables.shape[1]),
+        (q.dtype, pool_k.dtype, pool_v.dtype), q.device,
+    )
+    if any(t.data_ptr() % align for t in (q, pool_k, pool_v)):
+        raise ValueError(f"q/pool rows are not {align}-byte aligned")
+    if isinstance(pos, int):
+        pos = torch.full((b,), pos, dtype=torch.int32, device=q.device)
+    if pos.device != q.device:
+        raise ValueError(f"pos on {pos.device}, q on {q.device}")
+    if pos.ndim > 1 or (pos.ndim == 1 and pos.shape[0] != b):
+        raise ValueError(f"pos must be () or ({b},), got {tuple(pos.shape)}")
+    if pos.dtype != torch.int32:
+        pos = pos.to(torch.int32)  # on the card: no host sync
+    pos_stride = pos.stride(0) if pos.ndim == 1 else 0
+
+    out = torch.empty((b, hq, dh), dtype=q.dtype, device=q.device)
+    part_acc = part_ml = None
+    if splits > 1:
+        # One f32 workspace: the partial acc [B, Hq, splits, Dh], then
+        # the partial (m, l) [B, Hq, splits, 2].
+        n_acc = b * hq * splits * dh
+        ws = torch.empty(n_acc + b * hq * splits * 2, dtype=torch.float32,
+                         device=q.device)
+        part_acc = ws.data_ptr()
+        part_ml = part_acc + 4 * n_acc
+    args = (
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), pos.data_ptr(), pos_stride, part_acc, part_ml,
+        _DTYPE_CODE[q.dtype], b, hq, pool_k.shape[1], pool_k.shape[2],
+        tables.shape[1], dh, strides,
+        0 if window is None else int(window), splits, dh**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if torch.cuda.current_device() == q.device.index:
+        rc = _kernel()(*args)
+    else:
+        with torch.cuda.device(q.device):
+            rc = _kernel()(*args)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged flash-decode kernel launch failed with CUDA error {rc} "
+            f"for q {tuple(q.shape)} {q.dtype}, pool {tuple(pool_k.shape)}, "
+            f"tables {tuple(tables.shape)}, window={window}"
+        )
+    paged_flash_decode.launches += 1
+    return out
+
+
+def paged_flash_decode(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    tables: torch.Tensor,
+    pos,
+    *,
+    window: int | None = None,
+    scale_k: torch.Tensor | None = None,
+    scale_v: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One query token per slot against its block table: q [B, Hq, Dh],
+    pool_k/pool_v [NB, Hkv, bs, Dh] (one layer of the pool), tables
+    [B, MB] int pool indices (unallocated entries = trash block 0), pos
+    [B] (or a scalar, broadcast) int, each slot's last valid key,
+    inclusive and >= 0. Returns [B, Hq, Dh] in q's dtype.
+
+    CUDA tensors run the hand-written kernel (any bs >= 1 and G >= 1,
+    Dh in 32/64/128, float32/float16/bfloat16) and raise on what it does
+    not take; CPU and meta tensors run `paged_flash_decode_plain`.
+    `paged_flash_decode.launches` counts kernel launches."""
+    if scale_k is not None or scale_v is not None:
+        raise _not_ported_scales()
+    _check(q, pool_k, pool_v, tables, window)
+    if q.device.type == "cuda":
+        return _decode_cuda(q, pool_k, pool_v, tables, pos, window)
+    if q.device.type in ("cpu", "meta"):
+        return paged_flash_decode_plain(q, pool_k, pool_v, tables, pos,
+                                        window=window)
+    raise ValueError(
+        f"paged flash decode has no path for device {q.device}: CUDA "
+        "launches the kernel, CPU and meta take the plain version"
+    )
+
+
+paged_flash_decode.launches = 0

@@ -1,0 +1,259 @@
+"""Paged flash prefill: a hand-written Hopper kernel and its plain version.
+
+Replaces the TPU kernel `defer_tpu/ops/pallas_attention.py`
+(`paged_flash_prefill`, body `_paged_prefill_kernel`, live range
+`_prefill_lo_hi`): a window of T query tokens per slot attending its
+block table, the multi-token companion of `paged_flash_decode` that
+chunked pool-native prefill runs (runtime/paged.py `prefill_chunk=`).
+q [B, Hq, T, Dh] holds tokens at absolute positions start[b] ..
+start[b] + T - 1, already rotated; the window's own K/V rows are already
+in the pool (write-then-attend). Query rows are token-major, row r being
+token r // G of group row r % G, so the causal mask is per row: row r
+attends the columns `col <= start + r // G` and, with a window,
+`col > start + r // G - window`. q is pre-scaled by Dh**-0.5 in f32,
+the softmax runs in f32 with the finite `_MASK_VALUE`, and the output is
+cast to q's dtype once.
+
+What bounds it on an H100: the live pool rows and q/o, read and written
+once; at a 64-token chunk the products are a few MFLOP a head, far under
+the bytes' time. The design is `csrc/flash_attention.cu`'s: one CTA per
+(32 token-major query rows, KV head, slot), q and K/V tiles of 64 pool
+rows staged in shared memory as f32 through 16-byte loads, 4 threads a
+query row, an f32 online softmax per row. The CTA reads start[b] on the
+card and walks only the live columns of its rows, from the edge of the
+first live block, each tile's rows fetched through the table. Rows
+padded past T * G are never written. `csrc/paged_flash_prefill.cu` has
+the thread layout.
+
+Dispatch follows the tensor's device and nothing else: a CUDA tensor
+launches the kernel or raises; a CPU or meta tensor takes the plain
+version, the JAX package's `_blockwise_attend_mt` fold. The int8 pool's
+scales raise NotImplementedError, as in `paged_flash_decode`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from defer_tpu_torch.ops.flash_decode import _DTYPE_CODE, _HEAD_DIMS, _MASK_VALUE
+from defer_tpu_torch.ops.paged_flash_decode import (
+    _check_pool,
+    _not_ported_scales,
+    _positions,
+    folded_blocks,
+)
+
+_SOURCE = "paged_flash_prefill.cu"
+
+
+def _prefill_lo_hi(p0: int, t_q: int, block_size: int, window: int | None):
+    """First/last live table column (inclusive) of a prefill window of
+    `t_q` tokens at absolute positions p0 .. p0 + t_q - 1, as the TPU
+    kernel's `_prefill_lo_hi`: the last token attends through column
+    (p0 + t_q - 1) // bs, the first back to max(p0 - window + 1, 0)."""
+    hi = (p0 + t_q - 1) // block_size
+    lo = max(p0 - window + 1, 0) // block_size if window is not None else 0
+    return lo, hi
+
+
+def _check(q, pool_k, pool_v, tables, window) -> None:
+    if q.ndim != 4:
+        raise ValueError(f"expected q (B, Hq, T, Dh), got {tuple(q.shape)}")
+    _check_pool(q, pool_k, pool_v, tables, "q")
+    if window is not None and window < 1:
+        raise ValueError(f"window={window} must be None or >= 1")
+
+
+def paged_flash_prefill_plain(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    tables: torch.Tensor,
+    start,
+    *,
+    window: int | None = None,
+    num_blocks: int | None = None,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, as the JAX package's
+    `_blockwise_attend_mt` computes it: table columns 0..num_blocks-1
+    fold one at a time into f32 (m, l, acc) per query row, each row
+    masked at its own position start + t. `num_blocks` defaults to the
+    deepest row's live block + 1 for CPU tensors (read on the host) and
+    to the whole table elsewhere. Returns [B, Hq, T, Dh] in q's dtype."""
+    _check(q, pool_k, pool_v, tables, window)
+    b, hq, t, dh = q.shape
+    hkv, bs = pool_k.shape[1], pool_k.shape[2]
+    mb = tables.shape[1]
+    g = hq // hkv
+    startv = _positions(start, b, q.device)
+    if num_blocks is None:
+        num_blocks = (
+            folded_blocks(startv, t, bs, mb) if q.device.type == "cpu" else mb
+        )
+    qg = q.float().reshape(b, hkv, g, t, dh) * dh**-0.5
+    qpos = startv[:, None] + torch.arange(t, device=q.device)  # [B, T]
+    m = torch.full((b, hkv, g, t), _MASK_VALUE, device=q.device)
+    l = torch.zeros((b, hkv, g, t), device=q.device)
+    acc = torch.zeros((b, hkv, g, t, dh), device=q.device)
+    span = torch.arange(bs, device=q.device)
+    for j in range(num_blocks):
+        blk = tables[:, j].long()
+        k = pool_k[blk].float()  # [B, Hkv, bs, Dh]
+        v = pool_v[blk].float()
+        s = torch.einsum("bkgtd,bksd->bkgts", qg, k)
+        cols = j * bs + span
+        live = cols[None, None, :] <= qpos[:, :, None]  # [B, T, bs]
+        if window is not None:
+            live &= cols[None, None, :] > qpos[:, :, None] - window
+        s = s.masked_fill(~live[:, None, None, :, :], _MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgts,bksd->bkgtd", p, v
+        )
+        m = m_new
+    out = acc / l[..., None]  # [B, Hkv, G, T, Dh]
+    return out.to(q.dtype).reshape(b, hq, t, dh)
+
+
+@functools.cache
+def _kernel():
+    """The built library's entry point, typed once."""
+    from defer_tpu_torch.utils.nvcc import load_library
+
+    fn = load_library(_SOURCE).defer_paged_flash_prefill
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]
+    return fn
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_strides(q_stride, k_stride, v_stride, tables_stride0, out_shape,
+                    dtypes, dh):
+    """The element strides a launch passes, checked and computed once per
+    layout. Raises on what the kernel does not take."""
+    dtype = dtypes[0]
+    if dtype not in _DTYPE_CODE or len(set(dtypes)) != 1:
+        raise TypeError(
+            "the CUDA paged flash-prefill kernel takes float32, float16 or "
+            f"bfloat16 q/pool of one dtype; got {'/'.join(map(str, dtypes))}"
+        )
+    if dh not in _HEAD_DIMS:
+        raise ValueError(
+            f"the CUDA paged flash-prefill kernel takes Dh in {_HEAD_DIMS}, "
+            f"got {dh}"
+        )
+    # The kernel stages rows in 16-byte loads: rows must be aligned to 16.
+    for name, stride in (("q", q_stride), ("pool_k", k_stride),
+                         ("pool_v", v_stride)):
+        if stride[-1] != 1:
+            raise ValueError(f"{name} needs a unit Dh stride")
+        if any(st * dtype.itemsize % 16 for st in stride[:-1]):
+            raise ValueError(f"{name} rows are not 16-byte aligned")
+    _, t, hq, _ = out_shape  # the output is [B, T, Hq, Dh], contiguous
+    return (ctypes.c_longlong * 13)(
+        *q_stride[:3], *k_stride[:3], *v_stride[:3], tables_stride0,
+        t * hq * dh, dh, hq * dh,
+    )
+
+
+def _prefill_cuda(q, pool_k, pool_v, tables, start, window) -> torch.Tensor:
+    """Launch the sm_90a kernel on q's current stream; tables and start
+    stay on the card."""
+    b, hq, t, dh = q.shape
+    if not (q.device == pool_k.device == pool_v.device == tables.device):
+        raise ValueError(
+            f"q/pool/tables on different devices: {q.device}/"
+            f"{pool_k.device}/{pool_v.device}/{tables.device}"
+        )
+    if tables.dtype != torch.int32 or tables.stride(1) != 1:
+        tables = tables.to(torch.int32).contiguous()  # on the card
+    if isinstance(start, int):
+        start = torch.full((b,), start, dtype=torch.int32, device=q.device)
+    if start.device != q.device:
+        raise ValueError(f"start on {start.device}, q on {q.device}")
+    if start.ndim > 1 or (start.ndim == 1 and start.shape[0] != b):
+        raise ValueError(
+            f"start must be () or ({b},), got {tuple(start.shape)}"
+        )
+    if start.dtype != torch.int32:
+        start = start.to(torch.int32)  # on the card: no host sync
+    # Token-major rows land in [B, T, Hq, Dh]; the caller gets the
+    # [B, Hq, T, Dh] view, whose transpose back is free.
+    out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
+    strides = _launch_strides(
+        q.stride(), pool_k.stride(), pool_v.stride(), tables.stride(0),
+        tuple(out.shape), (q.dtype, pool_k.dtype, pool_v.dtype), dh,
+    )
+    if any(x.data_ptr() % 16 for x in (q, pool_k, pool_v)):
+        raise ValueError("q/pool rows are not 16-byte aligned")
+    args = (
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), start.data_ptr(),
+        start.stride(0) if start.ndim == 1 else 0, _DTYPE_CODE[q.dtype], b,
+        hq, pool_k.shape[1], t, pool_k.shape[2], tables.shape[1], dh,
+        strides, 0 if window is None else int(window), dh**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if torch.cuda.current_device() == q.device.index:
+        rc = _kernel()(*args)
+    else:
+        with torch.cuda.device(q.device):
+            rc = _kernel()(*args)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged flash-prefill kernel launch failed with CUDA error {rc} "
+            f"for q {tuple(q.shape)} {q.dtype}, pool {tuple(pool_k.shape)}, "
+            f"tables {tuple(tables.shape)}, window={window}"
+        )
+    paged_flash_prefill.launches += 1
+    return out.transpose(1, 2)
+
+
+def paged_flash_prefill(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    tables: torch.Tensor,
+    start,
+    *,
+    window: int | None = None,
+    scale_k: torch.Tensor | None = None,
+    scale_v: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """T query tokens per slot against its block table: q [B, Hq, T, Dh]
+    at absolute positions start .. start + T - 1, pool_k/pool_v
+    [NB, Hkv, bs, Dh] (one layer, the window's own rows already written),
+    tables [B, MB] int (unallocated entries = trash block 0), start [B]
+    (or a scalar, broadcast) int. Returns [B, Hq, T, Dh] in q's dtype.
+
+    CUDA tensors run the hand-written kernel (any T, bs and G >= 1, Dh
+    in 32/64/128, float32/float16/bfloat16) and raise on what it does
+    not take; CPU and meta tensors run `paged_flash_prefill_plain`.
+    `paged_flash_prefill.launches` counts kernel launches."""
+    if scale_k is not None or scale_v is not None:
+        raise _not_ported_scales()
+    _check(q, pool_k, pool_v, tables, window)
+    if q.device.type == "cuda":
+        return _prefill_cuda(q, pool_k, pool_v, tables, start, window)
+    if q.device.type in ("cpu", "meta"):
+        return paged_flash_prefill_plain(q, pool_k, pool_v, tables, start,
+                                         window=window)
+    raise ValueError(
+        f"paged flash prefill has no path for device {q.device}: CUDA "
+        "launches the kernel, CPU and meta take the plain version"
+    )
+
+
+paged_flash_prefill.launches = 0

@@ -31,7 +31,16 @@ from defer_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from defer_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+from defer_tpu_torch.ops.paged_flash_decode import (
+    paged_flash_decode,
+    paged_flash_decode_plain,
+)
+from defer_tpu_torch.ops.paged_flash_prefill import (
+    paged_flash_prefill,
+    paged_flash_prefill_plain,
+)
 from defer_tpu_torch.runtime.decode_server import DecodeServer
+from defer_tpu_torch.runtime.paged import serve_paged
 from defer_tpu_torch.parallel.pipeline import cast_params_to_storage
 
 pytestmark = pytest.mark.cuda
@@ -247,3 +256,137 @@ def test_decode_server_tick_goes_through_the_kernel(card):
         for j in range(p.shape[1], out.shape[1]):
             row = logits[j - 1]
             assert row.max() - row[out[0, j]] <= 0.08
+
+
+def _paged_inputs(card, b, hq, hkv, t, dh, bs, mb, dtype, pos, seed=0):
+    """q as the decoder hands it over (a head split of [B, T, Hq*Dh]; T
+    None for the decode kernel's [B, Hq, Dh]), one layer of a pool of
+    1 + B * MB blocks, and tables drawn as a seeded permutation of the
+    pool with each slot's entries past its need on trash block 0."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    tq = 1 if t is None else t
+    q = torch.randn(b, tq, hq * dh, generator=gen, device=card).to(dtype)
+    q = q.view(b, tq, hq, dh).transpose(1, 2)
+    if t is None:
+        q = q[:, :, 0, :]
+    nb = 1 + b * mb
+    pool_k, pool_v = (
+        torch.randn(nb, hkv, bs, dh, generator=gen, device=card).to(dtype)
+        for _ in range(2)
+    )
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(seed))
+    tables = (perm + 1).reshape(b, mb).to(torch.int32)
+    for i, p in enumerate(pos):
+        tables[i, (p + tq - 1) // bs + 1:] = 0
+    posv = torch.tensor(pos, dtype=torch.int32)
+    return q, pool_k, pool_v, tables.to(card), posv.to(card)
+
+
+# (B, Hq, Hkv, Dh, bs, MB, dtype, pos, window): the paged tick's shape, a
+# window crossing a block edge, G=1 at Dh 64, G=8, fp16 at bs 8, f32 at
+# bs 32, position 0.
+PAGED_DECODE_CASES = [
+    (4, 32, 8, 128, 16, 256, torch.bfloat16, [4095, 2047, 130, 0], 4096),
+    (2, 32, 8, 128, 16, 64, torch.bfloat16, [700, 40], 100),
+    (2, 8, 8, 64, 16, 32, torch.bfloat16, [500, 77], None),
+    (2, 64, 8, 128, 16, 64, torch.bfloat16, [1000, 300], None),
+    (3, 16, 4, 64, 8, 64, torch.float16, [511, 0, 100], None),
+    (2, 32, 8, 128, 32, 32, torch.float32, [1023, 513], 200),
+    (2, 4, 2, 32, 1, 16, torch.float32, [0, 15], None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,dh,bs,mb,dtype,pos,window",
+                         PAGED_DECODE_CASES)
+def test_paged_flash_decode_matches_plain(card, b, hq, hkv, dh, bs, mb,
+                                          dtype, pos, window):
+    q, pk, pv, tables, posv = _paged_inputs(card, b, hq, hkv, None, dh, bs,
+                                            mb, dtype, pos)
+    before = paged_flash_decode.launches
+    got = paged_flash_decode(q, pk, pv, tables, posv, window=window)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    want = paged_flash_decode_plain(q, pk, pv, tables, posv, window=window,
+                                    num_blocks=max(pos) // bs + 1)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+# (B, Hq, Hkv, T, Dh, bs, MB, dtype, start, window): the phase-5 chunk
+# after a 4-block hit, a deep chunk, start 0, a window crossing a block
+# edge, G=1 at Dh 64, G=8, B=4 with T=5, fp16 at bs 8, f32 at bs 32.
+PAGED_PREFILL_CASES = [
+    (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [64], 4096),
+    (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [1984], 4096),
+    (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [0], 4096),
+    (2, 32, 8, 64, 128, 16, 64, torch.bfloat16, [500, 37], 100),
+    (2, 8, 8, 16, 64, 16, 32, torch.bfloat16, [100, 0], None),
+    (1, 64, 8, 32, 128, 16, 64, torch.bfloat16, [300], None),
+    (4, 32, 8, 5, 128, 16, 64, torch.bfloat16, [0, 17, 400, 1000], None),
+    (2, 16, 4, 24, 64, 8, 64, torch.float16, [100, 7], None),
+    (2, 32, 8, 40, 128, 32, 32, torch.float32, [600, 3], 200),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,dh,bs,mb,dtype,start,window",
+                         PAGED_PREFILL_CASES)
+def test_paged_flash_prefill_matches_plain(card, b, hq, hkv, t, dh, bs, mb,
+                                           dtype, start, window):
+    q, pk, pv, tables, startv = _paged_inputs(card, b, hq, hkv, t, dh, bs,
+                                              mb, dtype, start)
+    before = paged_flash_prefill.launches
+    got = paged_flash_prefill(q, pk, pv, tables, startv, window=window)
+    torch.cuda.synchronize()
+    assert paged_flash_prefill.launches == before + 1
+    want = paged_flash_prefill_plain(
+        q, pk, pv, tables, startv, window=window,
+        num_blocks=min((max(start) + t - 1) // bs + 1, mb),
+    )
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_paged_kernels_read_only_live_blocks(card):
+    """Pool blocks no live row reaches (trash block 0 and every block
+    not in a live table column) hold NaN: the kernels never read them."""
+    q, pk, pv, tables, posv = _paged_inputs(card, 2, 8, 2, None, 64, 16, 16,
+                                            torch.bfloat16, [100, 37])
+    live = set(tables[0, 1:7].tolist()) | set(tables[1, :3].tolist())
+    want = paged_flash_decode(q, pk, pv, tables, posv, window=80)
+    dead = [i for i in range(pk.shape[0]) if i not in live]
+    for t in (pk, pv):
+        t[dead] = float("nan")
+    got = paged_flash_decode(q, pk, pv, tables, posv, window=80)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_pallas_server_matches_gathered_server(card):
+    """A small f32 llama through the port's "pallas" server (both paged
+    kernels: chunked prefill after radix hits, then the ticks) gives the
+    tokens of its "gathered" server, and launches each kernel once a
+    layer per tick or chunk."""
+    cfg = llama_config(num_layers=2, dim=256, num_heads=4, num_kv_heads=2,
+                       ffn_dim=512, vocab_size=512, max_len=128,
+                       window=40)
+    dec = GptDecoder(cfg, compute_dtype=torch.float32)
+    params = dec.init(torch.Generator(device=card).manual_seed(0))
+    system = torch.randint(0, 512, (1, 16),
+                           generator=torch.Generator().manual_seed(1))
+    reqs = [
+        (torch.cat([system, torch.randint(
+            0, 512, (1, n), generator=torch.Generator().manual_seed(n))],
+            dim=1), s)
+        for n, s in ((5, 12), (9, 30), (3, 7), (20, 16))
+    ]
+    knobs = dict(num_blocks=40, block_size=8, max_batch=2,
+                 prefix_cache=True, prefill_chunk=8)
+    want, _ = serve_paged(dec, params, reqs, attention="gathered", **knobs)
+    dec0, pre0 = paged_flash_decode.launches, paged_flash_prefill.launches
+    got, stats = serve_paged(dec, params, reqs, attention="pallas", **knobs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert paged_flash_decode.launches - dec0 == cfg.num_layers * stats.ticks
+    assert paged_flash_prefill.launches > pre0
+    assert stats.prefill_tokens_saved == 16 * 3

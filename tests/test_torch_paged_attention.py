@@ -1,0 +1,167 @@
+"""The paged kernels' plain versions against the JAX package.
+
+The same numpy-seeded q and pool go to `defer_tpu`'s Pallas
+`paged_flash_decode` / `paged_flash_prefill` (interpret mode, as
+tests/test_paged_attention.py and tests/test_spec_paged.py run them on
+the CPU), to the JAX package's plain folds `_blockwise_attend(_mt)`,
+and to the port's `paged_flash_decode_plain` /
+`paged_flash_prefill_plain`: small shapes (B=3, Hq=4, Hkv=2, bs=4, MB=4,
+Dh=16, T=3), tables whose unallocated entries point at trash block 0,
+with and without a window that crosses a block edge. Everything is f32
+and every side computes f32 scores and probabilities: atol = rtol =
+1e-5. The live-range helpers must equal the JAX ones. On CPU tensors the
+wrappers take the plain version and launch nothing; the kernels
+themselves are held against the plain versions on the card
+(tests/test_torch_cuda.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from defer_tpu.ops import pallas_attention as jax_pa
+from defer_tpu.runtime.paged import _blockwise_attend as jax_blockwise
+from defer_tpu.runtime.paged import _blockwise_attend_mt as jax_blockwise_mt
+from defer_tpu_torch.ops.paged_flash_decode import (
+    _decode_lo_hi,
+    folded_blocks,
+    paged_flash_decode,
+    paged_flash_decode_plain,
+)
+from defer_tpu_torch.ops.paged_flash_prefill import (
+    _prefill_lo_hi,
+    paged_flash_prefill,
+    paged_flash_prefill_plain,
+)
+
+TOL = 1e-5
+B, HQ, HKV, BS, MB, DH, T, NB = 3, 4, 2, 4, 4, 16, 3, 10
+# Slot 0 owns four blocks, slot 1 one (the rest trash), slot 2 three.
+TABLES = np.array([[1, 2, 3, 4], [5, 0, 0, 0], [6, 7, 8, 0]], np.int32)
+
+
+def _pool(seed=0):
+    rng = np.random.default_rng(seed)
+    pk = rng.standard_normal((NB, HKV, BS, DH), np.float32)
+    pv = rng.standard_normal((NB, HKV, BS, DH), np.float32)
+    return rng, pk, pv
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("pos", [[15, 2, 9], [0, 3, 11]])
+def test_decode_plain_matches_the_jax_kernel_and_fold(pos, window):
+    rng, pk, pv = _pool()
+    q = rng.standard_normal((B, HQ, DH), np.float32)
+    posa = np.asarray(pos, np.int32)
+    want = jax_pa.paged_flash_decode(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(TABLES), jnp.asarray(posa), window=window,
+        interpret=True,
+    )
+    fold = jax_blockwise(
+        jnp.asarray(q)[:, :, None, :], jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(TABLES), jnp.asarray(posa), BS, MB, window,
+    )
+    tq, tk, tv, tt, tp = _t(q, pk, pv, TABLES, posa)
+    got = paged_flash_decode_plain(tq, tk, tv, tt, tp, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(got.reshape(B, 1, HQ * DH).numpy(),
+                               np.asarray(fold), rtol=TOL, atol=TOL)
+    # Folding the whole table adds exactly nothing past the live range.
+    whole = paged_flash_decode_plain(tq, tk, tv, tt, tp, window=window,
+                                     num_blocks=MB)
+    torch.testing.assert_close(whole, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("start", [[0, 1, 9], [13, 0, 6]])
+def test_prefill_plain_matches_the_jax_kernel_and_fold(start, window):
+    rng, pk, pv = _pool(1)
+    q = rng.standard_normal((B, HQ, T, DH), np.float32)
+    sa = np.asarray(start, np.int32)
+    want = jax_pa.paged_flash_prefill(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(TABLES), jnp.asarray(sa), window=window,
+        interpret=True,
+    )
+    fold = jax_blockwise_mt(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(TABLES), jnp.asarray(sa), BS, MB, window,
+    )
+    tq, tk, tv, tt, ts = _t(q, pk, pv, TABLES, sa)
+    got = paged_flash_prefill_plain(tq, tk, tv, tt, ts, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(
+        got.transpose(1, 2).reshape(B, T, HQ * DH).numpy(),
+        np.asarray(fold), rtol=TOL, atol=TOL,
+    )
+
+
+@pytest.mark.parametrize("window", [None, 1, 5, 16])
+@pytest.mark.parametrize("bs", [1, 4, 8])
+def test_live_ranges_match_jax(window, bs):
+    for p in (0, 1, 3, 4, 5, 15, 16, 31):
+        lo, hi = jax_pa._decode_lo_hi(jnp.int32(p), bs, window)
+        assert _decode_lo_hi(p, bs, window) == (int(lo), int(hi))
+        for t in (1, 3, 8):
+            lo, hi = jax_pa._prefill_lo_hi(jnp.int32(p), t, bs, window)
+            assert _prefill_lo_hi(p, t, bs, window) == (int(lo), int(hi))
+
+
+def test_folded_blocks_is_the_jax_bound():
+    pos = torch.tensor([3, 9, 0])
+    assert folded_blocks(pos, 1, 4, 4) == 9 // 4 + 1
+    assert folded_blocks(pos, 3, 4, 4) == min((9 + 2) // 4 + 1, 4)
+    assert folded_blocks(torch.tensor([15]), 3, 4, 4) == 4  # capped at MB
+
+
+def test_cpu_tensors_take_the_plain_version():
+    rng, pk, pv = _pool(2)
+    q = rng.standard_normal((B, HQ, T, DH), np.float32)
+    tq, tk, tv, tt = _t(q, pk, pv, TABLES)
+    pos = torch.tensor([7, 2, 10], dtype=torch.int32)
+    dec_before = paged_flash_decode.launches
+    pre_before = paged_flash_prefill.launches
+    got = paged_flash_decode(tq[:, :, 0], tk, tv, tt, pos, window=3)
+    torch.testing.assert_close(
+        got, paged_flash_decode_plain(tq[:, :, 0], tk, tv, tt, pos,
+                                      window=3), rtol=0, atol=0,
+    )
+    got = paged_flash_prefill(tq, tk, tv, tt, pos)
+    torch.testing.assert_close(
+        got, paged_flash_prefill_plain(tq, tk, tv, tt, pos), rtol=0, atol=0
+    )
+    assert paged_flash_decode.launches == dec_before
+    assert paged_flash_prefill.launches == pre_before
+    # bf16 in, bf16 out: one cast at the end of f32 math.
+    got16 = paged_flash_decode(tq[:, :, 0].bfloat16(), tk.bfloat16(),
+                               tv.bfloat16(), tt, 3)
+    assert got16.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("fn,q_shape", [
+    (paged_flash_decode, (B, HQ, DH)),
+    (paged_flash_prefill, (B, HQ, T, DH)),
+])
+def test_validation_and_int8_scales(fn, q_shape):
+    _, pk, pv = _pool()
+    tk, tv, tt = _t(pk, pv, TABLES)
+    q = torch.zeros(q_shape)
+    with pytest.raises(NotImplementedError, match="int8"):
+        fn(q, tk, tv, tt, 3, scale_k=torch.ones(NB, HKV),
+           scale_v=torch.ones(NB, HKV))
+    with pytest.raises(ValueError, match="multiple"):
+        fn(torch.zeros(q_shape[:1] + (3,) + q_shape[2:]), tk, tv, tt, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        fn(q, tk[..., :8], tv[..., :8], tt, 3)
+    with pytest.raises(ValueError, match="tables"):
+        fn(q, tk, tv, tt[:2], 3)
+    with pytest.raises(ValueError, match="window"):
+        fn(q, tk, tv, tt, 3, window=0)
