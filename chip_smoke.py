@@ -14,6 +14,9 @@ printing one line per check and failing loudly:
                 with the tolerance stated; then the kernel's time, the
                 plain version's, one library call's (the yardstick, never
                 used by the port) and the card's bound for the same work;
+                the paged kernels on a float pool and on an int8 pool
+                with per-(block, head) scales (the int8 one also with its
+                dead blocks poisoned: payload garbage, scale NaN);
   3. main     — DEFER().run_defer on BERT-base at its published width
                 (12 layers, dim 768, 12 heads, FFN 3072, vocab 30522),
                 seq 128, batch 16, cut into 4 stages on the one card,
@@ -37,11 +40,20 @@ printing one line per check and failing loudly:
                 system prompt; the same checks as phase 4, plus the
                 radix hits, the prefill tokens saved and trash block 0
                 never handed out; then one steady paged tick's split;
-  6. report   — a JSON line of every kernel, the card's name and power
+  6. int8     — phase 5's server on an int8 pool (kv_dtype="int8"):
+                the same requests and checks (the paged kernels' int8
+                path counted apart from the float one), the pool's bytes,
+                every generated token within 5% of its reference row's
+                logit scale of the row max; then one steady int8 tick's
+                split, in turns with the float tick; then the host spill
+                tier (spill_bytes=): a system prompt evicted by filler
+                requests from a small int8 pool and revived from host
+                memory, token-identical to a resident radix hit;
+  7. report   — a JSON line of every kernel, the card's name and power
                 limit, and last the line {"ok": true, "device": {...}}.
 
-Every kernel launch count is zeroed just before each path (3, 4, 5) and
-read just after it; a path that did not launch its kernels fails.
+Every kernel launch count is zeroed just before each path (3, 4, 5, 6)
+and read just after it; a path that did not launch its kernels fails.
 
 Exits non-zero, and prints no result, when CUDA is unavailable, when the
 package is not beside this file, or when any phase fails. Imports
@@ -79,6 +91,14 @@ DECODE_SHAPE = (DECODE_SLOTS, 32, 8, 4096, 128)
 # plus trash block 0), block size, prefill chunk, and the shared system
 # prompt every request starts with.
 PAGED_BLOCKS, PAGED_BS, PAGED_CHUNK, SYSTEM_LEN = 1025, 16, 64, 64
+# The int8 pool's greedy-validity share: a generated token's reference
+# logit within this share of its row's logit scale (max |logit|) of the
+# row max, the int8 pool's CPU accuracy contract (tests/test_kv_quant.py).
+INT8_LOGIT_SHARE = 0.05
+# The spill tier: a pool of 16 usable blocks (one request of 88 rows
+# holds 6, a filler of 104 rows 7, so three fillers evict the first
+# request's parked blocks) and a host store of 64 MiB.
+SPILL_BLOCKS, SPILL_BYTES = 17, 64 << 20
 
 
 class SmokeError(RuntimeError):
@@ -149,6 +169,8 @@ def host_time_us(fn, iters: int = 100) -> float:
 
 # Every hand-written kernel of the main path: (name, csrc source, the TPU
 # kernel it replaces).
+# The paged kernels' int8 pool path (the TPU kernels' `quantized` path) is
+# the same source, built once, and reported as a kernel of its own.
 KERNELS = [
     ("flash_attention", "flash_attention.cu",
      "defer_tpu/ops/pallas_attention.py:134"),
@@ -158,43 +180,53 @@ KERNELS = [
      "defer_tpu/ops/pallas_attention.py:543"),
     ("paged_flash_prefill", "paged_flash_prefill.cu",
      "defer_tpu/ops/pallas_attention.py:769"),
+    ("paged_flash_decode_int8", "paged_flash_decode.cu",
+     "defer_tpu/ops/pallas_attention.py:543"),
+    ("paged_flash_prefill_int8", "paged_flash_prefill.cu",
+     "defer_tpu/ops/pallas_attention.py:769"),
 ]
 
 
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper, which counts its launches."""
+def launch_counters() -> dict:
+    """Each kernel's launch count, as (wrapper, attribute): the paged
+    wrappers count launches on a float pool and on an int8 pool apart."""
     from defer_tpu_torch.ops.flash_attention import flash_attention
     from defer_tpu_torch.ops.flash_decode import flash_decode
     from defer_tpu_torch.ops.paged_flash_decode import paged_flash_decode
     from defer_tpu_torch.ops.paged_flash_prefill import paged_flash_prefill
 
-    return {"flash_attention": flash_attention, "flash_decode": flash_decode,
-            "paged_flash_decode": paged_flash_decode,
-            "paged_flash_prefill": paged_flash_prefill}
+    return {
+        "flash_attention": (flash_attention, "launches"),
+        "flash_decode": (flash_decode, "launches"),
+        "paged_flash_decode": (paged_flash_decode, "launches"),
+        "paged_flash_prefill": (paged_flash_prefill, "launches"),
+        "paged_flash_decode_int8": (paged_flash_decode, "launches_int8"),
+        "paged_flash_prefill_int8": (paged_flash_prefill, "launches_int8"),
+    }
 
 
 def zero_launches() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in launch_counters().items()}
 
 
 def phase_build() -> None:
     from defer_tpu_torch.utils import nvcc
 
+    sources = sorted({src for _, src, _ in KERNELS})
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        futures = {
-            name: pool.submit(nvcc.load_library, src)
-            for name, src, _ in KERNELS
-        }
-        for name, fut in futures.items():
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        futures = [pool.submit(nvcc.load_library, src) for src in sources]
+        for fut in futures:
             fut.result()  # raises with nvcc's output on a failed build
-    for name, src, _ in KERNELS:
-        log(f"build: {name} ({src}) ready in "
+    for src in sources:
+        names = ", ".join(n for n, s, _ in KERNELS if s == src)
+        log(f"build: {names} ({src}) ready in "
             f"{nvcc.build_seconds[src]:.1f}s")
     log(f"build: all kernels in {time.perf_counter() - t0:.1f}s")
 
@@ -591,12 +623,196 @@ def check_paged_flash_prefill() -> dict:
     return {"max_abs_err": main_err, **timed["after_hit"]}
 
 
+def _int8_pool(pool):
+    """A float pool as the int8 pool stores it: the int8 payload and one
+    f32 scale per (block, head)."""
+    from defer_tpu_torch.models.quant import quantize_symmetric
+
+    return quantize_symmetric(pool.float(), axis=(-2, -1))
+
+
+def _gathered_view_int8(pool, scale, tables, dtype):
+    """The int8 library yardstick's first call: the pool rows of each
+    slot's table, dequantized into one contiguous [B, Hkv, MB * bs, Dh]
+    tensor of q's dtype."""
+    from defer_tpu_torch.models.quant import dequantize_symmetric
+
+    idx = tables.long()
+    kc = dequantize_symmetric(pool[idx], scale[idx][..., None, None], dtype)
+    b, mb, hkv, bs, dh = kc.shape
+    return kc.transpose(1, 2).reshape(b, hkv, mb * bs, dh)
+
+
+def _poison_dead(kq, ks, vq, vs, tables, spans) -> int:
+    """Every pool block outside the slots' live table columns (trash
+    block 0 among them) gets garbage payload and NaN scales, in place;
+    returns how many. `spans` holds each slot's (first, last) live
+    column."""
+    import torch
+
+    live = set()
+    for i, (lo, hi) in enumerate(spans):
+        live |= set(tables[i, lo:hi + 1].tolist())
+    dead = torch.tensor([b for b in range(kq.shape[0]) if b not in live],
+                        dtype=torch.long, device=kq.device)
+    kq[dead], vq[dead] = 127, -127
+    ks[dead], vs[dead] = float("nan"), float("nan")
+    return dead.numel()
+
+
+def check_paged_int8(kind: str) -> dict:
+    """The int8 pool path of a paged kernel (`kind` "decode" or
+    "prefill"): at the paged tick's shape (decode) or the two chunks of
+    phase 6 (prefill) and the edges (bs 1/4/16/32, G 1/4/8, windows, f16
+    and f32 q), the kernel on a pool whose dead blocks are poisoned
+    against the plain version on the clean pool (both f32 math: the
+    float tolerance of q's dtype); then the times and the bound, from
+    live rows at 1 B an element, one f32 scale per (live block, head)
+    and q/o in q's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from defer_tpu_torch.ops.paged_flash_decode import (
+        _decode_lo_hi,
+        paged_flash_decode,
+        paged_flash_decode_plain,
+    )
+    from defer_tpu_torch.ops.paged_flash_prefill import (
+        _prefill_lo_hi,
+        paged_flash_prefill,
+        paged_flash_prefill_plain,
+    )
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    name = f"paged_flash_{kind}_int8"
+    # (label, (B, Hq, Hkv, T, Dh, bs, MB), dtype, pos or start, window); T
+    # None is the decode kernel's single token.
+    if kind == "decode":
+        kernel, plain = paged_flash_decode, paged_flash_decode_plain
+        cases = [
+            ("mistral", (4, 32, 8, None, 128, 16, 256), bf16,
+             [4095, 2047, 130, 0], 4096),
+            ("pos0", (2, 32, 8, None, 128, 16, 64), bf16, [0, 0], 4096),
+            ("window_edge", (2, 32, 8, None, 128, 16, 64), bf16, [700, 40],
+             100),
+            ("g1_dh64", (2, 8, 8, None, 64, 16, 32), bf16, [500, 77], None),
+            ("g8", (2, 64, 8, None, 128, 16, 64), bf16, [1000, 300], None),
+            ("f16_bs4", (3, 16, 4, None, 64, 4, 64), f16, [255, 0, 100],
+             None),
+            ("f32_bs1_dh32", (2, 4, 2, None, 32, 1, 16), f32, [0, 15], None),
+            ("f32_bs32", (2, 32, 8, None, 128, 32, 32), f32, [1023, 513],
+             200),
+        ]
+        timed = [("mistral", cases[0][1], [4095, 2047, 130, 0])]
+    else:
+        kernel, plain = paged_flash_prefill, paged_flash_prefill_plain
+        cases = [
+            ("after_hit", (1, 32, 8, 64, 128, 16, 256), bf16, [64], 4096),
+            ("deep", (1, 32, 8, 64, 128, 16, 256), bf16, [1984], 4096),
+            ("start0", (1, 32, 8, 64, 128, 16, 256), bf16, [0], 4096),
+            ("window_edge", (2, 32, 8, 64, 128, 16, 64), bf16, [500, 37],
+             100),
+            ("g1_dh64", (2, 8, 8, 16, 64, 16, 32), bf16, [100, 0], None),
+            ("g8", (1, 64, 8, 32, 128, 16, 64), bf16, [300], None),
+            ("f16_bs4", (2, 16, 4, 24, 64, 4, 64), f16, [100, 7], None),
+            ("f32_bs1_dh32", (2, 4, 2, 5, 32, 1, 16), f32, [0, 9], None),
+            ("f32_bs32", (2, 32, 8, 40, 128, 32, 32), f32, [600, 3], 200),
+        ]
+        timed = [("after_hit", cases[0][1], [64]),
+                 ("deep", cases[0][1], [1984])]
+
+    def spans(pos, t, bs, window):
+        if t is None:
+            return [_decode_lo_hi(p, bs, window) for p in pos]
+        return [_prefill_lo_hi(p, t, bs, window) for p in pos]
+
+    main_err = None
+    for seed, (label, (b, hq, hkv, t, dh, bs, mb), dtype, pos, window) in (
+        enumerate(cases)
+    ):
+        q, pk, pv, tables, posv = _paged_inputs(b, hq, hkv, t, dh, bs, mb,
+                                                dtype, pos, 100 + seed)
+        (kq, ks), (vq, vs) = _int8_pool(pk), _int8_pool(pv)
+        span = spans(pos, t, bs, window)
+        want = plain(q, kq, vq, tables, posv, window=window,
+                     num_blocks=max(hi for _, hi in span) + 1,
+                     scale_k=ks, scale_v=vs)
+        n_dead = _poison_dead(kq, ks, vq, vs, tables, span)
+        got = kernel(q, kq, vq, tables, posv, window=window, scale_k=ks,
+                     scale_v=vs)
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        err = _held(label, name, got, want, dtype,
+                    f"q={tuple(q.shape)} pool={tuple(kq.shape)} int8 "
+                    f"tables={tuple(tables.shape)} pos={pos} "
+                    f"window={window}, {n_dead} dead blocks poisoned")
+        if seed == 0:
+            main_err = err
+
+    results = {}
+    for label, (b, hq, hkv, t, dh, bs, mb), pos in timed:
+        q, pk, pv, tables, posv = _paged_inputs(b, hq, hkv, t, dh, bs, mb,
+                                                bf16, pos, 0)
+        (kq, ks), (vq, vs) = _int8_pool(pk), _int8_pool(pv)
+        del pk, pv
+        span = spans(pos, t, bs, 4096)
+        nb_plain = max(hi for _, hi in span) + 1
+        kernel_ms = cuda_time_ms(
+            lambda: kernel(q, kq, vq, tables, posv, window=4096,
+                           scale_k=ks, scale_v=vs)
+        )
+        plain_ms = cuda_time_ms(
+            lambda: plain(q, kq, vq, tables, posv, window=4096,
+                          num_blocks=nb_plain, scale_k=ks, scale_v=vs),
+            iters=5, warmup=1,
+        )
+        j = torch.arange(mb * bs, device="cuda")
+        tq = 1 if t is None else t
+        qpos = posv[:, None] + torch.arange(tq, device="cuda")  # [B, T]
+        mask = ((j[None, None, :] <= qpos[:, :, None])
+                & (j[None, None, :] > qpos[:, :, None] - 4096))[:, None]
+        q4 = q[:, :, None] if t is None else q
+        library_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q4, _gathered_view_int8(kq, ks, tables, bf16),
+                _gathered_view_int8(vq, vs, tables, bf16), attn_mask=mask,
+                enable_gqa=True,
+            )
+        )
+        # The function needs each slot's live rows (the window of 4096
+        # reaches row 0 at these positions), one scale per live block and
+        # head for K and V, and q and o once each.
+        rows = sum(p + tq for p in pos)
+        blocks = sum(hi - lo + 1 for lo, hi in span)
+        nbytes = (2 * rows * hkv * dh + 2 * blocks * hkv * 4
+                  + 2 * b * hq * tq * dh * q.element_size())
+        pairs = sum(p + i + 1 for p in pos for i in range(tq))
+        flops = 4 * pairs * hq * dh
+        bound_ms, bound_by = _bound(nbytes, flops)
+        log(f"kernels: {name} {label} at q={tuple(q.shape)} "
+            f"pool={tuple(kq.shape)} int8 pos={pos}: kernel_ms "
+            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms (two calls: "
+            f"dequantizing gather of every table column + sdpa enable_gqa "
+            f"with a boolean mask) {library_ms:.5f} bound_us "
+            f"{bound_ms * 1e3:.3f} ({rows} live rows, {blocks} live blocks: "
+            f"{nbytes} B = {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 "
+            f"TB/s; {flops} FLOP = {flops / BF16_FLOP_PER_S * 1e3:.6f} ms "
+            f"at 989 TFLOP/s)")
+        results[label] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms}
+    # The JSON line reports the tick shape, or the chunk the paged path
+    # runs most (right after a radix hit); the deep chunk is in the log.
+    return {"max_abs_err": main_err, **results[timed[0][0]]}
+
+
 def phase_kernels() -> dict:
     return {
         "flash_attention": check_flash_attention(),
         "flash_decode": check_flash_decode(),
         "paged_flash_decode": check_paged_flash_decode(),
         "paged_flash_prefill": check_paged_flash_prefill(),
+        "paged_flash_decode_int8": check_paged_int8("decode"),
+        "paged_flash_prefill_int8": check_paged_int8("prefill"),
     }
 
 
@@ -836,11 +1052,13 @@ def log_split(phase: str, split: dict, depth, weight_bytes: int) -> None:
         f"{weight_ms:.4f} ms ({weight_bytes} B at 3.35 TB/s)")
 
 
-def greedy_gaps(phase: str, dec, params, reqs, outs) -> None:
+def greedy_gaps(phase: str, dec, params, reqs, outs,
+                share: float | None = None) -> None:
     """Every output must echo its prompt, have the requested length, and
     every generated token must be a valid greedy choice: its logit under
     reference_logits (a fresh full forward) within GREEDY_TIE_TOL of its
-    row's max."""
+    row's max, or, with `share`, within that share of the row's logit
+    scale (its max |logit|)."""
     import torch
 
     gaps = []
@@ -852,16 +1070,21 @@ def greedy_gaps(phase: str, dec, params, reqs, outs) -> None:
               f"{phase} request {i}: the prompt does not come back verbatim")
         rows = dec.reference_logits(params, out[:, :-1])[0, t_in - 1:]
         toks = out[0, t_in:].long()
-        gaps.append(rows.amax(dim=-1) - rows.gather(-1, toks[:, None])[:, 0])
+        gap = rows.amax(dim=-1) - rows.gather(-1, toks[:, None])[:, 0]
+        if share is not None:
+            gap = gap / rows.abs().amax(dim=-1)
+        gaps.append(gap)
     gaps = torch.cat(gaps).float().cpu()
     q = torch.quantile(gaps, torch.tensor([0.5, 0.9, 0.99, 1.0])).tolist()
     n_tied = int((gaps > 0).sum())
+    what, tol = (("share of the row's logit scale", share) if share
+                 is not None else ("", GREEDY_TIE_TOL))
     log(f"{phase}: every output echoes its prompt; greedy gap (reference "
-        f"row max - chosen token's logit) over {gaps.numel()} tokens: "
-        f"median {q[0]:.4g}, p90 {q[1]:.4g}, p99 {q[2]:.4g}, max "
-        f"{q[3]:.4g}; {n_tied} tokens not the reference's argmax "
-        f"(tie tolerance {GREEDY_TIE_TOL})")
-    check(q[3] <= GREEDY_TIE_TOL,
+        f"row max - chosen token's logit{', as a ' + what if what else ''})"
+        f" over {gaps.numel()} tokens: median {q[0]:.4g}, p90 {q[1]:.4g}, "
+        f"p99 {q[2]:.4g}, max {q[3]:.4g}; {n_tied} tokens not the "
+        f"reference's argmax (tolerance {tol})")
+    check(q[3] <= tol,
           f"{phase}: a generated token is {q[3]:.4g} below the reference "
           "row max")
 
@@ -958,7 +1181,14 @@ def paged_tick(srv, vocab: int, depth: int, steps: int = 64):
     return srv.step
 
 
-def phase_paged(dec, params, weight_bytes: int) -> dict:
+def serve_mix(phase: str, dec, params, kv_dtype: str, weight_bytes: int,
+              int8: bool = False) -> dict:
+    """Phases 5 and 6: the 12 requests behind the shared system prompt
+    through PagedDecodeServer(attention="pallas", prefix_cache=True,
+    prefill_chunk=64) on a `kv_dtype` pool, checked, then one steady
+    tick's split. Returns the run's launches and ticks, and the server
+    with its steady-tick closure (the requests it seated for the split
+    still hold budget for more ticks)."""
     import torch
 
     from defer_tpu_torch import PagedDecodeServer
@@ -968,17 +1198,30 @@ def phase_paged(dec, params, weight_bytes: int) -> dict:
     srv = PagedDecodeServer(
         dec, params, num_blocks=PAGED_BLOCKS, block_size=PAGED_BS,
         max_batch=DECODE_SLOTS, attention="pallas", prefix_cache=True,
-        prefill_chunk=PAGED_CHUNK,
+        prefill_chunk=PAGED_CHUNK, kv_dtype=kv_dtype,
     )
+    dh = cfg.dim // cfg.num_heads
     flat_bytes = (2 * cfg.num_layers * DECODE_SLOTS * cfg.kv_heads
-                  * cfg.max_len * (cfg.dim // cfg.num_heads) * 2)
-    log(f"paged: PagedDecodeServer(num_blocks={PAGED_BLOCKS}, block_size="
+                  * cfg.max_len * dh * 2)
+    elems = cfg.num_layers * PAGED_BLOCKS * cfg.kv_heads * PAGED_BS * dh
+    scales = cfg.num_layers * PAGED_BLOCKS * cfg.kv_heads
+    log(f"{phase}: PagedDecodeServer(num_blocks={PAGED_BLOCKS}, block_size="
         f"{PAGED_BS}, max_batch={DECODE_SLOTS}, attention='pallas', "
-        f"prefix_cache=True, prefill_chunk={PAGED_CHUNK}): pool "
-        f"{srv.pool_bytes} B (a flat {DECODE_SLOTS}-slot cache: "
-        f"{flat_bytes} B)")
-    check(srv.pool_bytes == flat_bytes * PAGED_BLOCKS // (PAGED_BLOCKS - 1),
-          f"pool of {srv.pool_bytes} B is not the flat cache plus trash")
+        f"prefix_cache=True, prefill_chunk={PAGED_CHUNK}, kv_dtype="
+        f"'{kv_dtype}'): pool {srv.pool_bytes} B (a flat {DECODE_SLOTS}-slot "
+        f"bf16 cache: {flat_bytes} B)")
+    if int8:
+        check(srv.pool_bytes == 2 * elems + 2 * scales * 4,
+              f"int8 pool of {srv.pool_bytes} B is not {2 * elems} B of "
+              f"payload plus {2 * scales * 4} B of f32 scales")
+    else:
+        check(srv.pool_bytes == flat_bytes * PAGED_BLOCKS // (PAGED_BLOCKS
+                                                              - 1),
+              f"pool of {srv.pool_bytes} B is not the flat cache plus trash")
+    dec_key = "paged_flash_decode_int8" if int8 else "paged_flash_decode"
+    pre_key = "paged_flash_prefill_int8" if int8 else "paged_flash_prefill"
+    other = ("paged_flash_decode", "paged_flash_prefill") if int8 else (
+        "paged_flash_decode_int8", "paged_flash_prefill_int8")
     reqs = paged_requests(cfg.vocab_size)
     rids = [srv.submit(p, s) for p, s in reqs]
     torch.cuda.synchronize()
@@ -1010,39 +1253,144 @@ def phase_paged(dec, params, weight_bytes: int) -> dict:
     check(srv.prefill_tokens_saved == n_req * SYSTEM_LEN,
           f"prefill_tokens_saved {srv.prefill_tokens_saved}, expected "
           f"{n_req * SYSTEM_LEN}")
-    check(launches["paged_flash_decode"] >= cfg.num_layers * srv.ticks,
-          f"paged_flash_decode launched {launches['paged_flash_decode']} "
+    check(launches[dec_key] >= cfg.num_layers * srv.ticks,
+          f"{dec_key} launched {launches[dec_key]} "
           f"times, expected >= {cfg.num_layers} x {srv.ticks} ticks")
-    check(launches["paged_flash_prefill"]
-          >= cfg.num_layers * srv.prefill_chunks,
-          f"paged_flash_prefill launched {launches['paged_flash_prefill']} "
+    check(launches[pre_key] >= cfg.num_layers * srv.prefill_chunks,
+          f"{pre_key} launched {launches[pre_key]} "
           f"times, expected >= {cfg.num_layers} x {srv.prefill_chunks} "
           "chunks")
+    check(all(launches[k] == 0 for k in other),
+          f"the {kv_dtype} pool's run launched the other pool's kernels: "
+          f"{ {k: launches[k] for k in other} }")
     check(0 not in srv.free and srv.blocks_in_use == 0,
           "the pool did not drain back to the free list and the cache")
-    log(f"paged: {len(reqs)} requests served (prompts of "
+    log(f"{phase}: {len(reqs)} requests served (prompts of "
         f"{min(p.shape[1] for p, _ in reqs)}-"
         f"{max(p.shape[1] for p, _ in reqs)} tokens), {generated} tokens "
         f"in {srv.ticks} ticks ({generated / srv.ticks:.2f} tokens a tick) "
         f"and {srv.prefill_chunks} prefill chunks, {wall:.3f}s, "
         f"{generated / wall:.1f} tokens/s incl. admission prefills; peak "
         f"{srv.blocks_peak} blocks in use")
-    log(f"paged: {hits} radix block hits, {srv.prefill_tokens_saved} "
-        f"prefill tokens saved; launches paged_flash_decode "
-        f"{launches['paged_flash_decode']} (>= {cfg.num_layers} x "
-        f"{srv.ticks} ticks), paged_flash_prefill "
-        f"{launches['paged_flash_prefill']} (>= {cfg.num_layers} x "
+    log(f"{phase}: {hits} radix block hits, {srv.prefill_tokens_saved} "
+        f"prefill tokens saved; launches {dec_key} "
+        f"{launches[dec_key]} (>= {cfg.num_layers} x "
+        f"{srv.ticks} ticks), {pre_key} "
+        f"{launches[pre_key]} (>= {cfg.num_layers} x "
         f"{srv.prefill_chunks} chunks)")
-    greedy_gaps("paged", dec, params, reqs, [done[r] for r in rids])
+    greedy_gaps(phase, dec, params, reqs, [done[r] for r in rids],
+                share=INT8_LOGIT_SHARE if int8 else None)
 
     depth = 150
     ticks = srv.ticks
     tick = paged_tick(srv, cfg.vocab_size, depth)
     lo = int(srv.pos.min())
     split = time_tick(tick)
-    log_split("paged", split, f"{lo}-{int(srv.pos.max()) - 1}",
+    log_split(phase, split, f"{lo}-{int(srv.pos.max()) - 1}",
               weight_bytes)
-    return {"launches": launches, "ticks": ticks}
+    return {"launches": launches, "ticks": ticks, "srv": srv, "tick": tick,
+            "split": split}
+
+
+def phase_paged(dec, params, weight_bytes: int) -> dict:
+    return serve_mix("paged", dec, params, "fp", weight_bytes)
+
+
+def phase_int8(dec, params, weight_bytes: int, fp_res: dict) -> dict:
+    """Phase 6, first part: the mix on an int8 pool, then the int8 and
+    float steady ticks in turns (phase 5 timed the float one first; here
+    int8, int8, float), each server at the depths its seated requests
+    have reached."""
+    res = serve_mix("int8", dec, params, "int8", weight_bytes, int8=True)
+    for label, run in (("int8", res), ("paged", fp_res)):
+        srv = run.pop("srv")
+        lo = int(srv.pos.min())
+        split = time_tick(run.pop("tick"))
+        log_split(f"int8 turns: {label}", split,
+                  f"{lo}-{int(srv.pos.max()) - 1}", weight_bytes)
+    return res
+
+
+def spill_requests(vocab: int) -> list:
+    """The spill scenario's prompts, from a seeded generator: request A
+    (the shared system prompt and 16 tokens of its own), three fillers
+    of 96 tokens, request B (the system prompt and 16 other tokens);
+    8 steps each."""
+    import torch
+
+    gen = torch.Generator().manual_seed(4)
+    system = torch.randint(0, vocab, (1, SYSTEM_LEN),
+                           generator=torch.Generator().manual_seed(2))
+
+    def own(n):
+        return torch.randint(0, vocab, (1, n), generator=gen)
+
+    a = torch.cat([system, own(16)], dim=1)
+    fillers = [own(96) for _ in range(3)]
+    b = torch.cat([system, own(16)], dim=1)
+    return [(a, 8)] + [(f, 8) for f in fillers] + [(b, 8)]
+
+
+def phase_spill(dec, params) -> dict:
+    """Phase 6, second part: the host spill tier on an int8 pool at
+    max_batch=1. Request A, then three fillers that make the radix
+    cache evict A's parked blocks from a pool of SPILL_BLOCKS (they
+    drain to host memory), then request B with A's system prompt, whose
+    four system blocks come back from the spill store. The same
+    requests through a pool large enough that nothing is evicted: B's
+    tokens must be identical."""
+    import torch
+
+    from defer_tpu_torch import PagedDecodeServer
+    from defer_tpu_torch.obs import counter_deltas
+
+    reqs = spill_requests(dec.cfg.vocab_size)
+    runs = {}
+    for label, num_blocks, spill in (("spill", SPILL_BLOCKS, SPILL_BYTES),
+                                     ("resident", PAGED_BLOCKS, 0)):
+        srv = PagedDecodeServer(
+            dec, params, num_blocks=num_blocks, block_size=PAGED_BS,
+            max_batch=1, attention="pallas", prefix_cache=True,
+            prefill_chunk=PAGED_CHUNK, kv_dtype="int8", spill_bytes=spill,
+        )
+        zero_launches()
+        with counter_deltas() as d:
+            t0 = time.perf_counter()
+            rids = []
+            for prompt, steps in reqs[:-1]:
+                rids.append(srv.submit(prompt, steps))
+                srv.run()
+            srv.flush_spill()
+            rids.append(srv.submit(*reqs[-1]))
+            done = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        spilled = d.get('defer_prefix_spilled_total{server="paged"}', 0)
+        evicted = d.get('defer_prefix_cache_evictions_total{server="paged"}',
+                        0)
+        check(launches["paged_flash_decode_int8"] > 0
+              and launches["paged_flash_prefill_int8"] > 0,
+              f"spill {label} run did not launch the int8 kernels")
+        log(f"spill: {label} run, PagedDecodeServer(num_blocks={num_blocks}, "
+            f"max_batch=1, kv_dtype='int8', spill_bytes={spill}): "
+            f"{len(reqs)} requests in {wall:.3f}s; {evicted} blocks evicted, "
+            f"{spilled} spilled to host memory, {srv.spill_hits_n} revived "
+            f"from it; B's prefill tokens saved "
+            f"{srv.prefill_tokens_saved}")
+        runs[label] = (done[rids[-1]], srv, spilled)
+    out_s, srv_s, spilled = runs["spill"]
+    out_r, srv_r, _ = runs["resident"]
+    n_sys = SYSTEM_LEN // PAGED_BS
+    check(spilled >= n_sys, f"{spilled} blocks spilled, expected >= {n_sys}")
+    check(srv_s.spill_hits_n == n_sys,
+          f"{srv_s.spill_hits_n} spill hits, expected {n_sys}")
+    check(srv_r.spill_hits_n == 0, "the resident run revived a block")
+    check(torch.equal(out_s, out_r),
+          "B's tokens after a spill revival differ from a resident hit's")
+    log(f"spill: B revived {srv_s.spill_hits_n} system blocks from host "
+        f"memory; its {reqs[-1][1]} tokens equal the resident run's")
+    return {"spill_hits": srv_s.spill_hits_n, "spilled": spilled}
 
 
 # -- entry point -----------------------------------------------------------
@@ -1069,9 +1417,11 @@ def main() -> int:
         kernels = phase_kernels()
         main_res = phase_main()
         decode_res = phase_decode()
-        paged_res = phase_paged(decode_res.pop("dec"),
-                                decode_res.pop("params"),
-                                decode_res["weight_bytes"])
+        dec, params = decode_res.pop("dec"), decode_res.pop("params")
+        paged_res = phase_paged(dec, params, decode_res["weight_bytes"])
+        int8_res = phase_int8(dec, params, decode_res["weight_bytes"],
+                              paged_res)
+        phase_spill(dec, params)
         for name in ("jax", "defer_tpu"):
             check(name not in sys.modules, f"{name} was imported")
     except Exception as e:  # every phase failure ends the run non-zero
@@ -1083,6 +1433,10 @@ def main() -> int:
         "flash_decode": decode_res["launches"]["flash_decode"],
         "paged_flash_decode": paged_res["launches"]["paged_flash_decode"],
         "paged_flash_prefill": paged_res["launches"]["paged_flash_prefill"],
+        "paged_flash_decode_int8":
+            int8_res["launches"]["paged_flash_decode_int8"],
+        "paged_flash_prefill_int8":
+            int8_res["launches"]["paged_flash_prefill_int8"],
     }
     report = []
     for name, src, replaces in KERNELS:

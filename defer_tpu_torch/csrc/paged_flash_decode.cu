@@ -10,6 +10,10 @@
 // min(pos, MB*bs-1)], q pre-scaled by Dh^-0.5 in f32, f32 m/l/acc with the
 // same finite mask value, output acc / l cast to q's dtype.
 //
+// The pool is q's dtype, or int8 with one f32 scale per (block, KV head),
+// scale_k/scale_v [NB, Hkv] (the TPU kernel's `quantized` path): a row's
+// value is int8 payload x its block's scale.
+//
 // What bounds it on an H100: the bytes of the LIVE pool rows. The kernel
 // reads pos[b] and the table from device memory (no host sync) and fetches
 // only the rows of the live range, each from the pool block its table entry
@@ -35,10 +39,20 @@
 //     writes the output, otherwise (m, l, acc) go to an f32 workspace and a
 //     second, small kernel merges the live splits of each (b, head);
 //   * the products are f32 FMAs, as the TPU kernel casts to f32 before its
-//     dots.
+//     dots;
+//   * an int8 pool is read as int8 (one byte an element: at Dh 128 a lane
+//     loads its 4 columns of a row in one 4-byte load) and widened in
+//     registers. The block scale is read once per row beside the table
+//     entry, never for a row outside the live range, and is folded in
+//     after the reduction, not per element: the score is
+//     sk * sum(q . k_int8), and the row's softmax weight times sv
+//     multiplies v_int8 in the accumulation. The scales of dead table
+//     columns, like their payload, are never read.
 
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -58,6 +72,7 @@ __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -76,6 +91,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 template <int kBytes>
 struct Raw;
+template <>
+struct Raw<1> {
+  using type = unsigned char;
+};
 template <>
 struct Raw<2> {
   using type = unsigned short;
@@ -123,6 +142,8 @@ struct Params {
   const void* v;
   void* o;
   const int* tables;     // [B, MB]
+  const float* sk;       // int8 pool: scales [NB, Hkv]; null otherwise
+  const float* sv;
   const int* pos;
   long long pos_stride;  // 0 broadcasts one position to the batch
   float* part_acc;       // [B, Hq, splits, Dh]
@@ -132,6 +153,8 @@ struct Params {
   long long vn, vh, vs;
   long long tb;          // tables: slot
   long long ob, oh;
+  long long skn, skh;    // scales: block, head
+  long long svn, svh;
   int hq, group, bs, mb, window, splits, min_chunk_blocks;
   float scale;
 };
@@ -154,9 +177,11 @@ __device__ __forceinline__ Live live_range(const Params& p, int b) {
   return r;
 }
 
-template <typename T, int kVec, int kG>
+// T: q and o; P: the pool, T or int8_t (then scaled by p.sk / p.sv).
+template <typename T, typename P, int kVec, int kG>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
   constexpr int kDh = kVec * 32;
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
   __shared__ float sm_m[kWarps][kG];
   __shared__ float sm_l[kWarps][kG];
   __shared__ float sm_acc[kWarps][kG][kDh];
@@ -197,8 +222,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
     }
   }
   const int* table = p.tables + b * p.tb;
-  const T* k = static_cast<const T*>(p.k) + kvh * p.kh + lane * kVec;
-  const T* v = static_cast<const T*>(p.v) + kvh * p.vh + lane * kVec;
+  const P* k = static_cast<const P*>(p.k) + kvh * p.kh + lane * kVec;
+  const P* v = static_cast<const P*>(p.v) + kvh * p.vh + lane * kVec;
 
   float m[kG], l[kG], acc[kG][kVec];
 #pragma unroll
@@ -211,16 +236,22 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
 
   for (int r = r0 + warp * kRows; r < r1; r += kWarps * kRows) {
     float kr[kRows][kVec], vr[kRows][kVec];
+    float ksc[kRows], vsc[kRows];  // the rows' block scales (int8 pool)
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int rr = r + i;
+      ksc[i] = vsc[i] = 0.f;
       if (rr < r1) {
         // The pool block of this row, through the slot's table.
         const int col = rr / p.bs;
         const long long blk = __ldg(table + col);
         const long long row = rr - col * p.bs;
-        load_vec<T, kVec>(k + blk * p.kn + row * p.ks, kr[i]);
-        load_vec<T, kVec>(v + blk * p.vn + row * p.vs, vr[i]);
+        load_vec<P, kVec>(k + blk * p.kn + row * p.ks, kr[i]);
+        load_vec<P, kVec>(v + blk * p.vn + row * p.vs, vr[i]);
+        if constexpr (kQuant) {
+          ksc[i] = __ldg(p.sk + blk * p.skn + kvh * p.skh);
+          vsc[i] = __ldg(p.sv + blk * p.svn + kvh * p.svh);
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) kr[i][e] = vr[i][e] = 0.f;
@@ -237,6 +268,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
 #pragma unroll
           for (int e = 0; e < kVec; ++e) d = fmaf(qr[g][e], kr[i][e], d);
           d = warp_sum(d);
+          if constexpr (kQuant) d *= ksc[i];
           s[i] = r + i < r1 ? d : -INFINITY;  // past the chunk: weight 0
           m_new = fmaxf(m_new, s[i]);
         }
@@ -249,6 +281,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
         }
         l[g] = l[g] * alpha + psum;
         m[g] = m_new;
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) s[i] *= vsc[i];
+        }
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
           float a = acc[g][e] * alpha;
@@ -326,14 +362,14 @@ __global__ void __launch_bounds__(kDh) paged_decode_combine(Params p) {
   o[d] = from_f32<T>(asum / lsum);
 }
 
-template <typename T, int kVec>
+template <typename T, typename P, int kVec>
 cudaError_t launch(const Params& p, int batch, int hkv, cudaStream_t stream) {
   const int tile = p.group <= 4 ? 4 : kMaxG;
   const dim3 grid(p.splits, hkv * ((p.group + tile - 1) / tile), batch);
   if (tile == 4) {
-    paged_decode_kernel<T, kVec, 4><<<grid, kThreads, 0, stream>>>(p);
+    paged_decode_kernel<T, P, kVec, 4><<<grid, kThreads, 0, stream>>>(p);
   } else {
-    paged_decode_kernel<T, kVec, kMaxG><<<grid, kThreads, 0, stream>>>(p);
+    paged_decode_kernel<T, P, kVec, kMaxG><<<grid, kThreads, 0, stream>>>(p);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
@@ -342,35 +378,50 @@ cudaError_t launch(const Params& p, int batch, int hkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch_dh(const Params& p, int dh, int batch, int hkv,
                       cudaStream_t stream) {
   switch (dh) {
-    case 32: return launch<T, 1>(p, batch, hkv, stream);
-    case 64: return launch<T, 2>(p, batch, hkv, stream);
-    case 128: return launch<T, 4>(p, batch, hkv, stream);
+    case 32: return launch<T, P, 1>(p, batch, hkv, stream);
+    case 64: return launch<T, P, 2>(p, batch, hkv, stream);
+    case 128: return launch<T, P, 4>(p, batch, hkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The pool is q's type, or int8 with scales.
+template <typename T>
+cudaError_t launch_pool(const Params& p, bool int8_pool, int dh, int batch,
+                        int hkv, cudaStream_t stream) {
+  return int8_pool ? launch_dh<T, int8_t>(p, dh, batch, hkv, stream)
+                   : launch_dh<T, T>(p, dh, batch, hkv, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. tables: int32 [B, MB] on
-// the device; pos: int32 on the device, pos_stride 1 for one position per
-// slot or 0 to broadcast one. strides: 11 element strides, (b, h) of q,
-// (block, h, row) of pool_k, (block, h, row) of pool_v, b of tables, (b, h)
-// of o. window <= 0 means no window. part_acc / part_ml: f32 workspaces of
-// B*Hq*splits*Dh and B*Hq*splits*2 floats (unused, may be null, when
-// splits == 1). Returns a cudaError_t value; 0 means launched.
+// dtype (q and o): 0 = float32, 1 = float16, 2 = bfloat16; pool_dtype: the
+// same code as dtype, or 3 = int8, which needs scale_k / scale_v, f32
+// [NB, Hkv] on the device. tables: int32 [B, MB] on the device; pos: int32
+// on the device, pos_stride 1 for one position per slot or 0 to broadcast
+// one. strides: 15 element strides, (b, h) of q, (block, h, row) of pool_k,
+// (block, h, row) of pool_v, b of tables, (b, h) of o, (block, h) of
+// scale_k, (block, h) of scale_v (unused for a float pool). window <= 0
+// means no window. part_acc / part_ml: f32 workspaces of B*Hq*splits*Dh
+// and B*Hq*splits*2 floats (unused, may be null, when splits == 1).
+// Returns a cudaError_t value; 0 means launched.
 extern "C" int defer_paged_flash_decode(
     const void* q, const void* pool_k, const void* pool_v, void* o,
-    const int* tables, const int* pos, long long pos_stride, float* part_acc,
-    float* part_ml, int dtype, int batch, int hq, int hkv, int bs, int mb,
+    const int* tables, const float* scale_k, const float* scale_v,
+    const int* pos, long long pos_stride, float* part_acc, float* part_ml,
+    int dtype, int pool_dtype, int batch, int hq, int hkv, int bs, int mb,
     int dh, const long long* strides, int window, int splits, float scale,
     void* stream) {
+  const bool int8_pool = pool_dtype == 3;
   if (batch < 1 || hkv < 1 || hq < hkv || hq % hkv || bs < 1 || mb < 1 ||
       splits < 1 || batch > 65535 || hq > 65535 ||
-      (splits > 1 && (part_acc == nullptr || part_ml == nullptr))) {
+      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
+      (pool_dtype != dtype && !int8_pool) ||
+      (int8_pool && (scale_k == nullptr || scale_v == nullptr))) {
     return int(cudaErrorInvalidValue);
   }
   Params p;
@@ -379,6 +430,8 @@ extern "C" int defer_paged_flash_decode(
   p.v = pool_v;
   p.o = o;
   p.tables = tables;
+  p.sk = scale_k;
+  p.sv = scale_v;
   p.pos = pos;
   p.pos_stride = pos_stride;
   p.part_acc = part_acc;
@@ -394,6 +447,10 @@ extern "C" int defer_paged_flash_decode(
   p.tb = strides[8];
   p.ob = strides[9];
   p.oh = strides[10];
+  p.skn = strides[11];
+  p.skh = strides[12];
+  p.svn = strides[13];
+  p.svh = strides[14];
   p.hq = hq;
   p.group = hq / hkv;
   p.bs = bs;
@@ -404,9 +461,11 @@ extern "C" int defer_paged_flash_decode(
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(launch_dh<float>(p, dh, batch, hkv, st));
-    case 1: return int(launch_dh<__half>(p, dh, batch, hkv, st));
-    case 2: return int(launch_dh<__nv_bfloat16>(p, dh, batch, hkv, st));
+    case 0: return int(launch_pool<float>(p, int8_pool, dh, batch, hkv, st));
+    case 1: return int(launch_pool<__half>(p, int8_pool, dh, batch, hkv, st));
+    case 2:
+      return int(
+          launch_pool<__nv_bfloat16>(p, int8_pool, dh, batch, hkv, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

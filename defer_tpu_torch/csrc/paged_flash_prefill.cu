@@ -11,7 +11,9 @@
 // of query head kvh * G + r % G, and attends the columns <= start + r / G
 // (and > start + r / G - window with a window). q pre-scaled by Dh^-0.5 in
 // f32, f32 m/l/acc per row with the same finite mask value, output acc / l
-// cast to q's dtype.
+// cast to q's dtype. The pool is q's dtype, or int8 with one f32 scale per
+// (block, KV head), scale_k/scale_v [NB, Hkv] (the TPU kernel's `quantized`
+// path).
 //
 // What bounds it on an H100: the live pool rows and q/o, each moved once;
 // at a 64-token chunk the products are a few MFLOP a head.
@@ -35,10 +37,17 @@
 //   * rows padded past T*G compute on zeros and are never written;
 //   * both products are f32 FMAs, as the TPU kernel casts to f32 before its
 //     dots; q and o are read and written through (b, h, t) strides with a
-//     unit Dh stride; Dh is 32, 64 or 128, rows 16-byte aligned.
+//     unit Dh stride; Dh is 32, 64 or 128, rows 16-byte aligned;
+//   * an int8 pool is staged from int8 (16 columns a 16-byte load) and
+//     widened as it lands in shared memory, times a per-row multiplier: the
+//     scale of that tile row's pool block for this KV head, which the first
+//     64 threads read beside the row's table entry. Columns past the live
+//     range read neither payload nor scale.
 
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -58,6 +67,7 @@ __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -80,6 +90,8 @@ struct Params {
   const void* v;
   void* o;
   const int* tables;  // [B, MB]
+  const float* sk;    // int8 pool: scales [NB, Hkv]; null otherwise
+  const float* sv;
   const int* start;
   long long start_stride;  // 0 broadcasts one start to the batch
   long long qb, qh, qt;    // element strides; the Dh stride is 1
@@ -87,17 +99,21 @@ struct Params {
   long long vn, vh, vs;
   long long tb;            // tables: slot
   long long ob, oh, ot;
+  long long skn, skh;      // scales: block, head
+  long long svn, svh;
   int group, t_q, bs, mb, dh, window;
   float scale;
 };
 
-// Stages kRowsT rows of kDh elements into shared memory as f32 (times
-// `mul`): row c lies at src + off[c], or is zeros where off[c] < 0. Each
-// thread issues kBatch 16-byte loads before it converts and stores any, so
-// the loads of a tile are in flight together.
+// Stages kRowsT rows of kDh elements into shared memory as f32, times
+// row_mul[c] for row c (or `mul` for every row where row_mul is null): row c
+// lies at src + off[c], or is zeros where off[c] < 0. Each thread starts
+// kBatch 16-byte loads before it converts and stores any, so the loads of a
+// tile are in flight together.
 template <typename T, int kDh, int kRowsT>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
-                                           const long long* off, float* dst,
+                                           const long long* off,
+                                           const float* row_mul, float* dst,
                                            int ld, float mul, int tid) {
   constexpr int kChunk = 16 / int(sizeof(T));  // elements per load
   constexpr int kCpr = kDh / kChunk;           // loads per row
@@ -122,16 +138,19 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
       const int idx = base + u * kThreads + tid;
       if (idx < kTotal) {
         const T* vals = reinterpret_cast<const T*>(&raw[u]);
+        const float f = row_mul != nullptr ? row_mul[idx / kCpr] : mul;
         float* d = dst + (idx / kCpr) * ld + (idx % kCpr) * kChunk;
 #pragma unroll
-        for (int e = 0; e < kChunk; ++e) d[e] = to_f32(vals[e]) * mul;
+        for (int e = 0; e < kChunk; ++e) d[e] = to_f32(vals[e]) * f;
       }
     }
   }
 }
 
-template <typename T, int kDh>
+// T: q and o; P: the pool, T or int8_t (then scaled by p.sk / p.sv).
+template <typename T, typename P, int kDh>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Params p) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
   extern __shared__ float smem[];
   constexpr int ld = kDh + 1;
   float* qs = smem;                 // [kBlockQ][ld]
@@ -144,6 +163,9 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Params p) {
   long long* koff = reinterpret_cast<long long*>(ps + kBlockQ * (kBlockK + 1));
   long long* voff = koff + kBlockK;
   long long* qoff = voff + kBlockK;
+  // The tile rows' block scales (int8 pool).
+  float* kmul = reinterpret_cast<float*>(qoff + kBlockQ);
+  float* vmul = kmul + kBlockK;
 
   const int r0 = blockIdx.x * kBlockQ;  // first token-major row
   const int kvh = blockIdx.y;
@@ -163,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Params p) {
   }
   __syncthreads();
   stage_rows<T, kDh, kBlockQ>(static_cast<const T*>(p.q) + b * p.qb, qoff,
-                              qs, ld, p.scale, tid);
+                              nullptr, qs, ld, p.scale, tid);
 
   // The live columns of this block's rows: from the edge of the block that
   // holds the first row's window start through the last row's position.
@@ -180,8 +202,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Params p) {
   for (int i = 0; i < kDh / kLanes; ++i) acc[i] = 0.f;
 
   const int* table = p.tables + b * p.tb;
-  const T* k = static_cast<const T*>(p.k) + kvh * p.kh;
-  const T* v = static_cast<const T*>(p.v) + kvh * p.vh;
+  const P* k = static_cast<const P*>(p.k) + kvh * p.kh;
+  const P* v = static_cast<const P*>(p.v) + kvh * p.vh;
   const float* qr = qs + row * ld;
   float* pr = ps + row * (kBlockK + 1);
 
@@ -195,13 +217,20 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Params p) {
         const long long r = col - tcol * p.bs;
         koff[tid] = blk * p.kn + r * p.ks;
         voff[tid] = blk * p.vn + r * p.vs;
+        if constexpr (kQuant) {
+          kmul[tid] = __ldg(p.sk + blk * p.skn + kvh * p.skh);
+          vmul[tid] = __ldg(p.sv + blk * p.svn + kvh * p.svh);
+        }
       } else {
         koff[tid] = voff[tid] = -1;
+        if constexpr (kQuant) kmul[tid] = vmul[tid] = 0.f;
       }
     }
     __syncthreads();
-    stage_rows<T, kDh, kBlockK>(k, koff, ks, ld, 1.f, tid);
-    stage_rows<T, kDh, kBlockK>(v, voff, vs, ld, 1.f, tid);
+    stage_rows<P, kDh, kBlockK>(k, koff, kQuant ? kmul : nullptr, ks, ld, 1.f,
+                                tid);
+    stage_rows<P, kDh, kBlockK>(v, voff, kQuant ? vmul : nullptr, vs, ld, 1.f,
+                                tid);
     __syncthreads();
 
     float s[kCols];
@@ -269,49 +298,64 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(Params p) {
   }
 }
 
-template <typename T, int kDh>
+template <typename T, typename P, int kDh>
 cudaError_t launch(const Params& p, int batch, int hkv, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (size_t(kBlockQ + 2 * kBlockK) * (kDh + 1) +
                        size_t(kBlockQ) * (kBlockK + 1)) +
-      sizeof(long long) * (2 * kBlockK + kBlockQ);
+      sizeof(long long) * (2 * kBlockK + kBlockQ) +
+      sizeof(float) * 2 * kBlockK;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<T, kDh>,
+      paged_prefill_kernel<T, P, kDh>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int rows = p.t_q * p.group;
   const dim3 grid((rows + kBlockQ - 1) / kBlockQ, hkv, batch);
-  paged_prefill_kernel<T, kDh><<<grid, kThreads, smem, stream>>>(p);
+  paged_prefill_kernel<T, P, kDh><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch_dh(const Params& p, int batch, int hkv,
                       cudaStream_t stream) {
   switch (p.dh) {
-    case 32: return launch<T, 32>(p, batch, hkv, stream);
-    case 64: return launch<T, 64>(p, batch, hkv, stream);
-    case 128: return launch<T, 128>(p, batch, hkv, stream);
+    case 32: return launch<T, P, 32>(p, batch, hkv, stream);
+    case 64: return launch<T, P, 64>(p, batch, hkv, stream);
+    case 128: return launch<T, P, 128>(p, batch, hkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The pool is q's type, or int8 with scales.
+template <typename T>
+cudaError_t launch_pool(const Params& p, bool int8_pool, int batch, int hkv,
+                        cudaStream_t stream) {
+  return int8_pool ? launch_dh<T, int8_t>(p, batch, hkv, stream)
+                   : launch_dh<T, T>(p, batch, hkv, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. tables: int32 [B, MB] on
-// the device; start: int32 on the device, start_stride 1 for one start per
-// slot or 0 to broadcast one. strides: 13 element strides, (b, h, t) of q,
-// (block, h, row) of pool_k, (block, h, row) of pool_v, b of tables,
-// (b, h, t) of o. window <= 0 means no window. Returns a cudaError_t value;
-// 0 means launched.
+// dtype (q and o): 0 = float32, 1 = float16, 2 = bfloat16; pool_dtype: the
+// same code as dtype, or 3 = int8, which needs scale_k / scale_v, f32
+// [NB, Hkv] on the device. tables: int32 [B, MB] on the device; start:
+// int32 on the device, start_stride 1 for one start per slot or 0 to
+// broadcast one. strides: 17 element strides, (b, h, t) of q, (block, h,
+// row) of pool_k, (block, h, row) of pool_v, b of tables, (b, h, t) of o,
+// (block, h) of scale_k, (block, h) of scale_v (unused for a float pool).
+// window <= 0 means no window. Returns a cudaError_t value; 0 means
+// launched.
 extern "C" int defer_paged_flash_prefill(
     const void* q, const void* pool_k, const void* pool_v, void* o,
-    const int* tables, const int* start, long long start_stride, int dtype,
+    const int* tables, const float* scale_k, const float* scale_v,
+    const int* start, long long start_stride, int dtype, int pool_dtype,
     int batch, int hq, int hkv, int t_q, int bs, int mb, int dh,
     const long long* strides, int window, float scale, void* stream) {
+  const bool int8_pool = pool_dtype == 3;
   if (batch < 1 || hkv < 1 || hq < hkv ||
       hq % hkv || t_q < 1 || bs < 1 || mb < 1 || batch > 65535 ||
-      hkv > 65535) {
+      hkv > 65535 || (pool_dtype != dtype && !int8_pool) ||
+      (int8_pool && (scale_k == nullptr || scale_v == nullptr))) {
     return int(cudaErrorInvalidValue);
   }
   Params p;
@@ -320,6 +364,8 @@ extern "C" int defer_paged_flash_prefill(
   p.v = pool_v;
   p.o = o;
   p.tables = tables;
+  p.sk = scale_k;
+  p.sv = scale_v;
   p.start = start;
   p.start_stride = start_stride;
   p.qb = strides[0];
@@ -335,6 +381,10 @@ extern "C" int defer_paged_flash_prefill(
   p.ob = strides[10];
   p.oh = strides[11];
   p.ot = strides[12];
+  p.skn = strides[13];
+  p.skh = strides[14];
+  p.svn = strides[15];
+  p.svh = strides[16];
   p.group = hq / hkv;
   p.t_q = t_q;
   p.bs = bs;
@@ -344,9 +394,10 @@ extern "C" int defer_paged_flash_prefill(
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(launch_dh<float>(p, batch, hkv, st));
-    case 1: return int(launch_dh<__half>(p, batch, hkv, st));
-    case 2: return int(launch_dh<__nv_bfloat16>(p, batch, hkv, st));
+    case 0: return int(launch_pool<float>(p, int8_pool, batch, hkv, st));
+    case 1: return int(launch_pool<__half>(p, int8_pool, batch, hkv, st));
+    case 2:
+      return int(launch_pool<__nv_bfloat16>(p, int8_pool, batch, hkv, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -22,12 +22,19 @@ chunk's live blocks; a second small kernel merges the splits. A dead
 table column is never fetched, the property the TPU kernel's clamped
 index maps give. `csrc/paged_flash_decode.cu` has the thread layout.
 
+The pool is q's dtype, or int8 with per-(block, head) f32 scales
+`scale_k`/`scale_v` [NB, Hkv] (runtime/paged.py `kv_dtype="int8"`), the
+TPU kernel's `quantized` path: a row is its int8 payload times its
+block's scale. The kernel reads the int8 payload and the scales of live
+rows only, and folds each scale into the score and the softmax weight
+(one multiply a row, not one an element); no dequantized copy of the
+pool is ever made.
+
 Dispatch follows the tensor's device and nothing else: a CUDA tensor
 launches the kernel or raises; a CPU or meta tensor takes the plain
 version, the JAX package's `_blockwise_attend` fold (one table column at
-a time into an f32 online softmax). The int8 pool's per-(block, head)
-scales (`scale_k`/`scale_v`) belong to the `kv_dtype="int8"` slice and
-raise NotImplementedError here.
+a time into an f32 online softmax, an int8 block widened to f32 and
+scaled as it is gathered).
 """
 
 from __future__ import annotations
@@ -51,13 +58,8 @@ _SOURCE = "paged_flash_decode.cu"
 # kMinChunk in the CUDA source.
 _MIN_CHUNK = 32
 _MAX_SPLITS = 64
-
-
-def _not_ported_scales() -> NotImplementedError:
-    return NotImplementedError(
-        "the int8 pool's scale_k/scale_v are not ported yet (ROADMAP "
-        "Queue 1 item 6 (f), kv_dtype='int8')"
-    )
+# The kernels' code for an int8 pool (beside _DTYPE_CODE's float codes).
+_INT8_POOL = 3
 
 
 def _check_pool(q, pool_k, pool_v, tables, what: str) -> None:
@@ -79,6 +81,43 @@ def _check_pool(q, pool_k, pool_v, tables, what: str) -> None:
         raise ValueError(
             f"tables must be [B={q.shape[0]}, MB], got {tuple(tables.shape)}"
         )
+
+
+def _check_scales(pool_k, pool_v, scale_k, scale_v) -> bool:
+    """Validate the int8 pool's scales against the pool; returns whether
+    the pool is quantized."""
+    if (scale_k is None) != (scale_v is None):
+        raise ValueError("pass both scale_k and scale_v, or neither")
+    int8_pool = pool_k.dtype == torch.int8 or pool_v.dtype == torch.int8
+    if scale_k is None:
+        if int8_pool:
+            raise ValueError(
+                "an int8 pool needs its per-(block, head) scale_k/scale_v"
+            )
+        return False
+    if not (pool_k.dtype == pool_v.dtype == torch.int8):
+        raise ValueError(
+            f"scale_k/scale_v go with an int8 pool, got pool "
+            f"{pool_k.dtype}/{pool_v.dtype}"
+        )
+    want = tuple(pool_k.shape[:2])
+    for name, sc in (("scale_k", scale_k), ("scale_v", scale_v)):
+        if tuple(sc.shape) != want or sc.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be float32 [NB, Hkv] = {list(want)}, got "
+                f"{sc.dtype} {list(sc.shape)}"
+            )
+        if sc.device != pool_k.device:
+            raise ValueError(f"{name} on {sc.device}, pool on "
+                             f"{pool_k.device}")
+    return True
+
+
+def _pool_rows(pool, scale, blk) -> torch.Tensor:
+    """Pool blocks `blk` widened to f32, an int8 block times its
+    scale: the JAX package's `_pool_gather(pool_l, blk, float32)`."""
+    rows = pool[blk].float()
+    return rows if scale is None else rows * scale[blk][..., None, None]
 
 
 def _check(q, pool_k, pool_v, tables, window) -> None:
@@ -111,15 +150,19 @@ def paged_flash_decode_plain(
     *,
     window: int | None = None,
     num_blocks: int | None = None,
+    scale_k: torch.Tensor | None = None,
+    scale_v: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, as the JAX package's
     `_blockwise_attend` computes it: table columns 0..num_blocks-1 fold
     one at a time into f32 (m, l, acc) with `_MASK_VALUE` on masked
-    columns, one cast at the end. Columns past a slot's live range add
-    exactly nothing. `num_blocks` defaults to the deepest slot's live
-    block + 1 for CPU tensors (read on the host) and to the whole table
-    elsewhere. Returns [B, Hq, Dh] in q's dtype."""
+    columns, one cast at the end; an int8 pool's blocks are widened to
+    f32 and times their scales as they are gathered. Columns past a
+    slot's live range add exactly nothing. `num_blocks` defaults to the
+    deepest slot's live block + 1 for CPU tensors (read on the host) and
+    to the whole table elsewhere. Returns [B, Hq, Dh] in q's dtype."""
     _check(q, pool_k, pool_v, tables, window)
+    _check_scales(pool_k, pool_v, scale_k, scale_v)
     b, hq, dh = q.shape
     hkv, bs = pool_k.shape[1], pool_k.shape[2]
     mb = tables.shape[1]
@@ -136,8 +179,8 @@ def paged_flash_decode_plain(
     span = torch.arange(bs, device=q.device)
     for j in range(num_blocks):
         blk = tables[:, j].long()
-        k = pool_k[blk].float()  # [B, Hkv, bs, Dh]
-        v = pool_v[blk].float()
+        k = _pool_rows(pool_k, scale_k, blk)  # [B, Hkv, bs, Dh]
+        v = _pool_rows(pool_v, scale_v, blk)
         s = torch.einsum("bkgd,bksd->bkgs", qg, k)
         cols = j * bs + span
         live = cols[None, :] <= posv[:, None]  # [B, bs]
@@ -162,10 +205,11 @@ def _kernel():
     fn = load_library(_SOURCE).defer_paged_flash_decode
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        # q, pool_k, pool_v, o, tables, scale_k, scale_v, pos
+        *[ctypes.c_void_p] * 8,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        # dtype, pool_dtype, batch, hq, hkv, bs, mb, dh
+        *[ctypes.c_int] * 8,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p,
     ]
@@ -182,45 +226,68 @@ def _num_splits(device: torch.device, ctas: int, bs: int, mb: int) -> int:
     return max(1, min(want, math.ceil(mb / chunk_blocks), _MAX_SPLITS))
 
 
+def _pool_code(kernel: str, dtypes) -> int:
+    """The kernels' pool dtype code: q's own (q, pool_k and pool_v of
+    one float dtype) or `_INT8_POOL`. Raises on what they do not take."""
+    q_dtype, k_dtype, v_dtype = dtypes
+    if q_dtype in _DTYPE_CODE and k_dtype == v_dtype:
+        if k_dtype == q_dtype:
+            return _DTYPE_CODE[q_dtype]
+        if k_dtype == torch.int8:
+            return _INT8_POOL
+    raise TypeError(
+        f"the CUDA {kernel} kernel takes float32, float16 or bfloat16 q "
+        "with a pool of q's dtype or of int8; got "
+        f"{'/'.join(map(str, dtypes))}"
+    )
+
+
+def _scale_strides(scale_k, scale_v) -> tuple:
+    """(block, head) element strides of both scales; zeros without."""
+    if scale_k is None:
+        return (0, 0, 0, 0)
+    return (*scale_k.stride(), *scale_v.stride())
+
+
 @functools.lru_cache(maxsize=256)
 def _launch_plan(q_shape, q_stride, pool_shape, k_stride, v_stride,
-                 tables_stride, dtypes, device):
+                 tables_stride, scale_strides, dtypes, device):
     """What a launch needs beyond the pointers, checked and computed
-    once per shape: (splits, element strides as a ctypes array, the row
-    alignment in bytes). Raises on what the kernel does not take."""
+    once per shape: (splits, element strides as a ctypes array, the pool
+    dtype code, q's and the pool's row alignment in bytes). Raises on
+    what the kernel does not take."""
     b, hq, dh = q_shape
     hkv, bs = pool_shape[1], pool_shape[2]
     mb = tables_stride[1]
-    dtype = dtypes[0]
-    if dtype not in _DTYPE_CODE or len(set(dtypes)) != 1:
-        raise TypeError(
-            "the CUDA paged flash-decode kernel takes float32, float16 or "
-            f"bfloat16 q/pool of one dtype; got {'/'.join(map(str, dtypes))}"
-        )
+    pool_code = _pool_code("paged flash-decode", dtypes)
     if dh not in _HEAD_DIMS:
         raise ValueError(
             f"the CUDA paged flash-decode kernel takes Dh in {_HEAD_DIMS}, "
             f"got {dh}"
         )
-    itemsize = dtype.itemsize
-    align = min(16, dh // 32 * itemsize)
-    for name, stride in (("q", q_stride), ("pool_k", k_stride),
-                         ("pool_v", v_stride)):
+    # A lane loads Dh / 32 consecutive elements of a row at once.
+    aligns = tuple(min(16, dh // 32 * dt.itemsize) for dt in dtypes[:2])
+    for name, stride, dtype, align in (
+        ("q", q_stride, dtypes[0], aligns[0]),
+        ("pool_k", k_stride, dtypes[1], aligns[1]),
+        ("pool_v", v_stride, dtypes[2], aligns[1]),
+    ):
         if stride[-1] != 1:
             raise ValueError(f"{name} needs a unit Dh stride")
-        if any(st * itemsize % align for st in stride[:-1]):
+        if any(st * dtype.itemsize % align for st in stride[:-1]):
             raise ValueError(f"{name} rows are not {align}-byte aligned")
     splits = _num_splits(device, b * hkv * math.ceil(hq // hkv / 8), bs, mb)
-    strides = (ctypes.c_longlong * 11)(
+    strides = (ctypes.c_longlong * 15)(
         q_stride[0], q_stride[1], *k_stride[:3], *v_stride[:3],
-        tables_stride[0], hq * dh, dh,
+        tables_stride[0], hq * dh, dh, *scale_strides,
     )
-    return splits, strides, align
+    return splits, strides, pool_code, aligns
 
 
-def _decode_cuda(q, pool_k, pool_v, tables, pos, window) -> torch.Tensor:
-    """Launch the sm_90a kernel on q's current stream; tables and pos
-    stay on the card."""
+def _decode_cuda(q, pool_k, pool_v, tables, pos, window, scale_k,
+                 scale_v) -> torch.Tensor:
+    """Launch the sm_90a kernel on q's current stream; tables, pos and
+    the scales stay on the card."""
     b, hq, dh = q.shape
     if not (q.device == pool_k.device == pool_v.device == tables.device):
         raise ValueError(
@@ -229,13 +296,16 @@ def _decode_cuda(q, pool_k, pool_v, tables, pos, window) -> torch.Tensor:
         )
     if tables.dtype != torch.int32 or tables.stride(1) != 1:
         tables = tables.to(torch.int32).contiguous()  # on the card
-    splits, strides, align = _launch_plan(
+    splits, strides, pool_code, (q_align, pool_align) = _launch_plan(
         tuple(q.shape), q.stride(), tuple(pool_k.shape), pool_k.stride(),
         pool_v.stride(), (tables.stride(0), tables.shape[1]),
+        _scale_strides(scale_k, scale_v),
         (q.dtype, pool_k.dtype, pool_v.dtype), q.device,
     )
-    if any(t.data_ptr() % align for t in (q, pool_k, pool_v)):
-        raise ValueError(f"q/pool rows are not {align}-byte aligned")
+    if q.data_ptr() % q_align or any(
+        t.data_ptr() % pool_align for t in (pool_k, pool_v)
+    ):
+        raise ValueError("q/pool rows are not aligned for the kernel's loads")
     if isinstance(pos, int):
         pos = torch.full((b,), pos, dtype=torch.int32, device=q.device)
     if pos.device != q.device:
@@ -256,11 +326,13 @@ def _decode_cuda(q, pool_k, pool_v, tables, pos, window) -> torch.Tensor:
                          device=q.device)
         part_acc = ws.data_ptr()
         part_ml = part_acc + 4 * n_acc
+    quantized = scale_k is not None
     args = (
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
-        tables.data_ptr(), pos.data_ptr(), pos_stride, part_acc, part_ml,
-        _DTYPE_CODE[q.dtype], b, hq, pool_k.shape[1], pool_k.shape[2],
-        tables.shape[1], dh, strides,
+        tables.data_ptr(), scale_k.data_ptr() if quantized else None,
+        scale_v.data_ptr() if quantized else None, pos.data_ptr(),
+        pos_stride, part_acc, part_ml, _DTYPE_CODE[q.dtype], pool_code, b,
+        hq, pool_k.shape[1], pool_k.shape[2], tables.shape[1], dh, strides,
         0 if window is None else int(window), splits, dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -272,10 +344,13 @@ def _decode_cuda(q, pool_k, pool_v, tables, pos, window) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(
             f"paged flash-decode kernel launch failed with CUDA error {rc} "
-            f"for q {tuple(q.shape)} {q.dtype}, pool {tuple(pool_k.shape)}, "
-            f"tables {tuple(tables.shape)}, window={window}"
+            f"for q {tuple(q.shape)} {q.dtype}, pool {tuple(pool_k.shape)} "
+            f"{pool_k.dtype}, tables {tuple(tables.shape)}, window={window}"
         )
-    paged_flash_decode.launches += 1
+    if quantized:
+        paged_flash_decode.launches_int8 += 1
+    else:
+        paged_flash_decode.launches += 1
     return out
 
 
@@ -294,20 +369,24 @@ def paged_flash_decode(
     pool_k/pool_v [NB, Hkv, bs, Dh] (one layer of the pool), tables
     [B, MB] int pool indices (unallocated entries = trash block 0), pos
     [B] (or a scalar, broadcast) int, each slot's last valid key,
-    inclusive and >= 0. Returns [B, Hq, Dh] in q's dtype.
+    inclusive and >= 0. Returns [B, Hq, Dh] in q's dtype. An int8 pool
+    needs scale_k/scale_v, float32 [NB, Hkv] on the pool's device (pass
+    both or neither); a float pool is q's dtype and takes none.
 
     CUDA tensors run the hand-written kernel (any bs >= 1 and G >= 1,
-    Dh in 32/64/128, float32/float16/bfloat16) and raise on what it does
-    not take; CPU and meta tensors run `paged_flash_decode_plain`.
-    `paged_flash_decode.launches` counts kernel launches."""
-    if scale_k is not None or scale_v is not None:
-        raise _not_ported_scales()
+    Dh in 32/64/128, float32/float16/bfloat16 q) and raise on what it
+    does not take; CPU and meta tensors run `paged_flash_decode_plain`.
+    `paged_flash_decode.launches` counts kernel launches on a float pool,
+    `paged_flash_decode.launches_int8` those on an int8 pool."""
     _check(q, pool_k, pool_v, tables, window)
+    _check_scales(pool_k, pool_v, scale_k, scale_v)
     if q.device.type == "cuda":
-        return _decode_cuda(q, pool_k, pool_v, tables, pos, window)
+        return _decode_cuda(q, pool_k, pool_v, tables, pos, window, scale_k,
+                            scale_v)
     if q.device.type in ("cpu", "meta"):
         return paged_flash_decode_plain(q, pool_k, pool_v, tables, pos,
-                                        window=window)
+                                        window=window, scale_k=scale_k,
+                                        scale_v=scale_v)
     raise ValueError(
         f"paged flash decode has no path for device {q.device}: CUDA "
         "launches the kernel, CPU and meta take the plain version"
@@ -315,3 +394,4 @@ def paged_flash_decode(
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.launches_int8 = 0

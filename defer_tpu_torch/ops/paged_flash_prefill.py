@@ -25,10 +25,14 @@ first live block, each tile's rows fetched through the table. Rows
 padded past T * G are never written. `csrc/paged_flash_prefill.cu` has
 the thread layout.
 
+The pool is q's dtype, or int8 with per-(block, head) f32 scales
+`scale_k`/`scale_v` [NB, Hkv], as in `paged_flash_decode`: the kernel
+stages the int8 payload (16 columns a load) and widens each row into
+shared memory times its block's scale; dead columns read neither.
+
 Dispatch follows the tensor's device and nothing else: a CUDA tensor
 launches the kernel or raises; a CPU or meta tensor takes the plain
-version, the JAX package's `_blockwise_attend_mt` fold. The int8 pool's
-scales raise NotImplementedError, as in `paged_flash_decode`.
+version, the JAX package's `_blockwise_attend_mt` fold.
 """
 
 from __future__ import annotations
@@ -41,8 +45,11 @@ import torch
 from defer_tpu_torch.ops.flash_decode import _DTYPE_CODE, _HEAD_DIMS, _MASK_VALUE
 from defer_tpu_torch.ops.paged_flash_decode import (
     _check_pool,
-    _not_ported_scales,
+    _check_scales,
+    _pool_code,
+    _pool_rows,
     _positions,
+    _scale_strides,
     folded_blocks,
 )
 
@@ -76,14 +83,19 @@ def paged_flash_prefill_plain(
     *,
     window: int | None = None,
     num_blocks: int | None = None,
+    scale_k: torch.Tensor | None = None,
+    scale_v: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, as the JAX package's
     `_blockwise_attend_mt` computes it: table columns 0..num_blocks-1
     fold one at a time into f32 (m, l, acc) per query row, each row
-    masked at its own position start + t. `num_blocks` defaults to the
-    deepest row's live block + 1 for CPU tensors (read on the host) and
-    to the whole table elsewhere. Returns [B, Hq, T, Dh] in q's dtype."""
+    masked at its own position start + t; an int8 pool's blocks are
+    widened to f32 and times their scales as they are gathered.
+    `num_blocks` defaults to the deepest row's live block + 1 for CPU
+    tensors (read on the host) and to the whole table elsewhere. Returns
+    [B, Hq, T, Dh] in q's dtype."""
     _check(q, pool_k, pool_v, tables, window)
+    _check_scales(pool_k, pool_v, scale_k, scale_v)
     b, hq, t, dh = q.shape
     hkv, bs = pool_k.shape[1], pool_k.shape[2]
     mb = tables.shape[1]
@@ -101,8 +113,8 @@ def paged_flash_prefill_plain(
     span = torch.arange(bs, device=q.device)
     for j in range(num_blocks):
         blk = tables[:, j].long()
-        k = pool_k[blk].float()  # [B, Hkv, bs, Dh]
-        v = pool_v[blk].float()
+        k = _pool_rows(pool_k, scale_k, blk)  # [B, Hkv, bs, Dh]
+        v = _pool_rows(pool_v, scale_v, blk)
         s = torch.einsum("bkgtd,bksd->bkgts", qg, k)
         cols = j * bs + span
         live = cols[None, None, :] <= qpos[:, :, None]  # [B, T, bs]
@@ -129,48 +141,49 @@ def _kernel():
     fn = load_library(_SOURCE).defer_paged_flash_prefill
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        # q, pool_k, pool_v, o, tables, scale_k, scale_v, start
+        *[ctypes.c_void_p] * 8,
+        ctypes.c_longlong,
+        # dtype, pool_dtype, batch, hq, hkv, t_q, bs, mb, dh
+        *[ctypes.c_int] * 9,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p,
     ]
     return fn
 
 
 @functools.lru_cache(maxsize=256)
 def _launch_strides(q_stride, k_stride, v_stride, tables_stride0, out_shape,
-                    dtypes, dh):
-    """The element strides a launch passes, checked and computed once per
-    layout. Raises on what the kernel does not take."""
-    dtype = dtypes[0]
-    if dtype not in _DTYPE_CODE or len(set(dtypes)) != 1:
-        raise TypeError(
-            "the CUDA paged flash-prefill kernel takes float32, float16 or "
-            f"bfloat16 q/pool of one dtype; got {'/'.join(map(str, dtypes))}"
-        )
+                    scale_strides, dtypes, dh):
+    """The element strides a launch passes and the pool dtype code,
+    checked and computed once per layout. Raises on what the kernel does
+    not take."""
+    pool_code = _pool_code("paged flash-prefill", dtypes)
     if dh not in _HEAD_DIMS:
         raise ValueError(
             f"the CUDA paged flash-prefill kernel takes Dh in {_HEAD_DIMS}, "
             f"got {dh}"
         )
     # The kernel stages rows in 16-byte loads: rows must be aligned to 16.
-    for name, stride in (("q", q_stride), ("pool_k", k_stride),
-                         ("pool_v", v_stride)):
+    for name, stride, dtype in (("q", q_stride, dtypes[0]),
+                                ("pool_k", k_stride, dtypes[1]),
+                                ("pool_v", v_stride, dtypes[2])):
         if stride[-1] != 1:
             raise ValueError(f"{name} needs a unit Dh stride")
         if any(st * dtype.itemsize % 16 for st in stride[:-1]):
             raise ValueError(f"{name} rows are not 16-byte aligned")
     _, t, hq, _ = out_shape  # the output is [B, T, Hq, Dh], contiguous
-    return (ctypes.c_longlong * 13)(
+    strides = (ctypes.c_longlong * 17)(
         *q_stride[:3], *k_stride[:3], *v_stride[:3], tables_stride0,
-        t * hq * dh, dh, hq * dh,
+        t * hq * dh, dh, hq * dh, *scale_strides,
     )
+    return strides, pool_code
 
 
-def _prefill_cuda(q, pool_k, pool_v, tables, start, window) -> torch.Tensor:
-    """Launch the sm_90a kernel on q's current stream; tables and start
-    stay on the card."""
+def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
+                  scale_v) -> torch.Tensor:
+    """Launch the sm_90a kernel on q's current stream; tables, start and
+    the scales stay on the card."""
     b, hq, t, dh = q.shape
     if not (q.device == pool_k.device == pool_v.device == tables.device):
         raise ValueError(
@@ -192,19 +205,22 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window) -> torch.Tensor:
     # Token-major rows land in [B, T, Hq, Dh]; the caller gets the
     # [B, Hq, T, Dh] view, whose transpose back is free.
     out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
-    strides = _launch_strides(
+    strides, pool_code = _launch_strides(
         q.stride(), pool_k.stride(), pool_v.stride(), tables.stride(0),
-        tuple(out.shape), (q.dtype, pool_k.dtype, pool_v.dtype), dh,
+        tuple(out.shape), _scale_strides(scale_k, scale_v),
+        (q.dtype, pool_k.dtype, pool_v.dtype), dh,
     )
     if any(x.data_ptr() % 16 for x in (q, pool_k, pool_v)):
         raise ValueError("q/pool rows are not 16-byte aligned")
+    quantized = scale_k is not None
     args = (
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
-        tables.data_ptr(), start.data_ptr(),
-        start.stride(0) if start.ndim == 1 else 0, _DTYPE_CODE[q.dtype], b,
-        hq, pool_k.shape[1], t, pool_k.shape[2], tables.shape[1], dh,
-        strides, 0 if window is None else int(window), dh**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        tables.data_ptr(), scale_k.data_ptr() if quantized else None,
+        scale_v.data_ptr() if quantized else None, start.data_ptr(),
+        start.stride(0) if start.ndim == 1 else 0, _DTYPE_CODE[q.dtype],
+        pool_code, b, hq, pool_k.shape[1], t, pool_k.shape[2],
+        tables.shape[1], dh, strides, 0 if window is None else int(window),
+        dh**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if torch.cuda.current_device() == q.device.index:
         rc = _kernel()(*args)
@@ -214,10 +230,13 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(
             f"paged flash-prefill kernel launch failed with CUDA error {rc} "
-            f"for q {tuple(q.shape)} {q.dtype}, pool {tuple(pool_k.shape)}, "
-            f"tables {tuple(tables.shape)}, window={window}"
+            f"for q {tuple(q.shape)} {q.dtype}, pool {tuple(pool_k.shape)} "
+            f"{pool_k.dtype}, tables {tuple(tables.shape)}, window={window}"
         )
-    paged_flash_prefill.launches += 1
+    if quantized:
+        paged_flash_prefill.launches_int8 += 1
+    else:
+        paged_flash_prefill.launches += 1
     return out.transpose(1, 2)
 
 
@@ -237,19 +256,23 @@ def paged_flash_prefill(
     [NB, Hkv, bs, Dh] (one layer, the window's own rows already written),
     tables [B, MB] int (unallocated entries = trash block 0), start [B]
     (or a scalar, broadcast) int. Returns [B, Hq, T, Dh] in q's dtype.
+    An int8 pool needs scale_k/scale_v, float32 [NB, Hkv] on the pool's
+    device (pass both or neither).
 
     CUDA tensors run the hand-written kernel (any T, bs and G >= 1, Dh
-    in 32/64/128, float32/float16/bfloat16) and raise on what it does
+    in 32/64/128, float32/float16/bfloat16 q) and raise on what it does
     not take; CPU and meta tensors run `paged_flash_prefill_plain`.
-    `paged_flash_prefill.launches` counts kernel launches."""
-    if scale_k is not None or scale_v is not None:
-        raise _not_ported_scales()
+    `paged_flash_prefill.launches` counts kernel launches on a float
+    pool, `paged_flash_prefill.launches_int8` those on an int8 pool."""
     _check(q, pool_k, pool_v, tables, window)
+    _check_scales(pool_k, pool_v, scale_k, scale_v)
     if q.device.type == "cuda":
-        return _prefill_cuda(q, pool_k, pool_v, tables, start, window)
+        return _prefill_cuda(q, pool_k, pool_v, tables, start, window,
+                             scale_k, scale_v)
     if q.device.type in ("cpu", "meta"):
         return paged_flash_prefill_plain(q, pool_k, pool_v, tables, start,
-                                         window=window)
+                                         window=window, scale_k=scale_k,
+                                         scale_v=scale_v)
     raise ValueError(
         f"paged flash prefill has no path for device {q.device}: CUDA "
         "launches the kernel, CPU and meta take the plain version"
@@ -257,3 +280,4 @@ def paged_flash_prefill(
 
 
 paged_flash_prefill.launches = 0
+paged_flash_prefill.launches_int8 = 0

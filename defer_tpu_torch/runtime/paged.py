@@ -29,14 +29,31 @@ budgets. The design is the JAX package's:
   * `prefix_cache=True` shares full prompt blocks between requests
     through the radix `PrefixBlockCache`; constructor `prefix_ids`
     shares one system prompt's blocks; `prefill_chunk=` runs admission
-    prefill pool-native, chunk by chunk through the multi-token step.
+    prefill pool-native, chunk by chunk through the multi-token step;
+  * `kv_dtype="int8"` stores the pool as symmetric int8 with one f32
+    scale per (layer, block, KV head): a {"q": int8, "s": f32} pair per
+    K and V, never-written blocks at q=0, s=1 (zeros). A row write
+    requantizes its block (`_pool_write_rows`), a prefill insert
+    quantizes blocks as they land, the gathered reads dequantize in the
+    compute dtype, and "pallas" hands the int8 payload and the scales to
+    the kernels, which read them as they are;
+  * `spill_bytes=` adds the host-RAM tier `HostKVSpill` under the radix
+    cache: an evicted prefix block's stored bytes (int8 payload and
+    scales, or fp rows) drain to host memory off the serving thread, and
+    a later walk miss revives them verbatim into a fresh block.
 
 What differs from JAX, and why:
 
   * the pool is written IN PLACE (`index_put_`), the port's answer to the
     JAX package's donated pool. Repeated destinations (trash block 0)
     are allowed and race over garbage; a live slot never writes block 0,
-    and a radix hit's rows redirect to it;
+    and a radix hit's rows redirect to it. So a block handed to the
+    spill tier is cloned on the serving stream first: a view would read
+    the next tenant's rows by the time the drain thread copies it;
+  * an int8 multi-token write lands the rows of a chunk in at most
+    block_size rounds (one per row-in-block) instead of one per token;
+    each block sees its rows in the same order, so the pool is
+    bit-identical to the JAX package's token-by-token loop;
   * block tables, positions and the active mask live on the device and
     change only at admission and finish; idle slots sit at position 0
     with an all-trash table, and a tick advances the live positions on
@@ -46,11 +63,10 @@ What differs from JAX, and why:
   * there is no jit, so no program memo: each step runs eagerly.
 
 Not ported yet (each raises NotImplementedError, naming its ROADMAP
-Queue 1 item): `decode_window > 1`, `spec_k`, `kv_dtype="int8"` and
-`spill_bytes` (HostKVSpill), `prefill_budget`, `mesh=`/`device=`,
-`constraints=`, `pp_*`, multi-LoRA adapter banks and `adapter_id != 0`,
-and the disagg/fleet seams (`submit_prefilled`, `deliver_kv`,
-`export_prefix_blocks`, `import_prefix_blocks`).
+Queue 1 item): `decode_window > 1`, `spec_k`, `prefill_budget`,
+`mesh=`/`device=`, `constraints=`, `pp_*`, multi-LoRA adapter banks and
+`adapter_id != 0`, and the disagg/fleet seams (`submit_prefilled`,
+`deliver_kv`, `export_prefix_blocks`, `import_prefix_blocks`).
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ from __future__ import annotations
 import collections
 import functools
 import hashlib
+import queue
 import threading
 import time
 from typing import Any
@@ -67,6 +84,10 @@ import torch
 import torch.nn.functional as F
 
 from defer_tpu_torch.models.gpt import _layer_view
+from defer_tpu_torch.models.quant import (
+    dequantize_symmetric,
+    quantize_symmetric,
+)
 from defer_tpu_torch.obs.serving import ServerStats, ServingMetrics
 from defer_tpu_torch.ops.paged_flash_decode import (
     _decode_lo_hi,
@@ -88,13 +109,217 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+def _pool_layer(pool, layer: int):
+    """One layer of the pool, as views: the fp tensor [NB, Hkv, bs, Dh],
+    or the int8 pair {"q": [NB, Hkv, bs, Dh], "s": [NB, Hkv]}."""
+    if isinstance(pool, dict):
+        return {"q": pool["q"][layer], "s": pool["s"][layer]}
+    return pool[layer]
+
+
+def _pool_arr(pool):
+    """The tensor carrying the pool geometry: the int8 payload of a
+    quantized pair, or the fp pool itself."""
+    return pool["q"] if isinstance(pool, dict) else pool
+
+
+def _pool_scale(pool):
+    """The int8 pool's per-(block, head) scales; None for an fp pool."""
+    return pool["s"] if isinstance(pool, dict) else None
+
+
 def _pool_write_rows(pool_l, dest, rowi, val) -> None:
-    """Scatter fresh K/V rows into a per-layer pool slice IN PLACE: dest
-    and rowi are block ids and rows-in-block of one shape ([N] for a
-    tick, [B, T] for a multi-token step), val is that shape + [Hkv, Dh].
-    Duplicate destinations (trash block 0) race over garbage, the module
-    invariant; never accumulate."""
-    pool_l[dest, :, rowi, :] = val
+    """Scatter one fresh K/V row per entry into a per-layer pool slice IN
+    PLACE: dest [N] block ids, rowi [N] rows-in-block, val [N, Hkv, Dh]
+    (`_pool_write_rows_mt` takes [B, T] ones). Duplicate destinations (trash block 0) race over garbage, the module
+    invariant; never accumulate.
+
+    An int8 pool keeps ONE scale per (block, head), so landing a row
+    re-derives its block's scale, as the JAX package's `_pool_write_rows`
+    does: gather the touched blocks, dequantize in f32, insert the row,
+    ZERO the rows past it (a previous tenant's garbage would inflate the
+    scale and crush the live rows' precision), requantize over
+    (bs, Dh), and scatter payload and scale back."""
+    if not isinstance(pool_l, dict):
+        pool_l[dest, :, rowi, :] = val
+        return
+    q, s = pool_l["q"], pool_l["s"]
+    n, bs = dest.shape[0], q.shape[2]
+    blk = dequantize_symmetric(q[dest], s[dest][..., None, None])
+    blk[torch.arange(n, device=q.device), :, rowi, :] = val.float()
+    live = torch.arange(bs, device=q.device)[None, :] <= rowi[:, None]
+    blk = blk * live[:, None, :, None]
+    qn, sn = quantize_symmetric(blk, axis=(-2, -1))
+    q[dest] = qn
+    s[dest] = sn
+
+
+def _pool_write_rows_mt(pool_l, dest, rowi, val) -> None:
+    """The multi-token write: dest/rowi [B, T], val [B, T, Hkv, Dh] (T
+    fresh rows a slot, at consecutive positions). An fp pool takes one
+    scatter. An int8 pool lands the rows in order, each write seeing the
+    previous one's payload and scale (consecutive rows of a slot share a
+    block), as the JAX package's `_pool_write_rows_mt` loop over the T
+    columns does. With T > bs the port groups that sequence by
+    row-in-block instead: round r writes every entry whose row is r,
+    with the same single-row write. A block's rows are consecutive
+    positions, so each block still sees its rows land in the same order,
+    and no two live entries of a round share a block: the pool is
+    bit-identical to the column loop's, in bs rounds instead of T."""
+    if not isinstance(pool_l, dict):
+        pool_l[dest, :, rowi, :] = val
+        return
+    b, t = dest.shape
+    bs = pool_l["q"].shape[2]
+    if t <= bs:
+        for j in range(t):
+            _pool_write_rows(pool_l, dest[:, j], rowi[:, j], val[:, j])
+        return
+    # Row r of a slot's rows sits at columns j = (r - rowi[:, 0]) % bs +
+    # k * bs; entries past T redirect to trash block 0.
+    dev = dest.device
+    span = torch.arange(-(-t // bs), device=dev) * bs
+    slots = torch.arange(b, device=dev)[:, None]
+    for r in range(bs):
+        cols = ((r - rowi[:, :1]) % bs + span).long()  # [B, K]
+        keep = cols < t
+        cols = cols.clamp(max=t - 1)
+        d = torch.where(keep, dest.gather(1, cols), 0).reshape(-1)
+        _pool_write_rows(pool_l, d, torch.full_like(d, r),
+                         val[slots, cols].flatten(0, 1))
+
+
+def _quantize_blocks(blocks: torch.Tensor):
+    """[L, n, Hkv, bs, Dh] block stack -> (int8 payload, [L, n, Hkv] f32
+    scales), the int8 pool's storage convention."""
+    return quantize_symmetric(blocks.float(), axis=(-2, -1))
+
+
+class HostKVSpill:
+    """Bounded host-RAM spill tier for evicted prefix blocks; the JAX
+    package's class, for torch tensors. Under pool pressure
+    `PrefixBlockCache.evict` forgets warm blocks, and a later radix hit
+    would become a full re-prefill; this store keeps each evicted block's
+    stored bytes (int8 payload + scales, or the fp rows) keyed by its
+    chained digest, so a spill hit revives the block with its EXACT bytes,
+    token-identical to a resident hit.
+
+    The serving thread only offers clones of the block (made on its
+    stream, with an event recorded after them) and reads the store under
+    `_lock` (`get`). The drain thread owns every device->host copy and
+    all store mutation: on the card it copies on a stream of its own,
+    after the event, into pinned host memory, and polls for the copy's
+    end, so neither the serving stream nor the serving thread ever waits
+    for it and no synchronizing CUDA call is made. The store is
+    byte-bounded, trimmed oldest-first (`get` re-inserts on a hit, so it
+    is LRU); the offer queue is bounded too and sheds under a burst. A
+    revival that looks up a block not yet drained simply misses (a
+    normal re-prefill)."""
+
+    def __init__(self, cap_bytes: int, obs: Any = None):
+        self.cap = int(cap_bytes)
+        self._q: queue.Queue = queue.Queue(maxsize=256)
+        # key -> (own-block token bytes, host tensors, nbytes)
+        self._store: dict[bytes, tuple] = {}
+        self._bytes = 0
+        self._lock = threading.Lock()
+        self._obs = obs
+        self._stream = None  # the drain thread's copy stream (CUDA)
+        self._thread = threading.Thread(
+            target=self._drain_loop, name="kv-spill-drain", daemon=True
+        )
+        self._thread.start()
+
+    def offer(self, key: bytes, tok: bytes, arrays: tuple,
+              ready: Any = None) -> None:
+        """Serving thread: hand over clones of an evicted block and the
+        CUDA event that marks them written (None on the CPU). Never
+        blocks; a full queue sheds the spill."""
+        try:
+            self._q.put_nowait((key, tok, arrays, ready))
+        except queue.Full:
+            pass
+
+    def _to_host(self, arrays: tuple, ready: Any) -> tuple:
+        """Drain thread: the block's tensors in host memory. CPU clones
+        already are; CUDA ones are copied on the drain stream after
+        `ready`, into pinned buffers, and the copy's end is polled."""
+        if ready is None:
+            return arrays
+        dev = arrays[0].device
+        with torch.cuda.device(dev):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            side = self._stream
+            side.wait_event(ready)
+            host = []
+            with torch.cuda.stream(side):
+                for a in arrays:
+                    a.record_stream(side)  # the clone lives on until then
+                    h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                    h.copy_(a, non_blocking=True)
+                    host.append(h)
+            done = torch.cuda.Event()
+            done.record(side)
+        while not done.query():
+            time.sleep(1e-4)
+        return tuple(host)
+
+    def _drain_loop(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            key, tok, arrays, ready = item
+            host = self._to_host(arrays, ready)
+            nbytes = sum(a.numel() * a.element_size() for a in host)
+            with self._lock:
+                old = self._store.pop(key, None)
+                if old is not None:
+                    self._bytes -= old[2]
+                self._store[key] = (tok, host, nbytes)
+                self._bytes += nbytes
+                while self._bytes > self.cap and self._store:
+                    k0 = next(iter(self._store))
+                    _, _, nb0 = self._store.pop(k0)
+                    self._bytes -= nb0
+                stored_bytes = self._bytes
+            if self._obs is not None:
+                self._obs.prefix_spilled.inc()
+                self._obs.spill_bytes.set(stored_bytes)
+            self._q.task_done()
+
+    def get(self, key: bytes, tok: bytes) -> tuple | None:
+        """Serving thread: the spill lookup on a radix walk miss, guarded
+        by the block's own token bytes like every radix hit; a hit is
+        LRU-touched and its host tensors returned for re-upload. The
+        entry stays resident."""
+        with self._lock:
+            ent = self._store.get(key)
+            if ent is None or ent[0] != tok:
+                return None
+            self._store[key] = self._store.pop(key)  # LRU touch
+            return ent[1]
+
+    def flush(self) -> None:
+        """Block until every offered block has drained into the store
+        (tests, stats; never on the tick path)."""
+        self._q.join()
+
+    @property
+    def stored_blocks(self) -> int:
+        with self._lock:
+            return len(self._store)
+
+    @property
+    def stored_bytes(self) -> int:
+        with self._lock:
+            return self._bytes
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._thread.join(timeout=5)
 
 
 class PrefixBlockCache:
@@ -299,10 +524,14 @@ class PagedDecodeServer:
         one system prompt's blocks, allocated once, P a block_size
         multiple; exclusive with prefix_cache. `prefill_chunk`: admission
         prefill runs pool-native through the multi-token step in chunks
-        of this many tokens. `on_token(request_id, token_id, done)`:
-        streaming callback; `eos_id`: stop token. The knobs this slice
-        does not port raise NotImplementedError where the JAX package
-        would accept them."""
+        of this many tokens. `kv_dtype`: "fp" (the compute dtype) or
+        "int8" (symmetric int8 with one f32 scale per layer, block and KV
+        head: about half an fp16 pool's bytes). `spill_bytes`: a host-RAM
+        spill tier of this many bytes for evicted prefix blocks (needs
+        prefix_cache). `on_token(request_id, token_id, done)`: streaming
+        callback; `eos_id`: stop token. The knobs this slice does not
+        port raise NotImplementedError where the JAX package would
+        accept them."""
         if getattr(dec, "rolling_cache", False):
             raise ValueError("paged serving does not support rolling caches")
         if any(":" in k for k in params["stack"]):
@@ -398,10 +627,6 @@ class PagedDecodeServer:
                 "pinning a server to a device (device=; it runs on "
                 "dec.device)", "7"
             )
-        if kv_dtype == "int8":
-            raise _not_ported("the int8 KV pool (kv_dtype='int8')", "6 (f)")
-        if spill_bytes:
-            raise _not_ported("the host spill tier (spill_bytes=)", "6 (f)")
         if decode_window > 1:
             raise _not_ported("decode_window > 1", "6 (d)")
         if constraints is not None:
@@ -427,11 +652,28 @@ class PagedDecodeServer:
         self.num_blocks = num_blocks
         dh = cfg.dim // cfg.num_heads
         pool_shape = (cfg.num_layers, num_blocks, cfg.kv_heads, block_size, dh)
-        self.pool_k = torch.zeros(pool_shape, dtype=dec.compute_dtype,
-                                  device=self.device)
-        self.pool_v = torch.zeros(pool_shape, dtype=dec.compute_dtype,
-                                  device=self.device)
-        self.pool_bytes = 2 * self.pool_k.numel() * self.pool_k.element_size()
+        # An int8 pool is a {"q", "s"} pair per K and V: int8 rows and one
+        # f32 scale per (layer, block, KV head), at 1.0 so a never-written
+        # block dequantizes to the zeros an fp pool holds.
+        scale_shape = pool_shape[:3]
+        pools = []
+        for _ in range(2):
+            if kv_dtype == "int8":
+                pools.append({
+                    "q": torch.zeros(pool_shape, dtype=torch.int8,
+                                     device=self.device),
+                    "s": torch.ones(scale_shape, dtype=torch.float32,
+                                    device=self.device),
+                })
+            else:
+                pools.append(torch.zeros(pool_shape, dtype=dec.compute_dtype,
+                                         device=self.device))
+        self.pool_k, self.pool_v = pools
+        self.pool_bytes = sum(
+            t.numel() * t.element_size()
+            for pool in pools
+            for t in (pool.values() if isinstance(pool, dict) else [pool])
+        )
         # Block 0 is trash: unallocated table entries point at it.
         self.free = list(range(1, num_blocks))
         # Host mirrors (accounting, the blockwise fold's bound) and their
@@ -474,6 +716,8 @@ class PagedDecodeServer:
         self._prefix_cache = None
         self.radix: PrefixBlockCache | None = None
         self.prefill_tokens_saved = 0
+        self._spill: HostKVSpill | None = None
+        self.spill_hits_n = 0
         if prefix_cache:
             if prefix_ids is not None:
                 raise ValueError(
@@ -481,7 +725,14 @@ class PagedDecodeServer:
                     "— pass the system prompt as part of each "
                     "request's prompt and it shares automatically"
                 )
-            self.radix = PrefixBlockCache(obs=self.obs)
+            if spill_bytes:
+                self._spill = HostKVSpill(spill_bytes, obs=self.obs)
+            self.radix = PrefixBlockCache(
+                obs=self.obs,
+                on_evict=(
+                    self._spill_block if self._spill is not None else None
+                ),
+            )
         if prefix_ids is not None:
             if prefix_ids.ndim != 2 or prefix_ids.shape[0] != 1:
                 raise ValueError("prefix_ids must be [1, P]")
@@ -631,6 +882,14 @@ class PagedDecodeServer:
             return 0, frozenset()
         return self.radix.resident_digests()
 
+    def flush_spill(self) -> None:
+        """Block until every block evicted so far has drained into the
+        host spill store, so that a later admission can revive it (a
+        block still in flight would miss and re-prefill). A no-op
+        without spill_bytes."""
+        if self._spill is not None:
+            self._spill.flush()
+
     # -- pool programs ----------------------------------------------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -643,13 +902,20 @@ class PagedDecodeServer:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _insert(self, small_k, small_v, table_row, skip: int, n: int):
+    def _insert(self, small_k, small_v, table_row, skip: int, n: int,
+                valid: int | None = None):
         """Scatter a contiguous single-request cache [L, 1, Hkv, S, Dh]
         into the pool blocks table_row[skip:n]. Rows past the prompt
         are garbage the position mask hides. The leading `skip` blocks
         (a shared prefix, or radix hits: other requests' memory) are
         never written; neither is trash, which the JAX package writes
-        with garbage, so the pool's live content is the same."""
+        with garbage, so the pool's live content is the same.
+
+        An int8 pool quantizes the blocks as they land. `valid` (a radix
+        admission's prompt length) zeroes the lane rows at and past it
+        first: that lane was gathered from the pool, so those rows are a
+        previous tenant's garbage, which would inflate the block scales.
+        The fp pool ignores it."""
         if n <= skip:
             return
         bs = self.bs
@@ -659,16 +925,32 @@ class PagedDecodeServer:
             if rows.shape[2] < n * bs:
                 rows = F.pad(rows, (0, 0, 0, n * bs - rows.shape[2]))
             L, hkv, _, dh = rows.shape
+            if isinstance(pool, dict) and valid is not None:
+                live = torch.arange(n * bs, device=rows.device) < valid
+                rows = rows * live[None, None, :, None].to(rows.dtype)
             blocks = rows.reshape(L, hkv, n, bs, dh).transpose(1, 2)
-            pool[:, dest] = blocks[:, skip:]
+            if isinstance(pool, dict):
+                qb, sb = _quantize_blocks(blocks[:, skip:])
+                pool["q"][:, dest] = qb
+                pool["s"][:, dest] = sb
+            else:
+                pool[:, dest] = blocks[:, skip:]
 
     def _gather(self, table_row: torch.Tensor):
         """The flat single-lane K/V [L, 1, Hkv, MB * bs, Dh] of a table
-        row, the inverse layout of `_insert`: radix admissions hand
-        cached prefix blocks to the flat suffix prefill this way."""
+        row in the compute dtype (an int8 pool dequantized), the inverse
+        layout of `_insert`: radix admissions hand cached prefix blocks
+        to the flat suffix prefill this way."""
         out = []
         for pool in (self.pool_k, self.pool_v):
-            kc = pool[:, table_row]  # [L, MB, Hkv, bs, Dh]
+            if isinstance(pool, dict):
+                kc = dequantize_symmetric(
+                    pool["q"][:, table_row],
+                    pool["s"][:, table_row][..., None, None],
+                    self.dec.compute_dtype,
+                )
+            else:
+                kc = pool[:, table_row]  # [L, MB, Hkv, bs, Dh]
             L, mb, hkv, bs, dh = kc.shape
             out.append(
                 kc.transpose(1, 2).reshape(L, hkv, mb * bs, dh)[:, None]
@@ -677,9 +959,15 @@ class PagedDecodeServer:
 
     def _gathered_view(self, pool_l, idx):
         """A layer's contiguous [B, Hkv, MB * bs, Dh] view of the
-        slots' tables (a copy). The fp pool's gather; the int8 pool's
-        dequantizing one waits for kv_dtype="int8"."""
-        kc = pool_l[idx]  # [B, MB, Hkv, bs, Dh]
+        slots' tables (a copy) in the compute dtype: an int8 pool
+        dequantizes at the gather, the multiply in that dtype."""
+        if isinstance(pool_l, dict):
+            kc = dequantize_symmetric(
+                pool_l["q"][idx], pool_l["s"][idx][..., None, None],
+                self.dec.compute_dtype,
+            )
+        else:
+            kc = pool_l[idx]  # [B, MB, Hkv, bs, Dh]
         b, mb, hkv, bs, dh = kc.shape
         return kc.transpose(1, 2).reshape(b, hkv, mb * bs, dh)
 
@@ -702,7 +990,8 @@ class PagedDecodeServer:
             idx = tables.long()
             posl = pos.long()
             for layer in range(dec.cfg.num_layers):
-                pk_l, pv_l = self.pool_k[layer], self.pool_v[layer]
+                pk_l = _pool_layer(self.pool_k, layer)
+                pv_l = _pool_layer(self.pool_v, layer)
                 kc = self._gathered_view(pk_l, idx)
                 vc = self._gathered_view(pv_l, idx)
                 x = dec._block(_layer_view(stack, layer), x, kc, vc, pos, plan)
@@ -720,14 +1009,18 @@ class PagedDecodeServer:
         rope = dec._rope(pos, 1)
         for layer in range(dec.cfg.num_layers):
             p = _layer_view(stack, layer)
-            pk_l, pv_l = self.pool_k[layer], self.pool_v[layer]
+            pk_l = _pool_layer(self.pool_k, layer)
+            pv_l = _pool_layer(self.pool_v, layer)
             q, k_new, v_new = dec._attn_qkv(p, x, rope)
             # Write-then-attend, on one stream.
             _pool_write_rows(pk_l, blk_w, row_w, k_new[:, :, 0, :])
             _pool_write_rows(pv_l, blk_w, row_w, v_new[:, :, 0, :])
             b, hq, _, dh = q.shape
+            # An int8 pool goes to the kernel as it is: payload + scales.
             attn = attend(
-                q[:, :, 0, :], pk_l, pv_l, tables, pos, window=window
+                q[:, :, 0, :], _pool_arr(pk_l), _pool_arr(pv_l), tables, pos,
+                window=window, scale_k=_pool_scale(pk_l),
+                scale_v=_pool_scale(pv_l),
             ).to(x.dtype).reshape(b, 1, hq * dh)
             x = dec._attn_out(p, x, attn)
         return dec._final_logits(params, x)
@@ -761,13 +1054,14 @@ class PagedDecodeServer:
             idx = tables.long()
             rows = torch.arange(b, device=self.device)[:, None]
             for layer in range(dec.cfg.num_layers):
-                pk_l, pv_l = self.pool_k[layer], self.pool_v[layer]
+                pk_l = _pool_layer(self.pool_k, layer)
+                pv_l = _pool_layer(self.pool_v, layer)
                 kc = self._gathered_view(pk_l, idx)
                 vc = self._gathered_view(pv_l, idx)
                 x = dec._block(_layer_view(stack, layer), x, kc, vc, pos, plan)
                 # Multi-row scatter-back: T fresh rows per slot.
-                _pool_write_rows(pk_l, dest, rowi, kc[rows, :, pvec])
-                _pool_write_rows(pv_l, dest, rowi, vc[rows, :, pvec])
+                _pool_write_rows_mt(pk_l, dest, rowi, kc[rows, :, pvec])
+                _pool_write_rows_mt(pv_l, dest, rowi, vc[rows, :, pvec])
             return dec._final_logits(params, x)
         # The multi-token sibling of `_step`'s choice (the JAX package's
         # `_blockwise_attend_mt` fold, or the prefill kernel).
@@ -778,14 +1072,17 @@ class PagedDecodeServer:
         rope = dec._rope(pos, t)
         for layer in range(dec.cfg.num_layers):
             p = _layer_view(stack, layer)
-            pk_l, pv_l = self.pool_k[layer], self.pool_v[layer]
+            pk_l = _pool_layer(self.pool_k, layer)
+            pv_l = _pool_layer(self.pool_v, layer)
             q, k_new, v_new = dec._attn_qkv(p, x, rope)
             # Write-then-attend, on one stream.
-            _pool_write_rows(pk_l, dest, rowi, k_new.transpose(1, 2))
-            _pool_write_rows(pv_l, dest, rowi, v_new.transpose(1, 2))
+            _pool_write_rows_mt(pk_l, dest, rowi, k_new.transpose(1, 2))
+            _pool_write_rows_mt(pv_l, dest, rowi, v_new.transpose(1, 2))
             _, hq, _, dh = q.shape
             attn = attend(
-                q, pk_l, pv_l, tables, pos, window=window
+                q, _pool_arr(pk_l), _pool_arr(pv_l), tables, pos,
+                window=window, scale_k=_pool_scale(pk_l),
+                scale_v=_pool_scale(pv_l),
             ).transpose(1, 2).reshape(b, t, hq * dh).to(x.dtype)
             x = dec._attn_out(p, x, attn)
         return dec._final_logits(params, x)
@@ -879,6 +1176,64 @@ class PagedDecodeServer:
         self.obs.pool_blocks_free.set(len(self.free))
         self.obs.pool_blocks_used.set(self.blocks_in_use)
 
+    # -- the spill tier ---------------------------------------------------
+
+    def _spill_block(self, key: bytes, tok: bytes, blk: int) -> None:
+        """PrefixBlockCache on_evict hook (serving thread): clone the
+        evicted block's stored bytes on the serving stream and hand the
+        clones to the drain thread with an event recorded after them.
+        The pool is written in place and the block is about to be
+        reused, so a view would read its next tenant's rows; the clone
+        is ordered before any later write on the stream. Nothing here
+        waits for the card."""
+        arrays = tuple(t[:, blk : blk + 1].clone() for t in self._leaves())
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        self._spill.offer(key, tok, arrays, ready)
+
+    def _leaves(self) -> tuple:
+        """The pool's tensors, [L, NB, ...] each: K's int8 payload and
+        scales then V's, or the fp K and V."""
+        if isinstance(self.pool_k, dict):
+            return (self.pool_k["q"], self.pool_k["s"],
+                    self.pool_v["q"], self.pool_v["s"])
+        return (self.pool_k, self.pool_v)
+
+    def _revive_spilled(self, hits: list[int], keys: list[bytes],
+                        toks: list[bytes], n_full: int) -> list[int]:
+        """Extend a radix walk's leading hit run from the spill tier: for
+        each miss, look the chain digest up in the store and, on a
+        (token-guarded) hit, upload the stored bytes VERBATIM into a
+        fresh block and register it. No dequantize/requantize round
+        trip, so a revived block is bit-identical to the parked block it
+        was spilled from, and a spill hit is token-identical to a
+        resident one. Stops at the first store miss (block j is
+        meaningless without 0..j-1) or when the pool yields no block.
+        The upload reads pinned host tensors that the store keeps (and
+        the host allocator holds until the copy has run)."""
+        j = len(hits)
+        while j < n_full:
+            got = self._spill.get(keys[j], toks[j])
+            if got is None:
+                break
+            if not self.free:
+                self.free.extend(self.radix.evict(1))
+                if not self.free:
+                    break
+            blk = self.free.pop()
+            for dst, src in zip(self._leaves(), got):
+                dst[:, blk].copy_(src[:, 0], non_blocking=True)
+            displaced = self.radix.register(keys[j], toks[j], blk)
+            if displaced is not None:
+                self.free.append(displaced)
+            hits.append(blk)
+            self.spill_hits_n += 1
+            self.obs.prefix_spill_hits.inc()
+            j += 1
+        return hits
+
     # -- admission --------------------------------------------------------
 
     def _flat_prefill(self, small, suffix, base):
@@ -909,6 +1264,8 @@ class PagedDecodeServer:
         n_full = t0 // bs
         total = -(-(t0 + steps) // bs)
         hits, keys, toks = self.radix.walk(prompt[0].numpy(), n_full, bs)
+        if self._spill is not None and len(hits) < n_full:
+            hits = self._revive_spilled(hits, keys, toks, n_full)
         need = total - len(hits)
         if need > len(self.free):
             self.free.extend(self.radix.evict(need - len(self.free)))
@@ -952,7 +1309,8 @@ class PagedDecodeServer:
             # Hit blocks are never rewritten: their recomputed rows are
             # equivalent, not guaranteed identical, and they belong to
             # every holder of the chain.
-            self._insert(small["k"], small["v"], table_row, len(hits), total)
+            self._insert(small["k"], small["v"], table_row, len(hits), total,
+                         valid=t0)
         for j in range(len(hits), n_full):
             displaced = self.radix.register(keys[j], toks[j],
                                             int(table_row[j]))
@@ -1187,7 +1545,8 @@ def serve_paged(
     pp_balance: str = "equal",
 ) -> tuple[list[torch.Tensor], ServerStats]:
     """One-shot paged serving: returns (outputs in submission order,
-    stats incl. peak pool usage). The knobs are PagedDecodeServer's;
+    stats incl. peak pool usage, `kv_dtype`, `pool_bytes` and the spill
+    tier's totals). The knobs are PagedDecodeServer's;
     `adapter_ids` and `sampling` assign an adapter (not ported: only 0)
     and a SamplingParams per request."""
     srv = PagedDecodeServer(
@@ -1236,6 +1595,8 @@ def serve_paged(
         for (p, s), a, sp in zip(requests, aids, samps)
     ]
     done = srv.run()
+    # Drain pending spill copies so that the stats read a settled store.
+    srv.flush_spill()
     stats = ServerStats.snapshot(
         srv.obs.registry,
         ticks=srv.ticks,
@@ -1252,6 +1613,13 @@ def serve_paged(
         prefill_chunk=srv.prefill_chunk,
         kv_dtype=srv.kv_dtype,
         pool_bytes=srv.pool_bytes,
+        spilled_blocks=(
+            srv._spill.stored_blocks if srv._spill is not None else 0
+        ),
+        spill_hits=srv.spill_hits_n,
+        spill_stored_bytes=(
+            srv._spill.stored_bytes if srv._spill is not None else 0
+        ),
         prefill_stall_ticks=srv.prefill_stall_ticks_n,
         decode_stall_fraction=srv.decode_stall_fraction_last,
         decode_window=srv.decode_window,
@@ -1260,4 +1628,6 @@ def serve_paged(
             srv.window_tokens / srv.dispatches if srv.dispatches else 0.0
         ),
     )
+    if srv._spill is not None:
+        srv._spill.close()  # one-shot: the drain thread ends with the run
     return [done[r] for r in rids], stats

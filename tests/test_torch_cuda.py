@@ -1,6 +1,6 @@
 """Card-only tests of defer_tpu_torch: the hand-written kernels against
-their plain versions, and the main paths through them (run_defer and
-the decode server).
+their plain versions, and the main paths through them (run_defer, the
+decode server and the paged server, on a float and an int8 pool).
 
 Every test here is marked `cuda` and skips without a CUDA card. The
 file imports neither jax nor defer_tpu, so on the card it runs on its
@@ -18,6 +18,7 @@ for bf16 decoding, as examples/serve_decode.py uses).
 
 import queue
 import threading
+import time
 
 import pytest
 import torch
@@ -26,6 +27,7 @@ from defer_tpu_torch import DEFER, DeferConfig
 from defer_tpu_torch.models import get_model
 from defer_tpu_torch.models.llama import llama_config
 from defer_tpu_torch.models.gpt import GptDecoder
+from defer_tpu_torch.models.quant import quantize_symmetric
 from defer_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -40,7 +42,7 @@ from defer_tpu_torch.ops.paged_flash_prefill import (
     paged_flash_prefill_plain,
 )
 from defer_tpu_torch.runtime.decode_server import DecodeServer
-from defer_tpu_torch.runtime.paged import serve_paged
+from defer_tpu_torch.runtime.paged import PagedDecodeServer, serve_paged
 from defer_tpu_torch.parallel.pipeline import cast_params_to_storage
 
 pytestmark = pytest.mark.cuda
@@ -362,11 +364,9 @@ def test_paged_kernels_read_only_live_blocks(card):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
-def test_pallas_server_matches_gathered_server(card):
-    """A small f32 llama through the port's "pallas" server (both paged
-    kernels: chunked prefill after radix hits, then the ticks) gives the
-    tokens of its "gathered" server, and launches each kernel once a
-    layer per tick or chunk."""
+def _small_llama(card):
+    """A small f32 llama on the card and four requests behind one shared
+    16-token system prompt: (cfg, decoder, params, requests)."""
     cfg = llama_config(num_layers=2, dim=256, num_heads=4, num_kv_heads=2,
                        ffn_dim=512, vocab_size=512, max_len=128,
                        window=40)
@@ -380,6 +380,15 @@ def test_pallas_server_matches_gathered_server(card):
             dim=1), s)
         for n, s in ((5, 12), (9, 30), (3, 7), (20, 16))
     ]
+    return cfg, dec, params, reqs
+
+
+def test_pallas_server_matches_gathered_server(card):
+    """A small f32 llama through the port's "pallas" server (both paged
+    kernels: chunked prefill after radix hits, then the ticks) gives the
+    tokens of its "gathered" server, and launches each kernel once a
+    layer per tick or chunk."""
+    cfg, dec, params, reqs = _small_llama(card)
     knobs = dict(num_blocks=40, block_size=8, max_batch=2,
                  prefix_cache=True, prefill_chunk=8)
     want, _ = serve_paged(dec, params, reqs, attention="gathered", **knobs)
@@ -390,3 +399,145 @@ def test_pallas_server_matches_gathered_server(card):
     assert paged_flash_decode.launches - dec0 == cfg.num_layers * stats.ticks
     assert paged_flash_prefill.launches > pre0
     assert stats.prefill_tokens_saved == 16 * 3
+
+
+def _int8(pool):
+    """A float pool as the int8 pool stores it: payload and one f32 scale
+    per (block, head)."""
+    return quantize_symmetric(pool.float(), axis=(-2, -1))
+
+
+@pytest.mark.parametrize("b,hq,hkv,dh,bs,mb,dtype,pos,window",
+                         PAGED_DECODE_CASES)
+def test_paged_flash_decode_int8_matches_plain(card, b, hq, hkv, dh, bs, mb,
+                                               dtype, pos, window):
+    """The int8 scale path over the same grid: the kernel reads the int8
+    payload and scales as they are; the plain version widens and scales
+    each gathered block. Both compute in f32, so the float tolerances
+    hold."""
+    q, pk, pv, tables, posv = _paged_inputs(card, b, hq, hkv, None, dh, bs,
+                                            mb, dtype, pos)
+    (kq, ks), (vq, vs) = _int8(pk), _int8(pv)
+    before = paged_flash_decode.launches_int8
+    fp_before = paged_flash_decode.launches
+    got = paged_flash_decode(q, kq, vq, tables, posv, window=window,
+                             scale_k=ks, scale_v=vs)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches_int8 == before + 1
+    assert paged_flash_decode.launches == fp_before
+    want = paged_flash_decode_plain(q, kq, vq, tables, posv, window=window,
+                                    num_blocks=max(pos) // bs + 1,
+                                    scale_k=ks, scale_v=vs)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,dh,bs,mb,dtype,start,window",
+                         PAGED_PREFILL_CASES)
+def test_paged_flash_prefill_int8_matches_plain(card, b, hq, hkv, t, dh, bs,
+                                                mb, dtype, start, window):
+    q, pk, pv, tables, startv = _paged_inputs(card, b, hq, hkv, t, dh, bs,
+                                              mb, dtype, start)
+    (kq, ks), (vq, vs) = _int8(pk), _int8(pv)
+    before = paged_flash_prefill.launches_int8
+    got = paged_flash_prefill(q, kq, vq, tables, startv, window=window,
+                              scale_k=ks, scale_v=vs)
+    torch.cuda.synchronize()
+    assert paged_flash_prefill.launches_int8 == before + 1
+    want = paged_flash_prefill_plain(
+        q, kq, vq, tables, startv, window=window,
+        num_blocks=min((max(start) + t - 1) // bs + 1, mb),
+        scale_k=ks, scale_v=vs,
+    )
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_int8_kernels_read_only_live_blocks(card):
+    """An int8 pool whose dead blocks hold garbage payload and NaN scales
+    (trash block 0 and every block no live row reaches): neither kernel
+    reads them."""
+    q, pk, pv, tables, posv = _paged_inputs(card, 2, 8, 2, 6, 64, 16, 16,
+                                            torch.bfloat16, [100, 37])
+    (kq, ks), (vq, vs) = _int8(pk), _int8(pv)
+    # Window 80: slot 0 reads rows 21..105 (blocks 1-6), slot 1 rows
+    # 0..42 (blocks 0-2), for the decode row and the 6 prefill rows.
+    live = set(tables[0, 1:7].tolist()) | set(tables[1, :3].tolist())
+
+    def both():
+        return (
+            paged_flash_decode(q[:, :, 0, :], kq, vq, tables, posv,
+                               window=80, scale_k=ks, scale_v=vs),
+            paged_flash_prefill(q, kq, vq, tables, posv, window=80,
+                                scale_k=ks, scale_v=vs),
+        )
+
+    want = both()
+    dead = [i for i in range(kq.shape[0]) if i not in live]
+    kq[dead], vq[dead] = 127, -127
+    ks[dead], vs[dead] = float("nan"), float("nan")
+    got = both()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_int8_pallas_server_matches_blockwise_server(card):
+    """The same small f32 llama on an int8 pool: the "pallas" server (the
+    kernels' int8 path, launched and counted apart from the float one)
+    gives the tokens of the "blockwise" server, the plain PyTorch fold of
+    the same write-then-attend math. (The "gathered" server attends each
+    tick's own row before it is quantized, so on an int8 pool its tokens
+    are another valid greedy run, not the same one.)"""
+    cfg, dec, params, reqs = _small_llama(card)
+    knobs = dict(num_blocks=40, block_size=8, max_batch=2,
+                 prefix_cache=True, prefill_chunk=8, kv_dtype="int8")
+    want, _ = serve_paged(dec, params, reqs, attention="blockwise", **knobs)
+    counts = (paged_flash_decode.launches, paged_flash_prefill.launches,
+              paged_flash_decode.launches_int8,
+              paged_flash_prefill.launches_int8)
+    got, stats = serve_paged(dec, params, reqs, attention="pallas", **knobs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    dec_fp, pre_fp, dec8, pre8 = counts
+    assert paged_flash_decode.launches == dec_fp
+    assert paged_flash_prefill.launches == pre_fp
+    assert (paged_flash_decode.launches_int8 - dec8
+            == cfg.num_layers * stats.ticks)
+    assert paged_flash_prefill.launches_int8 > pre8
+    assert stats.prefill_tokens_saved == 16 * 3
+    assert stats.kv_dtype == "int8"
+
+
+def test_spill_drain_makes_no_sync(card):
+    """A prefix block handed to the host spill tier drains to host memory
+    while the serving thread ticks under
+    torch.cuda.set_sync_debug_mode("error"): neither the clone on the
+    serving stream, nor the drain thread's copy, nor the ticks wait for
+    the card, and the store holds the block's bytes as they were."""
+    _, dec, params, reqs = _small_llama(card)
+    srv = PagedDecodeServer(dec, params, num_blocks=16, block_size=8,
+                            max_batch=1, attention="pallas",
+                            prefix_cache=True, kv_dtype="int8",
+                            spill_bytes=1 << 20)
+    srv.submit(reqs[1][0], 30)
+    srv.step()  # the admission prefill and the first tick
+    blk = int(srv.tables[0, 0])
+    want = [t[:, blk].cpu() for t in srv._leaves()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srv._spill_block(b"key", b"tok", blk)
+        for _ in range(3):
+            srv.step()
+        deadline = time.monotonic() + 10
+        while srv._spill.stored_blocks == 0 and time.monotonic() < deadline:
+            time.sleep(1e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = srv._spill.get(b"key", b"tok")
+    assert got is not None, "the block never reached the host store"
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, 0], w)
+    srv._spill.close()

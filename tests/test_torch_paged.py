@@ -12,7 +12,8 @@ server runs its kernels in interpret mode, which one case pays for, to
 pin the per-slot row counters). `PrefixBlockCache` must give the JAX
 class's digests and decisions. Sampled slots are held against the
 port's solo `generate` with the same seed (torch and JAX generators
-differ). The knobs this slice leaves out raise NotImplementedError.
+differ). The knobs the port leaves out raise NotImplementedError (the
+int8 pool and the spill tier: tests/test_torch_kv_quant.py).
 """
 
 import itertools
@@ -372,12 +373,11 @@ def test_device_tables_and_positions_follow_the_host():
 def test_knobs_not_ported_raise():
     dec, params, _, _ = _model("gpt", 32)
     base = dict(num_blocks=8, block_size=4)
-    for kw in (dict(kv_dtype="int8"), dict(decode_window=2),
+    for kw in (dict(decode_window=2),
                dict(spec_k=1, spec_draft=dec, spec_params=params),
                dict(prefill_budget=4), dict(mesh=object()),
                dict(device=CPU), dict(constraints={}, eos_id=0),
-               dict(pp_stages=2),
-               dict(prefix_cache=True, spill_bytes=1 << 20)):
+               dict(pp_stages=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PagedDecodeServer(dec, params, **base, **kw)
     banked = {**params, "stack": {**params["stack"],

@@ -7,7 +7,8 @@ the CPU), to the JAX package's plain folds `_blockwise_attend(_mt)`,
 and to the port's `paged_flash_decode_plain` /
 `paged_flash_prefill_plain`: small shapes (B=3, Hq=4, Hkv=2, bs=4, MB=4,
 Dh=16, T=3), tables whose unallocated entries point at trash block 0,
-with and without a window that crosses a block edge. Everything is f32
+with and without a window that crosses a block edge, on a float pool
+and on an int8 pool with per-(block, head) scales. Everything is f32
 and every side computes f32 scores and probabilities: atol = rtol =
 1e-5. The live-range helpers must equal the JAX ones. On CPU tensors the
 wrappers take the plain version and launch nothing; the kernels
@@ -23,6 +24,7 @@ import torch
 from defer_tpu.ops import pallas_attention as jax_pa
 from defer_tpu.runtime.paged import _blockwise_attend as jax_blockwise
 from defer_tpu.runtime.paged import _blockwise_attend_mt as jax_blockwise_mt
+from defer_tpu_torch.models.quant import quantize_symmetric
 from defer_tpu_torch.ops.paged_flash_decode import (
     _decode_lo_hi,
     folded_blocks,
@@ -104,6 +106,77 @@ def test_prefill_plain_matches_the_jax_kernel_and_fold(start, window):
     )
 
 
+def _int8_pool(seed):
+    """The seeded pool as the int8 pool stores it: int8 payload and one
+    f32 scale per (block, head), numpy arrays."""
+    out = []
+    for pool in _pool(seed)[1:]:
+        q, s = quantize_symmetric(torch.from_numpy(pool), axis=(-2, -1))
+        out += [q.numpy(), s.numpy()]
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("pos", [[15, 2, 9], [0, 3, 11]])
+def test_decode_plain_int8_matches_the_jax_kernel_and_fold(pos, window):
+    """The quantized case: an int8 pool with per-(block, head) scales,
+    through the Pallas kernel's scale path (interpret mode), the JAX
+    fold over the {"q", "s"} pool and the port's plain version."""
+    kq, ks, vq, vs = _int8_pool(3)
+    q = np.random.default_rng(4).standard_normal((B, HQ, DH), np.float32)
+    posa = np.asarray(pos, np.int32)
+    want = jax_pa.paged_flash_decode(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(TABLES), jnp.asarray(posa), window=window,
+        interpret=True, scale_k=jnp.asarray(ks), scale_v=jnp.asarray(vs),
+    )
+    fold = jax_blockwise(
+        jnp.asarray(q)[:, :, None, :],
+        {"q": jnp.asarray(kq), "s": jnp.asarray(ks)},
+        {"q": jnp.asarray(vq), "s": jnp.asarray(vs)},
+        jnp.asarray(TABLES), jnp.asarray(posa), BS, MB, window,
+    )
+    tq, tkq, tks, tvq, tvs, tt, tp = _t(q, kq, ks, vq, vs, TABLES, posa)
+    got = paged_flash_decode_plain(tq, tkq, tvq, tt, tp, window=window,
+                                   scale_k=tks, scale_v=tvs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(got.reshape(B, 1, HQ * DH).numpy(),
+                               np.asarray(fold), rtol=TOL, atol=TOL)
+    torch.testing.assert_close(
+        paged_flash_decode(tq, tkq, tvq, tt, tp, window=window,
+                           scale_k=tks, scale_v=tvs), got, rtol=0, atol=0,
+    )
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("start", [[0, 1, 9], [13, 0, 6]])
+def test_prefill_plain_int8_matches_the_jax_kernel_and_fold(start, window):
+    kq, ks, vq, vs = _int8_pool(5)
+    q = np.random.default_rng(6).standard_normal((B, HQ, T, DH), np.float32)
+    sa = np.asarray(start, np.int32)
+    want = jax_pa.paged_flash_prefill(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(TABLES), jnp.asarray(sa), window=window,
+        interpret=True, scale_k=jnp.asarray(ks), scale_v=jnp.asarray(vs),
+    )
+    fold = jax_blockwise_mt(
+        jnp.asarray(q),
+        {"q": jnp.asarray(kq), "s": jnp.asarray(ks)},
+        {"q": jnp.asarray(vq), "s": jnp.asarray(vs)},
+        jnp.asarray(TABLES), jnp.asarray(sa), BS, MB, window,
+    )
+    tq, tkq, tks, tvq, tvs, tt, ts = _t(q, kq, ks, vq, vs, TABLES, sa)
+    got = paged_flash_prefill_plain(tq, tkq, tvq, tt, ts, window=window,
+                                    scale_k=tks, scale_v=tvs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(
+        got.transpose(1, 2).reshape(B, T, HQ * DH).numpy(),
+        np.asarray(fold), rtol=TOL, atol=TOL,
+    )
+
+
 @pytest.mark.parametrize("window", [None, 1, 5, 16])
 @pytest.mark.parametrize("bs", [1, 4, 8])
 def test_live_ranges_match_jax(window, bs):
@@ -154,9 +227,22 @@ def test_validation_and_int8_scales(fn, q_shape):
     _, pk, pv = _pool()
     tk, tv, tt = _t(pk, pv, TABLES)
     q = torch.zeros(q_shape)
-    with pytest.raises(NotImplementedError, match="int8"):
-        fn(q, tk, tv, tt, 3, scale_k=torch.ones(NB, HKV),
-           scale_v=torch.ones(NB, HKV))
+    kq, vq = tk.to(torch.int8), tv.to(torch.int8)
+    ones = torch.ones(NB, HKV)
+    with pytest.raises(ValueError, match="both scale_k and scale_v"):
+        fn(q, kq, vq, tt, 3, scale_k=ones)
+    with pytest.raises(ValueError, match="both scale_k and scale_v"):
+        fn(q, kq, vq, tt, 3, scale_v=ones)
+    with pytest.raises(ValueError, match="needs its per-"):
+        fn(q, kq, vq, tt, 3)
+    with pytest.raises(ValueError, match="int8 pool"):
+        fn(q, tk, tv, tt, 3, scale_k=ones, scale_v=ones)
+    with pytest.raises(ValueError, match=r"float32 \[NB, Hkv\]"):
+        fn(q, kq, vq, tt, 3, scale_k=ones[:, :1], scale_v=ones)
+    with pytest.raises(ValueError, match=r"float32 \[NB, Hkv\]"):
+        fn(q, kq, vq, tt, 3, scale_k=ones, scale_v=ones.double())
+    got = fn(q, kq, vq, tt, 3, scale_k=ones, scale_v=ones)
+    assert got.shape == q.shape and torch.isfinite(got).all()
     with pytest.raises(ValueError, match="multiple"):
         fn(torch.zeros(q_shape[:1] + (3,) + q_shape[2:]), tk, tv, tt, 3)
     with pytest.raises(ValueError, match="head dim"):
