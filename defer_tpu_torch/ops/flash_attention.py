@@ -10,14 +10,17 @@ optional causal mask with the same finite `_MASK_VALUE`, and the output
 What bounds it on an H100: at BERT-base's shape (B=16, H=12, S=128,
 Dh=64, bf16) the call moves 12.6 MB (q, k, v, o once each) and does
 0.81 GFLOP, i.e. 3.8 us at 3.35 TB/s against 0.8 us at 989 TFLOP/s:
-memory-bound. The design keeps the S x S scores out of device memory,
-as the TPU kernel did: one thread block per (batch*head, 64-row q tile)
-stages K/V tiles through shared memory and keeps m/l/acc in registers,
-so q, k, v are read and o written once per q tile (twice for K/V at
-S=128, from L2). The products are f32 FMAs, the arithmetic of the TPU
-kernel, which casts to f32 before its dots; moving them onto the tensor
-cores (mma/wgmma with bf16 operands) is later work. The source note in
-`csrc/flash_attention.cu` has the thread layout.
+memory-bound, once the products run on the tensor cores. The design
+keeps the S x S scores out of device memory, as the TPU kernel did: one
+CTA of 4 warps per (batch*head, 64-row q tile), K/V tiles of 64 rows
+copied into shared memory in q's own type by cp.async, double-buffered,
+and S = Q K^T and O += P V on `mma.sync` bf16/f16 -> f32 with the
+online softmax in registers (`csrc/attn_tile.cuh`). The scores are
+scaled by Dh**-0.5 in f32; P is rounded to q's type before P V, as the
+TPU kernel's f32 dots, one bf16 MXU pass at default precision, round
+their operands. f32 inputs keep an f32 FMA loop, chosen by dtype: the
+tensor cores take f32 only as TF32, which misses the f32 tolerance.
+`csrc/flash_attention.cu` has the layout.
 
 Dispatch follows the tensor's device and nothing else: a CUDA tensor
 launches the kernel or raises; a CPU or meta tensor takes the plain
@@ -125,6 +128,16 @@ def _flash_cuda(
         )
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the CUDA flash kernel needs a unit Dh stride")
+    # 16-bit rows are staged by 16-byte cp.async copies.
+    if q.dtype != torch.float32 and any(
+        t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                 for st in t.stride()[:3])
+        for t in (q, k, v)
+    ):
+        raise ValueError(
+            "the CUDA flash kernel needs float16/bfloat16 rows that start "
+            "on 16 bytes"
+        )
     fn = _kernel()
     out = torch.empty(
         (b, s_q, h, dh), dtype=q.dtype, device=q.device

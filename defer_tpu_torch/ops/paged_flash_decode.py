@@ -216,14 +216,21 @@ def _kernel():
     return fn
 
 
-def _num_splits(device: torch.device, ctas: int, bs: int, mb: int) -> int:
-    """Splits of each slot's live range: enough CTAs for about four a
-    streaming multiprocessor, no more than the table span holds chunks
-    of whole blocks of at least `_MIN_CHUNK` rows. Depends on shapes
-    only, never on pos."""
-    want = math.ceil(4 * _sm_count(device.index or 0) / ctas)
+def _split_count(sms: int, ctas: int, bs: int, mb: int,
+                 per_sm: int = 4) -> int:
+    """Splits of each slot's live range on a card of `sms` streaming
+    multiprocessors: enough CTAs for about `per_sm` an SM, no more than
+    the table span of `mb` blocks of `bs` rows holds chunks of whole
+    blocks of at least `_MIN_CHUNK` rows. Depends on shapes only, never
+    on pos."""
+    want = math.ceil(per_sm * sms / ctas)
     chunk_blocks = math.ceil(_MIN_CHUNK / bs)
     return max(1, min(want, math.ceil(mb / chunk_blocks), _MAX_SPLITS))
+
+
+def _num_splits(device: torch.device, ctas: int, bs: int, mb: int) -> int:
+    """`_split_count` on the card that holds `device`."""
+    return _split_count(_sm_count(device.index or 0), ctas, bs, mb)
 
 
 def _pool_code(kernel: str, dtypes) -> int:

@@ -15,20 +15,29 @@ the softmax runs in f32 with the finite `_MASK_VALUE`, and the output is
 cast to q's dtype once.
 
 What bounds it on an H100: the live pool rows and q/o, read and written
-once; at a 64-token chunk the products are a few MFLOP a head, far under
-the bytes' time. The design is `csrc/flash_attention.cu`'s: one CTA per
-(32 token-major query rows, KV head, slot), q and K/V tiles of 64 pool
-rows staged in shared memory as f32 through 16-byte loads, 4 threads a
-query row, an f32 online softmax per row. The CTA reads start[b] on the
+once, and 4 * T * Hq * Dh FLOP a live column: at a 2k-deep 64-token
+chunk of Mistral-7B about 3 us of bytes and 2 us of tensor-core
+operations. `csrc/paged_flash_prefill.cu` (on the tile engine of
+`csrc/attn_tile.cuh`) puts both products on the tensor cores: one CTA
+per (64 token-major query rows, KV head, slot, split), K/V tiles of 64
+pool rows resolved through the table and staged in shared memory in
+their own type by cp.async, double-buffered, `mma.sync` bf16/f16 -> f32
+with P rounded to q's type in registers. The CTA reads start[b] on the
 card and walks only the live columns of its rows, from the edge of the
-first live block, each tile's rows fetched through the table. Rows
-padded past T * G are never written. `csrc/paged_flash_prefill.cu` has
-the thread layout.
+first live block. Split-K: the live tiles of each (row tile, KV head,
+slot) are cut into `splits` chunks of whole 64-column tiles; `splits`
+comes from the SM count and the table span (`_prefill_splits`), never
+from start, so the launch needs no host sync; with more than one split a
+second small kernel merges the splits that ran from an f32 workspace.
+Rows padded past T * G are never written. f32 q keeps the f32 FMA loop
+of the first form (TF32 would miss the f32 tolerance).
 
 The pool is q's dtype, or int8 with per-(block, head) f32 scales
 `scale_k`/`scale_v` [NB, Hkv], as in `paged_flash_decode`: the kernel
-stages the int8 payload (16 columns a load) and widens each row into
-shared memory times its block's scale; dead columns read neither.
+copies the int8 payload (16 columns a copy), widens each tile once to
+q's type in shared memory (exact), and folds the scales per column:
+scores times the column's K scale, probabilities times its V scale
+before P V. Dead columns read neither payload nor scale.
 
 Dispatch follows the tensor's device and nothing else: a CUDA tensor
 launches the kernel or raises; a CPU or meta tensor takes the plain
@@ -39,10 +48,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from defer_tpu_torch.ops.flash_decode import _DTYPE_CODE, _HEAD_DIMS, _MASK_VALUE
+from defer_tpu_torch.ops.flash_decode import (
+    _DTYPE_CODE,
+    _HEAD_DIMS,
+    _MASK_VALUE,
+    _sm_count,
+)
 from defer_tpu_torch.ops.paged_flash_decode import (
     _check_pool,
     _check_scales,
@@ -50,10 +65,17 @@ from defer_tpu_torch.ops.paged_flash_decode import (
     _pool_rows,
     _positions,
     _scale_strides,
+    _split_count,
     folded_blocks,
 )
 
 _SOURCE = "paged_flash_prefill.cu"
+# Query rows of a CTA and key columns of a tile (kRows / kCols in
+# csrc/attn_tile.cuh).
+_TILE = 64
+# CTAs of the tensor-core kernel an SM holds at once (about 90 KB of
+# shared memory each at Dh 128).
+_CTAS_PER_SM = 2
 
 
 def _prefill_lo_hi(p0: int, t_q: int, block_size: int, window: int | None):
@@ -64,6 +86,56 @@ def _prefill_lo_hi(p0: int, t_q: int, block_size: int, window: int | None):
     hi = (p0 + t_q - 1) // block_size
     lo = max(p0 - window + 1, 0) // block_size if window is not None else 0
     return lo, hi
+
+
+def _live_span(start: int, r0: int, group: int, t_q: int, bs: int, mb: int,
+               window: int | None, splits: int):
+    """`live_span` of the CUDA source for the token-major rows r0 ..
+    r0 + 63: the first and last live column (c0 on a block edge), the
+    64-column tiles between them, and the tiles one split takes."""
+    t_first = r0 // group
+    t_last = min((r0 + _TILE - 1) // group, t_q - 1)
+    hi = min(start + t_last, mb * bs - 1)
+    lo = max(start + t_first - window + 1, 0) if window is not None else 0
+    c0 = lo // bs * bs
+    ntiles = max(1, (hi - c0) // _TILE + 1)
+    return c0, hi, ntiles, math.ceil(ntiles / splits)
+
+
+def _split_columns(start: int, r0: int, group: int, t_q: int, bs: int,
+                   mb: int, window: int | None, splits: int):
+    """The columns [first, last] each split of the row tile at r0 walks,
+    for the splits that run: split s takes tiles s * chunk .. (s + 1) *
+    chunk - 1 and exits when its first tile lies past the live range
+    (split 0 always runs); columns past hi weigh nothing."""
+    c0, hi, ntiles, chunk = _live_span(start, r0, group, t_q, bs, mb,
+                                       window, splits)
+    out = []
+    for s in range(splits):
+        if s * chunk >= ntiles and s > 0:
+            continue
+        first = c0 + s * chunk * _TILE
+        out.append((first, min(first + chunk * _TILE - 1, hi)))
+    return out
+
+
+def _active_splits(start: int, r0: int, group: int, t_q: int, bs: int,
+                   mb: int, window: int | None, splits: int) -> int:
+    """How many splits the merge kernel combines for the row tile at r0."""
+    _, _, ntiles, chunk = _live_span(start, r0, group, t_q, bs, mb, window,
+                                     splits)
+    return math.ceil(ntiles / chunk)
+
+
+def _prefill_splits(sms: int, b: int, hq: int, hkv: int, t_q: int, bs: int,
+                    mb: int) -> int:
+    """Split-K count of the tensor-core kernel on a card of `sms` SMs:
+    `paged_flash_decode`'s arithmetic with 64-column tiles for blocks,
+    about `_CTAS_PER_SM` CTAs an SM, no more splits than the table span
+    holds tiles. From shapes only, never from start."""
+    ctas = b * hkv * math.ceil(t_q * (hq // hkv) / _TILE)
+    return _split_count(sms, ctas, _TILE, math.ceil(mb * bs / _TILE),
+                        per_sm=_CTAS_PER_SM)
 
 
 def _check(q, pool_k, pool_v, tables, window) -> None:
@@ -143,28 +215,30 @@ def _kernel():
     fn.argtypes = [
         # q, pool_k, pool_v, o, tables, scale_k, scale_v, start
         *[ctypes.c_void_p] * 8,
-        ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         # dtype, pool_dtype, batch, hq, hkv, t_q, bs, mb, dh
         *[ctypes.c_int] * 9,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_strides(q_stride, k_stride, v_stride, tables_stride0, out_shape,
-                    scale_strides, dtypes, dh):
-    """The element strides a launch passes and the pool dtype code,
-    checked and computed once per layout. Raises on what the kernel does
-    not take."""
+def _launch_plan(q_shape, q_stride, pool_shape, k_stride, v_stride,
+                 tables_stride0, mb, scale_strides, dtypes, device):
+    """What a launch needs beyond the pointers, checked and computed
+    once per shape: (splits, element strides as a ctypes array, the pool
+    dtype code). Raises on what the kernel does not take."""
+    b, hq, t, dh = q_shape
+    hkv, bs = pool_shape[1], pool_shape[2]
     pool_code = _pool_code("paged flash-prefill", dtypes)
     if dh not in _HEAD_DIMS:
         raise ValueError(
             f"the CUDA paged flash-prefill kernel takes Dh in {_HEAD_DIMS}, "
             f"got {dh}"
         )
-    # The kernel stages rows in 16-byte loads: rows must be aligned to 16.
+    # The kernel stages rows in 16-byte copies: rows must be aligned to 16.
     for name, stride, dtype in (("q", q_stride, dtypes[0]),
                                 ("pool_k", k_stride, dtypes[1]),
                                 ("pool_v", v_stride, dtypes[2])):
@@ -172,12 +246,16 @@ def _launch_strides(q_stride, k_stride, v_stride, tables_stride0, out_shape,
             raise ValueError(f"{name} needs a unit Dh stride")
         if any(st * dtype.itemsize % 16 for st in stride[:-1]):
             raise ValueError(f"{name} rows are not 16-byte aligned")
-    _, t, hq, _ = out_shape  # the output is [B, T, Hq, Dh], contiguous
+    # f32 q runs the FMA loop, which does not split.
+    splits = 1 if dtypes[0] == torch.float32 else _prefill_splits(
+        _sm_count(device.index or 0), b, hq, hkv, t, bs, mb
+    )
+    # The output is [B, T, Hq, Dh], contiguous.
     strides = (ctypes.c_longlong * 17)(
         *q_stride[:3], *k_stride[:3], *v_stride[:3], tables_stride0,
         t * hq * dh, dh, hq * dh, *scale_strides,
     )
-    return strides, pool_code
+    return splits, strides, pool_code
 
 
 def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
@@ -202,14 +280,26 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
         )
     if start.dtype != torch.int32:
         start = start.to(torch.int32)  # on the card: no host sync
+    splits, strides, pool_code = _launch_plan(
+        tuple(q.shape), q.stride(), tuple(pool_k.shape), pool_k.stride(),
+        pool_v.stride(), tables.stride(0), tables.shape[1],
+        _scale_strides(scale_k, scale_v),
+        (q.dtype, pool_k.dtype, pool_v.dtype), q.device,
+    )
     # Token-major rows land in [B, T, Hq, Dh]; the caller gets the
     # [B, Hq, T, Dh] view, whose transpose back is free.
     out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
-    strides, pool_code = _launch_strides(
-        q.stride(), pool_k.stride(), pool_v.stride(), tables.stride(0),
-        tuple(out.shape), _scale_strides(scale_k, scale_v),
-        (q.dtype, pool_k.dtype, pool_v.dtype), dh,
-    )
+    part_acc = part_ml = None
+    if splits > 1:
+        # One f32 workspace: the partial acc [B, Hkv, splits, R, Dh], then
+        # the partial (m, l) [B, Hkv, splits, R, 2], R the token-major
+        # rows of a KV head padded to whole 64-row tiles.
+        slots = (b * pool_k.shape[1] * splits
+                 * math.ceil(t * hq // pool_k.shape[1] / _TILE) * _TILE)
+        ws = torch.empty(slots * (dh + 2), dtype=torch.float32,
+                         device=q.device)
+        part_acc = ws.data_ptr()
+        part_ml = part_acc + 4 * slots * dh
     if any(x.data_ptr() % 16 for x in (q, pool_k, pool_v)):
         raise ValueError("q/pool rows are not 16-byte aligned")
     quantized = scale_k is not None
@@ -217,10 +307,11 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
         tables.data_ptr(), scale_k.data_ptr() if quantized else None,
         scale_v.data_ptr() if quantized else None, start.data_ptr(),
-        start.stride(0) if start.ndim == 1 else 0, _DTYPE_CODE[q.dtype],
-        pool_code, b, hq, pool_k.shape[1], t, pool_k.shape[2],
-        tables.shape[1], dh, strides, 0 if window is None else int(window),
-        dh**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        start.stride(0) if start.ndim == 1 else 0, part_acc, part_ml,
+        _DTYPE_CODE[q.dtype], pool_code, b, hq, pool_k.shape[1], t,
+        pool_k.shape[2], tables.shape[1], dh, strides,
+        0 if window is None else int(window), splits, dh**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if torch.cuda.current_device() == q.device.index:
         rc = _kernel()(*args)
@@ -262,8 +353,9 @@ def paged_flash_prefill(
     CUDA tensors run the hand-written kernel (any T, bs and G >= 1, Dh
     in 32/64/128, float32/float16/bfloat16 q) and raise on what it does
     not take; CPU and meta tensors run `paged_flash_prefill_plain`.
-    `paged_flash_prefill.launches` counts kernel launches on a float
-    pool, `paged_flash_prefill.launches_int8` those on an int8 pool."""
+    `paged_flash_prefill.launches` counts calls that launch the kernel
+    (and its merge, when it splits) on a float pool,
+    `paged_flash_prefill.launches_int8` those on an int8 pool."""
     _check(q, pool_k, pool_v, tables, window)
     _check_scales(pool_k, pool_v, scale_k, scale_v)
     if q.device.type == "cuda":

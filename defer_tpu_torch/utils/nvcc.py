@@ -4,9 +4,10 @@ Each kernel is a `.cu` file under `defer_tpu_torch/csrc/` with a plain C
 interface. It is compiled with `nvcc` for Hopper (sm_90a) into a shared
 library under `defer_tpu_torch/_build/` (git-ignored) at first use and
 loaded with ctypes; no PyTorch headers are involved, so a build takes
-seconds. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never
-loaded.
+seconds. Sources may include the headers (`*.cuh`) beside them. The
+library's file name carries a hash of the source, those headers and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 """
 
 from __future__ import annotations
@@ -56,8 +57,9 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> pathlib.Path:
     src = CSRC / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 

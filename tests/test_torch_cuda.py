@@ -38,6 +38,7 @@ from defer_tpu_torch.ops.paged_flash_decode import (
     paged_flash_decode_plain,
 )
 from defer_tpu_torch.ops.paged_flash_prefill import (
+    _prefill_lo_hi,
     paged_flash_prefill,
     paged_flash_prefill_plain,
 )
@@ -63,6 +64,13 @@ def card():
         ((2, 4, 77, 64), 77, torch.float32, True, 1e-5),
         ((1, 4, 33, 128), 150, torch.float16, False, 2e-3),
         ((1, 2, 1, 8), 1, torch.float32, False, 1e-5),
+        # Dh not a multiple of 16: zero-padded to 48 and 80 on the card.
+        ((2, 4, 100, 40), 100, torch.bfloat16, False, 1e-2),
+        ((2, 4, 70, 72), 70, torch.bfloat16, True, 1e-2),
+        # One row, one partial tile, and a ragged second tile, causal.
+        ((2, 4, 1, 64), 1, torch.bfloat16, True, 1e-2),
+        ((2, 4, 8, 64), 8, torch.bfloat16, True, 1e-2),
+        ((2, 4, 200, 64), 200, torch.bfloat16, True, 1e-2),
     ],
 )
 def test_kernel_matches_plain(card, shape, s_k, dtype, causal, tol):
@@ -315,11 +323,15 @@ def test_paged_flash_decode_matches_plain(card, b, hq, hkv, dh, bs, mb,
 
 
 # (B, Hq, Hkv, T, Dh, bs, MB, dtype, start, window): the phase-5 chunk
-# after a 4-block hit, a deep chunk, start 0, a window crossing a block
-# edge, G=1 at Dh 64, G=8, B=4 with T=5, fp16 at bs 8, f32 at bs 32.
+# after a 4-block hit, deep chunks (the split-K merge runs), a deep and a
+# shallow slot (the shallow slot's late splits exit at once), start 0, a
+# window crossing a block edge, G=1 at Dh 64, G=8, B=4 with T=5, fp16 at
+# bs 8, f32 at bs 32.
 PAGED_PREFILL_CASES = [
     (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [64], 4096),
     (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [1984], 4096),
+    (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [4032], 4096),
+    (2, 32, 8, 64, 128, 16, 256, torch.bfloat16, [4032, 64], 4096),
     (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [0], 4096),
     (2, 32, 8, 64, 128, 16, 64, torch.bfloat16, [500, 37], 100),
     (2, 8, 8, 16, 64, 16, 32, torch.bfloat16, [100, 0], None),
@@ -348,20 +360,45 @@ def test_paged_flash_prefill_matches_plain(card, b, hq, hkv, t, dh, bs, mb,
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
-def test_paged_kernels_read_only_live_blocks(card):
+def _live_blocks(tables, pos, t, bs, window) -> set:
+    """The pool blocks a decode row at pos and the T prefill rows from
+    pos reach, through each slot's table."""
+    live = set()
+    for i, p in enumerate(pos):
+        lo, hi = _prefill_lo_hi(p, t, bs, window)
+        live |= set(tables[i, lo:hi + 1].tolist())
+    return live
+
+
+# (pos, MB, window): shallow slots, then a deep slot beside a shallow one,
+# where the prefill kernel splits the live columns and merges the splits.
+LIVE_BLOCK_CASES = [([100, 37], 16, 80), ([3000, 37], 256, 2100)]
+
+
+@pytest.mark.parametrize("pos,mb,window", LIVE_BLOCK_CASES)
+def test_paged_kernels_read_only_live_blocks(card, pos, mb, window):
     """Pool blocks no live row reaches (trash block 0 and every block
-    not in a live table column) hold NaN: the kernels never read them."""
-    q, pk, pv, tables, posv = _paged_inputs(card, 2, 8, 2, None, 64, 16, 16,
-                                            torch.bfloat16, [100, 37])
-    live = set(tables[0, 1:7].tolist()) | set(tables[1, :3].tolist())
-    want = paged_flash_decode(q, pk, pv, tables, posv, window=80)
+    not in a live table column) hold NaN: neither kernel reads them."""
+    q, pk, pv, tables, posv = _paged_inputs(card, 2, 8, 2, 6, 64, 16, mb,
+                                            torch.bfloat16, pos)
+    live = _live_blocks(tables, pos, 6, 16, window)
+
+    def both():
+        return (
+            paged_flash_decode(q[:, :, 0, :], pk, pv, tables, posv,
+                               window=window),
+            paged_flash_prefill(q, pk, pv, tables, posv, window=window),
+        )
+
+    want = both()
     dead = [i for i in range(pk.shape[0]) if i not in live]
     for t in (pk, pv):
         t[dead] = float("nan")
-    got = paged_flash_decode(q, pk, pv, tables, posv, window=80)
+    got = both()
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
 
 
 def _small_llama(card):
@@ -453,22 +490,21 @@ def test_paged_flash_prefill_int8_matches_plain(card, b, hq, hkv, t, dh, bs,
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
-def test_int8_kernels_read_only_live_blocks(card):
+@pytest.mark.parametrize("pos,mb,window", LIVE_BLOCK_CASES)
+def test_int8_kernels_read_only_live_blocks(card, pos, mb, window):
     """An int8 pool whose dead blocks hold garbage payload and NaN scales
     (trash block 0 and every block no live row reaches): neither kernel
     reads them."""
-    q, pk, pv, tables, posv = _paged_inputs(card, 2, 8, 2, 6, 64, 16, 16,
-                                            torch.bfloat16, [100, 37])
+    q, pk, pv, tables, posv = _paged_inputs(card, 2, 8, 2, 6, 64, 16, mb,
+                                            torch.bfloat16, pos)
     (kq, ks), (vq, vs) = _int8(pk), _int8(pv)
-    # Window 80: slot 0 reads rows 21..105 (blocks 1-6), slot 1 rows
-    # 0..42 (blocks 0-2), for the decode row and the 6 prefill rows.
-    live = set(tables[0, 1:7].tolist()) | set(tables[1, :3].tolist())
+    live = _live_blocks(tables, pos, 6, 16, window)
 
     def both():
         return (
             paged_flash_decode(q[:, :, 0, :], kq, vq, tables, posv,
-                               window=80, scale_k=ks, scale_v=vs),
-            paged_flash_prefill(q, kq, vq, tables, posv, window=80,
+                               window=window, scale_k=ks, scale_v=vs),
+            paged_flash_prefill(q, kq, vq, tables, posv, window=window,
                                 scale_k=ks, scale_v=vs),
         )
 

@@ -97,3 +97,43 @@ def test_backward_matches_reference():
     attention_reference(q, k, v, causal=True).sum().backward()
     for got, t in zip(grads, (q, k, v)):
         torch.testing.assert_close(got, t.grad, **TOL)
+
+
+def _tiled_bf16_p(q, k, v, causal):
+    """The card kernel's arithmetic on the CPU: f32 scores of bf16
+    operands scaled by Dh**-0.5, an online softmax over 64-column tiles
+    with f32 m/l, and P rounded to bf16 before P V (f32 accumulation)."""
+    dh, s_k = q.shape[-1], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * dh**-0.5
+    if causal:
+        keep = torch.ones(q.shape[2], s_k, dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, -0.7 * float(np.finfo(np.float32).max))
+    m = torch.full(s.shape[:-1], -float("inf"))
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(*s.shape[:-1], dh)
+    for k0 in range(0, s_k, 64):
+        st = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.bfloat16().float(), v[:, :, k0:k0 + 64].float()
+        )
+        m = m_new
+    return (acc / l[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_probabilities_stay_within_the_card_tolerance(causal):
+    """The tensor-core kernel rounds P to bf16 before P V (at most 2^-9
+    relative a weight); at BERT-base's head shape (S 128, Dh 64) with 2
+    heads that stays within the bf16 tolerance the card holds the kernel
+    to against `flash_attention_plain` (atol = rtol = 1e-2)."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv((2, 2, 128, 64), seed=11))
+    got = _tiled_bf16_p(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    err = (got.float() - want.float()).abs()
+    assert (err <= 1e-2 + 1e-2 * want.float().abs()).all()
+    assert err.max() > 0  # the rounding is real, not a no-op

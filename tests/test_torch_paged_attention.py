@@ -16,6 +16,8 @@ themselves are held against the plain versions on the card
 (tests/test_torch_cuda.py).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,7 +34,10 @@ from defer_tpu_torch.ops.paged_flash_decode import (
     paged_flash_decode_plain,
 )
 from defer_tpu_torch.ops.paged_flash_prefill import (
+    _active_splits,
     _prefill_lo_hi,
+    _prefill_splits,
+    _split_columns,
     paged_flash_prefill,
     paged_flash_prefill_plain,
 )
@@ -251,3 +256,50 @@ def test_validation_and_int8_scales(fn, q_shape):
         fn(q, tk, tv, tt[:2], 3)
     with pytest.raises(ValueError, match="window"):
         fn(q, tk, tv, tt, 3, window=0)
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132])
+@pytest.mark.parametrize("start,t,g,bs,window,mb", [
+    (0, 64, 4, 16, 4096, 256),     # a first chunk
+    (64, 64, 4, 16, 4096, 256),    # the chunk after a 4-block radix hit
+    (1984, 64, 4, 16, 4096, 256),  # a 2k-deep chunk
+    (4032, 64, 4, 16, 4096, 256),  # the last chunk of max_len 4096
+    (500, 64, 4, 16, 100, 64),     # a window crossing block edges
+    (1000, 5, 4, 16, None, 64),
+    (100, 16, 1, 16, None, 32),
+    (300, 32, 8, 16, None, 64),
+    (7, 24, 4, 8, None, 64),
+    (600, 40, 4, 32, 200, 32),
+    (9, 5, 2, 1, None, 16),
+    (13, 3, 2, 4, 5, 4),
+])
+def test_split_plan_covers_the_live_range_once(start, t, g, bs, window, mb,
+                                               sms):
+    """The tensor-core prefill kernel's split-K plan: for every 64-row
+    tile of the T*G token-major rows, the splits that run cover the
+    tile's live columns exactly once, in whole 64-column tiles from the
+    edge of the first live block, never past the deepest row's position;
+    the merge combines exactly the splits that ran; and over the chunk
+    the live columns are `_prefill_lo_hi`'s blocks."""
+    splits = _prefill_splits(sms, 1, 8 * g, 8, t, bs, mb)
+    assert 1 <= splits <= math.ceil(mb * bs / 64)
+    lo, hi = _prefill_lo_hi(start, t, bs, window)
+    rows = t * g
+    spans = []
+    for r0 in range(0, rows, 64):
+        ranges = _split_columns(start, r0, g, t, bs, mb, window, splits)
+        assert 1 <= len(ranges) <= splits
+        assert len(ranges) == _active_splits(start, r0, g, t, bs, mb, window,
+                                             splits)
+        t_first, t_last = r0 // g, min((r0 + 63) // g, t - 1)
+        first = (max(start + t_first - window + 1, 0) // bs * bs
+                 if window is not None else 0)
+        last = min(start + t_last, mb * bs - 1)
+        assert ranges[0][0] == first and ranges[-1][1] == last
+        for (a, b), (c, _) in zip(ranges, ranges[1:]):
+            assert c == b + 1  # contiguous: no column twice, none skipped
+        for a, b in ranges:
+            assert (a - first) % 64 == 0 and a <= b <= last
+        spans.append((first, last))
+    assert spans[0][0] == lo * bs
+    assert spans[-1][1] // bs == hi
