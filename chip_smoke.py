@@ -11,7 +11,10 @@ printing one line per check and failing loudly:
                 all started together);
   2. kernels  — each kernel against its plain PyTorch version on the
                 card, at its main path's shape and at the edge cases,
-                with the tolerance stated; then the kernel's time, the
+                with the tolerance stated (the decode kernels also at the
+                depths of the serving ticks, TICK_POS, beside the deep
+                mix DEEP_POS, and both are timed); then the kernel's time,
+                the
                 plain version's, one library call's (the yardstick, never
                 used by the port) and the card's bound for the same work;
                 the paged kernels on a float pool and on an int8 pool
@@ -90,6 +93,11 @@ DECODE_SLOTS = 4
 GREEDY_TIE_TOL = 0.08
 # flash_decode at the decode path's tick shape: (B, Hq, Hkv, S, Dh).
 DECODE_SHAPE = (DECODE_SLOTS, 32, 8, 4096, 128)
+# The decode kernels' two timed positions: a deep mix (one slot at the
+# window's end) and the depths at which the serving ticks of phases 4-6
+# run them.
+DEEP_POS = [4095, 2047, 130, 0]
+TICK_POS = [170, 176, 182, 188]
 # The paged path: pool blocks (phase 4's 4 x 4096 rows in 16-row blocks,
 # plus trash block 0), block size, prefill chunk, and the shared system
 # prompt every request starts with.
@@ -368,10 +376,10 @@ def check_flash_decode() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     b, hq, hkv, s, dh = DECODE_SHAPE
-    main_pos = [4095, 2047, 130, 0]
     # (label, (B, Hq, Hkv, S, Dh), dtype, pos, window)
     cases = [
-        ("mistral", DECODE_SHAPE, bf16, main_pos, 4096),
+        ("mistral", DECODE_SHAPE, bf16, DEEP_POS, 4096),
+        ("tick", DECODE_SHAPE, bf16, TICK_POS, 4096),
         ("window256", (2, 32, 8, 4096, 128), bf16, [3000, 200], 256),
         ("mha_dh64", (2, 16, 16, 1024, 64), bf16, [1023, 77], None),
         ("g8", (2, 64, 8, 2048, 128), bf16, [2047, 500], None),
@@ -393,35 +401,38 @@ def check_flash_decode() -> dict:
             main_err = max_err
 
     q, k, v = _decode_qkv(gen, b, hq, hkv, s, dh, bf16)
-    posv = torch.tensor(main_pos, dtype=torch.int32, device="cuda")
-    kernel_ms = cuda_time_ms(lambda: flash_decode(q, k, v, posv,
-                                                  window=4096))
-    wrapper_us = host_time_us(lambda: flash_decode(q, k, v, posv,
-                                                   window=4096))
-    plain_ms = cuda_time_ms(lambda: flash_decode_plain(q, k, v, posv,
+    timed = {}
+    for label, pos in (("deep", DEEP_POS), ("tick", TICK_POS)):
+        posv = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        kernel_ms = cuda_time_ms(lambda: flash_decode(q, k, v, posv,
+                                                      window=4096))
+        wrapper_us = host_time_us(lambda: flash_decode(q, k, v, posv,
                                                        window=4096))
-    j = torch.arange(s, device="cuda")
-    mask = ((j[None, :] <= posv[:, None])
-            & (j[None, :] > posv[:, None] - 4096))[:, None, None, :]
-    library_ms = cuda_time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True
+        plain_ms = cuda_time_ms(lambda: flash_decode_plain(q, k, v, posv,
+                                                           window=4096))
+        j = torch.arange(s, device="cuda")
+        mask = ((j[None, :] <= posv[:, None])
+                & (j[None, :] > posv[:, None] - 4096))[:, None, None, :]
+        library_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True
+            )
         )
-    )
-    live = sum(live_rows(p, s, 4096) for p in main_pos)
-    itemsize = q.element_size()
-    nbytes = (2 * live * hkv * dh + 2 * b * hq * dh) * itemsize
-    flops = 4 * live * (hq // hkv) * hkv * dh
-    bound_ms, bound_by = _bound(nbytes, flops)
-    log(f"kernels: flash_decode at q={tuple(q.shape)} k={tuple(k.shape)} "
-        f"bf16 pos={main_pos}: kernel_ms {kernel_ms:.5f} plain_ms "
-        f"{plain_ms:.5f} library_ms (sdpa over all {s} rows, enable_gqa) "
-        f"{library_ms:.5f} bound_us {bound_ms * 1e3:.3f} ({live} live rows "
-        f"of {b * s}: {nbytes} B, {flops} FLOP); the wrapper's host time "
-        f"{wrapper_us:.2f} us a call")
-    return {"max_abs_err": main_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+        live = sum(live_rows(p, s, 4096) for p in pos)
+        itemsize = q.element_size()
+        nbytes = (2 * live * hkv * dh + 2 * b * hq * dh) * itemsize
+        flops = 4 * live * (hq // hkv) * hkv * dh
+        bound_ms, bound_by = _bound(nbytes, flops)
+        log(f"kernels: flash_decode {label} at q={tuple(q.shape)} "
+            f"k={tuple(k.shape)} bf16 pos={pos}: kernel_ms {kernel_ms:.5f} "
+            f"plain_ms {plain_ms:.5f} library_ms (sdpa over all {s} rows, "
+            f"enable_gqa) {library_ms:.5f} bound_us {bound_ms * 1e3:.3f} "
+            f"({live} live rows of {b * s}: {nbytes} B, {flops} FLOP); the "
+            f"wrapper's host time {wrapper_us:.2f} us a call")
+        timed[label] = {"pos": pos, "ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms}
+    return _decode_report(main_err, timed)
 
 
 def _paged_inputs(b, hq, hkv, t, dh, bs, mb, dtype, pos, seed):
@@ -471,11 +482,12 @@ def check_paged_flash_decode() -> dict:
     )
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
-    main_pos = [4095, 2047, 130, 0]
     # (label, (B, Hq, Hkv, Dh, bs, MB), dtype, pos, window): the paged
     # tick's shape first, then the edge cases.
     cases = [
-        ("mistral", (4, 32, 8, 128, 16, 256), bf16, main_pos, 4096),
+        ("mistral", (4, 32, 8, 128, 16, 256), bf16, DEEP_POS, 4096),
+        ("tick", (4, 32, 8, 128, 16, 256), bf16, TICK_POS, 4096),
+        ("bs1", (2, 8, 2, 64, 1, 300), bf16, [299, 100], None),
         ("pos0", (2, 32, 8, 128, 16, 64), bf16, [0, 0], 4096),
         ("window_edge", (2, 32, 8, 128, 16, 64), bf16, [700, 40], 100),
         ("g1_dh64", (2, 8, 8, 64, 16, 32), bf16, [500, 77], None),
@@ -502,42 +514,48 @@ def check_paged_flash_decode() -> dict:
             main_err = err
 
     b, hq, hkv, dh, bs, mb = cases[0][1]
-    q, pk, pv, tables, posv = _paged_inputs(b, hq, hkv, None, dh, bs, mb,
-                                            bf16, main_pos, 0)
-    kernel_ms = cuda_time_ms(
-        lambda: paged_flash_decode(q, pk, pv, tables, posv, window=4096)
-    )
-    nb_plain = max(main_pos) // bs + 1
-    plain_ms = cuda_time_ms(
-        lambda: paged_flash_decode_plain(q, pk, pv, tables, posv,
-                                         window=4096, num_blocks=nb_plain),
-        iters=5, warmup=1,
-    )
-    j = torch.arange(mb * bs, device="cuda")
-    mask = ((j[None, :] <= posv[:, None])
-            & (j[None, :] > posv[:, None] - 4096))[:, None, None, :]
-    library_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(
-            q[:, :, None], _gathered_view(pk, tables),
-            _gathered_view(pv, tables), attn_mask=mask, enable_gqa=True,
+    timed = {}
+    for label, pos in (("deep", DEEP_POS), ("tick", TICK_POS)):
+        q, pk, pv, tables, posv = _paged_inputs(b, hq, hkv, None, dh, bs,
+                                                mb, bf16, pos, 0)
+        kernel_ms = cuda_time_ms(
+            lambda: paged_flash_decode(q, pk, pv, tables, posv, window=4096)
         )
-    )
-    # The function needs each slot's live rows (the kernel stops at pos,
-    # mid-block), not their whole blocks.
-    live = sum(live_rows(p, mb * bs, 4096) for p in main_pos)
-    itemsize = q.element_size()
-    nbytes = (2 * live * hkv * dh + 2 * b * hq * dh) * itemsize
-    flops = 4 * live * hq * dh
-    bound_ms, bound_by = _bound(nbytes, flops)
-    log(f"kernels: paged_flash_decode at q={tuple(q.shape)} "
-        f"pool={tuple(pk.shape)} tables={tuple(tables.shape)} bf16 "
-        f"pos={main_pos}: kernel_ms {kernel_ms:.5f} plain_ms {plain_ms:.5f} "
-        f"library_ms (two calls: pool gather of every table column + sdpa "
-        f"enable_gqa) {library_ms:.5f} bound_us {bound_ms * 1e3:.3f} "
-        f"({live} live rows: {nbytes} B, {flops} FLOP)")
-    return {"max_abs_err": main_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+        nb_plain = max(pos) // bs + 1
+        plain_ms = cuda_time_ms(
+            lambda: paged_flash_decode_plain(q, pk, pv, tables, posv,
+                                             window=4096,
+                                             num_blocks=nb_plain),
+            iters=5, warmup=1,
+        )
+        j = torch.arange(mb * bs, device="cuda")
+        mask = ((j[None, :] <= posv[:, None])
+                & (j[None, :] > posv[:, None] - 4096))[:, None, None, :]
+        library_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], _gathered_view(pk, tables),
+                _gathered_view(pv, tables), attn_mask=mask,
+                enable_gqa=True,
+            )
+        )
+        # The function needs each slot's live rows (the kernel stops at
+        # pos, mid-block), not their whole blocks.
+        live = sum(live_rows(p, mb * bs, 4096) for p in pos)
+        itemsize = q.element_size()
+        nbytes = (2 * live * hkv * dh + 2 * b * hq * dh) * itemsize
+        flops = 4 * live * hq * dh
+        bound_ms, bound_by = _bound(nbytes, flops)
+        log(f"kernels: paged_flash_decode {label} at q={tuple(q.shape)} "
+            f"pool={tuple(pk.shape)} tables={tuple(tables.shape)} bf16 "
+            f"pos={pos}: kernel_ms {kernel_ms:.5f} plain_ms {plain_ms:.5f} "
+            f"library_ms (two calls: pool gather of every table column + "
+            f"sdpa enable_gqa) {library_ms:.5f} bound_us "
+            f"{bound_ms * 1e3:.3f} ({live} live rows: {nbytes} B, "
+            f"{flops} FLOP)")
+        timed[label] = {"pos": pos, "ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms}
+    return _decode_report(main_err, timed)
 
 
 def check_paged_flash_prefill() -> dict:
@@ -704,8 +722,11 @@ def check_paged_int8(kind: str) -> dict:
     if kind == "decode":
         kernel, plain = paged_flash_decode, paged_flash_decode_plain
         cases = [
-            ("mistral", (4, 32, 8, None, 128, 16, 256), bf16,
-             [4095, 2047, 130, 0], 4096),
+            ("mistral", (4, 32, 8, None, 128, 16, 256), bf16, DEEP_POS,
+             4096),
+            ("tick", (4, 32, 8, None, 128, 16, 256), bf16, TICK_POS, 4096),
+            ("bs1_window", (2, 8, 2, None, 64, 1, 300), bf16, [299, 100],
+             37),
             ("pos0", (2, 32, 8, None, 128, 16, 64), bf16, [0, 0], 4096),
             ("window_edge", (2, 32, 8, None, 128, 16, 64), bf16, [700, 40],
              100),
@@ -717,7 +738,8 @@ def check_paged_int8(kind: str) -> dict:
             ("f32_bs32", (2, 32, 8, None, 128, 32, 32), f32, [1023, 513],
              200),
         ]
-        timed = [("mistral", cases[0][1], [4095, 2047, 130, 0])]
+        timed = [("deep", cases[0][1], DEEP_POS),
+                 ("tick", cases[0][1], TICK_POS)]
     else:
         kernel, plain = paged_flash_prefill, paged_flash_prefill_plain
         cases = [
@@ -817,12 +839,24 @@ def check_paged_int8(kind: str) -> dict:
         results[label] = {"ms": kernel_ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": library_ms}
-    # The JSON line reports the tick shape, or the chunk the paged path
-    # runs most (right after a radix hit) and beside it the deep chunk.
-    out = {"max_abs_err": main_err, **results[timed[0][0]]}
-    if "deep" in results:
-        out["deep"] = {"start": timed[1][2][0], **results["deep"]}
-    return out
+    if kind == "decode":
+        return _decode_report(main_err, {
+            label: {"pos": pos, **results[label]}
+            for label, _, pos in timed
+        })
+    # The JSON line reports the chunk the paged path runs most (right
+    # after a radix hit) and beside it the deep chunk.
+    return {"max_abs_err": main_err, **results["after_hit"],
+            "deep": {"start": timed[1][2][0], **results["deep"]}}
+
+
+def _decode_report(max_abs_err, timed: dict) -> dict:
+    """A decode kernel's entry of the JSON line: the deep mix's numbers at
+    the top (as in earlier runs) and again under "deep", the serving
+    tick's under "tick"."""
+    deep = {k: v for k, v in timed["deep"].items() if k != "pos"}
+    return {"max_abs_err": max_abs_err, **deep, "deep": timed["deep"],
+            "tick": timed["tick"]}
 
 
 def phase_kernels() -> dict:
@@ -1473,7 +1507,7 @@ def main() -> int:
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-            **({"deep": k["deep"]} if "deep" in k else {}),
+            **{key: k[key] for key in ("deep", "tick") if key in k},
         })
     log(json.dumps({"kernels": report}))
     log(card)

@@ -7,87 +7,123 @@
 // Dh], through the slot's block table [B, MB]: row r of slot b is row r % bs
 // of pool block tables[b, r / bs]. The G = Hq/Hkv query rows of a KV head
 // share its reads. Softmax over the live columns [max(pos-window+1, 0),
-// min(pos, MB*bs-1)], q pre-scaled by Dh^-0.5 in f32, f32 m/l/acc with the
-// same finite mask value, output acc / l cast to q's dtype.
+// min(pos, MB*bs-1)], scores times Dh^-0.5 in f32, f32 m/l/acc with the same
+// finite mask value, output acc / l cast to q's dtype.
 //
 // The pool is q's dtype, or int8 with one f32 scale per (block, KV head),
 // scale_k/scale_v [NB, Hkv] (the TPU kernel's `quantized` path): a row's
 // value is int8 payload x its block's scale.
 //
-// What bounds it on an H100: the bytes of the LIVE pool rows. The kernel
-// reads pos[b] and the table from device memory (no host sync) and fetches
-// only the rows of the live range, each from the pool block its table entry
-// names; table entries past pos (trash block 0, or blocks the slot owns but
-// has not reached) are never read, as the TPU kernel's clamped index maps
+// What bounds it on an H100: the bytes of the LIVE pool rows (4 KB a row in
+// bf16 at Mistral-7B's shape, 2 KB in int8), and at the serving path's
+// depths the latency of a call. The kernel reads pos[b] and the table on the
+// card (no host sync) and fetches only the rows of the live range, each from
+// the pool block its table entry names; table entries outside the live
+// range (trash block 0, or blocks the slot owns but has not reached), and
+// their scales, are never read, as the TPU kernel's clamped index maps
 // guarantee.
 //
-// Design (defer_tpu_torch/csrc/flash_decode.cu's, plus the indirection):
-//   * split-K over whole blocks: the grid is (splits, Hkv * qgroups, B),
-//     fixed by the table span; each slot's live blocks are cut into `splits`
-//     chunks of at least ceil(kMinChunk / bs) blocks, sized in the kernel
-//     from pos; a CTA whose chunk lies past the live range exits at once;
-//   * a chunk starts on a block edge, so its rows walk the pool block by
-//     block; each row's address is tables[b, r / bs] * block stride +
-//     (r % bs) * row stride, and a head's bs x Dh rows of one block are
-//     contiguous in the pool;
-//   * each CTA stages up to kG query rows of one KV head in registers (kG 4
-//     when G <= 4, else 8); its 8 warps walk the chunk kRows rows at a time,
-//     a lane holding Dh/32 columns of each row: one coalesced read of a K/V
-//     row serves all G query rows. Scores are warp-shuffle sums; each warp
-//     keeps its own online-softmax state in registers;
-//   * the warps' states merge through shared memory; with one split the CTA
-//     writes the output, otherwise (m, l, acc) go to an f32 workspace and a
-//     second, small kernel merges the live splits of each (b, head);
-//   * the products are f32 FMAs, as the TPU kernel casts to f32 before its
-//     dots;
-//   * an int8 pool is read as int8 (one byte an element: at Dh 128 a lane
-//     loads its 4 columns of a row in one 4-byte load) and widened in
-//     registers. The block scale is read once per row beside the table
-//     entry, never for a row outside the live range, and is folded in
-//     after the reduction, not per element: the score is
-//     sk * sum(q . k_int8), and the row's softmax weight times sv
-//     multiplies v_int8 in the accumulation. The scales of dead table
-//     columns, like their payload, are never read.
+// Design for bf16 / f16 q: decode_tile.cuh's engine with the table policy
+// (dtile::Paged): one kernel a call, a cluster of up to 8 CTAs per (slot,
+// KV head, 16 query rows) taking equal shares of the live 64-row tiles, each
+// warp staging its 16-row slices by cp.async in a ring (3 stages on a float
+// pool; 5 on an int8 pool, whose slices are half the bytes), each slice's
+// table entries copied kStages - 1 slices ahead of the copies that need
+// them (with the row's place in its block, the one division by bs a row
+// takes, worked out then), an int8 pool's scales copied once a block and
+// folded per column into S and P, mma.sync products, and the CTAs' states
+// merged through distributed shared memory. The grid is (C, Hkv * ceil(G /
+// 16), B) in clusters of (C, 1, 1); C comes from the wrapper
+// (_cluster_size, from the table span only), lowered until every cluster
+// fits on the card at once. An int8 pool is copied as int8 and widened in
+// registers, exactly, into f16 mma operands.
+//
+// f32 q keeps the f32 FMA loop (paged_decode_f32 below, any pool), chosen by
+// dtype: the tensor cores take f32 only as TF32, which misses the f32
+// tolerance of 1e-5, and no card path runs f32. Each rank of its cluster
+// takes a chunk of whole blocks (at least kMinChunk rows); its 8 warps walk
+// the chunk kRows rows at a time, a lane holding Dh/32 columns of a row,
+// each row's block scale folded after the warp-shuffle score sum.
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "decode_tile.cuh"
 
 namespace {
 
+using dtile::kMaskValue;
+
+struct Params {
+  const void* q;
+  const void* k;  // pool [NB, Hkv, bs, Dh] of one layer
+  const void* v;
+  void* o;
+  const int* tables;     // [B, MB]
+  const float* sk;       // int8 pool: scales [NB, Hkv]; null otherwise
+  const float* sv;
+  const int* pos;
+  long long pos_stride;  // 0 broadcasts one position to the batch
+  long long qb, qh;      // element strides; the Dh stride is 1
+  long long kn, kh, ks;  // pool: block, head, row
+  long long vn, vh, vs;
+  long long tb;          // tables: slot
+  long long ob, oh;
+  long long skn, skh;    // scales: block, head
+  long long svn, svh;
+  int hq, group, bs, mb, window;
+  float scale;
+  dtile::FastDiv bs_div;  // division by bs, set up on the host
+};
+
+// Ring stages of the tensor-core path: an int8 slice is half the bytes, so
+// 5 stages keep as many bytes in flight as 3 of a bf16 pool, in the same
+// shared memory (2 CTAs an SM either way).
+template <typename P>
+constexpr int kStagesOf = std::is_same<P, int8_t>::value ? 5 : 3;
+
+// T: q and o (half or bf16); P: the pool, T or int8_t.
+template <typename T, typename P, int kD>
+__global__ void __launch_bounds__(dtile::kThreads)
+    paged_decode_mma(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qgroups = (p.group + dtile::kQRows - 1) / dtile::kQRows;
+  const int kvh = blockIdx.y / qgroups;
+  const int g0 = (blockIdx.y % qgroups) * dtile::kQRows;
+  const int ng = min(dtile::kQRows, p.group - g0);
+  const int b = blockIdx.z;
+  const int hq0 = kvh * p.group + g0;  // first query head of this CTA
+  dtile::Paged<P> src;
+  src.k = static_cast<const P*>(p.k) + kvh * p.kh;
+  src.v = static_cast<const P*>(p.v) + kvh * p.vh;
+  src.table = p.tables + b * p.tb;
+  src.sk = p.sk + kvh * p.skh;
+  src.sv = p.sv + kvh * p.svh;
+  src.kn = p.kn;
+  src.ks = p.ks;
+  src.vn = p.vn;
+  src.vs = p.vs;
+  src.skn = p.skn;
+  src.svn = p.svn;
+  src.bs = p.bs_div;
+  dtile::attend<T, P, kD, kStagesOf<P>>(
+      src, static_cast<const T*>(p.q) + b * p.qb + hq0 * p.qh, p.qh, ng,
+      p.pos + b * p.pos_stride, p.mb * p.bs, p.window, p.scale,
+      static_cast<T*>(p.o) + b * p.ob + hq0 * p.oh, p.oh, smem);
+}
+
+// -- f32 q: the FMA loop ------------------------------------------------------
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxG = 8;       // most query rows per CTA
 constexpr int kRows = 4;       // K/V rows a warp holds in flight
-constexpr int kMinChunk = 32;  // fewest live rows a split takes (see .py)
-// Finite stand-in for -inf, as _MASK_VALUE in the TPU kernel.
-constexpr float kMaskValue = -0.7f * FLT_MAX;
+constexpr int kMinChunk = 32;  // fewest live rows a rank takes
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_f32(int8_t x) { return float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int kBytes>
 struct Raw;
@@ -136,70 +172,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-struct Params {
-  const void* q;
-  const void* k;  // pool [NB, Hkv, bs, Dh] of one layer
-  const void* v;
-  void* o;
-  const int* tables;     // [B, MB]
-  const float* sk;       // int8 pool: scales [NB, Hkv]; null otherwise
-  const float* sv;
-  const int* pos;
-  long long pos_stride;  // 0 broadcasts one position to the batch
-  float* part_acc;       // [B, Hq, splits, Dh]
-  float* part_ml;        // [B, Hq, splits, 2]
-  long long qb, qh;      // element strides; the Dh stride is 1
-  long long kn, kh, ks;  // pool: block, head, row
-  long long vn, vh, vs;
-  long long tb;          // tables: slot
-  long long ob, oh;
-  long long skn, skh;    // scales: block, head
-  long long svn, svh;
-  int hq, group, bs, mb, window, splits, min_chunk_blocks;
-  float scale;
-};
-
-// The live rows [lo, hi] of slot b, its first live block, and the blocks
-// each split takes: the same arithmetic in both kernels, so they agree on
-// which splits ran.
-struct Live {
-  int lo, hi, lo_blk, nblk, chunk;
-};
-
-__device__ __forceinline__ Live live_range(const Params& p, int b) {
-  const int pb = p.pos[b * p.pos_stride];
-  Live r;
-  r.hi = min(pb, p.mb * p.bs - 1);
-  r.lo = p.window > 0 ? max(pb - p.window + 1, 0) : 0;
-  r.lo_blk = r.lo / p.bs;
-  r.nblk = r.hi / p.bs - r.lo_blk + 1;
-  r.chunk = max(p.min_chunk_blocks, (r.nblk + p.splits - 1) / p.splits);
-  return r;
-}
-
-// T: q and o; P: the pool, T or int8_t (then scaled by p.sk / p.sv).
-template <typename T, typename P, int kVec, int kG>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
+// P: the pool, float or int8_t (then scaled by p.sk / p.sv).
+template <typename P, int kVec, int kG>
+__global__ void __launch_bounds__(kThreads) paged_decode_f32(Params p) {
   constexpr int kDh = kVec * 32;
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
   __shared__ float sm_m[kWarps][kG];
   __shared__ float sm_l[kWarps][kG];
   __shared__ float sm_acc[kWarps][kG][kDh];
+  __shared__ dtile::Partial<kG, kDh> part;
 
-  const int split = blockIdx.x;
   const int qgroups = (p.group + kG - 1) / kG;
   const int kvh = blockIdx.y / qgroups;
   const int g0 = (blockIdx.y % qgroups) * kG;
   const int ng = min(kG, p.group - g0);
   const int b = blockIdx.z;
-  const Live live = live_range(p, b);
-  // This split's whole blocks, as rows, cut to the live range.
-  const int blk0 = live.lo_blk + split * live.chunk;
+  const dtile::Live live =
+      dtile::live_range(p.pos + b * p.pos_stride, p.mb * p.bs, p.window);
+  // This rank's whole blocks, as rows, cut to the live range (none when
+  // the chunks end before it).
+  const int lo_blk = live.lo / p.bs;
+  const int nblk = live.hi / p.bs - lo_blk + 1;
+  const int chunk = max((kMinChunk + p.bs - 1) / p.bs,
+                        (nblk + int(gridDim.x) - 1) / int(gridDim.x));
+  const int blk0 = lo_blk + int(blockIdx.x) * chunk;
   const int r0 = max(blk0 * p.bs, live.lo);
-  const int r1 = min((blk0 + live.chunk) * p.bs, live.hi + 1);
-  // Past the live range: nothing to read. Split 0 always reports, so a
-  // slot always has one partial.
-  if (r0 >= r1 && split > 0) return;
+  const int r1 = min((blk0 + chunk) * p.bs, live.hi + 1);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -207,12 +205,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
 
   float qr[kG][kVec];
   {
-    const T* q = static_cast<const T*>(p.q) + b * p.qb + hq0 * p.qh +
-                 lane * kVec;
+    const float* q = static_cast<const float*>(p.q) + b * p.qb + hq0 * p.qh +
+                     lane * kVec;
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
       if (g < ng) {
-        load_vec<T, kVec>(q + g * p.qh, qr[g]);
+        load_vec<float, kVec>(q + g * p.qh, qr[g]);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) qr[g][e] *= p.scale;
       } else {
@@ -296,8 +294,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
     }
   }
 
-  // Merge the warps' states. A warp that took no rows holds (mask, 0, 0)
-  // and weighs exp(mask - M) = 0.
+  // Merge the warps' states into the CTA's. A warp (or a whole rank) that
+  // took no rows holds (mask, 0, 0) and weighs exp(mask - M) = 0.
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
     if (lane == 0) {
@@ -321,70 +319,58 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Params p) {
       lsum += c * sm_l[w][g];
       asum += c * sm_acc[w][g][d];
     }
-    const int h = hq0 + g;
-    if (p.splits == 1) {
-      T* o = static_cast<T*>(p.o) + b * p.ob + h * p.oh;
-      o[d] = from_f32<T>(asum / lsum);
-    } else {
-      const long long slot =
-          ((long long)b * p.hq + h) * p.splits + split;
-      p.part_acc[slot * kDh + d] = asum;
-      if (d == 0) {
-        p.part_ml[slot * 2] = mx;
-        p.part_ml[slot * 2 + 1] = lsum;
-      }
+    part.o[g][d] = asum;
+    if (d == 0) {
+      part.m[g] = mx;
+      part.l[g] = lsum;
     }
   }
+  dtile::cluster_merge<float, kG, kDh, false>(
+      &part, ng, static_cast<float*>(p.o) + b * p.ob + hq0 * p.oh, p.oh,
+      threadIdx.x, kThreads);
 }
 
-// One CTA per (b, query head), one thread per column: merges the partials
-// of the splits that ran.
-template <typename T, int kDh>
-__global__ void __launch_bounds__(kDh) paged_decode_combine(Params p) {
-  const int b = blockIdx.x / p.hq;
-  const int h = blockIdx.x % p.hq;
-  const int d = threadIdx.x;
-  const Live live = live_range(p, b);
-  const int active =
-      max(1, min(p.splits, (live.nblk + live.chunk - 1) / live.chunk));
-  const long long base = ((long long)b * p.hq + h) * p.splits;
-  const float* ml = p.part_ml + base * 2;
-  const float* acc = p.part_acc + base * kDh;
-  float mx = kMaskValue;
-  for (int j = 0; j < active; ++j) mx = fmaxf(mx, ml[2 * j]);
-  float lsum = 0.f, asum = 0.f;
-  for (int j = 0; j < active; ++j) {
-    const float c = expf(ml[2 * j] - mx);
-    lsum += c * ml[2 * j + 1];
-    asum += c * acc[j * kDh + d];
-  }
-  T* o = static_cast<T*>(p.o) + b * p.ob + h * p.oh;
-  o[d] = from_f32<T>(asum / lsum);
-}
-
-template <typename T, typename P, int kVec>
-cudaError_t launch(const Params& p, int batch, int hkv, cudaStream_t stream) {
-  const int tile = p.group <= 4 ? 4 : kMaxG;
-  const dim3 grid(p.splits, hkv * ((p.group + tile - 1) / tile), batch);
-  if (tile == 4) {
-    paged_decode_kernel<T, P, kVec, 4><<<grid, kThreads, 0, stream>>>(p);
+template <typename T, typename P, int kD>
+cudaError_t launch(const Params& p, int batch, int hkv, int cluster,
+                   cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int kVec = kD / 32;
+    if (p.group <= 4) {
+      const dim3 grid(cluster, hkv * ((p.group + 3) / 4), batch);
+      return dtile::launch_cluster(paged_decode_f32<P, kVec, 4>, p, grid,
+                                   kThreads, 0, stream);
+    }
+    const dim3 grid(cluster, hkv * ((p.group + 7) / 8), batch);
+    return dtile::launch_cluster(paged_decode_f32<P, kVec, 8>, p, grid,
+                                 kThreads, 0, stream);
   } else {
-    paged_decode_kernel<T, P, kVec, kMaxG><<<grid, kThreads, 0, stream>>>(p);
+    constexpr size_t smem = dtile::Layout<T, P, kD, kStagesOf<P>>::bytes;
+    static bool ready = false;  // the attribute is set once a process
+    if (!ready) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          paged_decode_mma<T, P, kD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (err != cudaSuccess) return err;
+      ready = true;
+    }
+    const int qgroups = (p.group + dtile::kQRows - 1) / dtile::kQRows;
+    static int known[dtile::kMaxCluster + 1] = {};
+    const int c = dtile::fit_cluster(paged_decode_mma<T, P, kD>, cluster,
+                                     batch * hkv * qgroups, dtile::kThreads,
+                                     smem, known);
+    const dim3 grid(c, hkv * qgroups, batch);
+    return dtile::launch_cluster(paged_decode_mma<T, P, kD>, p, grid,
+                                 dtile::kThreads, smem, stream);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.splits == 1) return err;
-  paged_decode_combine<T, kVec * 32>
-      <<<batch * p.hq, kVec * 32, 0, stream>>>(p);
-  return cudaGetLastError();
 }
 
 template <typename T, typename P>
 cudaError_t launch_dh(const Params& p, int dh, int batch, int hkv,
-                      cudaStream_t stream) {
+                      int cluster, cudaStream_t stream) {
   switch (dh) {
-    case 32: return launch<T, P, 1>(p, batch, hkv, stream);
-    case 64: return launch<T, P, 2>(p, batch, hkv, stream);
-    case 128: return launch<T, P, 4>(p, batch, hkv, stream);
+    case 32: return launch<T, P, 32>(p, batch, hkv, cluster, stream);
+    case 64: return launch<T, P, 64>(p, batch, hkv, cluster, stream);
+    case 128: return launch<T, P, 128>(p, batch, hkv, cluster, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -392,9 +378,10 @@ cudaError_t launch_dh(const Params& p, int dh, int batch, int hkv,
 // The pool is q's type, or int8 with scales.
 template <typename T>
 cudaError_t launch_pool(const Params& p, bool int8_pool, int dh, int batch,
-                        int hkv, cudaStream_t stream) {
-  return int8_pool ? launch_dh<T, int8_t>(p, dh, batch, hkv, stream)
-                   : launch_dh<T, T>(p, dh, batch, hkv, stream);
+                        int hkv, int cluster, cudaStream_t stream) {
+  return int8_pool
+             ? launch_dh<T, int8_t>(p, dh, batch, hkv, cluster, stream)
+             : launch_dh<T, T>(p, dh, batch, hkv, cluster, stream);
 }
 
 }  // namespace
@@ -406,21 +393,20 @@ cudaError_t launch_pool(const Params& p, bool int8_pool, int dh, int batch,
 // one. strides: 15 element strides, (b, h) of q, (block, h, row) of pool_k,
 // (block, h, row) of pool_v, b of tables, (b, h) of o, (block, h) of
 // scale_k, (block, h) of scale_v (unused for a float pool). window <= 0
-// means no window. part_acc / part_ml: f32 workspaces of B*Hq*splits*Dh
-// and B*Hq*splits*2 floats (unused, may be null, when splits == 1).
+// means no window. cluster: the CTAs that share a (slot, KV head), 1 to 8.
 // Returns a cudaError_t value; 0 means launched.
 extern "C" int defer_paged_flash_decode(
     const void* q, const void* pool_k, const void* pool_v, void* o,
     const int* tables, const float* scale_k, const float* scale_v,
-    const int* pos, long long pos_stride, float* part_acc, float* part_ml,
-    int dtype, int pool_dtype, int batch, int hq, int hkv, int bs, int mb,
-    int dh, const long long* strides, int window, int splits, float scale,
+    const int* pos, long long pos_stride, int dtype, int pool_dtype,
+    int batch, int hq, int hkv, int bs, int mb, int dh,
+    const long long* strides, int window, int cluster, float scale,
     void* stream) {
   const bool int8_pool = pool_dtype == 3;
   if (batch < 1 || hkv < 1 || hq < hkv || hq % hkv || bs < 1 || mb < 1 ||
-      splits < 1 || batch > 65535 || hq > 65535 ||
-      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
-      (pool_dtype != dtype && !int8_pool) ||
+      bs >= (1 << 16) || (long long)mb * bs >= (1 << 24) ||
+      cluster < 1 || cluster > dtile::kMaxCluster || batch > 65535 ||
+      hq > 65535 || (pool_dtype != dtype && !int8_pool) ||
       (int8_pool && (scale_k == nullptr || scale_v == nullptr))) {
     return int(cudaErrorInvalidValue);
   }
@@ -434,8 +420,6 @@ extern "C" int defer_paged_flash_decode(
   p.sv = scale_v;
   p.pos = pos;
   p.pos_stride = pos_stride;
-  p.part_acc = part_acc;
-  p.part_ml = part_ml;
   p.qb = strides[0];
   p.qh = strides[1];
   p.kn = strides[2];
@@ -454,18 +438,21 @@ extern "C" int defer_paged_flash_decode(
   p.hq = hq;
   p.group = hq / hkv;
   p.bs = bs;
+  p.bs_div = dtile::FastDiv(bs);
   p.mb = mb;
   p.window = window;
-  p.splits = splits;
-  p.min_chunk_blocks = (kMinChunk + bs - 1) / bs;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(launch_pool<float>(p, int8_pool, dh, batch, hkv, st));
-    case 1: return int(launch_pool<__half>(p, int8_pool, dh, batch, hkv, st));
+    case 0:
+      return int(launch_pool<float>(p, int8_pool, dh, batch, hkv, cluster,
+                                    st));
+    case 1:
+      return int(launch_pool<__half>(p, int8_pool, dh, batch, hkv, cluster,
+                                     st));
     case 2:
-      return int(
-          launch_pool<__nv_bfloat16>(p, int8_pool, dh, batch, hkv, st));
+      return int(launch_pool<__nv_bfloat16>(p, int8_pool, dh, batch, hkv,
+                                            cluster, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

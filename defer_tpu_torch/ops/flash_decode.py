@@ -12,17 +12,25 @@ finite `_MASK_VALUE`, and the output acc / l is cast to q's dtype.
 What bounds it on an H100: the bytes of the live K/V rows. At the
 serving path's shape (B=4, Hq=32, Hkv=8, Dh=128, S=4096, bf16) each live
 row costs 2 x 8 x 128 x 2 B = 4 KB a sequence, against 32 KB of q and o
-in all. The design carries over the TPU kernel's one property that
-matters, the live range: the kernel reads `pos` from device memory (no
-host sync, so `pos` may live on the card as the decode server keeps it)
-and loads only rows in [max(pos-window+1, 0), min(pos, S-1)], never the
-whole cache. The TPU kernel's zero-padding of G to 8 rows and its
-scalar-prefetch index maps have no counterpart. To fill 132 SMs at a
-small batch, the live range is split ("flash-decoding"): the grid is
-(splits, Hkv, B), each CTA takes a chunk of at least 32 live rows sized
-in the kernel from pos, CTAs past the live range exit at once, and a
-second small kernel merges the partial (m, l, acc) of the splits that
-ran. `csrc/flash_decode.cu` has the thread layout.
+in all; at the tick's depths (about 180 rows) that is under 3 MB, about
+1 us at 3.35 TB/s, so a call's cost is latency. The design carries over
+the TPU kernel's one property that matters, the live range: the kernel
+reads `pos` from device memory (no host sync, so `pos` may live on the
+card as the decode server keeps it) and loads only rows in
+[max(pos-window+1, 0), min(pos, S-1)], never the whole cache. The TPU
+kernel's zero-padding of G to 8 rows and its scalar-prefetch index maps
+have no counterpart. For bf16/f16 q, `csrc/flash_decode.cu` runs the
+tensor-core decode engine of `csrc/decode_tile.cuh`: a thread block
+cluster of C CTAs (`_cluster_size`, from S only; the launch lowers it
+until every cluster of the grid fits on the card at once) per (sequence,
+KV head, 16 query rows; G > 16 takes ceil(G / 16) CTAs a KV head) takes
+equal shares of the live 64-row tiles, each warp
+stages 16-row slices of K and V by cp.async in a 3-stage ring, both
+products run on `mma.sync`, and the CTAs' states merge through
+distributed shared memory in the same kernel: one launch a call, no
+workspace. `_warp_slices` mirrors which rows each warp takes. f32 q
+keeps an FMA kernel (TF32 would miss the f32 tolerance), each rank of
+its cluster taking one chunk of the live rows (`_f32_chunks`).
 
 Dispatch follows the tensor's device and nothing else: a CUDA tensor
 launches the kernel or raises; a CPU or meta tensor takes the plain
@@ -49,11 +57,13 @@ _MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 _SOURCE = "flash_decode.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (32, 64, 128)
-# Fewest live rows one split takes; kMinChunk in the CUDA source.
+# The decode engine's work split (csrc/decode_tile.cuh): K/V rows a warp
+# takes a step, warps of a CTA, and the most CTAs of a cluster (portable).
+_SLICE = 16
+_WARPS = 4
+_MAX_CLUSTER = 8
+# Fewest live rows a rank of the f32 FMA kernel takes; kMinChunk there.
 _MIN_CHUNK = 32
-# Most splits of one sequence's live range.
-_MAX_SPLITS = 64
-
 
 def _decode_lo_hi(p_b: int, block_k: int, window: int | None):
     """First/last live K block (inclusive) of a sequence whose last
@@ -65,11 +75,19 @@ def _decode_lo_hi(p_b: int, block_k: int, window: int | None):
     return lo, hi
 
 
+def _live_bounds(p_b: int, span: int, window: int | None):
+    """The live rows [lo, hi] the kernels walk for a last valid key at
+    `p_b`: `live_range` in the CUDA sources."""
+    hi = min(p_b, span - 1)
+    lo = max(p_b - window + 1, 0) if window is not None else 0
+    return lo, hi
+
+
 def live_rows(p_b: int, seq: int, window: int | None) -> int:
     """K/V rows of one sequence that the kernel reads: the live range
     [max(p_b - window + 1, 0), min(p_b, seq - 1)]."""
-    lo, hi = _decode_lo_hi(p_b, 1, window)
-    return max(0, min(hi, seq - 1) - lo + 1)
+    lo, hi = _live_bounds(p_b, seq, window)
+    return max(0, hi - lo + 1)
 
 
 def _check(q, k, v, window) -> None:
@@ -130,9 +148,8 @@ def _kernel():
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p,
     ]
@@ -144,22 +161,57 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _num_splits(device: torch.device, ctas: int, seq: int) -> int:
-    """Splits of each sequence's live range: enough CTAs for about four
-    a streaming multiprocessor, no more than S holds chunks of
-    `_MIN_CHUNK` rows. Depends on shapes only, never on pos."""
-    want = math.ceil(4 * _sm_count(device.index or 0) / ctas)
-    return max(1, min(want, math.ceil(seq / _MIN_CHUNK), _MAX_SPLITS))
+def _cluster_size(span: int) -> int:
+    """CTAs that share one (sequence, KV head): one per 64-row tile of a
+    span of `span` rows (S, or the table's MB * bs), at most 8 (a
+    portable cluster). Depends on shapes only, never on pos."""
+    return max(1, min(_MAX_CLUSTER, math.ceil(span / (_WARPS * _SLICE))))
+
+
+def _warp_slices(lo: int, hi: int, cluster: int) -> dict:
+    """The tensor-core kernels' work split (csrc/decode_tile.cuh): the
+    live rows [lo, hi] cut into 16-row slices from lo, slice j taken by
+    warp j % 4 of rank (j // 4) % cluster. Returns {(rank, warp): [(first
+    row, last row), ...]} with the rows past hi cut off (the kernel
+    zero-fills them and weighs them 0)."""
+    nslices = (hi - lo) // _SLICE + 1 if hi >= lo else 0
+    nw = cluster * _WARPS
+    out = {}
+    for rank in range(cluster):
+        for warp in range(_WARPS):
+            gw = rank * _WARPS + warp
+            cnt = -(-(nslices - gw) // nw) if nslices > gw else 0
+            out[rank, warp] = [
+                (lo + _SLICE * j, min(lo + _SLICE * j + _SLICE - 1, hi))
+                for j in (gw + k * nw for k in range(cnt))
+            ]
+    return out
+
+
+def _f32_chunks(lo: int, hi: int, cluster: int, bs: int = 1) -> list:
+    """The f32 FMA kernels' work split: rank r's rows [first, last] of
+    the live rows, in chunks of whole `bs`-row blocks of at least
+    `_MIN_CHUNK` rows (bs 1 for the contiguous cache), or None where the
+    chunks end before it."""
+    lo_blk = lo // bs
+    nblk = hi // bs - lo_blk + 1
+    chunk = max(-(-_MIN_CHUNK // bs), -(-nblk // cluster))
+    out = []
+    for rank in range(cluster):
+        blk0 = lo_blk + rank * chunk
+        r0, r1 = max(blk0 * bs, lo), min((blk0 + chunk) * bs, hi + 1)
+        out.append((r0, r1 - 1) if r0 < r1 else None)
+    return out
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_plan(q_shape, q_stride, k_shape, k_stride, v_stride, dtypes,
-                 device):
+def _launch_plan(q_shape, q_stride, k_shape, k_stride, v_stride, dtypes):
     """What a launch needs beyond the pointers, checked and computed
-    once per shape: (splits, element strides as a ctypes array, the
-    row alignment in bytes). Raises on what the kernel does not take."""
+    once per shape: (cluster size, element strides as a ctypes array,
+    the row alignment in bytes). Raises on what the kernel does not
+    take."""
     b, hq, dh = q_shape
-    hkv, s = k_shape[1], k_shape[2]
+    s = k_shape[2]
     dtype = dtypes[0]
     if dtype not in _DTYPE_CODE or len(set(dtypes)) != 1:
         raise TypeError(
@@ -170,20 +222,19 @@ def _launch_plan(q_shape, q_stride, k_shape, k_stride, v_stride, dtypes,
         raise ValueError(
             f"the CUDA flash-decode kernel takes Dh in {_HEAD_DIMS}, got {dh}"
         )
-    # One lane loads Dh/32 consecutive elements: rows must be aligned to
-    # that width (up to 16 bytes).
+    # 16-bit rows are copied 16 bytes at a time; an f32 lane loads Dh/32
+    # consecutive elements.
     itemsize = dtype.itemsize
-    align = min(16, dh // 32 * itemsize)
+    align = 16 if itemsize == 2 else min(16, dh // 32 * itemsize)
     for name, stride in (("q", q_stride), ("k", k_stride), ("v", v_stride)):
         if stride[-1] != 1:
             raise ValueError(f"{name} needs a unit Dh stride")
         if any(st * itemsize % align for st in stride[:-1]):
             raise ValueError(f"{name} rows are not {align}-byte aligned")
-    splits = _num_splits(device, b * hkv * math.ceil(hq // hkv / 8), s)
     strides = (ctypes.c_longlong * 10)(
         q_stride[0], q_stride[1], *k_stride[:3], *v_stride[:3], hq * dh, dh,
     )
-    return splits, strides, align
+    return _cluster_size(s), strides, align
 
 
 def _decode_cuda(q, k, v, pos, window) -> torch.Tensor:
@@ -194,9 +245,9 @@ def _decode_cuda(q, k, v, pos, window) -> torch.Tensor:
         raise ValueError(
             f"q/k/v on different devices: {q.device}/{k.device}/{v.device}"
         )
-    splits, strides, align = _launch_plan(
+    cluster, strides, align = _launch_plan(
         tuple(q.shape), q.stride(), tuple(k.shape), k.stride(), v.stride(),
-        (q.dtype, k.dtype, v.dtype), q.device,
+        (q.dtype, k.dtype, v.dtype),
     )
     if any(t.data_ptr() % align for t in (q, k, v)):
         raise ValueError(f"q/k/v rows are not {align}-byte aligned")
@@ -211,20 +262,11 @@ def _decode_cuda(q, k, v, pos, window) -> torch.Tensor:
     pos_stride = pos.stride(0) if pos.ndim == 1 else 0
 
     out = torch.empty((b, hq, dh), dtype=q.dtype, device=q.device)
-    part_acc = part_ml = None
-    if splits > 1:
-        # One f32 workspace: the partial acc [B, Hq, splits, Dh], then
-        # the partial (m, l) [B, Hq, splits, 2].
-        n_acc = b * hq * splits * dh
-        ws = torch.empty(n_acc + b * hq * splits * 2, dtype=torch.float32,
-                         device=q.device)
-        part_acc = ws.data_ptr()
-        part_ml = part_acc + 4 * n_acc
     args = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), pos_stride, part_acc, part_ml, _DTYPE_CODE[q.dtype],
-        b, hq, k.shape[1], k.shape[2], dh, strides,
-        0 if window is None else int(window), splits, dh**-0.5,
+        pos.data_ptr(), pos_stride, _DTYPE_CODE[q.dtype], b, hq,
+        k.shape[1], k.shape[2], dh, strides,
+        0 if window is None else int(window), cluster, dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if torch.cuda.current_device() == q.device.index:

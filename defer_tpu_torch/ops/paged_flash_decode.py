@@ -12,23 +12,30 @@ read. q is pre-scaled by Dh**-0.5 in f32, the softmax runs in f32 with
 the finite `_MASK_VALUE`, and the output acc / l is cast to q's dtype.
 
 What bounds it on an H100: the bytes of the live K/V rows, as for
-`flash_decode`. The design is `csrc/flash_decode.cu`'s with the table
-indirection added: the kernel reads `pos[b]` and the table on the card
-(no host sync, so both may live there, as the paged server keeps them),
-works out the live range [max(pos - window + 1, 0), pos] in rows, cuts
-it into chunks of whole blocks over a grid of (splits, Hkv, B) fixed by
-the table span MB * bs, and each CTA reads only the pool rows of its
-chunk's live blocks; a second small kernel merges the splits. A dead
-table column is never fetched, the property the TPU kernel's clamped
-index maps give. `csrc/paged_flash_decode.cu` has the thread layout.
+`flash_decode`, and at the tick's depths the latency of a call. For
+bf16/f16 q, `csrc/paged_flash_decode.cu` runs the tensor-core decode
+engine of `csrc/decode_tile.cuh` with the table indirection: the kernel
+reads `pos[b]` and the table on the card (no host sync, so both may
+live there, as the paged server keeps them), works out the live range
+[max(pos - window + 1, 0), pos] in rows, and a cluster of C CTAs
+(`_cluster_size` of the table span MB * bs) per (slot, KV head, 16
+query rows) takes equal shares of its 64-row tiles; each warp stages
+16-row slices by cp.async (3 stages on a float pool, 4 on an int8
+pool), loading the table entries of the next slice while one is in
+flight, and the CTAs' states merge through distributed shared memory in
+the same kernel: one launch a call. A dead table column is never
+fetched, the property the TPU kernel's clamped index maps give.
+`_warp_slices` and `_table_reads` mirror the split and the reads.
 
 The pool is q's dtype, or int8 with per-(block, head) f32 scales
 `scale_k`/`scale_v` [NB, Hkv] (runtime/paged.py `kv_dtype="int8"`), the
 TPU kernel's `quantized` path: a row is its int8 payload times its
-block's scale. The kernel reads the int8 payload and the scales of live
-rows only, and folds each scale into the score and the softmax weight
-(one multiply a row, not one an element); no dequantized copy of the
-pool is ever made.
+block's scale. The kernel copies the int8 payload as it
+is (half the bytes), widens each slice once into q's type (exact),
+reads a block's two scales once per slice that touches it, and folds
+them per column into the scores and the probabilities; no dequantized
+copy of the pool is ever made. f32 q keeps an FMA kernel (`_f32_chunks`
+mirrors its split).
 
 Dispatch follows the tensor's device and nothing else: a CUDA tensor
 launches the kernel or raises; a CPU or meta tensor takes the plain
@@ -41,7 +48,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
@@ -49,15 +55,12 @@ from defer_tpu_torch.ops.flash_decode import (  # noqa: F401 (_decode_lo_hi)
     _DTYPE_CODE,
     _HEAD_DIMS,
     _MASK_VALUE,
+    _cluster_size,
     _decode_lo_hi,
-    _sm_count,
+    _warp_slices,
 )
 
 _SOURCE = "paged_flash_decode.cu"
-# Fewest live rows one split takes, rounded up to whole blocks;
-# kMinChunk in the CUDA source.
-_MIN_CHUNK = 32
-_MAX_SPLITS = 64
 # The kernels' code for an int8 pool (beside _DTYPE_CODE's float codes).
 _INT8_POOL = 3
 
@@ -207,7 +210,7 @@ def _kernel():
     fn.argtypes = [
         # q, pool_k, pool_v, o, tables, scale_k, scale_v, pos
         *[ctypes.c_void_p] * 8,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong,
         # dtype, pool_dtype, batch, hq, hkv, bs, mb, dh
         *[ctypes.c_int] * 8,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
@@ -216,21 +219,22 @@ def _kernel():
     return fn
 
 
-def _split_count(sms: int, ctas: int, bs: int, mb: int,
-                 per_sm: int = 4) -> int:
-    """Splits of each slot's live range on a card of `sms` streaming
-    multiprocessors: enough CTAs for about `per_sm` an SM, no more than
-    the table span of `mb` blocks of `bs` rows holds chunks of whole
-    blocks of at least `_MIN_CHUNK` rows. Depends on shapes only, never
-    on pos."""
-    want = math.ceil(per_sm * sms / ctas)
-    chunk_blocks = math.ceil(_MIN_CHUNK / bs)
-    return max(1, min(want, math.ceil(mb / chunk_blocks), _MAX_SPLITS))
-
-
-def _num_splits(device: torch.device, ctas: int, bs: int, mb: int) -> int:
-    """`_split_count` on the card that holds `device`."""
-    return _split_count(_sm_count(device.index or 0), ctas, bs, mb)
+def _table_reads(lo: int, hi: int, bs: int, cluster: int) -> dict:
+    """What the tensor-core kernel reads of a slot's table and scales:
+    {(rank, warp): [(table columns whose entries it loads, table
+    columns whose scales it loads), ...]}, one pair a slice. Lane r of
+    the warp loads the entry of the slice's row r when that row is live
+    (rows of one block share the address), and the scales where row r is
+    the first row of its block in the slice."""
+    out = {}
+    for key, rows in _warp_slices(lo, hi, cluster).items():
+        out[key] = [
+            (sorted({r // bs for r in range(first, last + 1)}),
+             [r // bs for r in range(first, last + 1)
+              if r == first or r % bs == 0])
+            for first, last in rows
+        ]
+    return out
 
 
 def _pool_code(kernel: str, dtypes) -> int:
@@ -258,13 +262,13 @@ def _scale_strides(scale_k, scale_v) -> tuple:
 
 @functools.lru_cache(maxsize=256)
 def _launch_plan(q_shape, q_stride, pool_shape, k_stride, v_stride,
-                 tables_stride, scale_strides, dtypes, device):
+                 tables_stride, scale_strides, dtypes):
     """What a launch needs beyond the pointers, checked and computed
-    once per shape: (splits, element strides as a ctypes array, the pool
+    once per shape: (cluster size, element strides as a ctypes array, the pool
     dtype code, q's and the pool's row alignment in bytes). Raises on
     what the kernel does not take."""
-    b, hq, dh = q_shape
-    hkv, bs = pool_shape[1], pool_shape[2]
+    hq, dh = q_shape[1:]
+    bs = pool_shape[2]
     mb = tables_stride[1]
     pool_code = _pool_code("paged flash-decode", dtypes)
     if dh not in _HEAD_DIMS:
@@ -272,8 +276,12 @@ def _launch_plan(q_shape, q_stride, pool_shape, k_stride, v_stride,
             f"the CUDA paged flash-decode kernel takes Dh in {_HEAD_DIMS}, "
             f"got {dh}"
         )
-    # A lane loads Dh / 32 consecutive elements of a row at once.
-    aligns = tuple(min(16, dh // 32 * dt.itemsize) for dt in dtypes[:2])
+    # 16-bit q: q and pool rows are copied 16 bytes at a time; f32 q: a
+    # lane loads Dh / 32 consecutive elements of a row at once.
+    if dtypes[0].itemsize == 2:
+        aligns = (16, 16)
+    else:
+        aligns = tuple(min(16, dh // 32 * dt.itemsize) for dt in dtypes[:2])
     for name, stride, dtype, align in (
         ("q", q_stride, dtypes[0], aligns[0]),
         ("pool_k", k_stride, dtypes[1], aligns[1]),
@@ -283,12 +291,11 @@ def _launch_plan(q_shape, q_stride, pool_shape, k_stride, v_stride,
             raise ValueError(f"{name} needs a unit Dh stride")
         if any(st * dtype.itemsize % align for st in stride[:-1]):
             raise ValueError(f"{name} rows are not {align}-byte aligned")
-    splits = _num_splits(device, b * hkv * math.ceil(hq // hkv / 8), bs, mb)
     strides = (ctypes.c_longlong * 15)(
         q_stride[0], q_stride[1], *k_stride[:3], *v_stride[:3],
         tables_stride[0], hq * dh, dh, *scale_strides,
     )
-    return splits, strides, pool_code, aligns
+    return _cluster_size(mb * bs), strides, pool_code, aligns
 
 
 def _decode_cuda(q, pool_k, pool_v, tables, pos, window, scale_k,
@@ -303,11 +310,11 @@ def _decode_cuda(q, pool_k, pool_v, tables, pos, window, scale_k,
         )
     if tables.dtype != torch.int32 or tables.stride(1) != 1:
         tables = tables.to(torch.int32).contiguous()  # on the card
-    splits, strides, pool_code, (q_align, pool_align) = _launch_plan(
+    cluster, strides, pool_code, (q_align, pool_align) = _launch_plan(
         tuple(q.shape), q.stride(), tuple(pool_k.shape), pool_k.stride(),
         pool_v.stride(), (tables.stride(0), tables.shape[1]),
         _scale_strides(scale_k, scale_v),
-        (q.dtype, pool_k.dtype, pool_v.dtype), q.device,
+        (q.dtype, pool_k.dtype, pool_v.dtype),
     )
     if q.data_ptr() % q_align or any(
         t.data_ptr() % pool_align for t in (pool_k, pool_v)
@@ -324,23 +331,14 @@ def _decode_cuda(q, pool_k, pool_v, tables, pos, window, scale_k,
     pos_stride = pos.stride(0) if pos.ndim == 1 else 0
 
     out = torch.empty((b, hq, dh), dtype=q.dtype, device=q.device)
-    part_acc = part_ml = None
-    if splits > 1:
-        # One f32 workspace: the partial acc [B, Hq, splits, Dh], then
-        # the partial (m, l) [B, Hq, splits, 2].
-        n_acc = b * hq * splits * dh
-        ws = torch.empty(n_acc + b * hq * splits * 2, dtype=torch.float32,
-                         device=q.device)
-        part_acc = ws.data_ptr()
-        part_ml = part_acc + 4 * n_acc
     quantized = scale_k is not None
     args = (
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
         tables.data_ptr(), scale_k.data_ptr() if quantized else None,
         scale_v.data_ptr() if quantized else None, pos.data_ptr(),
-        pos_stride, part_acc, part_ml, _DTYPE_CODE[q.dtype], pool_code, b,
+        pos_stride, _DTYPE_CODE[q.dtype], pool_code, b,
         hq, pool_k.shape[1], pool_k.shape[2], tables.shape[1], dh, strides,
-        0 if window is None else int(window), splits, dh**-0.5,
+        0 if window is None else int(window), cluster, dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if torch.cuda.current_device() == q.device.index:

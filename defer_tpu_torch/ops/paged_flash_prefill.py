@@ -65,7 +65,6 @@ from defer_tpu_torch.ops.paged_flash_decode import (
     _pool_rows,
     _positions,
     _scale_strides,
-    _split_count,
     folded_blocks,
 )
 
@@ -76,6 +75,23 @@ _TILE = 64
 # CTAs of the tensor-core kernel an SM holds at once (about 90 KB of
 # shared memory each at Dh 128).
 _CTAS_PER_SM = 2
+# Fewest rows one split of `_split_count` takes, rounded up to whole
+# blocks, and the most splits.
+_MIN_CHUNK = 32
+_MAX_SPLITS = 64
+
+
+def _split_count(sms: int, ctas: int, bs: int, mb: int,
+                 per_sm: int = 4) -> int:
+    """Splits of each slot's live range on a card of `sms` streaming
+    multiprocessors: enough CTAs for about `per_sm` an SM, no more than
+    the table span of `mb` blocks of `bs` rows holds chunks of whole
+    blocks of at least `_MIN_CHUNK` rows. Depends on shapes only, never
+    on pos. (The decode kernel's split plan before its cluster merge;
+    `_prefill_splits` calls it with 64-row tiles for blocks.)"""
+    want = math.ceil(per_sm * sms / ctas)
+    chunk_blocks = math.ceil(_MIN_CHUNK / bs)
+    return max(1, min(want, math.ceil(mb / chunk_blocks), _MAX_SPLITS))
 
 
 def _prefill_lo_hi(p0: int, t_q: int, block_size: int, window: int | None):

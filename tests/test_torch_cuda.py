@@ -166,7 +166,9 @@ def test_run_defer_goes_through_the_kernel(card):
 
 
 # (B, Hq, Hkv, S, Dh, dtype, pos, window): the main path's shape, a
-# binding window, MHA at Dh 64, G=8, a ragged S, f32, a scalar pos.
+# binding window, MHA at Dh 64, G=8, a ragged S, f32, a scalar pos; then
+# the tick's depths, G 1/4/8 at Dh 32/64/128 in f16 and f32, and G=20
+# (two CTAs of 16 query rows a KV head).
 DECODE_CASES = [
     (4, 32, 8, 4096, 128, torch.bfloat16, [4095, 2047, 130, 0], None),
     (2, 32, 8, 4096, 128, torch.bfloat16, [3000, 100], 256),
@@ -175,6 +177,13 @@ DECODE_CASES = [
     (3, 8, 2, 77, 64, torch.float16, [76, 0, 40], None),
     (2, 16, 4, 1000, 128, torch.float32, [999, 513], None),
     (4, 32, 8, 640, 128, torch.bfloat16, 321, None),
+    (4, 32, 8, 4096, 128, torch.bfloat16, [170, 176, 182, 188], 4096),
+    (2, 8, 8, 256, 32, torch.float16, [255, 3], None),
+    (2, 16, 4, 700, 64, torch.float16, [699, 64], 200),
+    (2, 64, 8, 300, 32, torch.bfloat16, [299, 15], None),
+    (2, 8, 2, 500, 64, torch.float32, [499, 16], 100),
+    (2, 4, 4, 130, 32, torch.float32, [129, 0], None),
+    (2, 40, 2, 1000, 128, torch.bfloat16, [999, 300], 500),
 ]
 DECODE_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}
 
@@ -303,6 +312,13 @@ PAGED_DECODE_CASES = [
     (3, 16, 4, 64, 8, 64, torch.float16, [511, 0, 100], None),
     (2, 32, 8, 128, 32, 32, torch.float32, [1023, 513], 200),
     (2, 4, 2, 32, 1, 16, torch.float32, [0, 15], None),
+    # The tick's depths; bs 1 and 4 in 16-bit; a window whose low edge
+    # falls mid-block; G=20 (two CTAs of 16 query rows a KV head).
+    (4, 32, 8, 128, 16, 256, torch.bfloat16, [170, 176, 182, 188], 4096),
+    (2, 8, 2, 64, 1, 300, torch.bfloat16, [299, 100], None),
+    (2, 16, 4, 32, 4, 64, torch.float16, [255, 9], 37),
+    (2, 8, 8, 128, 32, 32, torch.bfloat16, [1000, 40], 333),
+    (2, 40, 2, 128, 16, 64, torch.bfloat16, [1023, 77], None),
 ]
 
 
@@ -577,3 +593,79 @@ def test_spill_drain_makes_no_sync(card):
     for g, w in zip(got, want):
         assert torch.equal(g[:, 0], w)
     srv._spill.close()
+
+
+# (kind, B, Hq, Hkv, Dh, S or MB * bs, pos, window): the tick's depths and
+# the deep phase-2 positions, each kernel at Mistral-7B's shape.
+DEAD_ROW_CASES = [
+    (kind, pos)
+    for kind in ("flat", "paged", "int8")
+    for pos in ([170, 176, 182, 188], [4095, 2047, 130, 0])
+]
+
+
+def _decode_call(card, kind, pos, window=4096, poison=False):
+    """One decode call of `kind` (flat flash_decode, paged on a bf16 pool,
+    paged on an int8 pool) at Mistral-7B's tick shape; with `poison`,
+    every K/V row (flat) or pool block (paged) outside the slots' live
+    ranges holds NaN (an int8 block: garbage payload and NaN scales)."""
+    if kind == "flat":
+        q, k, v, posv = _decode_inputs(card, 4, 32, 8, 4096, 128,
+                                       torch.bfloat16, pos)
+        if poison:
+            for i, p in enumerate(pos):
+                lo = max(p - window + 1, 0)
+                for t in (k, v):
+                    t[i, :, p + 1:] = float("nan")
+                    t[i, :, :lo] = float("nan")
+        return lambda: flash_decode(q, k, v, posv, window=window)
+    q, pk, pv, tables, posv = _paged_inputs(card, 4, 32, 8, None, 128, 16,
+                                            256, torch.bfloat16, pos)
+    live = set()
+    for i, p in enumerate(pos):
+        lo = max(p - window + 1, 0) // 16
+        live |= set(tables[i, lo:p // 16 + 1].tolist())
+    dead = [i for i in range(pk.shape[0]) if i not in live]
+    if kind == "paged":
+        if poison:
+            pk[dead], pv[dead] = float("nan"), float("nan")
+        return lambda: paged_flash_decode(q, pk, pv, tables, posv,
+                                          window=window)
+    (kq, ks), (vq, vs) = _int8(pk), _int8(pv)
+    if poison:
+        kq[dead], vq[dead] = 127, -127
+        ks[dead], vs[dead] = float("nan"), float("nan")
+    return lambda: paged_flash_decode(q, kq, vq, tables, posv, window=window,
+                                      scale_k=ks, scale_v=vs)
+
+
+@pytest.mark.parametrize("kind,pos", DEAD_ROW_CASES)
+def test_decode_kernels_read_only_live_rows_at_mistral_shape(card, kind,
+                                                              pos):
+    """At the tick's depths and at the deep positions, NaN in every row
+    or block outside the live ranges (and NaN int8 scales there) leaves
+    each decode kernel's output finite and bit-identical."""
+    want = _decode_call(card, kind, pos)()
+    got = _decode_call(card, kind, pos, poison=True)()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["flat", "paged", "int8"])
+def test_a_decode_call_is_one_cuda_kernel(card, kind):
+    """The CTAs that share a sequence merge in the kernel (a thread
+    block cluster): a call launches one CUDA kernel and nothing else, no
+    merge kernel and no workspace fill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call = _decode_call(card, kind, [4095, 2047, 130, 0])
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert "decode" in kernels[0].name

@@ -18,7 +18,11 @@ import torch
 
 from defer_tpu.ops import pallas_attention as jax_pa
 from defer_tpu_torch.ops.flash_decode import (
+    _cluster_size,
     _decode_lo_hi,
+    _f32_chunks,
+    _live_bounds,
+    _warp_slices,
     flash_decode,
     flash_decode_plain,
     live_rows,
@@ -108,3 +112,67 @@ def test_validation(q_shape, k_shape, window, match):
     k = torch.zeros(k_shape)
     with pytest.raises(ValueError, match=match):
         flash_decode(q, k, k, 3, window=window)
+
+
+# (pos per sequence, S, window): pos 0, pos at S - 1, a window whose low
+# edge falls mid-slice, ragged positions across B, the tick's depths and
+# the deep phase-2 mix at Mistral-7B's S.
+SPLIT_CASES = [
+    ([0], 4096, 4096),
+    ([4095], 4096, 4096),
+    ([3000, 200], 4096, 256),
+    ([76, 0, 40], 77, None),
+    ([170, 176, 182, 188], 4096, 4096),
+    ([4095, 2047, 130, 0], 4096, 4096),
+    ([999, 513], 1000, 37),
+]
+
+
+@pytest.mark.parametrize("cluster", range(1, 9))
+@pytest.mark.parametrize("pos,s,window", SPLIT_CASES)
+def test_warp_slices_cover_the_live_range_once(pos, s, window, cluster):
+    """The tensor-core kernel's work split, from pos on the card: the
+    16-row slices of every (rank, warp) of a cluster cover each live row
+    exactly once and no row outside [max(pos - window + 1, 0), min(pos,
+    S - 1)]; the ranks' shares differ by at most one 64-row tile."""
+    for p in pos:
+        lo, hi = _live_bounds(p, s, window)
+        assert hi - lo + 1 == live_rows(p, s, window)
+        plan = _warp_slices(lo, hi, cluster)
+        assert sorted(plan) == [(r, w) for r in range(cluster)
+                                for w in range(4)]
+        rows = [r for spans in plan.values() for a, b in spans
+                for r in range(a, b + 1)]
+        assert sorted(rows) == list(range(lo, hi + 1))
+        for spans in plan.values():
+            for a, b in spans:
+                assert lo <= a <= b <= hi and b - a < 16
+                assert (a - lo) % 16 == 0
+        per_rank = [sum(b - a + 1 for w in range(4)
+                        for a, b in plan[r, w]) for r in range(cluster)]
+        assert max(per_rank) - min(per_rank) <= 64
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 5, 8])
+@pytest.mark.parametrize("pos,s,window", SPLIT_CASES)
+def test_f32_chunks_cover_the_live_range_once(pos, s, window, cluster):
+    """The f32 FMA kernel's split: one chunk of at least 32 rows a rank,
+    together the live rows exactly once; ranks past the chunks take
+    none."""
+    for p in pos:
+        lo, hi = _live_bounds(p, s, window)
+        chunks = _f32_chunks(lo, hi, cluster)
+        assert len(chunks) == cluster
+        rows = [r for c in chunks if c is not None
+                for r in range(c[0], c[1] + 1)]
+        assert rows == list(range(lo, hi + 1))
+        live = [c for c in chunks if c is not None]
+        assert chunks[:len(live)] == live  # the empty ranks come last
+
+
+def test_cluster_size_follows_the_span():
+    """One CTA a 64-row tile of the cache, at most 8 (a portable
+    cluster); from the shape only."""
+    assert [_cluster_size(n) for n in (1, 64, 65, 128, 300, 512, 4096)] == [
+        1, 1, 2, 2, 5, 8, 8,
+    ]

@@ -27,8 +27,15 @@ from defer_tpu.ops import pallas_attention as jax_pa
 from defer_tpu.runtime.paged import _blockwise_attend as jax_blockwise
 from defer_tpu.runtime.paged import _blockwise_attend_mt as jax_blockwise_mt
 from defer_tpu_torch.models.quant import quantize_symmetric
+from defer_tpu_torch.ops.flash_decode import (
+    _cluster_size,
+    _f32_chunks,
+    _live_bounds,
+    _warp_slices,
+)
 from defer_tpu_torch.ops.paged_flash_decode import (
     _decode_lo_hi,
+    _table_reads,
     folded_blocks,
     paged_flash_decode,
     paged_flash_decode_plain,
@@ -38,6 +45,7 @@ from defer_tpu_torch.ops.paged_flash_prefill import (
     _prefill_lo_hi,
     _prefill_splits,
     _split_columns,
+    _split_count,
     paged_flash_prefill,
     paged_flash_prefill_plain,
 )
@@ -303,3 +311,64 @@ def test_split_plan_covers_the_live_range_once(start, t, g, bs, window, mb,
         spans.append((first, last))
     assert spans[0][0] == lo * bs
     assert spans[-1][1] // bs == hi
+
+
+@pytest.mark.parametrize("bs", [1, 4, 8, 16, 32])
+@pytest.mark.parametrize("pos,mb_rows,window", [
+    ([0, 0], 4096, 4096),                # inactive slots sit at pos 0
+    ([4095, 100], 4096, 4096),           # pos at the table's last row
+    ([700, 40], 1024, 100),              # window low edge mid-block
+    ([170, 176, 182, 188], 4096, 4096),  # the tick's depths
+    ([4095, 2047, 130, 0], 4096, 4096),  # ragged, the deep phase-2 mix
+    ([511, 0, 100], 512, None),
+    ([299, 100], 320, 37),
+])
+def test_decode_split_reads_each_live_row_once(pos, mb_rows, window, bs):
+    """The tensor-core paged decode kernel's work split over the table
+    (cluster size from the table span, as the wrapper passes it, and
+    every smaller one the launch may fall back to): the warps' slices
+    cover each live row exactly once; the table entries it loads are
+    those of live columns only, [lo // bs, hi // bs], each live column's
+    at least once; an int8 pool's scales are loaded once a block in each
+    slice that touches the block, never for a dead column; the f32
+    kernel's whole-block chunks cover the live rows once."""
+    mb = mb_rows // bs
+    for p in pos:
+        lo, hi = _live_bounds(p, mb * bs, window)
+        assert (lo // bs, hi // bs) == _decode_lo_hi(min(p, mb * bs - 1), bs,
+                                                     window)
+        for cluster in range(1, _cluster_size(mb * bs) + 1):
+            plan = _warp_slices(lo, hi, cluster)
+            rows = sorted(r for spans in plan.values() for a, b in spans
+                          for r in range(a, b + 1))
+            assert rows == list(range(lo, hi + 1))
+            reads = _table_reads(lo, hi, bs, cluster)
+            entries = set()
+            for key, per_slice in reads.items():
+                for (a, b), (cols, scale_cols) in zip(plan[key], per_slice):
+                    assert cols == sorted({r // bs for r in range(a, b + 1)})
+                    assert all(lo // bs <= c <= hi // bs for c in cols)
+                    assert sorted(scale_cols) == cols  # once a block
+                    entries |= set(cols)
+            assert entries == set(range(lo // bs, hi // bs + 1))
+            chunks = _f32_chunks(lo, hi, cluster, bs)
+            covered = [r for c in chunks if c is not None
+                       for r in range(c[0], c[1] + 1)]
+            assert covered == list(range(lo, hi + 1))
+            for c in chunks:
+                if c is not None and c[0] > lo:
+                    assert c[0] % bs == 0  # a rank starts on a block edge
+
+
+def test_split_count_results_are_pinned_for_the_prefill():
+    """`_split_count` now serves only the prefill's split-K plan: its
+    results are those it gave as the decode kernel's plan."""
+    assert _split_count(132, 32, 16, 256) == 17
+    assert _split_count(132, 8, 64, 64, per_sm=2) == 33
+    assert _split_count(132, 1, 64, 64, per_sm=2) == 64
+    assert _split_count(1, 1000, 16, 4) == 1
+    assert _split_count(16, 8, 1, 16) == 1
+    assert _split_count(132, 64, 64, 1, per_sm=2) == 1
+    assert _split_count(132, 16, 4, 1000) == 33
+    # The phase-5 chunk of Mistral-7B: 9 splits of the 64-column tiles.
+    assert _prefill_splits(132, 1, 32, 8, 64, 16, 256) == 9
