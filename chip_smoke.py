@@ -10,7 +10,8 @@ printing one line per check and failing loudly:
                 from the sources in this checkout (one nvcc per source,
                 all started together);
   2. kernels  — each kernel against its plain PyTorch version on the
-                card, at its main path's shape and at the edge cases,
+                card, at its main paths' shapes (flash_attention at
+                BERT's and at ViT-B/16's) and at the edge cases,
                 with the tolerance stated (the decode kernels also at the
                 depths of the serving ticks, TICK_POS, beside the deep
                 mix DEEP_POS, and both are timed); then the kernel's time,
@@ -29,6 +30,18 @@ printing one line per check and failing loudly:
                 random bf16 weights from a seeded generator, 64 streamed
                 microbatches; outputs checked for shape, finiteness and
                 against the unpartitioned graph on the card;
+     cnn      — ResNet50 (224x224x3, 1000 classes) and ViT-B/16 (12
+                layers, dim 768, 12 heads, MLP 3072, patch 16) through
+                DEFER().run_defer at batch 32, 64 microbatches, cut into
+                4 stages (ResNet50 at model.default_cuts(4); ViT at
+                block_2/5/8_out, on flash_attention at S = 197), random
+                bf16 weights from a seeded generator; every output
+                checked (shape, finite, softmax rows summing to 1) and
+                microbatch 0 against the unpartitioned graph; images/s
+                and MFU (graph_flops over the card's peak); ResNet50 also
+                on partition_layers="auto" over [cuda:0] x 4; entry()
+                once; then every other zoo entry's bf16 forward at batch
+                8 and its published resolution against f32 on the card;
   4. decode   — DecodeServer(max_batch=4) over GptDecoder at
                 mistral_config()'s full width and depth (32 layers, dim
                 4096, 32 heads, 8 KV heads, FFN 14336, vocab 32000,
@@ -58,8 +71,9 @@ printing one line per check and failing loudly:
   7. report   — a JSON line of every kernel, the card's name and power
                 limit, and last the line {"ok": true, "device": {...}}.
 
-Every kernel launch count is zeroed just before each path (3, 4, 5, 6)
-and read just after it; a path that did not launch its kernels fails.
+Every kernel launch count is zeroed just before each path (3, cnn, 4,
+5, 6) and read just after it; a path that did not launch its kernels
+fails.
 
 Exits non-zero, and prints no result, when CUDA is unavailable, when the
 package is not beside this file, or when any phase fails. Imports
@@ -84,6 +98,29 @@ BF16_FLOP_PER_S = 989e12
 
 BERT_CUTS = ["encoder_2_out", "encoder_5_out", "encoder_8_out"]
 BATCH, SEQ, MICROBATCHES = 16, 128, 64
+
+# The CNN phase: ResNet50 and ViT-B/16 streams at batch 32 over
+# MICROBATCHES, ViT cut at its block outputs (ResNet50 at
+# model.default_cuts(4), add_4/8/12, as bench.py cuts it); the auto-cut
+# run's microbatches; flash_attention at ViT-B/16's shape (B, H, S, Dh).
+IMAGE_BATCH, AUTO_MICROBATCHES = 32, 8
+VIT_CUTS = ["block_2_out", "block_5_out", "block_8_out"]
+VIT_ATTN = (IMAGE_BATCH, 12, 197, 64)
+# Every other zoo entry: one bf16 forward at batch 8 and its published
+# resolution, against the same graph in f32 on the card (TF32 off).
+ZOO_BATCH = 8
+ZOO = ["vgg16", "vgg19", "mobilenetv2", "efficientnet_b0", "inceptionv3",
+       "inception_resnet_v2", "xception", "densenet121", "nasnet_mobile",
+       "resnet101", "resnet152", "vit_s16"]
+# bf16 against f32: relative L2 error of the logits (before any output
+# softmax). bf16 keeps 8 bits; every layer rounds its weights and its
+# activations, and the errors of a hundred-odd layers add up (about
+# 1-2% expected from a random walk of 0.1-0.2% a layer).
+ZOO_REL_L2 = 5e-2
+# A stream's microbatch 0 against the unpartitioned graph on the card,
+# same bf16 weights and kernels: max abs error over softmax rows
+# (ResNet50) or relative to the largest logit (ViT-B/16).
+STREAM_TOL = 1e-3
 
 # The decode path: slots of the server, and the tie tolerance of the
 # greedy-validity check (a served token's reference logit within this
@@ -306,6 +343,7 @@ def check_flash_attention() -> dict:
     # (label, (B, H, S_q, Dh), S_k, dtype, causal)
     cases = [
         ("bert", (BATCH, 12, SEQ, 64), SEQ, bf16, False),
+        ("vit", VIT_ATTN, VIT_ATTN[2], bf16, False),
         ("causal", (BATCH, 12, SEQ, 64), SEQ, bf16, True),
         ("ragged77", (2, 12, 77, 64), 77, bf16, False),
         ("ragged200", (2, 12, 200, 64), 200, bf16, False),
@@ -320,7 +358,7 @@ def check_flash_attention() -> dict:
         ("f32", (4, 12, SEQ, 64), SEQ, f32, False),
         ("f32_causal", (4, 12, SEQ, 64), SEQ, f32, True),
     ]
-    bert_err = None
+    errs = {}
     for label, (b, h, s_q, dh), s_k, dtype, causal in cases:
         q = _bert_qkv(gen, b, h, s_q, dh, dtype)[0]
         k, v = _bert_qkv(gen, b, h, s_k, dh, dtype)[1:]
@@ -329,25 +367,29 @@ def check_flash_attention() -> dict:
         want = flash_attention_plain(q, k, v, causal=causal)
         max_err = _held(label, "flash_attention", got, want, dtype,
                         f"q={tuple(q.shape)} s_k={s_k} causal={causal}")
-        if label == "bert":
-            bert_err = max_err
+        errs[label] = max_err
 
-    q, k, v = _bert_qkv(gen, BATCH, 12, SEQ, 64, bf16)
-    kernel_ms = cuda_time_ms(lambda: flash_attention(q, k, v))
-    plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v))
-    library_ms = cuda_time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
-    )
-    nbytes = 4 * q.numel() * q.element_size()
-    flops = 4 * BATCH * 12 * SEQ * SEQ * 64
-    bound_ms, bound_by = _bound(nbytes, flops)
-    log(f"kernels: flash_attention at {tuple(q.shape)} bf16: kernel_ms "
-        f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms (sdpa) "
-        f"{library_ms:.5f} bound_us {bound_ms * 1e3:.3f} "
-        f"({nbytes} B, {flops} FLOP)")
-    return {"max_abs_err": bert_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    def timed(shape) -> dict:
+        b, h, s, dh = shape
+        q, k, v = _bert_qkv(gen, b, h, s, dh, bf16)
+        kernel_ms = cuda_time_ms(lambda: flash_attention(q, k, v))
+        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v))
+        library_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        )
+        nbytes = 4 * q.numel() * q.element_size()
+        flops = 4 * b * h * s * s * dh
+        bound_ms, bound_by = _bound(nbytes, flops)
+        log(f"kernels: flash_attention at {tuple(q.shape)} bf16: kernel_ms "
+            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms (sdpa) "
+            f"{library_ms:.5f} bound_us {bound_ms * 1e3:.3f} "
+            f"({nbytes} B, {flops} FLOP)")
+        return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    # BERT's shape at the top (as in earlier runs), ViT-B/16's beside it.
+    return {"max_abs_err": errs["bert"], **timed((BATCH, 12, SEQ, 64)),
+            "vit": {"max_abs_err": errs["vit"], **timed(VIT_ATTN)}}
 
 
 def _decode_qkv(gen, b, hq, hkv, s, dh, dtype):
@@ -872,6 +914,56 @@ def phase_kernels() -> dict:
 
 # -- phase 3 ---------------------------------------------------------------
 
+def stream(defer, model, cuts, params, inputs) -> dict:
+    """Stream `inputs` through defer.run_defer in a thread, the caller
+    feeding and draining its queues, as a user does; returns the outputs,
+    every kernel's launches in the run (the counts zeroed just before
+    it) and its times: the whole run, and the steady microbatches/s
+    after the first output."""
+    in_q: "queue.Queue" = queue.Queue()
+    out_q: "queue.Queue" = queue.Queue()
+    errors: list[BaseException] = []
+
+    def serve() -> None:
+        try:
+            defer.run_defer(model, cuts, in_q, out_q, params=params)
+        except BaseException as e:  # relayed to the main thread
+            errors.append(e)
+
+    zero_launches()
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=serve, daemon=True)
+    worker.start()
+    for x in inputs:
+        in_q.put(x)
+    in_q.put(None)
+    outs = []
+    t_first = None
+    for _ in inputs:
+        while True:
+            try:
+                outs.append(out_q.get(timeout=5.0))
+                break
+            except queue.Empty:
+                check(not errors, f"run_defer raised: {errors!r}")
+                check(worker.is_alive(), "run_defer ended early")
+                check(time.perf_counter() - t0 < 600,
+                      "run_defer made no output for 600s")
+        if t_first is None:
+            t_first = time.perf_counter()
+    worker.join(timeout=60)
+    t_end = time.perf_counter()
+    launches = read_launches()
+    check(not errors, f"run_defer raised: {errors!r}")
+    check(not worker.is_alive(), "run_defer did not end after the sentinel")
+    check(out_q.empty(), "run_defer produced more outputs than inputs")
+    return {
+        "outs": outs,
+        "launches": launches,
+        "seconds_total": t_end - t0,
+        "microbatches_per_sec": (len(outs) - 1) / (t_end - t_first),
+    }
+
 def run_main_path(
     device,
     model_name: str = "bert_base",
@@ -908,43 +1000,8 @@ def run_main_path(
         ).float()
 
     defer = DEFER(devices=[device], config=config)
-    in_q: "queue.Queue" = queue.Queue()
-    out_q: "queue.Queue" = queue.Queue()
-    errors: list[BaseException] = []
-
-    def serve() -> None:
-        try:
-            defer.run_defer(model, cuts, in_q, out_q, params=params)
-        except BaseException as e:  # relayed to the main thread
-            errors.append(e)
-
-    zero_launches()
-    t0 = time.perf_counter()
-    worker = threading.Thread(target=serve, daemon=True)
-    worker.start()
-    for i in range(microbatches):
-        in_q.put(ids[i])
-    in_q.put(None)
-    outs = []
-    t_first = None
-    for _ in range(microbatches):
-        while True:
-            try:
-                outs.append(out_q.get(timeout=5.0))
-                break
-            except queue.Empty:
-                check(not errors, f"run_defer raised: {errors!r}")
-                check(worker.is_alive(), "run_defer ended early")
-                check(time.perf_counter() - t0 < 600,
-                      "run_defer made no output for 600s")
-        if t_first is None:
-            t_first = time.perf_counter()
-    worker.join(timeout=60)
-    t_end = time.perf_counter()
-    launches = read_launches()
-    check(not errors, f"run_defer raised: {errors!r}")
-    check(not worker.is_alive(), "run_defer did not end after the sentinel")
-    check(out_q.empty(), "run_defer produced more outputs than inputs")
+    run = stream(defer, model, cuts, params, list(ids))
+    outs, launches = run["outs"], run["launches"]
     check(defer.last_pipeline.num_stages == len(cuts) + 1,
           f"expected {len(cuts) + 1} stages")
 
@@ -960,13 +1017,13 @@ def run_main_path(
     check(launches["flash_attention"] >= layers * microbatches,
           f"flash_attention launched {launches['flash_attention']} times, "
           f"expected >= {layers} x {microbatches}")
-    steady = (microbatches - 1) / (t_end - t_first)
+    steady = run["microbatches_per_sec"]
     return {
         "launches": launches,
         "err0": err0,
         "tol": tol,
         "stages": defer.last_pipeline.num_stages,
-        "seconds_total": t_end - t0,
+        "seconds_total": run["seconds_total"],
         "microbatches_per_sec": steady,
         "items_per_sec": steady * batch,
         "tokens_per_sec": steady * batch * seq,
@@ -986,6 +1043,175 @@ def phase_main() -> dict:
         f"{res['items_per_sec']:.1f} items/s, {res['tokens_per_sec']:.0f} "
         f"tokens/s; whole run incl. stage placement "
         f"{res['seconds_total']:.2f}s")
+    return res
+
+
+# -- phase 3b: the CNN zoo and ViT ------------------------------------------
+
+def _logits_name(graph) -> str:
+    """The node before an output softmax (the output itself otherwise),
+    so a saturated softmax cannot hide a difference."""
+    out = graph.node_map[graph.output_name]
+    return out.inputs[0] if out.op == "softmax" else out.name
+
+
+def image_stream(label, model, cuts, devices, params, xs, config) -> dict:
+    """Stream the device-resident microbatches `xs` through
+    DEFER(devices).run_defer(model, cuts) and check every output: shape
+    (batch, classes), finite, softmax rows summing to 1 within 1e-2 where
+    the model ends in a softmax, and microbatch 0 against the
+    unpartitioned graph on the card (same bf16 weights, within
+    STREAM_TOL of the largest output)."""
+    import torch
+
+    from defer_tpu_torch import DEFER
+    from defer_tpu_torch.parallel.pipeline import cast_params_to_storage
+
+    graph = model.graph
+    with torch.inference_mode():
+        want = graph.apply(
+            cast_params_to_storage(params, config), xs[0].to(config.compute_dtype)
+        ).float()
+    defer = DEFER(devices=devices, config=config)
+    run = stream(defer, model, cuts, params, list(xs))
+    softmax = graph.node_map[graph.output_name].op == "softmax"
+    for i, out in enumerate(run["outs"]):
+        check(tuple(out.shape) == tuple(want.shape),
+              f"{label} output {i} has shape {tuple(out.shape)}")
+        out = out.float()
+        check(bool(torch.isfinite(out).all().item()),
+              f"{label} output {i} is not finite")
+        if softmax:
+            rows = (out.sum(-1) - 1).abs().max().item()
+            check(rows <= 1e-2, f"{label} output {i}: a row sums to 1 +- {rows}")
+    err0 = (run["outs"][0].float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err0 <= STREAM_TOL * scale,
+          f"{label} microbatch 0 differs from the unpartitioned graph by "
+          f"{err0} (largest output {scale})")
+    stages = defer.last_pipeline.stages
+    return {**run, "err0": err0, "scale": scale,
+            "stages": len(stages),
+            "cuts": [getattr(st, "input_names", None) or st.input_name
+                     for st in stages[1:]]}
+
+
+def phase_cnn() -> dict:
+    """ResNet50 and ViT-B/16 at their published widths through a 4-stage
+    run_defer on the card, ResNet50 also on FLOPs-balanced auto cuts,
+    entry() once, and every other zoo entry's bf16 forward against f32."""
+    import dataclasses
+
+    import torch
+
+    from defer_tpu_torch import DEFER, DeferConfig
+    from defer_tpu_torch.entry import entry
+    from defer_tpu_torch.models import get_model
+    from defer_tpu_torch.utils.flops import (
+        balanced_cuts,
+        graph_flops,
+        peak_flops,
+    )
+
+    dev = torch.device("cuda", 0)
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    peak = peak_flops(torch.cuda.get_device_name(0))
+    check(peak is not None, "no bf16 peak FLOP/s known for this card")
+    res = {}
+
+    def draw(shape, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for name, cuts in (("resnet50", None), ("vit_b16", VIT_CUTS)):
+        model = get_model(name)
+        cuts = cuts or model.default_cuts(4)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            batch_size=IMAGE_BATCH)
+        xs = draw((MICROBATCHES, IMAGE_BATCH, *model.input_shape), 1)
+        run = image_stream(name, model, cuts, [dev], params, xs, config)
+        check(run["stages"] == 4 and run["cuts"] == list(cuts),
+              f"{name}: stages cut at {run['cuts']}, expected {cuts}")
+        per_image = graph_flops(model.graph, params, (1, *model.input_shape))
+        images = run["microbatches_per_sec"] * IMAGE_BATCH
+        mfu = images * per_image / peak
+        log(f"cnn: run_defer {name} {model.input_shape} batch {IMAGE_BATCH}, "
+            f"4 stages cut at {list(cuts)} on cuda:0, {MICROBATCHES} "
+            f"microbatches: all outputs {tuple(run['outs'][0].shape)} finite; "
+            f"microbatch 0 vs unpartitioned graph max_abs_err "
+            f"{run['err0']:.3e} (tol {STREAM_TOL:g} x {run['scale']:.4g}, "
+            f"bf16)")
+        log(f"cnn: {name} steady state {images:.1f} images/s, "
+            f"{per_image:.6g} FLOP an image, MFU {mfu:.4f} of "
+            f"{peak:.4g} FLOP/s; whole run incl. stage placement "
+            f"{run['seconds_total']:.2f}s")
+        res[name] = {"images_per_sec": images, "mfu": mfu,
+                     "flops_per_image": per_image,
+                     "launches": run["launches"]}
+        if name == "resnet50":
+            auto = balanced_cuts(model.graph, params,
+                                 (IMAGE_BATCH, *model.input_shape), 4,
+                                 model.cut_candidates)
+            log(f"cnn: resnet50 balanced_cuts(4) {auto}, default_cuts(4) "
+                f"{list(cuts)}")
+            run = image_stream("resnet50 auto", model, "auto", [dev] * 4,
+                               params, xs[:AUTO_MICROBATCHES], config)
+            check(run["stages"] == 4 and run["cuts"] == auto,
+                  f"auto cuts gave stages at {run['cuts']}, expected {auto}")
+            log(f"cnn: run_defer resnet50 \"auto\" on [cuda:0] x 4: 4 "
+                f"stages cut at {run['cuts']}, {AUTO_MICROBATCHES} "
+                f"microbatches checked, microbatch 0 max_abs_err "
+                f"{run['err0']:.3e}")
+        else:
+            layers = sum(1 for n in model.graph.nodes if n.op == "mha")
+            fa = run["launches"]["flash_attention"]
+            check(fa >= layers * MICROBATCHES,
+                  f"flash_attention launched {fa} times on the ViT path, "
+                  f"expected >= {layers} x {MICROBATCHES}")
+            log(f"cnn: vit_b16 flash_attention launches {fa} (>= {layers} x "
+                f"{MICROBATCHES})")
+        del params, xs, run
+
+    fn, args = entry()
+    out = fn(*args)
+    check(tuple(out.shape) == (8, 1000)
+          and bool(torch.isfinite(out.float()).all().item()),
+          f"entry(): output {tuple(out.shape)} not (8, 1000) and finite")
+    log(f"cnn: entry() resnet50 batch 8 bf16 -> {tuple(out.shape)} "
+        f"{out.dtype}, finite")
+    del fn, args, out
+
+    prior = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    t0 = time.perf_counter()
+    for name in ZOO:
+        model = get_model(name)
+        graph = dataclasses.replace(model.graph,
+                                    output_name=_logits_name(model.graph))
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            batch_size=ZOO_BATCH)
+        x = draw((ZOO_BATCH, *model.input_shape), 2)
+        pipe, _ = DEFER(devices=[dev], config=config).build_pipeline(
+            graph, None, params=params)
+        got = pipe(x).float()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.inference_mode():
+                want = graph.apply(params, x)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prior
+        rel = ((got - want).norm() / want.norm()).item()
+        log(f"cnn: {name} {model.input_shape} batch {ZOO_BATCH}: bf16 "
+            f"logits {tuple(got.shape)} vs f32 relative L2 error {rel:.3e} "
+            f"(tol {ZOO_REL_L2:g}), max abs {(got - want).abs().max().item():.3e}"
+            f" of {want.abs().max().item():.4g}")
+        check(bool(torch.isfinite(got).all().item()) and rel <= ZOO_REL_L2,
+              f"{name}: bf16 logits differ from f32 by {rel} (relative L2)")
+        del params, pipe, x, got, want
+    log(f"cnn: {len(ZOO)} zoo entries checked in "
+        f"{time.perf_counter() - t0:.1f}s")
     return res
 
 
@@ -1470,6 +1696,7 @@ def main() -> int:
         phase_build()
         kernels = phase_kernels()
         main_res = phase_main()
+        cnn_res = phase_cnn()
         decode_res = phase_decode()
         dec, params = decode_res.pop("dec"), decode_res.pop("params")
         paged_res = phase_paged(dec, params, decode_res["weight_bytes"])
@@ -1482,6 +1709,8 @@ def main() -> int:
         log(f"FAIL: {type(e).__name__}: {e}")
         return 1
     # Each kernel's launches are those of the path that runs it.
+    kernels["flash_attention"]["vit"]["launches"] = (
+        cnn_res["vit_b16"]["launches"]["flash_attention"])
     path_launches = {
         "flash_attention": main_res["launches"]["flash_attention"],
         "flash_decode": decode_res["launches"]["flash_decode"],
@@ -1507,7 +1736,7 @@ def main() -> int:
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-            **{key: k[key] for key in ("deep", "tick") if key in k},
+            **{key: k[key] for key in ("deep", "tick", "vit") if key in k},
         })
     log(json.dumps({"kernels": report}))
     log(card)

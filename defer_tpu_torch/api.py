@@ -81,6 +81,8 @@ class DEFER:
 
         Cut points become stage graphs, and each stage's param slice is
         cast to the storage dtype and moved to its device once.
+        partition_layers="auto" picks FLOPs-balanced boundaries, one
+        stage per device (`devices=[d] * 4` makes four stages on d).
         Without `params`, a Model is initialised from `rng` (default: a
         CPU generator seeded with 0), in float32.
         """
@@ -96,13 +98,10 @@ class DEFER:
                 "Queue 1, 'the Keras import and transport' "
                 "(defer_tpu/graph/keras_import.py)"
             )
-        if isinstance(partition_layers, str) and partition_layers == "auto":
-            raise NotImplementedError(
-                'partition_layers="auto" is not ported yet: ROADMAP.md '
-                "Queue 1, 'the auto cuts' (defer_tpu/utils/flops.py "
-                "balanced_cuts)"
-            )
-        cuts = normalize_cuts(partition_layers)
+        auto = (
+            isinstance(partition_layers, str) and partition_layers == "auto"
+        )
+        cuts = () if auto else normalize_cuts(partition_layers)
         if isinstance(model, Model):
             graph = model.graph
             example = model.example_input(batch_size)
@@ -119,12 +118,51 @@ class DEFER:
                 # placement.
                 param_dtype=torch.float32,
             )
+        if auto:
+            cuts = self._auto_cuts(model, graph, params, example)
         stages = partition(graph, cuts) if cuts else [graph]
         pipe = self._compile(stages, params, None)
         self.last_pipeline = pipe
         # Retained for elastic re-dispatch after a stage failure.
         self._build_state = (stages, params)
         return pipe, example
+
+    def _auto_cuts(
+        self,
+        model: Model | Graph,
+        graph: Graph,
+        params: GraphParams,
+        example: Any,
+    ) -> tuple:
+        """FLOPs-balanced cuts, one stage per device (capped at the
+        candidates plus one): the model's cut candidates, or every chain
+        boundary of the graph where it has none."""
+        from defer_tpu_torch.graph.partition import chain_boundaries
+        from defer_tpu_torch.utils.flops import balanced_cuts
+
+        if example is None:
+            raise ValueError(
+                'partition_layers="auto" needs a Model (a raw Graph '
+                "has no input shape to balance FLOPs against)"
+            )
+        cands = (
+            model.cut_candidates
+            if isinstance(model, Model) and model.cut_candidates
+            else chain_boundaries(graph)
+        )
+        n_stages = min(max(1, len(self.devices)), len(cands) + 1)
+        cuts = tuple(
+            balanced_cuts(
+                graph,
+                params,
+                tuple(example.shape),
+                n_stages,
+                cands,
+                input_dtype=example.dtype,
+            )
+        )
+        log.info("auto cuts (%d stages): %s", n_stages, cuts)
+        return cuts
 
     def _compile(
         self,

@@ -4,7 +4,7 @@ Each model is built natively as an IR graph with the JAX package's node
 names, so the same cut lists apply unchanged and param trees map 1:1.
 
 Registry:
-    model = get_model("bert_base")       # -> Model(graph, input_shape, ...)
+    model = get_model("resnet50")        # -> Model(graph, input_shape, ...)
     params = model.init(torch.Generator().manual_seed(0))
 """
 
@@ -33,6 +33,9 @@ class Model:
     # Each candidate is one boundary: a node name, or a tuple of names
     # for a multi-tensor bundle.
     cut_candidates: tuple[str | tuple[str, ...], ...] = ()
+    # IR node name -> layer name in the real tf.keras checkpoint. None =
+    # identity (names already match).
+    keras_name_map: Callable[[str], str] | None = None
 
     def init(
         self,
@@ -100,7 +103,19 @@ def _load_zoo() -> None:
     effects."""
     import importlib
 
-    for mod in ("bert",):
+    for mod in (
+        "bert",
+        "densenet",
+        "efficientnet",
+        "inception",
+        "inception_resnet",
+        "mobilenet",
+        "nasnet",
+        "resnet",
+        "vgg",
+        "vit",
+        "xception",
+    ):
         importlib.import_module(f"defer_tpu_torch.models.{mod}")
 
 

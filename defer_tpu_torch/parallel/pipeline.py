@@ -60,6 +60,24 @@ def cast_params_to_storage(params: Any, config: DeferConfig) -> Any:
     }
 
 
+def place_params(
+    graph: Graph | StageGraph, params: GraphParams, config: DeferConfig
+) -> dict:
+    """A stage's params as it holds them: cast to the storage dtype, then
+    each op's placement form (ops/registry.py `place`): conv kernels
+    stored O,H,W,I behind their HWIO shape, batch norms folded to one
+    scale and shift in the compute dtype. Done once, at construction."""
+    from defer_tpu_torch.ops import get_op
+
+    ops = {n.name: n for n in graph.nodes}
+    return {
+        name: get_op(ops[name].op).place(
+            node, ops[name].attrs, config.compute_dtype
+        )
+        for name, node in cast_params_to_storage(params, config).items()
+    }
+
+
 def probe_latency(fn: Any, *args: Any, iters: int = 10) -> dict[str, Any]:
     """Synchronous latency sample for one stage callable — the timing
     core `Pipeline.probe_stage_latencies` reports per stage. Runs one
@@ -121,7 +139,7 @@ class StreamMeasure:
 
 class Stage(nn.Module):
     """One pipeline stage: its graph and its param slice, held on
-    `device` in the storage dtype."""
+    `device` in the storage dtype and each op's placement form."""
 
     def __init__(
         self,
@@ -134,7 +152,7 @@ class Stage(nn.Module):
         self.graph = graph
         self.device = resolve_device(device)
         self.compute_dtype = config.compute_dtype
-        placed = cast_params_to_storage(stage_params(params, graph), config)
+        placed = place_params(graph, stage_params(params, graph), config)
         self.params = nn.ModuleDict(
             {
                 name: nn.ParameterDict(

@@ -153,7 +153,6 @@ def test_default_device_is_cuda():
     "kwargs,layers",
     [
         ({"replicas": 2}, CUTS),
-        ({}, "auto"),
     ],
 )
 def test_unported_options_raise(bert, kwargs, layers):

@@ -1,6 +1,8 @@
 """Card-only tests of defer_tpu_torch: the hand-written kernels against
 their plain versions, and the main paths through them (run_defer, the
-decode server and the paged server, on a float and an int8 pool).
+decode server and the paged server, on a float and an int8 pool); the
+CNN ops through cuDNN against their CPU path, and the image models'
+stages.
 
 Every test here is marked `cuda` and skips without a CUDA card. The
 file imports neither jax nor defer_tpu, so on the card it runs on its
@@ -11,7 +13,9 @@ own, without tests/conftest.py (which imports JAX):
 Tolerances: kernel vs plain version, atol + rtol of 1e-2 in bfloat16,
 2e-3 in float16 and 1e-5 in float32 (both compute in f32 and round once
 at the end); the pipelined output vs the unpartitioned graph, 1e-2 in
-bfloat16 (the same kernels on the same inputs); a served token's
+bfloat16 (the same kernels on the same inputs); the CNN ops on the card
+against the CPU, atol = rtol = 1e-4 in float32 with TF32 off (cuDNN
+and the CPU sum in different orders); a served token's
 reference logit within 0.08 of its row's max (a greedy tie tolerance
 for bf16 decoding, as examples/serve_decode.py uses).
 """
@@ -71,6 +75,10 @@ def card():
         ((2, 4, 1, 64), 1, torch.bfloat16, True, 1e-2),
         ((2, 4, 8, 64), 8, torch.bfloat16, True, 1e-2),
         ((2, 4, 200, 64), 200, torch.bfloat16, True, 1e-2),
+        # ViT-B/16 and ViT-S/16 at 224 (S = 197, a ragged last tile) and
+        # vit_tiny (Dh 16, S = 17).
+        ((2, 12, 197, 64), 197, torch.bfloat16, False, 1e-2),
+        ((2, 4, 17, 16), 17, torch.bfloat16, False, 1e-2),
     ],
 )
 def test_kernel_matches_plain(card, shape, s_k, dtype, causal, tol):
@@ -669,3 +677,138 @@ def test_a_decode_call_is_one_cuda_kernel(card, kind):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1, [e.name for e in kernels]
     assert "decode" in kernels[0].name
+
+
+# -- the CNN ops and the image models --------------------------------------
+
+# (op, attrs, NHWC input): strided SAME convs and pools whose padding is
+# asymmetric at these sizes (MobileNetV2's Conv1 at 224 pads (0, 1)),
+# beside symmetric ones.
+CNN_CASES = [
+    ("conv", {"features": 32, "kernel_size": 3, "strides": 2},
+     (2, 224, 224, 3)),
+    ("conv", {"features": 8, "kernel_size": 3, "strides": 2}, (2, 9, 9, 4)),
+    ("conv", {"features": 16, "kernel_size": 1, "strides": 2,
+              "use_bias": True}, (2, 8, 8, 16)),
+    ("depthwise_conv", {"kernel_size": 5, "strides": 2}, (2, 8, 10, 16)),
+    ("depthwise_conv", {"kernel_size": 3, "depth_multiplier": 2},
+     (2, 7, 7, 8)),
+    ("separable_conv", {"features": 24, "kernel_size": 3, "strides": 2},
+     (2, 9, 8, 16)),
+    ("max_pool", {"window": 3, "strides": 2, "padding": "SAME"},
+     (2, 8, 8, 16)),
+    ("max_pool", {"window": 3, "strides": 1, "padding": "SAME"},
+     (2, 7, 7, 16)),
+    ("avg_pool", {"window": 3, "strides": 2, "padding": "SAME"},
+     (2, 8, 8, 16)),
+    ("avg_pool", {"window": 3, "strides": 1, "padding": "SAME"},
+     (2, 7, 7, 16)),
+    ("batch_norm", {"eps": 1.001e-5}, (2, 7, 7, 16)),
+]
+
+
+@pytest.mark.parametrize(
+    "op,attrs,shape", CNN_CASES,
+    ids=[f"{c[0]}-{i}" for i, c in enumerate(CNN_CASES)],
+)
+def test_cnn_op_on_the_card_matches_the_cpu(card, monkeypatch, op, attrs,
+                                            shape):
+    """The card's cuDNN path against the port's CPU path on the same
+    float32 inputs, with the params as stored and as a stage places
+    them."""
+    from defer_tpu_torch.ops import get_op
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(0)
+    params = get_op(op).init(gen, attrs, [shape], torch.float32)
+    params = {k: v + 0.1 * torch.randn(v.shape, generator=gen)
+              for k, v in params.items()}
+    if "var" in params:
+        params["var"] = params["var"].abs() + 0.5
+    x = torch.randn(shape, generator=gen)
+    want = get_op(op).apply(params, [x], attrs)
+    on_card = {k: v.to(card) for k, v in params.items()}
+    placed = get_op(op).place(on_card, attrs, torch.float32)
+    for p in (on_card, placed):
+        got = get_op(op).apply(p, [x.to(card)], attrs)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.is_contiguous()
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,image", [("vit_tiny", 32), ("vit_s16", 224),
+                                        ("vit_b16", 224)])
+def test_every_vit_reaches_the_kernel(card, name, image):
+    """Every ViT zoo entry's attention takes the hand-written kernel
+    (Dh 16 for vit_tiny, 64 for the others; S 17 and 197), none its
+    raise: one launch a block."""
+    model = get_model(name, image_size=image)
+    params = cast_params_to_storage(
+        model.init(torch.Generator(device=card).manual_seed(0)),
+        DeferConfig(compute_dtype=torch.bfloat16),
+    )
+    x = torch.randn((2, image, image, 3), device=card, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        out = model.graph.apply(params, x)
+    torch.cuda.synchronize()
+    layers = sum(1 for n in model.graph.nodes if n.op == "mha")
+    assert flash_attention.launches - before == layers
+    assert torch.isfinite(out.float()).all()
+
+
+_COPY_OPS = ("aten::copy_", "aten::_to_copy", "aten::clone",
+             "aten::contiguous")
+
+
+def _kernels_by_op(run) -> dict:
+    """Kernels launched by `run()`, by the PyTorch op that launched
+    them; copies launched inside a pad (its interior write) are the pad's
+    own and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        parent, in_pad = e.cpu_parent, False
+        while parent is not None:
+            in_pad |= parent.name in ("aten::pad", "aten::constant_pad_nd")
+            parent = parent.cpu_parent
+        if not (in_pad and e.name in _COPY_OPS):
+            out.setdefault(e.name, []).extend(k.name for k in e.kernels)
+    return out
+
+
+def test_resnet50_stage_copies_no_weight(card):
+    """A placed ResNet50 stage launches no copy a call (beyond its two
+    zero pads' own writes): its conv kernels are stored so that cuDNN's
+    OIHW view is channels-last, and each batch norm is one addcmul. The
+    same graph on the stored params copies every conv kernel on every
+    call."""
+    from defer_tpu_torch.parallel.pipeline import Stage
+
+    model = get_model("resnet50")
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    stage = Stage(model.graph, params, card, config)
+    stored = cast_params_to_storage(params, config)
+    x = torch.randn((8, 224, 224, 3), device=card, dtype=torch.bfloat16)
+    convs = sum(1 for n in model.graph.nodes if n.op == "conv")
+    bns = sum(1 for n in model.graph.nodes if n.op == "batch_norm")
+    with torch.inference_mode():
+        stage(x)
+        placed = _kernels_by_op(lambda: stage(x))
+        unplaced = _kernels_by_op(lambda: model.graph.apply(stored, x))
+    copies = [k for op in _COPY_OPS for k in placed.get(op, [])]
+    layout = [k for ks in placed.values() for k in ks
+              if "nchwToNhwc" in k or "nhwcToNchw" in k]
+    assert copies == [] and layout == [], (copies, layout)
+    assert len(placed["aten::addcmul"]) == bns
+    assert len(placed["aten::cudnn_convolution"]) >= convs
+    assert sum(len(unplaced.get(op, [])) for op in _COPY_OPS) >= convs
