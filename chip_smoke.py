@@ -42,6 +42,27 @@ printing one line per check and failing loudly:
                 on partition_layers="auto" over [cuda:0] x 4; entry()
                 once; then every other zoo entry's bf16 forward at batch
                 8 and its published resolution against f32 on the card;
+     socket   — DEFER's own deployment: two `python -m defer_tpu_torch
+                serve-stage` worker processes on the card, ResNet50 (its
+                logits) cut at add_8 as the reference's test.py cuts it,
+                dispatched tail-first over loopback, 32 microbatches of
+                8 streamed from this process and relayed back to it on
+                lossless zstd frames (every frame checked native, scheme
+                1; every result against the unpartitioned graph placed
+                on the card), then again with the images sent as int8
+                frames (the head worker checked to receive them so; held
+                to the lossless run); images/s, each hop's codec bytes and one
+                hop's codec ms; then a BERT-base stage served in a thread
+                of this process, its flash_attention launches counted;
+     replicas — ResNet50 through run_defer(replicas=2) over [cuda:0] x 4
+                at batch 32, in stream order and equal to replicas=1;
+                three readings of each, alternating;
+     keras    — a functional Keras JSON string (a residual CNN at
+                224x224) through run_defer on "auto" cuts, against the
+                imported graph's forward;
+     roofline, checkpoint — ResNet50's batch-32 roofline on this card
+                beside phase cnn's measured ms, and a bit-equal
+                save_checkpoint/load_checkpoint round trip of its params;
   4. decode   — DecodeServer(max_batch=4) over GptDecoder at
                 mistral_config()'s full width and depth (32 layers, dim
                 4096, 32 heads, 8 KV heads, FFN 14336, vocab 32000,
@@ -71,9 +92,10 @@ printing one line per check and failing loudly:
   7. report   — a JSON line of every kernel, the card's name and power
                 limit, and last the line {"ok": true, "device": {...}}.
 
-Every kernel launch count is zeroed just before each path (3, cnn, 4,
-5, 6) and read just after it; a path that did not launch its kernels
-fails.
+Every kernel launch count is zeroed just before each path (3, cnn,
+socket, 4, 5, 6) and read just after it; a path that did not launch its
+kernels fails. Every worker process has a time limit and is stopped by
+the end of its phase.
 
 Exits non-zero, and prints no result, when CUDA is unavailable, when the
 package is not beside this file, or when any phase fails. Imports
@@ -86,6 +108,7 @@ import concurrent.futures
 import json
 import os
 import queue
+import statistics
 import subprocess
 import sys
 import threading
@@ -914,7 +937,7 @@ def phase_kernels() -> dict:
 
 # -- phase 3 ---------------------------------------------------------------
 
-def stream(defer, model, cuts, params, inputs) -> dict:
+def stream(defer, model, cuts, params, inputs, replicas=1) -> dict:
     """Stream `inputs` through defer.run_defer in a thread, the caller
     feeding and draining its queues, as a user does; returns the outputs,
     every kernel's launches in the run (the counts zeroed just before
@@ -926,7 +949,8 @@ def stream(defer, model, cuts, params, inputs) -> dict:
 
     def serve() -> None:
         try:
-            defer.run_defer(model, cuts, in_q, out_q, params=params)
+            defer.run_defer(model, cuts, in_q, out_q, params=params,
+                            replicas=replicas)
         except BaseException as e:  # relayed to the main thread
             errors.append(e)
 
@@ -1055,13 +1079,15 @@ def _logits_name(graph) -> str:
     return out.inputs[0] if out.op == "softmax" else out.name
 
 
-def image_stream(label, model, cuts, devices, params, xs, config) -> dict:
+def image_stream(label, model, cuts, devices, params, xs, config,
+                 source=None, tol=STREAM_TOL) -> dict:
     """Stream the device-resident microbatches `xs` through
-    DEFER(devices).run_defer(model, cuts) and check every output: shape
-    (batch, classes), finite, softmax rows summing to 1 within 1e-2 where
-    the model ends in a softmax, and microbatch 0 against the
-    unpartitioned graph on the card (same bf16 weights, within
-    STREAM_TOL of the largest output)."""
+    DEFER(devices).run_defer(source or model, cuts) (`source`: what
+    run_defer is given, e.g. the model's Keras JSON) and check every
+    output: shape (batch, classes), finite, softmax rows summing to 1
+    within 1e-2 where the model ends in a softmax, and microbatch 0
+    against the unpartitioned graph on the card (same bf16 weights,
+    within `tol` of the largest output)."""
     import torch
 
     from defer_tpu_torch import DEFER
@@ -1073,7 +1099,7 @@ def image_stream(label, model, cuts, devices, params, xs, config) -> dict:
             cast_params_to_storage(params, config), xs[0].to(config.compute_dtype)
         ).float()
     defer = DEFER(devices=devices, config=config)
-    run = stream(defer, model, cuts, params, list(xs))
+    run = stream(defer, source or model, cuts, params, list(xs))
     softmax = graph.node_map[graph.output_name].op == "softmax"
     for i, out in enumerate(run["outs"]):
         check(tuple(out.shape) == tuple(want.shape),
@@ -1086,7 +1112,7 @@ def image_stream(label, model, cuts, devices, params, xs, config) -> dict:
             check(rows <= 1e-2, f"{label} output {i}: a row sums to 1 +- {rows}")
     err0 = (run["outs"][0].float() - want).abs().max().item()
     scale = want.abs().max().item()
-    check(err0 <= STREAM_TOL * scale,
+    check(err0 <= tol * scale,
           f"{label} microbatch 0 differs from the unpartitioned graph by "
           f"{err0} (largest output {scale})")
     stages = defer.last_pipeline.stages
@@ -1213,6 +1239,567 @@ def phase_cnn() -> dict:
     log(f"cnn: {len(ZOO)} zoo entries checked in "
         f"{time.perf_counter() - t0:.1f}s")
     return res
+
+
+# -- phase socket: DEFER's own deployment over the transport -------------
+
+# Two serve-stage workers on the card, ResNet50 cut where the reference's
+# test.py cuts it (two nodes in its IP list); the stream's microbatches
+# and batch; the tolerance of the int8 run against the lossless one,
+# relative to the largest logit (the images cross their hop as int8, each
+# off by up to amax/254; the workers relay lossless); the BERT-base worker's
+# stage and microbatches; the worker's time limits.
+SOCKET_CUT, SOCKET_BATCH, SOCKET_MICROBATCHES = "add_8", 8, 32
+# The one card every phase from here on runs on (workers included).
+CARD = "cuda:0"
+INT8_STREAM_TOL = 5e-2
+BERT_SOCKET_CUT, BERT_SOCKET_MICROBATCHES = "encoder_5_out", 8
+WORKER_TIMEOUT_S = 180
+
+
+class WorkerProcess:
+    """`python -m defer_tpu_torch serve-stage` on the card, its output
+    read line by line on a thread; killed by `stop()` if still running."""
+
+    def __init__(self, here: str, next_port: int, *extra: str):
+        env = {**os.environ, "PYTHONPATH": here}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "defer_tpu_torch", "serve-stage",
+             "--listen", "0", "--next", f"127.0.0.1:{next_port}",
+             "--device", CARD, "--accept-timeout", str(WORKER_TIMEOUT_S),
+             "--handoff-timeout", str(WORKER_TIMEOUT_S), *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=here, env=env,
+        )
+        self.lines: "queue.Queue[str]" = queue.Queue()
+        self.out: list[str] = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        try:
+            self.port = int(self._expect("LISTENING ").split()[1])
+        except BaseException:
+            self.stop()
+            raise
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.put(line.rstrip("\n"))
+
+    def _expect(self, prefix: str) -> str:
+        deadline = time.monotonic() + WORKER_TIMEOUT_S
+        while time.monotonic() < deadline:
+            try:
+                line = self.lines.get(timeout=1.0)
+            except queue.Empty:
+                check(self._reader.is_alive(),
+                      f"worker exited ({self.proc.poll()}) before "
+                      f"{prefix!r}:\n" + "\n".join(self.out[-20:]))
+                continue
+            self.out.append(line)
+            if line.startswith(prefix):
+                return line
+        raise SmokeError(f"worker printed no {prefix!r} in "
+                         f"{WORKER_TIMEOUT_S}s:\n" + "\n".join(self.out[-20:]))
+
+    def finish(self, n: int) -> dict:
+        """The worker's STATS, after checking it printed `DONE n` and
+        exited 0."""
+        stats = json.loads(self._expect("STATS ").split(" ", 1)[1])
+        done = self._expect("DONE ")
+        check(done == f"DONE {n}", f"worker printed {done!r}, not 'DONE {n}'")
+        check(self.proc.wait(timeout=WORKER_TIMEOUT_S) == 0,
+              f"worker exited {self.proc.returncode}")
+        return stats
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def _codec_totals() -> tuple:
+    from defer_tpu_torch.obs.metrics import get_registry
+
+    reg = get_registry()
+    return (reg.value("defer_codec_raw_bytes_total"),
+            reg.value("defer_codec_encoded_bytes_total"))
+
+
+def socket_stream(here, stages, params, xs, quantize=None) -> dict:
+    """Dispatch the two stages tail-first to two worker processes, stream
+    `xs` (CPU tensors) from this process through them and back to this
+    process's ArrayReceiver; returns the results, the wall times, the
+    hops' codec bytes and what each receiver saw by scheme. `quantize`
+    is the dispatcher's link mode (the images' hop); the workers relay
+    lossless."""
+    from defer_tpu_torch.runtime.remote_stage import (
+        dispatch_stage,
+        recv_results,
+        send_activation,
+    )
+    from defer_tpu_torch.runtime.transport import ArrayReceiver, ArraySender
+
+    results = ArrayReceiver(0, host="127.0.0.1",
+                            accept_timeout_s=WORKER_TIMEOUT_S,
+                            read_timeout_s=WORKER_TIMEOUT_S)
+    workers = []
+    try:
+        t0 = time.perf_counter()
+        tail = WorkerProcess(here, results.port, "--expect-peer")
+        workers.append(tail)
+        send = ArraySender("127.0.0.1", tail.port)
+        dispatch_stage(send, stages[1], params[1])
+        send.close()
+        head = WorkerProcess(here, tail.port)
+        workers.append(head)
+        send = ArraySender("127.0.0.1", head.port, quantize=quantize)
+        dispatch_stage(send, stages[0], params[0])
+        t_ready = time.perf_counter()
+        got: list = []
+        errors: list = []
+
+        def drain() -> None:
+            try:
+                got.extend(recv_results(results))
+            except BaseException as e:  # relayed to the main thread
+                errors.append(e)
+
+        reader = threading.Thread(target=drain, daemon=True)
+        reader.start()
+        raw0, enc0 = _codec_totals()
+        t_start = time.perf_counter()
+        for x in xs:
+            send_activation(send, x)
+        raw1, enc1 = _codec_totals()
+        send.close()
+        reader.join(timeout=WORKER_TIMEOUT_S)
+        t_end = time.perf_counter()
+        check(not reader.is_alive() and not errors,
+              f"result stream did not end cleanly: {errors!r}")
+        check(len(got) == len(xs),
+              f"{len(got)} results for {len(xs)} microbatches")
+        head_stats, tail_stats = head.finish(len(xs)), tail.finish(len(xs))
+    finally:
+        for w in workers:
+            w.stop()
+        results.close()
+    return {
+        "outs": got,
+        "setup_s": t_ready - t0,
+        "stream_s": t_end - t_start,
+        "hops": [("input", raw1 - raw0, enc1 - enc0),
+                 ("add_8", head_stats["codec_raw_bytes"],
+                  head_stats["codec_encoded_bytes"]),
+                 ("output", tail_stats["codec_raw_bytes"],
+                  tail_stats["codec_encoded_bytes"])],
+        "schemes": {"head": head_stats["rx_schemes"],
+                    "tail": tail_stats["rx_schemes"],
+                    "results": {",".join(map(str, k)): v
+                                for k, v in results.schemes.items()}},
+        "wire_bytes": results.rx_frame_bytes,
+    }
+
+
+def _log_socket_run(label: str, run: dict, n_images: int) -> None:
+    images = n_images / run["stream_s"]
+    log(f"socket: {label}: {n_images} images in {run['stream_s']:.3f}s over "
+        f"the sockets, {images:.1f} images/s (setup incl. two worker starts "
+        f"and both dispatches {run['setup_s']:.2f}s)")
+    for hop, raw, enc in run["hops"]:
+        log(f"socket: {label} hop {hop}: codec raw {raw} B, encoded {enc} B, "
+            f"ratio {raw / max(enc, 1):.3f}")
+    log(f"socket: {label} frames by scheme: {json.dumps(run['schemes'])}")
+
+
+def phase_socket() -> None:
+    """ResNet50 over two serve-stage worker processes on the card, a
+    lossless run and a run whose images cross as int8; then a BERT-base stage served in a
+    thread of this process behind a socket, through flash_attention.
+
+    The stream carries ResNet50's logits (the graph without its output
+    softmax, as phase cnn's zoo check takes it): with random weights the
+    softmax saturates to one-hot rows, which would hide a difference.
+    The lossless results are held against the unpartitioned graph placed
+    as one stage on the card (the same kernels the workers run)."""
+    import dataclasses
+
+    import torch
+
+    from defer_tpu_torch import DeferConfig
+    from defer_tpu_torch.graph.partition import partition, stage_params
+    from defer_tpu_torch.models import get_model
+    from defer_tpu_torch.parallel.pipeline import (
+        Pipeline,
+        cast_params_to_storage,
+    )
+    from defer_tpu_torch.runtime import codec
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device(CARD)
+    check(codec.load_native() is not None,
+          "the native codec (native/codec.cpp) did not build or load")
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    model = get_model("resnet50")
+    graph = dataclasses.replace(model.graph,
+                                output_name=_logits_name(model.graph))
+    params = cast_params_to_storage(
+        model.init(torch.Generator(device=dev).manual_seed(0)), config)
+    stages = partition(graph, [SOCKET_CUT])
+    sparams = [stage_params(params, st) for st in stages]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xs_dev = torch.randn((SOCKET_MICROBATCHES, SOCKET_BATCH,
+                          *model.input_shape), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    whole = Pipeline([graph], params, [dev], config)
+    want = [whole(x).float().cpu() for x in xs_dev]
+    act = Pipeline([stages[0]], params, [dev], config)(xs_dev[0]).cpu()
+    del whole
+    xs = list(xs_dev.cpu())
+    n_images = SOCKET_MICROBATCHES * SOCKET_BATCH
+
+    lossless = socket_stream(here, stages, sparams, xs)
+    _log_socket_run("lossless zstd", lossless, n_images)
+    for name, seen in lossless["schemes"].items():
+        check(set(seen) == {"1"},
+              f"socket: {name} received frames of schemes {seen}, not only "
+              "the native zstd scheme 1")
+    scale = max(w.abs().max().item() for w in want)
+    for i, out in enumerate(lossless["outs"]):
+        check(tuple(out.shape) == tuple(want[i].shape)
+              and bool(torch.isfinite(out.float()).all().item()),
+              f"socket: result {i} {tuple(out.shape)} not finite logits")
+    err = max((o.float() - w).abs().max().item()
+              for o, w in zip(lossless["outs"], want))
+    check(err <= STREAM_TOL * scale,
+          f"socket: a result differs from the unpartitioned graph by {err} "
+          f"(largest logit {scale})")
+    log(f"socket: all {SOCKET_MICROBATCHES} results "
+        f"{tuple(lossless['outs'][0].shape)} (logits) vs the unpartitioned "
+        f"graph placed on the card: max_abs_err {err:.3e} (tol "
+        f"{STREAM_TOL:g} x {scale:.4g})")
+
+    int8 = socket_stream(here, stages, sparams, xs, quantize="int8")
+    _log_socket_run("int8 images", int8, n_images)
+    # The head worker gets its weights lossless and every microbatch as
+    # int8; the relays downstream stay lossless.
+    seen = int8["schemes"]
+    check(set(seen["head"]) == {"1", "3,1"}
+          and seen["head"]["3,1"] == SOCKET_MICROBATCHES,
+          f"socket: the head worker received frames {seen['head']}, not "
+          f"its weights on scheme 1 and {SOCKET_MICROBATCHES} int8 images")
+    for name in ("tail", "results"):
+        check(set(seen[name]) == {"1"},
+              f"socket: {name} received frames of schemes {seen[name]} in "
+              "the int8 run, not only the lossless scheme 1")
+    q_err = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(int8["outs"], lossless["outs"]))
+    check(q_err <= INT8_STREAM_TOL * scale,
+          f"socket: the int8 run differs from the lossless run by {q_err} "
+          f"(largest logit {scale})")
+    log(f"socket: int8 run vs lossless run: max abs logit difference "
+        f"{q_err:.3e}, {q_err / scale:.3e} of the largest (tol "
+        f"{INT8_STREAM_TOL:g})")
+
+    # One hop's codec time: the add_8 activation (what the head worker
+    # encodes and the tail decodes), lossless and int8, host clock.
+    for label, kw in (("zstd", {}), ("int8", {"quantize": "int8"})):
+        frame = codec.encode(act, **kw)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            codec.encode(act, **kw)
+        t1 = time.perf_counter()
+        for _ in range(10):
+            codec.decode(frame)
+        t2 = time.perf_counter()
+        log(f"socket: codec {label} on the {SOCKET_CUT} activation "
+            f"{tuple(act.shape)} {act.dtype} ({act.numel() * act.element_size()}"
+            f" B -> {len(frame)} B): encode {(t1 - t0) * 100:.3f} ms, decode "
+            f"{(t2 - t1) * 100:.3f} ms (host, mean of 10)")
+    del params, sparams, xs_dev, xs, want, lossless, int8
+    bert_socket_session(dev)
+
+
+def bert_socket_session(dev) -> None:
+    """A BERT-base stage (encoder 6-11 and the pooler, phase 3's batch and
+    sequence) served by serve_stage in a thread of this process on the
+    card, single-peer: dispatch and activations on one connection.
+    Its flash_attention launches are counted."""
+    import torch
+
+    from defer_tpu_torch import DeferConfig
+    from defer_tpu_torch.graph.partition import partition, stage_params
+    from defer_tpu_torch.models import get_model
+    from defer_tpu_torch.parallel.pipeline import cast_params_to_storage
+    from defer_tpu_torch.runtime.remote_stage import (
+        dispatch_stage,
+        recv_results,
+        send_activation,
+        serve_stage,
+    )
+    from defer_tpu_torch.runtime.transport import ArrayReceiver, ArraySender
+
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    model = get_model("bert_base", seq_len=SEQ)
+    params = cast_params_to_storage(
+        model.init(torch.Generator(device=dev).manual_seed(0),
+                   batch_size=BATCH), config)
+    st0, st1 = partition(model.graph, [BERT_SOCKET_CUT])
+    ids = torch.randint(0, 30522, (BERT_SOCKET_MICROBATCHES, BATCH, SEQ),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        acts = [st0.apply(params, x.to(dev)) for x in ids]
+        want = [model.graph.apply(params, x.to(dev)).float().cpu()
+                for x in ids]
+    results = ArrayReceiver(0, host="127.0.0.1", accept_timeout_s=60.0,
+                            read_timeout_s=WORKER_TIMEOUT_S)
+    bound, ports, res = threading.Event(), [], {}
+
+    def serve() -> None:
+        try:
+            res["n"] = serve_stage(
+                0, "127.0.0.1", results.port, listen_host="127.0.0.1",
+                accept_timeout_s=60.0, device=dev,
+                announce=lambda p: (ports.append(p), bound.set()))
+        except BaseException as e:  # relayed to the main thread
+            res["error"] = e
+            bound.set()
+
+    zero_launches()
+    worker = threading.Thread(target=serve, daemon=True)
+    worker.start()
+    check(bound.wait(60.0) and ports, f"BERT worker did not bind: {res}")
+    got: list = []
+    reader = threading.Thread(target=lambda: got.extend(recv_results(results)),
+                              daemon=True)
+    reader.start()
+    send = ArraySender("127.0.0.1", ports[0])
+    dispatch_stage(send, st1, stage_params(params, st1))
+    t0 = time.perf_counter()
+    for a in acts:
+        send_activation(send, a)
+    send.close()
+    worker.join(timeout=WORKER_TIMEOUT_S)
+    reader.join(timeout=WORKER_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    launches = read_launches()["flash_attention"]
+    results.close()
+    check(res.get("n") == BERT_SOCKET_MICROBATCHES and len(got) == len(acts),
+          f"BERT worker session: {res}, {len(got)} results")
+    layers = sum(1 for n in st1.nodes if n.op == "mha")
+    check(launches >= layers * BERT_SOCKET_MICROBATCHES,
+          f"flash_attention launched {launches} times behind the socket, "
+          f"expected >= {layers} x {BERT_SOCKET_MICROBATCHES}")
+    err = max((o.float() - w).abs().max().item() for o, w in zip(got, want))
+    check(err <= 1e-2, f"BERT worker results differ from the unpartitioned "
+                       f"graph by {err}")
+    log(f"socket: bert_base stage after {BERT_SOCKET_CUT} served in a thread "
+        f"on cuda:0, single peer: {BERT_SOCKET_MICROBATCHES} microbatches "
+        f"({BATCH}, {SEQ}) in {dt:.3f}s, flash_attention launches {launches} "
+        f"(>= {layers} x {BERT_SOCKET_MICROBATCHES}), max_abs_err vs the "
+        f"unpartitioned graph {err:.3e} (tol 1e-2, bf16)")
+
+
+# -- phase replicas, keras, roofline, checkpoint ----------------------------
+
+REPLICA_MICROBATCHES = 64
+# The Keras model's stream against graph.apply: the bf16 tolerance of
+# the card tests (a batch norm folded at placement rounds otherwise).
+KERAS_TOL = 1e-2
+
+
+def phase_replicas(cnn_res: dict) -> None:
+    """ResNet50 through run_defer with replicas=2 (two 2-stage replicas)
+    over [cuda:0] * 4 at batch 32, against replicas=1 on the same cuts.
+    Logits, as in phase socket, so that swapped microbatches would show."""
+    import dataclasses
+
+    import torch
+
+    from defer_tpu_torch import DEFER, DeferConfig
+    from defer_tpu_torch.models import get_model
+
+    dev = torch.device(CARD)
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    model = get_model("resnet50")
+    model = dataclasses.replace(model, graph=dataclasses.replace(
+        model.graph, output_name=_logits_name(model.graph)))
+    cuts = model.default_cuts(2)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        batch_size=IMAGE_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    xs = torch.randn((REPLICA_MICROBATCHES, IMAGE_BATCH, *model.input_shape),
+                     generator=gen, device=dev)
+    # Alternating replicas=1 and 2, three readings of each in the same
+    # call: the host's spread between readings of one setting shows
+    # beside the difference between the settings.
+    rates, outs = {1: [], 2: []}, {}
+    for replicas in (1, 2, 1, 2, 1, 2):
+        defer = DEFER(devices=[dev] * 4, config=config)
+        run = stream(defer, model, cuts, params, list(xs), replicas)
+        pipe = defer.last_pipeline
+        check(pipe.num_stages == 2
+              and getattr(pipe, "num_replicas", 1) == replicas,
+              f"replicas={replicas}: built {pipe.num_stages} stages x "
+              f"{getattr(pipe, 'num_replicas', 1)} replicas")
+        got = [o.float() for o in run["outs"]]
+        for i, o in enumerate(got):
+            check(bool(torch.isfinite(o).all().item()),
+                  f"replicas={replicas} output {i} is not finite")
+        outs.setdefault(replicas, got)
+        rates[replicas].append(run["microbatches_per_sec"] * IMAGE_BATCH)
+    scale = max(o.abs().max().item() for o in outs[1])
+    diff = max((a - b).abs().max().item() for a, b in zip(outs[1], outs[2]))
+    check(diff <= STREAM_TOL * scale,
+          f"replicas=2 differs from replicas=1 by {diff} (largest {scale})")
+    # Neighbouring microbatches differ far beyond the tolerance, so an
+    # out-of-order stream could not pass the check above.
+    apart = min((a - b).abs().max().item()
+                for a, b in zip(outs[1], outs[1][1:]))
+    check(apart > 10 * STREAM_TOL * scale,
+          f"neighbouring microbatches' logits differ by only {apart}")
+    log(f"replicas: run_defer resnet50 batch {IMAGE_BATCH} cut at {cuts}, "
+        f"{REPLICA_MICROBATCHES} microbatches over [cuda:0] x 4: replicas=2 "
+        f"in stream order, max abs logit difference from replicas=1 "
+        f"{diff:.3e} (tol {STREAM_TOL:g} x {scale:.4g}; neighbours differ "
+        f"by >= {apart:.4g}); images/s in run order, 1 replica "
+        f"{', '.join(f'{r:.1f}' for r in rates[1])}; 2 replicas "
+        f"{', '.join(f'{r:.1f}' for r in rates[2])}; median 2/1 "
+        f"{statistics.median(rates[2]) / statistics.median(rates[1]):.3f} "
+        f"(phase cnn, 4 stages: "
+        f"{cnn_res['resnet50']['images_per_sec']:.1f})")
+
+
+def _keras_residual_json(size: int = 224) -> str:
+    """A functional Keras model JSON (classic layout): a ResNet-style
+    stem and two residual blocks, a pooled head of 1000 classes."""
+    def layer(cls, name, inbound, **cfg):
+        cfg.setdefault("name", name)
+        return {"class_name": cls, "name": name, "config": cfg,
+                "inbound_nodes": [[[s, 0, 0, {}] for s in inbound]]
+                if inbound else []}
+
+    layers = [
+        layer("InputLayer", "image", [], batch_input_shape=[None, size, size, 3]),
+        layer("ZeroPadding2D", "stem_pad", ["image"], padding=[[3, 3], [3, 3]]),
+        layer("Conv2D", "stem_conv", ["stem_pad"], filters=64,
+              kernel_size=[7, 7], strides=[2, 2], padding="valid",
+              use_bias=False, activation="linear"),
+        layer("BatchNormalization", "stem_bn", ["stem_conv"], axis=3,
+              epsilon=1.001e-5),
+        layer("Activation", "stem_relu", ["stem_bn"], activation="relu"),
+        layer("MaxPooling2D", "stem_pool", ["stem_relu"], pool_size=[3, 3],
+              strides=[2, 2], padding="same"),
+    ]
+    prev = "stem_pool"
+    for b in (1, 2):
+        layers += [
+            layer("Conv2D", f"b{b}_conv1", [prev], filters=64,
+                  kernel_size=[3, 3], padding="same", activation="relu"),
+            layer("Conv2D", f"b{b}_conv2", [f"b{b}_conv1"], filters=64,
+                  kernel_size=[3, 3], padding="same", use_bias=False),
+            layer("BatchNormalization", f"b{b}_bn", [f"b{b}_conv2"], axis=3),
+            layer("Add", f"b{b}_add", [f"b{b}_bn", prev]),
+            layer("ReLU", f"b{b}_out", [f"b{b}_add"]),
+        ]
+        prev = f"b{b}_out"
+    layers += [
+        layer("GlobalAveragePooling2D", "gap", [prev]),
+        layer("Dense", "predictions", ["gap"], units=1000,
+              activation="softmax"),
+    ]
+    return json.dumps({"class_name": "Functional", "config": {
+        "name": "keras_resnet_toy", "layers": layers,
+        "input_layers": [["image", 0, 0]],
+        "output_layers": [["predictions", 0, 0]],
+    }})
+
+
+def phase_keras() -> None:
+    """A Keras JSON string through DEFER.run_defer on "auto" cuts (two
+    stages on cuda:0), against the imported graph's direct forward."""
+    import torch
+
+    from defer_tpu_torch import DeferConfig
+    from defer_tpu_torch.graph.keras_import import model_from_keras
+
+    dev = torch.device(CARD)
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    text = _keras_residual_json()
+    model, _ = model_from_keras(text)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        batch_size=ZOO_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xs = torch.randn((AUTO_MICROBATCHES, ZOO_BATCH, *model.input_shape),
+                     generator=gen, device=dev)
+    # bf16 tolerance: the placed stages fold each batch norm, which rounds
+    # otherwise than graph.apply's unfolded one.
+    run = image_stream("keras", model, "auto", [dev] * 2, params, xs, config,
+                       source=text, tol=KERAS_TOL)
+    check(run["stages"] == 2, f"keras: {run['stages']} stages, expected 2")
+    log(f"keras: run_defer on a Keras JSON string ({len(text)} chars, "
+        f"{len(model.graph.nodes)} IR nodes, {model.input_shape}), \"auto\" "
+        f"on [cuda:0] x 2 cut at {run['cuts']}: {AUTO_MICROBATCHES} "
+        f"microbatches of {ZOO_BATCH} checked, microbatch 0 vs the graph's "
+        f"direct forward max_abs_err {run['err0']:.3e} (tol {KERAS_TOL:g} x "
+        f"{run['scale']:.4g})")
+
+
+def phase_roofline_checkpoint(cnn_res: dict) -> None:
+    """ResNet50's batch-32 roofline on this card beside phase cnn's
+    measured ms a microbatch, then a bit-equal checkpoint round trip of
+    its params."""
+    import tempfile
+
+    import torch
+
+    from defer_tpu_torch import DeferConfig
+    from defer_tpu_torch.models import get_model
+    from defer_tpu_torch.parallel.pipeline import cast_params_to_storage
+    from defer_tpu_torch.runtime.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from defer_tpu_torch.utils.roofline import format_report, roofline_report
+
+    dev = torch.device(CARD)
+    model = get_model("resnet50")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    stored = cast_params_to_storage(
+        params, DeferConfig(compute_dtype=torch.bfloat16))
+    kind = torch.cuda.get_device_name(0)
+    shape = (IMAGE_BATCH, *model.input_shape)
+    measured = IMAGE_BATCH / cnn_res["resnet50"]["images_per_sec"] * 1e3
+    for fused in (False, True):
+        rep = roofline_report(model.graph, stored, shape, kind,
+                              input_dtype=torch.bfloat16, top=3,
+                              assume_fusion=fused)
+        check(rep.get("t_lower_s") is not None,
+              f"roofline: no peak rates known for {kind!r}")
+        for line in format_report(rep).splitlines():
+            log(f"roofline: {line}")
+        log(f"roofline: resnet50 batch {IMAGE_BATCH} bf16, "
+            f"{'fused' if fused else 'unfused (eager)'} traffic: predicted "
+            f"{rep['t_lower_s'] * 1e3:.4f} ms a microbatch at the bound, "
+            f"phase cnn measured {measured:.4f} ms (run_defer, 4 stages)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50.ckpt")
+        t0 = time.perf_counter()
+        save_checkpoint(path, params)
+        t1 = time.perf_counter()
+        back = load_checkpoint(path, device=dev)
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+    n = 0
+    for node, p in params.items():
+        for k, v in p.items():
+            got = back[node][k]
+            check(got.dtype == v.dtype and got.device == v.device
+                  and torch.equal(got, v),
+                  f"checkpoint: {node}/{k} did not round-trip bit-equal")
+            n += 1
+    log(f"checkpoint: resnet50 params ({n} arrays, float32) saved in "
+        f"{t1 - t0:.2f}s ({size} B on disk) and loaded onto cuda:0 in "
+        f"{t2 - t1:.2f}s, bit-equal")
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -1697,6 +2284,10 @@ def main() -> int:
         kernels = phase_kernels()
         main_res = phase_main()
         cnn_res = phase_cnn()
+        phase_socket()
+        phase_replicas(cnn_res)
+        phase_keras()
+        phase_roofline_checkpoint(cnn_res)
         decode_res = phase_decode()
         dec, params = decode_res.pop("dec"), decode_res.pop("params")
         paged_res = phase_paged(dec, params, decode_res["weight_bytes"])

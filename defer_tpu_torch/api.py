@@ -26,6 +26,7 @@ from defer_tpu_torch.graph.ir import Graph, GraphParams
 from defer_tpu_torch.graph.partition import partition
 from defer_tpu_torch.models import Model
 from defer_tpu_torch.obs.metrics import get_registry
+from defer_tpu_torch.parallel.data_parallel import ReplicatedPipeline
 from defer_tpu_torch.parallel.mesh import cuda_devices, pipeline_devices
 from defer_tpu_torch.parallel.pipeline import Pipeline, resolve_device
 from defer_tpu_torch.runtime.batching import split_output
@@ -69,39 +70,39 @@ class DEFER:
 
     def build_pipeline(
         self,
-        model: Model | Graph,
+        model: Model | Graph | str,
         partition_layers: Sequence[str | Sequence[str]] | str | None,
         *,
         params: GraphParams | None = None,
         rng: torch.Generator | None = None,
         batch_size: int = 1,
         replicas: int = 1,
-    ) -> tuple[Pipeline, Any]:
+    ) -> tuple[Pipeline | ReplicatedPipeline, Any]:
         """Partition + place; returns (pipeline, example_input).
 
         Cut points become stage graphs, and each stage's param slice is
         cast to the storage dtype and moved to its device once.
         partition_layers="auto" picks FLOPs-balanced boundaries, one
-        stage per device (`devices=[d] * 4` makes four stages on d).
+        stage per device slot (`devices=[d] * 4` makes four stages on d).
         Without `params`, a Model is initialised from `rng` (default: a
-        CPU generator seeded with 0), in float32.
+        CPU generator seeded with 0), in float32. `model` may be a Keras
+        `model.to_json()` string, the reference's wire format (reference
+        src/dispatcher.py:52).
+
+        replicas > 1 composes data parallelism with the stage chain:
+        the whole pipeline is replicated that many times (over
+        replicas x stages device slots, round-robin over `devices`) and
+        the stream fans microbatches across replicas round-robin, in
+        order — the scaling axis the reference doesn't have.
         """
-        if replicas != 1:
-            raise NotImplementedError(
-                "replicas > 1 (data parallelism over pipeline replicas) is "
-                "not ported yet: ROADMAP.md Queue 1, 'replicas and data "
-                "parallelism' (defer_tpu/parallel/data_parallel.py)"
-            )
-        if isinstance(model, str):
-            raise NotImplementedError(
-                "a Keras-JSON model string is not ported yet: ROADMAP.md "
-                "Queue 1, 'the Keras import and transport' "
-                "(defer_tpu/graph/keras_import.py)"
-            )
         auto = (
             isinstance(partition_layers, str) and partition_layers == "auto"
         )
         cuts = () if auto else normalize_cuts(partition_layers)
+        if isinstance(model, str):
+            from defer_tpu_torch.graph.keras_import import model_from_keras
+
+            model, _ = model_from_keras(model)
         if isinstance(model, Model):
             graph = model.graph
             example = model.example_input(batch_size)
@@ -119,12 +120,12 @@ class DEFER:
                 param_dtype=torch.float32,
             )
         if auto:
-            cuts = self._auto_cuts(model, graph, params, example)
+            cuts = self._auto_cuts(model, graph, params, example, replicas)
         stages = partition(graph, cuts) if cuts else [graph]
-        pipe = self._compile(stages, params, None)
+        pipe = self._compile(stages, params, replicas, None)
         self.last_pipeline = pipe
         # Retained for elastic re-dispatch after a stage failure.
-        self._build_state = (stages, params)
+        self._build_state = (stages, params, replicas)
         return pipe, example
 
     def _auto_cuts(
@@ -133,10 +134,11 @@ class DEFER:
         graph: Graph,
         params: GraphParams,
         example: Any,
+        replicas: int,
     ) -> tuple:
-        """FLOPs-balanced cuts, one stage per device (capped at the
-        candidates plus one): the model's cut candidates, or every chain
-        boundary of the graph where it has none."""
+        """FLOPs-balanced cuts, one stage per device slot of a replica
+        (capped at the candidates plus one): the model's cut candidates,
+        or every chain boundary of the graph where it has none."""
         from defer_tpu_torch.graph.partition import chain_boundaries
         from defer_tpu_torch.utils.flops import balanced_cuts
 
@@ -150,7 +152,12 @@ class DEFER:
             if isinstance(model, Model) and model.cut_candidates
             else chain_boundaries(graph)
         )
-        n_stages = min(max(1, len(self.devices)), len(cands) + 1)
+        # Each replica needs its own stage slots: claiming every device
+        # for one replica's stages would wrap further replicas onto the
+        # same slots.
+        n_stages = min(
+            max(1, len(self.devices) // max(1, replicas)), len(cands) + 1
+        )
         cuts = tuple(
             balanced_cuts(
                 graph,
@@ -168,9 +175,29 @@ class DEFER:
         self,
         stages: Sequence[Any],
         params: GraphParams,
+        replicas: int,
         device_pool: Sequence[torch.device] | None,
-    ) -> Pipeline:
+    ) -> Pipeline | ReplicatedPipeline:
         pool = device_pool if device_pool is not None else self.devices
+        if replicas > 1:
+            if len(stages) * replicas > len(pool):
+                log.warning(
+                    "%d stages x %d replicas oversubscribes %d devices; "
+                    "replicas will share devices",
+                    len(stages),
+                    replicas,
+                    len(pool),
+                )
+            devices = pipeline_devices(len(stages) * replicas, pool)
+            log.info(
+                "built %d stages x %d replicas over devices %s",
+                len(stages),
+                replicas,
+                devices,
+            )
+            return ReplicatedPipeline(
+                stages, params, devices, self.config, num_replicas=replicas
+            )
         devices = pipeline_devices(len(stages), pool)
         log.info("built %d stages over devices %s", len(stages), devices)
         return Pipeline(stages, params, devices, self.config)
@@ -205,7 +232,9 @@ class DEFER:
                 log.warning("device %s failed the health probe: %s", d, e)
         return healthy
 
-    def _redispatch(self, cause: BaseException) -> Pipeline:
+    def _redispatch(
+        self, cause: BaseException
+    ) -> Pipeline | ReplicatedPipeline:
         """Rebuild the pipeline on the devices that still pass a health
         probe."""
         get_registry().counter(
@@ -217,14 +246,16 @@ class DEFER:
             raise RuntimeError(
                 "re-dispatch impossible: no device passed the health probe"
             ) from cause
-        stages, params = self._build_state
+        stages, params, replicas = self._build_state
         log.warning(
-            "re-dispatching %d stages onto %d healthy device(s) after: %s",
+            "re-dispatching %d stages (x%d replicas) onto %d healthy "
+            "device(s) after: %s",
             len(stages),
+            replicas,
             len(healthy),
             cause,
         )
-        pipe = self._compile(stages, params, healthy)
+        pipe = self._compile(stages, params, replicas, healthy)
         self.last_pipeline = pipe
         return pipe
 
@@ -232,7 +263,7 @@ class DEFER:
 
     def run_defer(
         self,
-        model: Model | Graph,
+        model: Model | Graph | str,
         partition_layers: Sequence[str | Sequence[str]] | str | None,
         input_stream: "queue.Queue[Any]",
         output_stream: "queue.Queue[Any]",
@@ -268,7 +299,15 @@ class DEFER:
                     )
                 last_ready = ready
 
-        retirer = Retirer(self.config.max_inflight, sync=watchdog_sync)
+        # Replicated runtimes supply their own retirer bank: the shared
+        # windowed barrier is only sound within one stage chain (see
+        # ReplicaRetirer in parallel/data_parallel.py).
+        make = getattr(pipe, "make_retirer", None)
+        retirer = (
+            make(self.config.max_inflight, watchdog_sync)
+            if make is not None
+            else Retirer(self.config.max_inflight, sync=watchdog_sync)
+        )
 
         # Dynamic batching: coalesce queue items into device batches
         # (runtime/batching.py) and split outputs back per item.

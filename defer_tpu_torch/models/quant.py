@@ -24,15 +24,21 @@ def quantize_symmetric(x: torch.Tensor, axis=None, *, keepdims: bool = False):
     over `axis` (None = per-tensor). Degenerate scales (an all-zero
     input, or an amax so small that amax/127 underflows to 0) clamp to
     1.0, so the tensor quantizes to zeros. Returns (q, s); with
-    keepdims=False the scale drops the reduced axes. (The JAX package's
-    numpy variant serves its wire codec, which is not ported yet.)"""
+    keepdims=False the scale drops the reduced axes. The wire codec
+    (runtime/codec.py) quantizes through this in float64."""
     xf = x if x.is_floating_point() else x.float()
     if axis is None:
         red = tuple(range(xf.ndim))
     else:
         axes = (axis,) if isinstance(axis, int) else axis
         red = tuple(a % xf.ndim for a in axes)
-    s = xf.abs().amax(dim=red, keepdim=True) / 127.0
+    if xf.numel():
+        amax = xf.abs().amax(dim=red, keepdim=True)
+    else:  # an empty tensor (a codec edge case): amax would raise
+        amax = xf.new_zeros(
+            [1 if i in red else d for i, d in enumerate(xf.shape)]
+        )
+    s = amax / 127.0
     s = torch.where(s > 0.0, s, torch.ones_like(s))
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     if not keepdims:

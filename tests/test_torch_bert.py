@@ -156,17 +156,38 @@ def test_default_device_is_cuda():
     ],
 )
 def test_unported_options_raise(bert, kwargs, layers):
-    _, jparams, model, _ = bert
-    defer = DEFER(devices=[CPU])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        defer.build_pipeline(
-            model, layers, params=params_from_jax(jparams), **kwargs
-        )
+    """Once an unported option, now ported: replicas=2 over [CPU] * 4
+    (two 3-stage replicas wrapping round-robin) gives the one-replica
+    outputs, in stream order."""
+    _, jparams, model, ids = bert
+    config = DeferConfig(compute_dtype=torch.float32)
+    params = params_from_jax(jparams)
+    pipe, _ = DEFER(devices=[CPU] * 4, config=config).build_pipeline(
+        model, layers, params=params, **kwargs
+    )
+    one, _ = DEFER(devices=[CPU], config=config).build_pipeline(
+        model, layers, params=params
+    )
+    assert (pipe.num_replicas, pipe.num_stages) == (2, len(layers) + 1)
+    xs = [torch.from_numpy(x) for x in ids]
+    outs = list(pipe.stream(xs))
+    assert len(outs) == len(xs)
+    for got, x in zip(outs, xs):
+        torch.testing.assert_close(got, one(x), rtol=0, atol=0)
 
 
 def test_keras_json_raises():
-    with pytest.raises(NotImplementedError, match="Keras"):
-        DEFER(devices=[CPU]).build_pipeline('{"class_name": "Model"}', None)
+    """Once a raise, now the reference's wire format: a Keras JSON string
+    builds a pipeline whose graph is `from_keras_json`'s."""
+    from defer_tpu_torch.graph.keras_import import from_keras_json
+    from tests.test_keras_import import _residual_json
+
+    text = _residual_json()
+    pipe, example = DEFER(devices=[CPU]).build_pipeline(text, None)
+    graph, shape = from_keras_json(text)
+    assert pipe.num_stages == 1 and tuple(example.shape) == (1, *shape)
+    assert pipe.stages[0].nodes == graph.nodes
+    assert tuple(pipe(example).shape) == (1, 10)
 
 
 def test_import_leaves_jax_out():

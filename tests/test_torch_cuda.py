@@ -2,7 +2,8 @@
 their plain versions, and the main paths through them (run_defer, the
 decode server and the paged server, on a float and an int8 pool); the
 CNN ops through cuDNN against their CPU path, and the image models'
-stages.
+stages; a remote stage worker on the card behind a loopback socket, and
+run_defer with replicas=2.
 
 Every test here is marked `cuda` and skips without a CUDA card. The
 file imports neither jax nor defer_tpu, so on the card it runs on its
@@ -812,3 +813,90 @@ def test_resnet50_stage_copies_no_weight(card):
     assert len(placed["aten::addcmul"]) == bns
     assert len(placed["aten::cudnn_convolution"]) >= convs
     assert sum(len(unplaced.get(op, [])) for op in _COPY_OPS) >= convs
+
+
+def test_remote_stage_worker_on_the_card(card):
+    """A bert_tiny stage dispatched over loopback to a worker on the card
+    (bf16 weights, so it computes in bf16) relays what the same stage
+    gives in a placed pipeline on the card, through flash_attention, and
+    its frames carry the native codec."""
+    from defer_tpu_torch.graph.partition import partition, stage_params
+    from defer_tpu_torch.parallel.pipeline import Pipeline
+    from defer_tpu_torch.runtime.remote_stage import (
+        dispatch_stage,
+        recv_results,
+        send_activation,
+        serve_stage,
+    )
+    from defer_tpu_torch.runtime.transport import ArrayReceiver, ArraySender
+
+    model = get_model("bert_tiny", seq_len=16)
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    params = cast_params_to_storage(
+        model.init(torch.Generator().manual_seed(0), batch_size=4), config
+    )
+    st0, st1 = partition(model.graph, ["encoder_1_out"])
+    results = ArrayReceiver(0, host="127.0.0.1", accept_timeout_s=30.0)
+    ports, bound, res = [], threading.Event(), {}
+
+    def run():
+        res["n"] = serve_stage(
+            0, "127.0.0.1", results.port, listen_host="127.0.0.1",
+            accept_timeout_s=30.0,
+            announce=lambda p: (ports.append(p), bound.set()),
+        )
+
+    worker = threading.Thread(target=run, daemon=True)
+    worker.start()
+    assert bound.wait(30.0)
+    got: list = []
+    reader = threading.Thread(
+        target=lambda: got.extend(recv_results(results)), daemon=True
+    )
+    reader.start()
+    head = Pipeline([st0], params, [card], config)
+    tail = Pipeline([st1], params, [card], config)
+    ids = torch.randint(0, 128, (3, 4, 16),
+                        generator=torch.Generator().manual_seed(1))
+    send = ArraySender("127.0.0.1", ports[0])
+    dispatch_stage(send, st1, stage_params(params, st1))
+    before = flash_attention.launches
+    acts = [head(x.to(card)) for x in ids]
+    for a in acts:
+        send_activation(send, a)
+    send.close()
+    worker.join(timeout=60)
+    reader.join(timeout=60)
+    results.close()
+    layers = sum(1 for n in st1.nodes if n.op == "mha")
+    assert res == {"n": 3} and len(got) == 3
+    assert flash_attention.launches >= before + layers * 3
+    assert set(results.schemes) == {(1,)}
+    for a, out in zip(acts, got):
+        assert out.dtype == torch.bfloat16
+        torch.testing.assert_close(out.float(), tail(a).float().cpu(),
+                                   atol=1e-2, rtol=1e-2)
+
+
+def test_replicas_on_the_card_match_one_replica(card):
+    """run_defer(replicas=2) over [cuda:0] * 4 streams bert_tiny's
+    outputs in order, equal to one replica's on the card."""
+    model = get_model("bert_tiny", seq_len=16)
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device=card).manual_seed(0),
+                        batch_size=4)
+    xs = [torch.randint(0, 128, (4, 16), device=card,
+                        generator=torch.Generator(device=card).manual_seed(i))
+          for i in range(6)]
+    defer = DEFER(devices=[card] * 4, config=config)
+    in_q, out_q = queue.Queue(), queue.Queue()
+    for x in xs:
+        in_q.put(x)
+    in_q.put(None)
+    defer.run_defer(model, ["encoder_1_out"], in_q, out_q, params=params,
+                    replicas=2)
+    assert defer.last_pipeline.num_replicas == 2
+    one, _ = DEFER(devices=[card], config=config).build_pipeline(
+        model, ["encoder_1_out"], params=params)
+    for x in xs:
+        torch.testing.assert_close(out_q.get_nowait(), one(x), rtol=0, atol=0)
