@@ -72,6 +72,22 @@ printing one line per check and failing loudly:
                 is a valid greedy choice under reference_logits within a
                 stated tie tolerance; then the host and device time of
                 one steady tick;
+     family   — the rest of the decoder family on phase 4's decoder and
+                weights: the mix through decode_window=4 and 8 (captured
+                CUDA graphs; token-identical to phase 4's outputs, the
+                card's flash_decode runs checked, a steady window's
+                split) and three sampled requests identical at K=1 and
+                K=8; a rolling cache (a 4000-token prompt and 160 steps
+                across the 4096 window, no flash_decode launch);
+                speculative_generate with a 4-layer make_draft at k=4
+                (and the target's teacher-forced logit error in T=5 and
+                T=1 steps); the digits regex and a JSON schema over a
+                synthetic 32000-string vocabulary at K=1 and 8; three
+                rank-16 LoRA adapters over the mix by adapter id;
+                beam_search at beam 4 (and a wrong reorder that its
+                score check must catch); every token checked under
+                reference_logits (the rolling one on a flat max_len-8192
+                twin, the LoRA ones on each adapter's merged weights);
   5. paged    — PagedDecodeServer over phase 4's decoder and weights:
                 a 1025-block pool of 16-row blocks (phase 4's 4-slot
                 cache plus the trash block), attention="pallas" (the
@@ -93,9 +109,14 @@ printing one line per check and failing loudly:
                 limit, and last the line {"ok": true, "device": {...}}.
 
 Every kernel launch count is zeroed just before each path (3, cnn,
-socket, 4, 5, 6) and read just after it; a path that did not launch its
-kernels fails. Every worker process has a time limit and is stopped by
-the end of its phase.
+socket, 4, each sub-path of family, 5, 6) and read just after it; a
+path that did not launch its kernels fails (a rolling one fails if it
+launched flash_decode). A captured window's replays run kernels the
+wrappers' host counts cannot see, so the flash_decode kernel counts its
+own runs on the card (ops/flash_decode.py `card_runs`): phase family
+reports that count for its window and constrained runs, and checks it
+against the wrapper's on every path that replays no graph. Every worker process has a time
+limit and is stopped by the end of its phase.
 
 Exits non-zero, and prints no result, when CUDA is unavailable, when the
 package is not beside this file, or when any phase fails. Imports
@@ -277,8 +298,26 @@ def launch_counters() -> dict:
 
 
 def zero_launches() -> None:
+    """Zero every wrapper's host count and the card's count of
+    flash_decode runs (ops/flash_decode.py `card_runs`)."""
+    from defer_tpu_torch.ops.flash_decode import reset_card_runs
+
     for fn, attr in launch_counters().values():
         setattr(fn, attr, 0)
+    reset_card_runs()
+
+
+def eager_decode_launches(label: str) -> dict:
+    """read_launches() on a path that replays no captured graph, where
+    the card's count of flash_decode runs must equal the wrapper's."""
+    from defer_tpu_torch.ops.flash_decode import card_runs
+
+    launches = read_launches()
+    card = card_runs()
+    check(card == launches["flash_decode"],
+          f"{label}: the card ran {card} flash_decode kernels, the wrapper "
+          f"launched {launches['flash_decode']}")
+    return launches
 
 
 def read_launches() -> dict:
@@ -1867,6 +1906,7 @@ def time_tick(tick, reps: int = 5) -> dict:
             tick()
         torch.cuda.synchronize()
     fam_us: dict = {}
+    fam_n: dict = {}
     launches = 0
     for e in prof.key_averages():
         dt = e.self_device_time_total
@@ -1874,6 +1914,7 @@ def time_tick(tick, reps: int = 5) -> dict:
             continue
         fam = _family(e.key)
         fam_us[fam] = fam_us.get(fam, 0.0) + dt
+        fam_n[fam] = fam_n.get(fam, 0) + e.count
         launches += e.count
     device_ms = sum(fam_us.values()) / reps / 1e3
     check(device_ms > 0, "the profiler saw no device time in the tick")
@@ -1882,6 +1923,7 @@ def time_tick(tick, reps: int = 5) -> dict:
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "family_ms": {k: v / reps / 1e3 for k, v in sorted(fam_us.items())},
+        "family_launches": {k: v / reps for k, v in sorted(fam_n.items())},
         "launches": launches / reps,
         "idle_share": 1.0 - device_ms / wall_ms,
     }
@@ -1990,7 +2032,7 @@ def phase_decode() -> dict:
     done = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = eager_decode_launches("decode")
     generated = sum(s for _, s in reqs)
     check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} served")
     check(launches["flash_decode"] >= cfg.num_layers * srv.ticks,
@@ -2002,16 +2044,557 @@ def phase_decode() -> dict:
         f"{generated / wall:.1f} tokens/s incl. admission prefills")
     log(f"decode: flash_decode launches {launches['flash_decode']} "
         f"(>= {cfg.num_layers} x {srv.ticks} ticks)")
-    greedy_gaps("decode", dec, params, reqs, [done[r] for r in rids])
+    outs = [done[r] for r in rids]
+    greedy_gaps("decode", dec, params, reqs, outs)
 
     ticks = srv.ticks
     del srv, done
     torch.cuda.empty_cache()
     depth = 150
-    log_split("decode", time_tick(flat_tick(dec, params, depth)), depth,
-              weight_bytes)
+    split = time_tick(flat_tick(dec, params, depth))
+    log_split("decode", split, depth, weight_bytes)
     return {"launches": launches, "ticks": ticks, "dec": dec,
-            "params": params, "weight_bytes": weight_bytes}
+            "params": params, "weight_bytes": weight_bytes, "outs": outs,
+            "tokens_per_s": generated / wall, "split": split}
+
+
+# -- phase family: the rest of the decoder family ---------------------------
+
+# Decode windows of the flat server (K sub-steps a captured CUDA graph),
+# and the three sampled requests held identical at K=1 and K=8: (prompt
+# index of the mix, steps, temperature, top_k, top_p, min_p, seed).
+FAMILY_WINDOWS = (4, 8)
+FAMILY_SAMPLED = [(0, 24, 0.8, 50, 1.0, 0.0, 11),
+                  (1, 24, 1.0, 0, 0.9, 0.0, 12),
+                  (2, 24, 0.7, 0, 1.0, 0.05, 13)]
+# The rolling cache: a prompt and greedy steps that cross the window, and
+# the reference's max_len (a flat cache long enough for the whole run).
+ROLL_PROMPT, ROLL_STEPS, ROLL_REF_LEN = 4000, 160, 8192
+# Speculation: the draft's layers (make_draft truncation), proposals a
+# round, greedy steps.
+SPEC_LAYERS, SPEC_K, SPEC_STEPS = 4, 4, 64
+# Constrained decoding: the synthetic vocabulary's eos (its empty
+# string), requests' steps, and the two grammars (the digits regex and
+# tests/test_constrain.py's schema).
+CONSTRAIN_EOS, CONSTRAIN_STEPS = 0, 24
+CONSTRAIN_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}}}
+# Multi-LoRA: adapters in the bank (ids 1-3; 0 the base), their rank and
+# targets, and the scale of their b factors.
+LORA_ADAPTERS, LORA_RANK, LORA_TARGETS, LORA_B_SCALE = 3, 16, ("wq", "wv"), 0.02
+# Beam search: width, steps, and the tolerance of a summed log-prob
+# over the 16 steps (a beam's score against reference_logits, and the
+# best beam against the greedy sequence): the scores read within 0.0436
+# of the reference on the H100, so 0.2 leaves 4.6x of room, and the
+# phase checks that a wrong reorder (each lane fed its neighbour beam's
+# cache) lands outside it.
+BEAM, BEAM_STEPS = 4, 16
+BEAM_SCORE_TOL = 0.2
+
+
+def synthetic_vocab(size: int) -> list:
+    """A 32000-string vocabulary for the constraints: id 0 the empty
+    string (the eos), then the 95 printable ASCII characters, then
+    strings of 2-6 characters drawn by a seeded generator from digits,
+    letters and JSON punctuation (multi-character tokens exercise the
+    compiler's token lift)."""
+    import random
+
+    rng = random.Random(5)
+    alphabet = "0123456789abcdefghijklmnopqrstuvwxyz{}[]\":,.-+ eE"
+    vocab = [""] + [chr(c) for c in range(32, 127)]
+    while len(vocab) < size:
+        vocab.append("".join(rng.choice(alphabet)
+                             for _ in range(rng.randint(2, 6))))
+    return vocab
+
+
+def window_tick(srv, mode: str = "argmax"):
+    """One steady captured window of `srv` (its seated slots all live,
+    budgets far off), as a closure for `time_tick`: the replay and the
+    budget update `_tick_window` issues, without the drain."""
+    program = srv._window_program(mode, False)
+    w = srv._wbuf
+
+    def tick():
+        w["budget"].fill_(1 << 20)
+        program()
+        w["budget"].sub_(w["n"])
+
+    return tick
+
+
+def family_windows(dec, params, reqs, k1: dict) -> dict:
+    """The 12-request mix through DecodeServer(decode_window=K): outputs
+    token-identical to phase 4's K=1 outputs, timed; the flash_decode
+    kernels the card ran in that run equal to (replays + capture
+    warm-ups) x K x layers (the number the kernels line reports); a
+    steady window's host and device split, and one window's kernels on
+    the card; then three sampled requests identical at K=1 and K=8."""
+    import torch
+
+    from defer_tpu_torch import DecodeServer, SamplingParams
+    from defer_tpu_torch.ops.flash_decode import card_runs
+
+    L = dec.cfg.num_layers
+    out = {}
+    for K in FAMILY_WINDOWS:
+        srv = DecodeServer(dec, params, max_batch=DECODE_SLOTS,
+                           decode_window=K)
+        rids = [srv.submit(p, s) for p, s in reqs]
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        done = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        host, total = read_launches()["flash_decode"], card_runs()
+        generated = sum(s for _, s in reqs)
+        for i, (r, want) in enumerate(zip(rids, k1["outs"])):
+            check(torch.equal(done[r], want),
+                  f"window K={K}: request {i} differs from decode_window=1")
+        replays, captures = srv.graph_replays, srv.graph_captures
+        check(replays > 0 and captures >= 1,
+              f"window K={K}: no captured graph replayed")
+        # The wrapper runs at each capture's warm-up and capture, and not
+        # at a replay; the card runs the kernels at each warm-up and
+        # replay, and not at a capture.
+        check(host == 2 * K * L * captures,
+              f"window K={K}: flash_decode host count {host}, expected "
+              f"2 x {K} x {L} x {captures} captures")
+        check(total == (replays + captures) * K * L,
+              f"window K={K}: the card ran {total} flash_decode kernels, "
+              f"expected ({replays} replays + {captures} warm-ups) x {K} x "
+              f"{L}")
+        del srv, done
+        # A steady window of four seated slots at depth 150.
+        tsrv = DecodeServer(dec, params, max_batch=DECODE_SLOTS,
+                            decode_window=K)
+        gen = torch.Generator().manual_seed(K)
+        for _ in range(DECODE_SLOTS):
+            tsrv.submit(torch.randint(0, dec.cfg.vocab_size, (1, 150),
+                                      generator=gen), dec.cfg.max_len - 150)
+        tsrv._admit()
+        tick = window_tick(tsrv)
+        split = time_tick(tick)
+        fd_kernels = split["family_launches"].get("flash_decode", 0)
+        zero_launches()
+        tick()
+        one = card_runs()
+        check(one == K * L,
+              f"window K={K}: the card ran {one} flash_decode kernels in a "
+              f"window, expected {K} x {L}")
+        log(f"family: window K={K}: {len(reqs)} requests token-identical to "
+            f"decode_window=1; {generated} tokens in {wall:.3f}s, "
+            f"{generated / wall:.1f} tokens/s incl. admission prefills "
+            f"(decode_window=1: {k1['tokens_per_s']:.1f}); "
+            f"graph_replays {replays}; flash_decode kernels run on the card "
+            f"{total} = ({replays} replays + {captures} capture warm-up) x "
+            f"{K} x {L} (the kernel's own count), host launches {host}")
+        log(f"family: window K={K}, one steady window of {DECODE_SLOTS} "
+            f"slots from depth 150: host {split['host_ms']:.4f} ms to issue "
+            f"(idle card), wall {split['wall_ms']:.4f} ms, device "
+            f"{split['device_ms']:.4f} ms of kernels "
+            f"({split['launches']:.1f} launches by profiler, {fd_kernels:.1f}"
+            f" flash_decode against the card's count of {one}; "
+            + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in split["family_ms"].items())
+            + f"); idle share {split['idle_share']:.4f}; a token "
+            f"{split['wall_ms'] / K:.4f} ms against decode_window=1's "
+            f"{k1['split']['wall_ms']:.4f} ms")
+        out[f"window{K}"] = {"launches": total, "split": split,
+                             "tokens_per_s": generated / wall,
+                             "graph_replays": replays}
+        del tsrv
+        torch.cuda.empty_cache()
+
+    sreqs = [(reqs[i][0], steps) for i, steps, *_ in FAMILY_SAMPLED]
+    samps = [SamplingParams(temperature=t, top_k=k, top_p=p, min_p=m,
+                            seed=seed)
+             for _, _, t, k, p, m, seed in FAMILY_SAMPLED]
+    runs = []
+    for K in (1, 8):
+        srv = DecodeServer(dec, params, max_batch=DECODE_SLOTS,
+                           decode_window=K)
+        rids = [srv.submit(p, s, sampling=sp)
+                for (p, s), sp in zip(sreqs, samps)]
+        done = srv.run()
+        runs.append([done[r] for r in rids])
+    for i, (a, b) in enumerate(zip(*runs)):
+        check(torch.equal(a, b),
+              f"sampled request {i}: decode_window=8 differs from 1")
+        check(tuple(a.shape) == (1, sreqs[i][0].shape[1] + sreqs[i][1]),
+              f"sampled request {i}: output shape {tuple(a.shape)}")
+    log(f"family: {len(sreqs)} sampled requests (seeds "
+        f"{[sp.seed for sp in samps]}, top_k / top_p / min_p) "
+        "token-identical at decode_window=1 and 8")
+    return out
+
+
+def family_rolling(dec, params) -> dict:
+    """GptDecoder(rolling_cache=True) on phase 4's weights: a
+    ROLL_PROMPT-token prompt and ROLL_STEPS greedy steps, crossing the
+    window; every token a valid greedy choice under reference_logits of
+    a flat decoder with max_len ROLL_REF_LEN; the cache window x rows;
+    no flash_decode launch (a rolling step attends by einsum)."""
+    import dataclasses
+
+    import torch
+
+    from defer_tpu_torch import GptDecoder
+
+    cfg = dec.cfg
+    roll = GptDecoder(cfg, compute_dtype=dec.compute_dtype,
+                      rolling_cache=True)
+    cache = roll.init_cache(1)
+    nbytes = sum(cache[k].numel() * cache[k].element_size()
+                 for k in ("k", "v"))
+    row_bytes = 2 * cfg.num_layers * cfg.kv_heads * (
+        cfg.dim // cfg.num_heads) * cache["k"].element_size()
+    check(cache["k"].shape[3] == cfg.window
+          and nbytes == cfg.window * row_bytes,
+          f"rolling cache holds {cache['k'].shape[3]} rows, {nbytes} B")
+    del cache
+    prompt = torch.randint(0, cfg.vocab_size, (1, ROLL_PROMPT),
+                           generator=torch.Generator().manual_seed(6))
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = roll.generate(params, prompt, ROLL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = eager_decode_launches("rolling")
+    check(launches["flash_decode"] == 0,
+          f"rolling: flash_decode launched {launches['flash_decode']} times")
+    log(f"family: rolling, GptDecoder(rolling_cache=True): a "
+        f"{ROLL_PROMPT}-token prompt + {ROLL_STEPS} greedy steps "
+        f"(positions to {ROLL_PROMPT + ROLL_STEPS - 1}, window "
+        f"{cfg.window}) in {wall:.3f}s; cache {nbytes} B = window "
+        f"{cfg.window} x {row_bytes} B a row; flash_decode launches 0")
+    ref = GptDecoder(dataclasses.replace(cfg, max_len=ROLL_REF_LEN),
+                     compute_dtype=dec.compute_dtype)
+    greedy_gaps("family: rolling", ref, params, [(prompt, ROLL_STEPS)], [out])
+    return {"launches": 0}
+
+
+def family_speculative(dec, params) -> dict:
+    """speculative_generate with make_draft(dec, params, layers=4): every
+    token a valid greedy choice; acceptance and agreement with plain
+    greedy printed; the draft's T=1 steps counted on flash_decode."""
+    import torch
+
+    from defer_tpu_torch.models.speculative import speculative_generate
+    from defer_tpu_torch.models.transplant import make_draft
+
+    draft, dparams = make_draft(dec, params, layers=SPEC_LAYERS)
+    prompt = decode_requests(dec.cfg.vocab_size)[0][0]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out, stats = speculative_generate(dec, params, draft, dparams, prompt,
+                                      SPEC_STEPS, k=SPEC_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = eager_decode_launches("speculative")
+    check(launches["flash_decode"] > 0,
+          "speculative: the draft's steps launched no flash_decode")
+    plain = dec.generate(params, prompt, SPEC_STEPS)
+    same = int((out[0, prompt.shape[1]:] == plain[0, prompt.shape[1]:]).sum())
+    log(f"family: speculative_generate(target, make_draft(layers="
+        f"{SPEC_LAYERS}), k={SPEC_K}): {SPEC_STEPS} tokens in {wall:.3f}s, "
+        f"{stats['rounds']} rounds, {stats['target_steps']} target steps, "
+        f"acceptance {stats['acceptance']:.4f}; {same} of {SPEC_STEPS} "
+        f"tokens equal plain greedy; flash_decode launches "
+        f"{launches['flash_decode']}")
+    greedy_gaps("family: speculative", dec, params, [(prompt, SPEC_STEPS)],
+                [out])
+    dev_t5, dev_t1 = teacher_forced_error(dec, params, out, prompt.shape[1])
+    log(f"family: speculative: the target's logits for the {SPEC_STEPS} "
+        f"generated rows, teacher-forced in verify-shaped steps of "
+        f"T={SPEC_K + 1} (einsum), differ from reference_logits by up to "
+        f"{dev_t5:.4g}, and in T=1 steps (flash_decode) by up to "
+        f"{dev_t1:.4g}: a token picked on either is within twice that of "
+        f"its reference row's max")
+    return {"launches": launches["flash_decode"], "stats": stats}
+
+
+def teacher_forced_error(dec, params, out, t_in: int) -> tuple:
+    """The largest |logit - reference_logits| over the rows that predict
+    out's generated tokens, with the target fed `out` after its prompt
+    in steps of SPEC_K + 1 tokens (the verify's shape) and in steps of
+    one token (plain decoding's)."""
+    import torch
+
+    ref = dec.reference_logits(params, out[:, :-1])[0, t_in - 1:].float()
+    errs = []
+    for width in (SPEC_K + 1, 1):
+        step = dec.make_step()
+        logits, cache = step(params, dec.init_cache(1), out[:, :t_in])
+        rows = [logits[0, -1:]]
+        for a in range(t_in, out.shape[1] - 1, width):
+            b = min(a + width, out.shape[1] - 1)
+            logits, cache = step(params, cache, out[:, a:b])
+            rows.append(logits[0])
+        got = torch.cat(rows).float()
+        errs.append(float((got - ref).abs().max()))
+        del cache
+    return tuple(errs)
+
+
+def _constrained_gaps(dec, params, dfas, reqs, outs) -> float:
+    """Every generated token the greedy choice among the tokens its DFA
+    state admits (eos only in accepting states): its reference logit
+    within GREEDY_TIE_TOL of the best admissible one. Returns the
+    largest gap."""
+    import torch
+
+    worst = 0.0
+    for (name, prompt, _), out in zip(reqs, outs):
+        dfa = dfas[name]
+        t_in = prompt.shape[1]
+        rows = dec.reference_logits(params, out[:, :-1])[0, t_in - 1:].float()
+        state = dfa.start
+        for j, tok in enumerate(out[0, t_in:].tolist()):
+            mask = torch.from_numpy(dfa.transitions[state] >= 0)
+            mask[CONSTRAIN_EOS] = bool(dfa.accepting[state])
+            row = rows[j].cpu()
+            best = row[mask].max()
+            check(bool(mask[tok]), f"constrained: token {tok} not admissible")
+            worst = max(worst, float(best - row[tok]))
+            if tok == CONSTRAIN_EOS:
+                break
+            state = int(dfa.transitions[state, tok])
+    return worst
+
+
+def family_constrained(dec, params) -> dict:
+    """The digits regex and the schema compiled against a synthetic
+    32000-string vocabulary; two requests of each through
+    DecodeServer(constraints=) at decode_window 1 and 8: every output
+    matches its grammar, every token is the greedy admissible choice,
+    and the two windows agree."""
+    import json
+    import re
+
+    import torch
+
+    from defer_tpu_torch import DecodeServer, SamplingParams
+    from defer_tpu_torch.constrain import compile_json_schema, compile_regex
+    from defer_tpu_torch.ops.flash_decode import card_runs
+
+    vocab = synthetic_vocab(dec.cfg.vocab_size)
+    t0 = time.perf_counter()
+    dfas = {"digits": compile_regex("[0-9]+", vocab),
+            "obj": compile_json_schema(CONSTRAIN_SCHEMA, vocab)}
+    compile_s = time.perf_counter() - t0
+    pattern = {"digits": "[0-9]+",
+               "obj": dfas["obj"].pattern}
+    mix = decode_requests(dec.cfg.vocab_size)
+    reqs = [(name, mix[i][0], CONSTRAIN_STEPS)
+            for i, name in enumerate(["digits", "obj", "digits", "obj"])]
+    L = dec.cfg.num_layers
+    runs, launches = [], {}
+    for K in (1, 8):
+        srv = DecodeServer(dec, params, max_batch=DECODE_SLOTS,
+                           eos_id=CONSTRAIN_EOS, decode_window=K,
+                           constraints=dfas)
+
+        rids = [srv.submit(p, s, sampling=SamplingParams(constraint=n))
+                for n, p, s in reqs]
+        torch.cuda.synchronize()
+        zero_launches()
+        done = srv.run()
+        host, launches[K] = read_launches()["flash_decode"], card_runs()
+        # K=1 runs every kernel eagerly; a window's graph runs its
+        # kernels at the capture's warm-up and each replay.
+        want = ((srv.graph_replays + srv.graph_captures) * K * L if K > 1
+                else host)
+        check(launches[K] > 0 and launches[K] == want,
+              f"constrained K={K}: the card ran {launches[K]} flash_decode "
+              f"kernels, expected {want} ({srv.graph_replays} replays, "
+              f"{srv.graph_captures} captures, host count {host})")
+        check(not srv.errors, f"constrained K={K}: errors {srv.errors}")
+        runs.append([done[r] for r in rids])
+    texts = []
+    for (name, prompt, _), a, b in zip(reqs, *runs):
+        check(torch.equal(a, b),
+              f"constrained {name}: decode_window=8 differs from 1")
+        text = "".join(vocab[t] for t in a[0, prompt.shape[1]:].tolist())
+        texts.append(text)
+        check(re.fullmatch(pattern[name], text) is not None,
+              f"constrained {name}: {text!r} does not match its grammar")
+        if name == "obj":
+            check(json.loads(text) in ({"ok": True}, {"ok": False}),
+                  f"constrained obj: {text!r}")
+    gap = _constrained_gaps(dec, params, dfas, reqs, runs[0])
+    check(gap <= GREEDY_TIE_TOL,
+          f"constrained: a token is {gap:.4g} below the best admissible")
+    log(f"family: constrained, {len(vocab)}-string synthetic vocabulary, "
+        f"digits ({dfas['digits'].num_states} states) and schema "
+        f"({dfas['obj'].num_states} states) compiled in {compile_s:.3f}s; "
+        f"{len(reqs)} requests at decode_window 1 and 8 token-identical, "
+        f"outputs {texts}; greedy gap among admissible tokens max "
+        f"{gap:.4g} (tolerance {GREEDY_TIE_TOL}); flash_decode kernels run "
+        f"on the card {launches[1]} (K=1, the wrapper's count), "
+        f"{launches[8]} (K=8, (replays + capture warm-ups) x 8 x {L})")
+    return {"launches": launches[1] + launches[8]}
+
+
+def family_lora(dec, params) -> dict:
+    """A bank of LORA_ADAPTERS random rank-LORA_RANK adapters on wq/wv;
+    the 12-request mix spread over adapter ids 0-3 through one
+    DecodeServer; every token a valid greedy choice under
+    reference_logits of its adapter's merge_lora params (one merged
+    copy at a time)."""
+    import dataclasses
+
+    import torch
+
+    from defer_tpu_torch import DecodeServer
+    from defer_tpu_torch.parallel.lora import (
+        combine_lora,
+        merge_lora,
+        stack_adapters,
+    )
+    from defer_tpu_torch.parallel.transformer_stack import lora_target_dims
+
+    cfg = dataclasses.replace(dec.cfg, lora_rank=LORA_RANK,
+                              lora_targets=LORA_TARGETS,
+                              lora_alpha=float(LORA_RANK))
+    dims = lora_target_dims(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    trees = []
+    for _ in range(LORA_ADAPTERS):
+        st = {}
+        for t in LORA_TARGETS:
+            din, dout = dims[t]
+            L = cfg.num_layers
+            st[f"{t}:a"] = (torch.randn(L, din, LORA_RANK, generator=gen,
+                                        device="cuda") * din**-0.5
+                            ).to(dec.compute_dtype)
+            st[f"{t}:b"] = (torch.randn(L, LORA_RANK, dout, generator=gen,
+                                        device="cuda") * LORA_B_SCALE
+                            ).to(dec.compute_dtype)
+        trees.append({"stack": st})
+    banked = stack_adapters(params, trees, cfg)
+    reqs = decode_requests(dec.cfg.vocab_size)
+    ids = [i % (LORA_ADAPTERS + 1) for i in range(len(reqs))]
+    srv = DecodeServer(dec, banked, max_batch=DECODE_SLOTS)
+    rids = [srv.submit(p, s, adapter_id=a) for (p, s), a in zip(reqs, ids)]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = eager_decode_launches("lora")
+    check(launches["flash_decode"] >= dec.cfg.num_layers * srv.ticks,
+          f"lora: flash_decode launched {launches['flash_decode']} times")
+    log(f"family: multi-LoRA, {LORA_ADAPTERS} rank-{LORA_RANK} adapters on "
+        f"{'/'.join(LORA_TARGETS)} (bank {tuple(banked['stack']['wq:a'].shape)}"
+        f"), {len(reqs)} requests over adapter ids 0-{LORA_ADAPTERS} in "
+        f"{srv.ticks} ticks, {wall:.3f}s; flash_decode launches "
+        f"{launches['flash_decode']}")
+    del banked
+    for a in range(LORA_ADAPTERS + 1):
+        merged = params if a == 0 else merge_lora(
+            combine_lora(params, trees[a - 1]), cfg)
+        mine = [i for i, x in enumerate(ids) if x == a]
+        greedy_gaps(f"family: lora adapter {a}", dec, merged,
+                    [reqs[i] for i in mine], [done[rids[i]] for i in mine])
+        del merged
+        torch.cuda.empty_cache()
+    return {"launches": launches["flash_decode"]}
+
+
+class _WrongReorder:
+    """A decoder whose steps see each cache lane's neighbour beam (lanes
+    rolled by one along the batch axis): the beam reorder gone wrong, as
+    a negative control for family_beam's score check. Everything else is
+    the wrapped decoder's."""
+
+    def __init__(self, dec):
+        self._dec = dec
+
+    def __getattr__(self, name):
+        return getattr(self._dec, name)
+
+    def make_step(self):
+        step = self._dec.make_step()
+
+        def wrong(params, cache, feed):
+            cache = dict(cache, k=cache["k"].roll(1, 1),
+                         v=cache["v"].roll(1, 1))
+            return step(params, cache, feed)
+
+        return wrong
+
+
+def family_beam(dec, params) -> dict:
+    """beam_search at beam BEAM over BEAM_STEPS steps: the best beam's
+    summed log-prob at least the greedy sequence's less BEAM_SCORE_TOL,
+    and every beam's score within BEAM_SCORE_TOL of reference_logits;
+    the same search through _WrongReorder must miss that tolerance."""
+    import torch
+
+    from defer_tpu_torch.models.beam import beam_search
+
+    prompt = decode_requests(dec.cfg.vocab_size)[1][0]
+    t_in = prompt.shape[1]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    beams, scores = beam_search(dec, params, prompt, BEAM_STEPS,
+                                beam_size=BEAM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = eager_decode_launches("beam")
+    check(launches["flash_decode"] > 0, "beam: no flash_decode launch")
+
+    def summed(seq):
+        logp = torch.log_softmax(
+            dec.reference_logits(params, seq[:, :-1]).float(), -1)[0]
+        toks = seq[0, t_in:].long()
+        return float(logp[t_in - 1:].gather(-1, toks[:, None]).sum())
+
+    def score_err(seqs, got):
+        return max(abs(summed(seqs[i:i + 1]) - float(got[i]))
+                   for i in range(BEAM))
+
+    ref = [summed(beams[i:i + 1]) for i in range(BEAM)]
+    err = score_err(beams, scores)
+    greedy = summed(dec.generate(params, prompt, BEAM_STEPS))
+    check(err <= BEAM_SCORE_TOL,
+          f"beam: a score is {err:.4g} off reference_logits")
+    check(float(scores[0]) >= greedy - BEAM_SCORE_TOL,
+          f"beam: best {float(scores[0]):.4f} below greedy {greedy:.4f}")
+    wrong = score_err(*beam_search(_WrongReorder(dec), params, prompt,
+                                   BEAM_STEPS, beam_size=BEAM))
+    check(wrong > BEAM_SCORE_TOL,
+          f"beam: a wrong reorder's scores are within {wrong:.4g} of "
+          f"reference_logits, inside the tolerance {BEAM_SCORE_TOL}")
+    log(f"family: beam_search(beam={BEAM}, {BEAM_STEPS} steps) in "
+        f"{wall:.3f}s: scores {[round(float(s), 4) for s in scores]}, "
+        f"reference {[round(r, 4) for r in ref]} (max diff {err:.4g}, "
+        f"tolerance {BEAM_SCORE_TOL}); a wrong reorder (lanes rolled by "
+        f"one beam) reads {wrong:.4g} off; greedy's summed log-prob "
+        f"{greedy:.4f}; flash_decode launches {launches['flash_decode']}")
+    return {"launches": launches["flash_decode"]}
+
+
+def phase_family(dec, params, k1: dict) -> dict:
+    """Phase family: windows, rolling, speculative, constrained, LoRA and
+    beam on phase 4's decoder and weights; each sub-path zeroes the
+    kernel counts before it runs and reads them after."""
+    t0 = time.perf_counter()
+    reqs = decode_requests(dec.cfg.vocab_size)
+    res = family_windows(dec, params, reqs, k1)
+    res["rolling"] = family_rolling(dec, params)
+    res["speculative"] = family_speculative(dec, params)
+    res["constrained"] = family_constrained(dec, params)
+    res["lora"] = family_lora(dec, params)
+    res["beam"] = family_beam(dec, params)
+    log(f"family: phase done in {time.perf_counter() - t0:.1f}s")
+    return res
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -2290,6 +2873,7 @@ def main() -> int:
         phase_roofline_checkpoint(cnn_res)
         decode_res = phase_decode()
         dec, params = decode_res.pop("dec"), decode_res.pop("params")
+        family_res = phase_family(dec, params, decode_res)
         paged_res = phase_paged(dec, params, decode_res["weight_bytes"])
         int8_res = phase_int8(dec, params, decode_res["weight_bytes"],
                               paged_res)
@@ -2329,6 +2913,14 @@ def main() -> int:
             "library_ms": k["library_ms"],
             **{key: k[key] for key in ("deep", "tick", "vit") if key in k},
         })
+        if name == "flash_decode":
+            # The decoder family's paths (phase family), each its own
+            # run's launches on the card; rolling steps take none.
+            report[-1]["family"] = {
+                path: family_res[path]["launches"]
+                for path in ("window4", "window8", "rolling", "speculative",
+                             "constrained", "lora", "beam")
+            }
     log(json.dumps({"kernels": report}))
     log(card)
     log(json.dumps({

@@ -45,7 +45,7 @@ from defer_tpu_torch.graph.partition import (
 )
 from defer_tpu_torch import obs
 from defer_tpu_torch.parallel import Pipeline, pipeline_devices
-from defer_tpu_torch.weights import params_from_jax
+from defer_tpu_torch.weights import params_from_jax, params_to_numpy
 
 __all__ = [
     "DEFER",
@@ -66,6 +66,7 @@ __all__ = [
     "paged_flash_decode",
     "paged_flash_prefill",
     "params_from_jax",
+    "params_to_numpy",
     "partition",
     "pipeline_devices",
     "run_local_inference",

@@ -59,12 +59,23 @@ struct Params {
   long long ob, oh;
   int hq, group, seq, window;
   float scale;
+  unsigned long long* runs;  // the card's count of this kernel's runs
 };
+
+// One thread of the grid adds one to the card's count of runs, so a launch
+// replayed from a captured CUDA graph is counted where it runs.
+__device__ __forceinline__ void count_run(const Params& p) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == 0) {
+    atomicAdd(p.runs, 1ull);
+  }
+}
 
 template <typename T, int kD>
 __global__ void __launch_bounds__(dtile::kThreads)
     flash_decode_mma(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  count_run(p);
   const int qgroups = (p.group + dtile::kQRows - 1) / dtile::kQRows;
   const int kvh = blockIdx.y / qgroups;
   const int g0 = (blockIdx.y % qgroups) * dtile::kQRows;
@@ -116,6 +127,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <int kVec, int kG>
 __global__ void __launch_bounds__(kThreads) flash_decode_f32(Params p) {
   constexpr int kDh = kVec * 32;
+  count_run(p);
   __shared__ float sm_m[kWarps][kG];
   __shared__ float sm_l[kWarps][kG];
   __shared__ float sm_acc[kWarps][kG][kDh];
@@ -301,13 +313,13 @@ cudaError_t launch_dh(const Params& p, int dh, int batch, int hkv,
 // pos_stride 1 for one position per sequence or 0 to broadcast one.
 // strides: 10 element strides, (b, h) of q, (b, h, s) of k, (b, h, s) of v,
 // (b, h) of o. window <= 0 means no window. cluster: the CTAs that share a
-// (sequence, KV head), 1 to 8. Returns a cudaError_t value; 0 means
-// launched.
+// (sequence, KV head), 1 to 8. runs: a device uint64 the kernel adds one
+// to each time it runs. Returns a cudaError_t value; 0 means launched.
 extern "C" int defer_flash_decode(
     const void* q, const void* k, const void* v, void* o, const int* pos,
     long long pos_stride, int dtype, int batch, int hq, int hkv, int seq,
     int dh, const long long* strides, int window, int cluster, float scale,
-    void* stream) {
+    void* stream, unsigned long long* runs) {
   if (batch < 1 || hkv < 1 || hq < hkv || hq % hkv || seq < 1 ||
       cluster < 1 || cluster > dtile::kMaxCluster || batch > 65535 ||
       hq > 65535) {
@@ -335,6 +347,7 @@ extern "C" int defer_flash_decode(
   p.seq = seq;
   p.window = window;
   p.scale = scale;
+  p.runs = runs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return int(launch_dh<float>(p, dh, batch, hkv, cluster, st));

@@ -7,7 +7,7 @@ src/dispatcher.py:52) and nodes rebuild with `model_from_json`
 (reference src/node.py:38). This module is the compatibility path for
 that ecosystem: a user bringing a serialized Keras model gets an IR
 Graph that partitions/pipelines like any zoo model, on random init (the
-h5 weights path, `models/transplant.py`, is not ported yet).
+h5 weights path needs `h5py`; `models/transplant.py` loads a weights dict).
 
 Supports both JSON dialects: the classic functional layout
 (`config.layers` with `inbound_nodes` as
@@ -584,17 +584,20 @@ def model_from_keras(
     (a `model.to_json()` string) becomes a zoo-style Model with
     auto-discovered cut candidates, ready for `DEFER().run_defer`.
     Returns (model, params): `params` passes through (None: init with
-    `model.init(generator)` as usual). `weights_h5` raises: loading Keras h5 weights goes through
-    `models/transplant.py`, which is not ported yet (ROADMAP.md Queue 1,
-    the rest of the decoder family's `models/transplant.py` item)."""
+    `model.init(generator)` as usual). `weights_h5` raises: reading Keras
+    h5 weights (the JAX package's `load_keras_h5`, fed to
+    `models/transplant.py`) needs `h5py`, which the port does not
+    depend on; a `{layer: [arrays]}` dict loads through
+    `transplant(graph, params, KerasWeights(...))` instead."""
     from defer_tpu_torch.graph.partition import chain_boundaries
     from defer_tpu_torch.models import Model
 
     if weights_h5 is not None:
         raise NotImplementedError(
-            "weights_h5= (Keras h5 weights) is not ported yet: it loads "
-            "through models/transplant.py, ROADMAP.md Queue 1 "
-            "(defer_tpu/models/transplant.py)"
+            "weights_h5= (Keras h5 weights) needs h5py, which the port "
+            "does not depend on (ROADMAP.md Queue 1); load a {layer: "
+            "[arrays]} dict with models/transplant.py's transplant("
+            "graph, params, KerasWeights(...)) instead"
         )
     graph, input_shape = from_keras_json(text)
     model = Model(

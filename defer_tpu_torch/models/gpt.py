@@ -1,9 +1,9 @@
 """GPT-style causal decoder with a KV cache, and its sampling policies.
 
-Counterpart of `defer_tpu/models/gpt.py` (single-device, non-rolling
-cache). The design follows the JAX package:
+Counterpart of `defer_tpu/models/gpt.py` (single-device). The design
+follows the JAX package:
 
-  * static cache buffers [L, B, Hkv, S_max, Dh]; the port writes the new
+  * static cache buffers [L, B, Hkv, S, Dh]; the port writes the new
     K/V rows IN PLACE (`make_step(donate=True)`, the serving
     configuration) where JAX returns a new buffer, and
     `make_step(donate=False)` works on a copy, leaving the caller's
@@ -11,15 +11,35 @@ cache). The design follows the JAX package:
   * one step serves prefill (T prompt tokens) and decode (T=1);
   * attention masks by cache position (j <= pos + t), so stale rows past
     the write head never contribute;
-  * every T=1 step goes through `ops/flash_decode.py` (the hand-written
-    kernel on CUDA tensors, its plain version on CPU tensors); a
-    prefill step attends through the masked einsum over the whole
-    static cache, as the JAX package computes it outside any kernel.
+  * every T=1 step of a flat cache goes through `ops/flash_decode.py`
+    (the hand-written kernel on CUDA tensors, its plain version on CPU
+    tensors); a prefill step attends through the masked einsum over the
+    whole static cache, as the JAX package computes it outside any
+    kernel.
+
+`rolling_cache=True` (sliding-window models with rotary positions):
+the cache holds cfg.window slots instead of cfg.max_len and position p
+lands in slot p % window, so cache memory is bounded by the window and
+generation length is not. The mask follows from the positions the slots
+hold: after a T=1 write every slot holds the latest position <= pos
+congruent to it, so only never-written slots mask out; a multi-token
+step attends over [cache, this step's keys] with explicit absolute
+positions, so same-step writes never evict keys a same-step query still
+needs (at most `window` tokens a step; `prefill` and `generate` stream a
+longer prompt in window-sized chunks). As in the JAX package, a rolling
+step does NOT take `flash_decode`: its live rows wrap around the cache,
+which the kernel's one contiguous live range cannot express, so every
+rolling step attends through the einsum/softmax path.
+
+Multi-LoRA serving: adapter banks attached to the params
+(`parallel/lora.py::stack_adapters`) and a per-slot `cache["adapter"]`
+(B,) id vector add each row's own low-rank delta to the adapted
+projections; one base weight read serves every tenant.
 
 The cache's write head `pos` is an int32 tensor on the cache's device:
 a scalar (all rows at one depth: prefill, generate) or a (B,) vector
 (continuous batching, runtime/decode_server.py). A step reads it on the
-device and never syncs the host on it; the write lands at
+device and never syncs the host on it; a flat cache's write lands at
 clamp(pos, 0, S - T), which is `lax.dynamic_update_slice`'s clamp, and
 the callers' guards (prefill, generate, the server's submit and bucket
 cap) keep every write inside the cache, so the clamp never moves one.
@@ -32,8 +52,7 @@ logits plus noise from one `torch.rand` of shape (B, V) per emitted
 token, so the distribution is JAX's and a per-slot generator seeded `s`
 reproduces a solo `generate` with a generator seeded `s`.
 
-Not ported yet (ROADMAP Queue 1 item 5): `rolling_cache=True`,
-`SpmdGptDecoder`, multi-LoRA adapter banks.
+Not ported yet (ROADMAP Queue 1 item 7): `SpmdGptDecoder`.
 """
 
 from __future__ import annotations
@@ -134,8 +153,8 @@ class SamplingParams:
     """Per-request sampling policy for the serving stack: the knobs
     `generate` takes, plus the seed of the slot's own generator.
     temperature 0 = greedy (filters unused). `constraint` names a
-    server-registered constraint DFA; constrained decoding is not
-    ported yet and the server raises on it."""
+    constraint DFA registered with the server (`constraints=`,
+    defer_tpu_torch/constrain/); it applies at any temperature."""
 
     temperature: float = 0.0
     top_k: int = 0
@@ -217,12 +236,23 @@ def sample_token_batched(
     token from its own generator, so a server slot seeded `s`
     reproduces `generate(..., generator=seeded(s))`. Greedy rows
     (temperature <= 0) take argmax of the raw logits. Returns (B,)."""
+    u = _row_uniforms(generators, logits_last.shape, logits_last.device)
+    return sample_token_batched_u(
+        logits_last, u, temperature, top_k, top_p, min_p
+    )
+
+
+def sample_token_batched_u(
+    logits_last, u, temperature, top_k, top_p, min_p
+) -> torch.Tensor:
+    """sample_token_batched given the (B, V) uniforms `u` already
+    drawn: the part of the draw that runs on the device alone, which a
+    captured decode window replays (runtime/decode_server.py)."""
     greedy = temperature <= 0
     safe_t = torch.where(greedy, 1.0, temperature)
     filtered = truncate_logits_batched(
         logits_last / safe_t[:, None], top_k, top_p, min_p
     )
-    u = _row_uniforms(generators, logits_last.shape, logits_last.device)
     return torch.where(
         greedy, torch.argmax(logits_last, dim=-1), _gumbel_argmax(filtered, u)
     )
@@ -239,6 +269,14 @@ def sample_token_batched_nosort(
     then -inf and mask nothing. Drops them and keeps every op the
     surviving rows see, so each row's token equals sample_token_batched
     with top_k=0 / top_p=1 on that row."""
+    u = _row_uniforms(generators, logits_last.shape, logits_last.device)
+    return sample_token_batched_nosort_u(logits_last, u, temperature, min_p)
+
+
+def sample_token_batched_nosort_u(
+    logits_last, u, temperature, min_p
+) -> torch.Tensor:
+    """sample_token_batched_nosort given the (B, V) uniforms `u`."""
     greedy = temperature <= 0
     safe_t = torch.where(greedy, 1.0, temperature)
     logits = logits_last / safe_t[:, None]
@@ -246,7 +284,6 @@ def sample_token_batched_nosort(
     probs = _softmax(logits)
     floor = min_p[:, None] * probs.amax(dim=-1, keepdim=True)
     filtered = torch.where(probs < floor, neg, logits)
-    u = _row_uniforms(generators, logits_last.shape, logits_last.device)
     return torch.where(
         greedy, torch.argmax(logits_last, dim=-1), _gumbel_argmax(filtered, u)
     )
@@ -433,7 +470,8 @@ class GptDecoder:
 
     `device`: where `init` and `init_cache` allocate; None means the
     first CUDA device, and raises without one — pass "cpu" to run on
-    the CPU."""
+    the CPU. `rolling_cache=True` bounds the cache by cfg.window (the
+    module docstring); it needs cfg.window and rotary positions."""
 
     cfg: TransformerConfig
     compute_dtype: Any = torch.bfloat16
@@ -456,10 +494,13 @@ class GptDecoder:
                 "into the base weights and build the decoder from a "
                 "lora_rank=0 config"
             )
-        if self.rolling_cache:
-            raise NotImplementedError(
-                "rolling_cache=True is not ported yet (ROADMAP Queue 1 "
-                "item 5, rolling_cache)"
+        if self.rolling_cache and (
+            self.cfg.window is None or self.cfg.pos_style != "rope"
+        ):
+            raise ValueError(
+                "rolling_cache needs cfg.window (sliding-window "
+                "attention) and pos_style='rope' (positions are "
+                "unbounded, a learned table is not)"
             )
         self.device = _resolve_device(self.device)
 
@@ -499,11 +540,13 @@ class GptDecoder:
         return cast(params)
 
     def init_cache(self, batch: int) -> dict:
-        """Zeroed K/V of [L, batch, Hkv, max_len, Dh] in compute_dtype
-        (GQA caches hold the KV heads only) and a scalar write head."""
+        """Zeroed K/V of [L, batch, Hkv, S, Dh] in compute_dtype (GQA
+        caches hold the KV heads only; S = max_len, or cfg.window for a
+        rolling cache) and a scalar write head."""
         cfg = self.cfg
         dh = cfg.dim // cfg.num_heads
-        shape = (cfg.num_layers, batch, cfg.kv_heads, cfg.max_len, dh)
+        slots = cfg.window if self.rolling_cache else cfg.max_len
+        shape = (cfg.num_layers, batch, cfg.kv_heads, slots, dh)
         return {
             "k": torch.zeros(shape, dtype=self.compute_dtype,
                              device=self.device),
@@ -519,25 +562,36 @@ class GptDecoder:
         dh = self.cfg.dim // self.cfg.num_heads
         return x.reshape(b, t, d // dh, dh).transpose(1, 2)
 
-    def _proj_fns(self, p: dict, dt):
+    def _proj_fns(self, p: dict, dt, adapter_ids=None):
         """The (bias, proj) closures every block stage shares; int8
-        leaves ({"q","s"}) widen here."""
+        leaves ({"q","s"}) widen here. With adapter banks in `p`
+        ({name}:a [A, in, r] / {name}:b [A, r, out], stack_adapters)
+        and `adapter_ids` (B,), each row adds its own adapter's delta:
+        one base weight read serves every tenant, and only the two
+        skinny per-row products differ."""
 
         def bias(h, name):
             return h + p[name].to(dt) if name in p else h
 
         def proj(h, name):
-            return h @ dequantize_leaf(p[name], dt)
+            y = h @ dequantize_leaf(p[name], dt)
+            a = p.get(f"{name}:a")
+            if a is not None and adapter_ids is not None:
+                a_sel = a[adapter_ids].to(dt)  # [B, in, r]
+                b_sel = p[f"{name}:b"][adapter_ids].to(dt)
+                low = torch.einsum("btd,bdr->btr", h, a_sel)
+                y = y + torch.einsum("btr,bro->bto", low, b_sel)
+            return y
 
         return bias, proj
 
-    def _attn_qkv(self, p: dict, x, rope):
+    def _attn_qkv(self, p: dict, x, rope, adapter_ids=None):
         """ln1 + q/k/v projections (+ rotary with the step's tables
         `rope` = (cos, sin), None for learned positions) + head split.
         Returns (q [B,Hq,T,Dh], k, v [B,Hkv,T,Dh])."""
         cfg = self.cfg
         dh = cfg.dim // cfg.num_heads
-        bias, proj = self._proj_fns(p, x.dtype)
+        bias, proj = self._proj_fns(p, x.dtype, adapter_ids)
         h = norm_apply(cfg, x, p, "ln1")
         qf = bias(proj(h, "wq"), "bq")
         kf = bias(proj(h, "wk"), "bk")
@@ -551,11 +605,11 @@ class GptDecoder:
             self._split_heads(vf),
         )
 
-    def _attn_out(self, p: dict, x, attn):
+    def _attn_out(self, p: dict, x, attn, adapter_ids=None):
         """wo projection, residual, ln2, FFN; `attn` is the merged
         [B, T, Hq*Dh] attention output."""
         cfg = self.cfg
-        bias, proj = self._proj_fns(p, x.dtype)
+        bias, proj = self._proj_fns(p, x.dtype, adapter_ids)
         x = x + bias(proj(attn, "wo"), "bo")
         h2 = norm_apply(cfg, x, p, "ln2")
         if cfg.ffn_style == "swiglu":
@@ -567,14 +621,20 @@ class GptDecoder:
     def _block(self, p: dict, x, k_cache, v_cache, pos, plan: dict):
         """One decoder block on [B, T, D]: writes its T new K/V rows into
         `k_cache`/`v_cache` ([B, Hkv, S, Dh], in place) at the rows of
-        `plan` and attends over the updated cache. `plan` holds what the
-        step computes once for all layers (`_plan`)."""
+        `plan` and attends over the updated cache (a rolling multi-token
+        step attends over [cache before the write, new rows]). `plan`
+        holds what the step computes once for all layers (`_plan`)."""
         cfg = self.cfg
         dt = x.dtype
         dh = cfg.dim // cfg.num_heads
-        q, k, v = self._attn_qkv(p, x, plan["rope"])
+        adapter_ids = plan["adapter"]
+        q, k, v = self._attn_qkv(p, x, plan["rope"], adapter_ids)
         b, h_q, t, _ = q.shape
         rows = plan["rows"]
+        k_att = v_att = None
+        if plan["concat"]:
+            k_att = torch.cat([k_cache, k], dim=2)
+            v_att = torch.cat([v_cache, v], dim=2)
         if pos.ndim == 1:
             bidx = plan["bidx"]
             k_cache[bidx, :, rows] = k.transpose(1, 2)
@@ -582,26 +642,28 @@ class GptDecoder:
         else:
             k_cache.index_copy_(2, rows, k)
             v_cache.index_copy_(2, rows, v)
-        if t == 1:
+        if k_att is None:
+            k_att, v_att = k_cache, v_cache
+        if t == 1 and not self.rolling_cache:
             # The serving hot path: the live cache rows only, through
             # the flash-decode kernel (its plain version on the CPU).
             attn = flash_decode(q[:, :, 0, :], k_cache, v_cache, pos,
                                 window=cfg.window)
             attn = attn.to(dt).reshape(b, t, h_q * dh)
         else:
-            hkv = k_cache.shape[1]
+            hkv = k_att.shape[1]
             qg = q.reshape(b, hkv, h_q // hkv, t, dh)
             # bf16 products are exact in f32: this is the JAX einsum's
             # preferred_element_type=f32.
             logits = torch.einsum(
-                "bkgtd,bksd->bkgts", qg.float(), k_cache.float()
+                "bkgtd,bksd->bkgts", qg.float(), k_att.float()
             ) * (dh**-0.5)
             logits = logits.masked_fill(~plan["mask"], -torch.inf)
             weights = torch.softmax(logits, dim=-1).to(dt)
-            attn = torch.einsum("bkgts,bksd->bkgtd", weights, v_cache)
+            attn = torch.einsum("bkgts,bksd->bkgtd", weights, v_att)
             attn = attn.reshape(b, h_q, t, dh).transpose(1, 2)
             attn = attn.reshape(b, t, h_q * dh)
-        return self._attn_out(p, x, attn)
+        return self._attn_out(p, x, attn, adapter_ids)
 
     def _rope(self, pos: torch.Tensor, t: int):
         """The rotary tables of a T-token step at write head `pos`
@@ -618,20 +680,27 @@ class GptDecoder:
     def _plan(self, pos: torch.Tensor, t: int, s: int) -> dict:
         """Per-step tensors every layer shares, computed on the device
         from `pos` (no host sync): the cache rows to write, the rotary
-        tables, and for T > 1 the attention mask. `s` is the length of
-        the cache the step is given, which need not be max_len: the
-        paged server's gathered view holds max_blocks * block_size
-        rows, as the JAX package's `_block` takes S from the cache."""
+        tables, and the attention mask of an einsum step (T > 1, or any
+        rolling step). `s` is the length of the cache the step is
+        given, which need not be max_len: the paged server's gathered
+        view holds max_blocks * block_size rows, as the JAX package's
+        `_block` takes S from the cache."""
         cfg = self.cfg
         dev = pos.device
         steps = torch.arange(t, device=dev)
+        per_slot = pos.ndim == 1
+        plan: dict = {
+            "rope": self._rope(pos, t), "concat": False, "adapter": None,
+        }
+        if per_slot:
+            plan["bidx"] = torch.arange(pos.shape[0], device=dev)[:, None]
+        if self.rolling_cache:
+            self._plan_rolling(plan, pos, t, s, steps)
+            return plan
         # lax.dynamic_update_slice's clamp of the write start.
         start = pos.clamp(0, s - t)
-        per_slot = pos.ndim == 1
-        plan: dict = {"rope": self._rope(pos, t)}
         if per_slot:
             plan["rows"] = (start[:, None] + steps).long()  # (B, T)
-            plan["bidx"] = torch.arange(pos.shape[0], device=dev)[:, None]
         else:
             plan["rows"] = (start + steps).long()  # (T,)
         if t > 1:
@@ -650,6 +719,50 @@ class GptDecoder:
                 plan["mask"] = mask
         return plan
 
+    def _plan_rolling(self, plan, pos, t, s, steps) -> None:
+        """A rolling step's rows (position % window) and mask, from the
+        positions the slots hold after (T=1) or before (T > 1, which
+        attends over [cache, new rows]) the write."""
+        win = s
+        s_idx = torch.arange(win, device=pos.device)
+        if pos.ndim == 1:
+            # Continuous batching: each slot writes at its own
+            # pos % win. One token a tick; admission prefills each
+            # request through the scalar path before lane insertion.
+            if t != 1:
+                raise ValueError(
+                    "per-slot rolling caches decode one token per tick; "
+                    "prefill requests individually before lane insertion"
+                )
+            plan["rows"] = (pos % win)[:, None].long()  # (B, 1)
+            held = pos[:, None] - ((pos[:, None] - s_idx) % win)
+            plan["mask"] = (held >= 0)[:, None, None, None, :]
+            return
+        if t > win:
+            raise ValueError(
+                f"a rolling-cache step takes at most window={win} tokens "
+                f"at once (got {t}); prefill with chunk<={win}"
+            )
+        plan["rows"] = ((pos + steps) % win).long()  # (T,), unique
+        if t == 1:
+            # After the write every slot holds the latest position
+            # <= pos congruent to it, always inside the window: only
+            # never-written slots mask out.
+            held = pos - ((pos - s_idx) % win)
+            plan["mask"] = (held >= 0)[None, :]  # (1, win)
+            return
+        # Slot j holds the latest position <= pos - 1 congruent to j
+        # (negative: never written); the new rows carry their own.
+        held = pos - 1 - ((pos - 1 - s_idx) % win)
+        kpos = torch.cat([held, pos + steps])
+        qpos = (pos + steps)[:, None]  # (T, 1)
+        plan["mask"] = (
+            (kpos[None, :] <= qpos)
+            & (kpos[None, :] > qpos - win)
+            & (kpos[None, :] >= 0)
+        )  # (T, win + T)
+        plan["concat"] = True
+
     def _step_fn(self, donate: bool):
         """The one step body: embed -> blocks (writing the cache) ->
         final norm -> head. `donate=False` writes into a copy."""
@@ -662,6 +775,10 @@ class GptDecoder:
             t = ids.shape[1]
             pos = cache["pos"]
             plan = self._plan(pos, t, k_all.shape[3])
+            # Multi-LoRA serving: the slot -> adapter assignment is
+            # per-slot state and rides in the cache.
+            adapter = cache.get("adapter")
+            plan["adapter"] = None if adapter is None else adapter.long()
             x = self._embed_tokens(params, ids, pos)
             stack = params["stack"]
             for layer in range(self.cfg.num_layers):
@@ -670,7 +787,10 @@ class GptDecoder:
                     v_all[layer], pos, plan,
                 )
             logits = self._final_logits(params, x)
-            return logits, {"k": k_all, "v": v_all, "pos": pos + t}
+            out = {"k": k_all, "v": v_all, "pos": pos + t}
+            if adapter is not None:
+                out["adapter"] = adapter
+            return logits, out
 
         return step
 
@@ -760,7 +880,10 @@ class GptDecoder:
         return step
 
     def decode_step_fn(self):
-        """The raw single-step body, as `make_step(donate=True)`."""
+        """The raw single-step body, as `make_step(donate=True)`: the
+        step a decode window repeats K times (runtime/decode_server.py
+        captures the K sub-steps into one CUDA graph on a CUDA
+        decoder)."""
         return self.make_step()
 
     # -- generation --------------------------------------------------------
@@ -788,7 +911,12 @@ class GptDecoder:
         # One host sync per prefill (admission time, not per tick), to
         # guard overflow.
         base = int(cache["pos"])
-        if base + t0 > self.cfg.max_len:
+        if self.rolling_cache:
+            # No end to overflow (slots recycle), but one step takes at
+            # most a window of tokens: long prompts auto-chunk.
+            if chunk is None and t0 > self.cfg.window:
+                chunk = self.cfg.window
+        elif base + t0 > self.cfg.max_len:
             raise ValueError(
                 f"cache position {base} + prompt {t0} exceeds max_len "
                 f"{self.cfg.max_len}"
@@ -803,7 +931,13 @@ class GptDecoder:
         for start in range(0, t0, chunk):
             piece = ids[:, start : start + chunk]
             real = piece.shape[1]
-            if real < chunk and base + start + chunk <= self.cfg.max_len:
+            # Rolling caches never pad: a pad row would evict the live
+            # slot at its position % window.
+            if (
+                real < chunk
+                and not self.rolling_cache
+                and base + start + chunk <= self.cfg.max_len
+            ):
                 piece = torch.cat(
                     [piece, piece.new_zeros((ids.shape[0], chunk - real))],
                     dim=1,
@@ -839,7 +973,7 @@ class GptDecoder:
         loop stops early once every sequence has finished. A sampled
         run draws from `generator` (a fresh one seeded 0 when None)."""
         b, t0 = prompt_ids.shape
-        if t0 + num_steps > self.cfg.max_len:
+        if not self.rolling_cache and t0 + num_steps > self.cfg.max_len:
             raise ValueError(
                 f"prompt {t0} + steps {num_steps} exceeds max_len "
                 f"{self.cfg.max_len}"
@@ -873,12 +1007,20 @@ class GptDecoder:
     def reference_logits(self, params: dict, ids: torch.Tensor) -> torch.Tensor:
         """Full causal forward of [B, T] ids (fresh cache, the whole
         sequence in one non-donating step): the correctness oracle for
-        incremental decoding."""
+        incremental decoding. A rolling decoder streams the sequence in
+        window-sized pieces (one step takes at most a window)."""
         cache = self.init_cache(ids.shape[0])
-        logits, _ = self.make_step(donate=False)(
-            params, cache, ids.to(self.device)
-        )
-        return logits
+        ids = ids.to(self.device)
+        step = self.make_step(donate=False)
+        win = self.cfg.window
+        if not self.rolling_cache or ids.shape[1] <= win:
+            logits, _ = step(params, cache, ids)
+            return logits
+        outs = []
+        for start in range(0, ids.shape[1], win):
+            logits, cache = step(params, cache, ids[:, start : start + win])
+            outs.append(logits)
+        return torch.cat(outs, dim=1)
 
 
 def tiny_gpt(seq_len: int = 32, *, device=None) -> GptDecoder:

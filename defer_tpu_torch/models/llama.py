@@ -3,11 +3,14 @@
 Counterpart of `defer_tpu/models/llama.py`: RMSNorm, rotary position
 embeddings, grouped-query attention and a SwiGLU FFN, all biasless, as
 a `TransformerConfig` that `models/gpt.py`'s `GptDecoder` serves; the
-GQA cache holds [L, B, Hkv, S, Dh]. `from_hf_state_dict` and
-`spmd_llama` are not ported yet (ROADMAP Queue 1 item 5).
+GQA cache holds [L, B, Hkv, S, Dh]. `from_hf_state_dict` maps a
+HuggingFace Llama state dict onto the decoder's params. `spmd_llama`
+is not ported yet (ROADMAP Queue 1 item 7, with SpmdGptDecoder).
 """
 
 from __future__ import annotations
+
+from typing import Any, Mapping
 
 import torch
 
@@ -73,3 +76,60 @@ def tiny_llama(seq_len: int = 32, *, device=None) -> GptDecoder:
         compute_dtype=torch.float32,
         device=device,
     )
+
+
+def from_hf_state_dict(
+    cfg: TransformerConfig,
+    state_dict: Mapping[str, Any],
+    device: torch.device | str = "cpu",
+) -> dict:
+    """Map a HuggingFace `LlamaForCausalLM.state_dict()` onto the
+    decoder's params, on `device`, each leaf in the checkpoint's dtype.
+
+    Torch Linear stores [out, in]; the stack computes x @ W with
+    [in, out], so every projection transposes. w1 = gate (the silu
+    branch), w3 = up, w2 = down: the stack's swiglu convention. The head
+    is tied to `token_embedding` unless the checkpoint ships an
+    `lm_head.weight` that differs from it (untied releases); a tied
+    checkpoint that lists the aliased head keeps the tied tree."""
+    L = cfg.num_layers
+
+    def t(name: str) -> torch.Tensor:
+        return torch.as_tensor(state_dict[name]).detach().to(device)
+
+    def stacked(fmt: str, transpose: bool = True) -> torch.Tensor:
+        mats = [t(fmt.format(i)) for i in range(L)]
+        return torch.stack([m.T if transpose else m for m in mats])
+
+    attn = "model.layers.{}.self_attn.%s.weight"
+    mlp = "model.layers.{}.mlp.%s.weight"
+    stack = {
+        "wq": stacked(attn % "q_proj"),
+        "wk": stacked(attn % "k_proj"),
+        "wv": stacked(attn % "v_proj"),
+        "wo": stacked(attn % "o_proj"),
+        "w1": stacked(mlp % "gate_proj"),
+        "w3": stacked(mlp % "up_proj"),
+        "w2": stacked(mlp % "down_proj"),
+        "ln1_scale": stacked("model.layers.{}.input_layernorm.weight",
+                             False),
+        "ln2_scale": stacked(
+            "model.layers.{}.post_attention_layernorm.weight", False
+        ),
+    }
+    kv_dim = cfg.kv_heads * (cfg.dim // cfg.num_heads)
+    if tuple(stack["wk"].shape) != (L, cfg.dim, kv_dim):
+        raise ValueError(
+            f"k_proj stacks to {tuple(stack['wk'].shape)}, the config "
+            f"wants {(L, cfg.dim, kv_dim)}"
+        )
+    params = {
+        "token_embedding": t("model.embed_tokens.weight"),
+        "final_ln_scale": t("model.norm.weight"),
+        "stack": {k: v.contiguous() for k, v in stack.items()},
+    }
+    if "lm_head.weight" in state_dict:
+        head = t("lm_head.weight")
+        if not torch.equal(head, params["token_embedding"]):
+            params["lm_head"] = head
+    return params

@@ -4,11 +4,16 @@ Counterpart of `defer_tpu/obs/serving.py` (`ServingMetrics`,
 `ServerStats`), over the port's `obs/metrics.py`, so the port's decode
 server exports the JAX package's metric names. `ServingMetrics` resolves
 every instrument once, at server construction; the per-token path then
-touches pre-bound attributes only. The instruments of servers not
-ported yet (paged pool, prefix cache, speculation, constraints,
-pipeline stages) are registered all the same, so the exposition's shape
-does not depend on which server ran. `DisaggMetrics` and `FleetMetrics`
-wait for their servers.
+touches pre-bound attributes only. The flat server's decode windows
+report `defer_host_dispatches_total`, `defer_tokens_per_dispatch` and
+`defer_window_truncated_total`; constrained decoding
+`defer_constrained_tokens_total`, `defer_constrain_masked_frac` and
+`defer_constrain_dead_ends_total`; speculative decoding
+(models/speculative.py, label "speculative") the `defer_spec_*`
+counters and the `defer_spec_acceptance` histogram. The instruments of
+servers not ported yet (pipeline stages) are registered all the same,
+so the exposition's shape does not depend on which server ran.
+`DisaggMetrics` and `FleetMetrics` wait for their servers.
 
 `ServerStats` is the structured return of `serve_greedy`: a dict with
 attribute access and the registry snapshot under `stats.metrics`.

@@ -151,9 +151,35 @@ def _kernel():
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
     return fn
+
+
+@functools.cache
+def _runs(index: int) -> torch.Tensor:
+    """Device `index`'s count of kernel runs, which each launch's kernel
+    adds one to on the card. Made at the device's first launch, which
+    must not be under graph capture (nor can it be: `_launch_plan`
+    queries the card)."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the first flash_decode launch on a device must run eagerly, "
+            "before any graph capture"
+        )
+    return torch.zeros((), dtype=torch.int64, device=f"cuda:{index}")
+
+
+def card_runs(index: int = 0) -> int:
+    """The flash_decode kernels card `index` has run since
+    `reset_card_runs`: eager launches and launches replayed from a
+    captured CUDA graph alike, which `flash_decode.launches` (a host
+    count) cannot see. Reads the count to the host."""
+    return int(_runs(index))
+
+
+def reset_card_runs(index: int = 0) -> None:
+    _runs(index).zero_()
 
 
 @functools.cache
@@ -268,6 +294,7 @@ def _decode_cuda(q, k, v, pos, window) -> torch.Tensor:
         k.shape[1], k.shape[2], dh, strides,
         0 if window is None else int(window), cluster, dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
+        _runs(q.device.index).data_ptr(),
     )
     if torch.cuda.current_device() == q.device.index:
         rc = _kernel()(*args)
@@ -299,7 +326,9 @@ def flash_decode(
     CUDA tensors run the hand-written kernel (any S >= 1 and G >= 1,
     Dh in 32/64/128, float32/float16/bfloat16) and raise on what it does
     not take; CPU and meta tensors run `flash_decode_plain`.
-    `flash_decode.launches` counts kernel launches."""
+    `flash_decode.launches` counts kernel launches on the host;
+    `card_runs` counts the kernel's runs on the card, graph replays
+    included."""
     _check(q, k, v, window)
     if q.device.type == "cuda":
         return _decode_cuda(q, k, v, pos, window)

@@ -3,16 +3,16 @@ the KV-cache decoder (`models/gpt.py`) uses them.
 
 Counterpart of a subset of `defer_tpu/parallel/transformer_stack.py`:
 `TransformerConfig` with every field and validation, `init_stack` for
-the dense path, `embed_lookup` (one device, int8 tables included), the
-norms with f32 statistics, and rotary embeddings. Parameters are plain
-nested dicts of tensors with a leading [L] layer axis, keyed as the JAX
-package keys them, so `weights.params_from_jax` maps one tree onto the
-other.
+the dense path with its LoRA adapter factors ({t}:a [L, in, r] /
+{t}:b [L, r, out], b zero), `lora_target_dims`, `embed_lookup` (one
+device, int8 tables included), the norms with f32 statistics, and
+rotary embeddings. Parameters are plain nested dicts of tensors with a
+leading [L] layer axis, keyed as the JAX package keys them, so
+`weights.params_from_jax` maps one tree onto the other.
 
-Not ported yet: the mixture-of-experts FFN, LoRA adapter factors, the
-SPMD encoder stack and its partition specs (ROADMAP Queue 1 item 7).
-`init_stack` raises `NotImplementedError` for a config that asks for
-experts or adapters.
+Not ported yet: the mixture-of-experts FFN, the SPMD encoder stack and
+its partition specs (ROADMAP Queue 1 item 7). `init_stack` raises
+`NotImplementedError` for a config that asks for experts.
 """
 
 from __future__ import annotations
@@ -62,6 +62,14 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    @property
+    def lora_scale(self) -> float:
+        if not self.lora_rank:
+            return 0.0
+        if self.lora_alpha is None:
+            return 1.0
+        return self.lora_alpha / self.lora_rank
 
     def __post_init__(self):
         if self.num_heads % self.kv_heads:
@@ -120,6 +128,23 @@ class TransformerConfig:
                 )
 
 
+def lora_target_dims(cfg: TransformerConfig) -> dict:
+    """(in_dim, out_dim) for every projection an adapter can target."""
+    D, F = cfg.dim, cfg.ffn_dim
+    dkv = cfg.kv_heads * (D // cfg.num_heads)
+    dims = {
+        "wq": (D, D),
+        "wk": (D, dkv),
+        "wv": (D, dkv),
+        "wo": (D, D),
+        "w1": (D, F),
+        "w2": (F, D),
+    }
+    if cfg.ffn_style == "swiglu":
+        dims["w3"] = (D, F)
+    return dims
+
+
 def normal(gen, shape, scale, dtype=torch.float32, device=None):
     """scale * N(0, 1) draws of `shape` from `gen`, on `device` (the
     generator's own when None)."""
@@ -140,17 +165,14 @@ def init_stack(
     The key set follows the config as in the JAX package: GQA narrows
     wk/wv to the KV head width, use_bias=False drops every b*,
     norm_type="rms" drops the norm biases, and ffn_style="swiglu" adds
-    the w3 up-projection. The draws have the JAX package's
+    the w3 up-projection; lora_rank > 0 adds {t}:a [L, in, r] (scaled
+    in**-0.5) and a zero {t}:b [L, r, out] per target, so a fresh
+    adapter changes nothing. The draws have the JAX package's
     distributions, not its values: torch and JAX generators differ."""
     if cfg.num_experts:
         raise NotImplementedError(
             "mixture-of-experts stacks are not ported yet (ROADMAP "
             "Queue 1 item 7)"
-        )
-    if cfg.lora_rank:
-        raise NotImplementedError(
-            "LoRA adapter factors are not ported yet (ROADMAP Queue 1 "
-            "item 5, multi-LoRA)"
         )
     device = generator.device if device is None else torch.device(device)
     L, D, F = cfg.num_layers, cfg.dim, cfg.ffn_dim
@@ -187,6 +209,13 @@ def init_stack(
     if cfg.use_bias:
         p["b1"] = const(0.0, (L, F))
         p["b2"] = const(0.0, (L, D))
+    if cfg.lora_rank:
+        r = cfg.lora_rank
+        dims = lora_target_dims(cfg)
+        for t in cfg.lora_targets:
+            din, dout = dims[t]
+            p[f"{t}:a"] = draw((L, din, r), din**-0.5)
+            p[f"{t}:b"] = const(0.0, (L, r, dout))
     return p
 
 

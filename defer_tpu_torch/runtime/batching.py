@@ -1,6 +1,6 @@
 """Dynamic batching for the streaming serve path (counterpart of
-`BatchGatherer`, `Deadline` and `split_output` in
-`defer_tpu/runtime/batching.py`).
+`BatchGatherer`, `Deadline`, `split_output`, `window_drain_order` and
+`accept_lengths` in `defer_tpu/runtime/batching.py`).
 
 Coalesces adjacent queue items into one device batch under a latency
 SLO, and splits the batched output back into per-item results, so the
@@ -18,6 +18,7 @@ import queue as queue_mod
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from defer_tpu_torch.obs.metrics import get_registry
@@ -175,3 +176,33 @@ def split_output(out: Any, sizes: list[int]) -> list[Any]:
         parts.append(out[off : off + s])
         off += s
     return parts
+
+
+def window_drain_order(valid_lens, width: int):
+    """Tick-major order for draining a decode window's [B, K] token
+    buffer with per-slot valid lengths: yields (t, i) for every accepted
+    token, sub-step first and slot second, so streaming callbacks fire
+    in the interleaving a decode_window=1 loop produces."""
+    for t in range(width):
+        for i, n in enumerate(valid_lens):
+            if t < n:
+                yield t, i
+
+
+def accept_lengths(props, preds):
+    """Greedy speculative accept test, batched: per row, the index of
+    the first draft token that disagrees with the target's argmax at
+    the same position, or k when the whole proposal matches. `props`
+    [B, k] proposals, `preds` [B, k] the target's argmax at the k
+    proposal positions; both on the host (numpy or lists). Returns [B]
+    int64."""
+    props = np.asarray(props)
+    preds = np.asarray(preds)
+    if props.shape != preds.shape or props.ndim != 2:
+        raise ValueError(
+            f"props/preds must be matching [B, k], got "
+            f"{props.shape}/{preds.shape}"
+        )
+    mismatch = props != preds
+    first_bad = mismatch.argmax(axis=1)
+    return np.where(mismatch.any(axis=1), first_bad, props.shape[1])

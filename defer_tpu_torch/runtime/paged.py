@@ -535,7 +535,7 @@ class PagedDecodeServer:
         if getattr(dec, "rolling_cache", False):
             raise ValueError("paged serving does not support rolling caches")
         if any(":" in k for k in params["stack"]):
-            raise _not_ported("multi-LoRA adapter banks", "5")
+            raise _not_ported("multi-LoRA adapter banks", "6 (h)")
         if block_size < 1 or num_blocks < 2:
             raise ValueError(
                 f"need block_size >= 1 and num_blocks >= 2 (one trash "
@@ -635,7 +635,7 @@ class PagedDecodeServer:
                     "constraints= requires eos_id: a satisfied "
                     "constraint stops by emitting eos"
                 )
-            raise _not_ported("constrained decoding (constraints=)", "5")
+            raise _not_ported("constrained decoding (constraints=)", "6 (h)")
         cfg = dec.cfg
         self.decode_window = decode_window
         self.attention = attention
@@ -790,12 +790,12 @@ class PagedDecodeServer:
         if sampling is not None:
             sampling.validate()
             if sampling.constraint is not None:
-                raise _not_ported("constrained decoding (constraint=)", "5")
+                raise _not_ported("constrained decoding (constraint=)", "6 (h)")
             if sampling.temperature == 0:
                 sampling = None  # greedy: keep the argmax fast path
         stop_seqs = normalize_stops(stop)
         if adapter_id:
-            raise _not_ported("multi-LoRA adapters (adapter_id != 0)", "5")
+            raise _not_ported("multi-LoRA adapters (adapter_id != 0)", "6 (h)")
         t0 = prompt_ids.shape[1]
         if t0 < 1 or num_steps < 1:
             raise ValueError("need at least 1 prompt token and 1 step")

@@ -3,7 +3,13 @@
 `params_from_jax` takes a param tree as `defer_tpu` builds it (a nested
 dict of arrays; anything numpy can read, such as jax arrays) and returns
 the same tree of torch tensors, so one set of weights drives both
-packages. It imports neither jax nor defer_tpu: arrays cross as numpy.
+packages. The trees of the decoder family cross as they are: adapter
+factors and banks (`{target}:a` / `{target}:b`, parallel/lora.py), a
+draft's sliced tree (models/transplant.py::make_draft) and int8 leaves
+(`{"q", "s"}`) are nested dicts of arrays like any other.
+`params_to_numpy` is the way back: the port's tensors as numpy arrays,
+which the JAX package takes as they are. Neither imports jax or
+defer_tpu: arrays cross as numpy.
 """
 
 from __future__ import annotations
@@ -39,3 +45,18 @@ def params_from_jax(
         else _to_tensor(v, device, dtype)
         for k, v in tree.items()
     }
+
+
+def params_to_numpy(tree: Mapping[str, Any]) -> dict:
+    """Nested dict of tensors -> nested dict of numpy arrays on the host
+    (bfloat16 leaves widen to float32, exactly)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out[k] = params_to_numpy(v)
+            continue
+        t = v.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[k] = t.numpy()
+    return out

@@ -1,9 +1,10 @@
 """Card-only tests of defer_tpu_torch: the hand-written kernels against
 their plain versions, and the main paths through them (run_defer, the
 decode server and the paged server, on a float and an int8 pool); the
-CNN ops through cuDNN against their CPU path, and the image models'
-stages; a remote stage worker on the card behind a loopback socket, and
-run_defer with replicas=2.
+decode server's windows as captured CUDA graphs against its
+decode_window=1 ticks; the CNN ops through cuDNN against their CPU path,
+and the image models' stages; a remote stage worker on the card behind a
+loopback socket, and run_defer with replicas=2.
 
 Every test here is marked `cuda` and skips without a CUDA card. The
 file imports neither jax nor defer_tpu, so on the card it runs on its
@@ -21,6 +22,7 @@ reference logit within 0.08 of its row's max (a greedy tie tolerance
 for bf16 decoding, as examples/serve_decode.py uses).
 """
 
+import dataclasses
 import queue
 import threading
 import time
@@ -30,7 +32,7 @@ import torch
 
 from defer_tpu_torch import DEFER, DeferConfig
 from defer_tpu_torch.models import get_model
-from defer_tpu_torch.models.llama import llama_config
+from defer_tpu_torch.models.llama import llama_config, mistral_config
 from defer_tpu_torch.models.gpt import GptDecoder
 from defer_tpu_torch.models.quant import quantize_symmetric
 from defer_tpu_torch.ops.flash_attention import (
@@ -47,7 +49,8 @@ from defer_tpu_torch.ops.paged_flash_prefill import (
     paged_flash_prefill,
     paged_flash_prefill_plain,
 )
-from defer_tpu_torch.runtime.decode_server import DecodeServer
+from defer_tpu_torch.models.gpt import SamplingParams
+from defer_tpu_torch.runtime.decode_server import DecodeServer, serve_greedy
 from defer_tpu_torch.runtime.paged import PagedDecodeServer, serve_paged
 from defer_tpu_torch.parallel.pipeline import cast_params_to_storage
 
@@ -900,3 +903,151 @@ def test_replicas_on_the_card_match_one_replica(card):
         model, ["encoder_1_out"], params=params)
     for x in xs:
         torch.testing.assert_close(out_q.get_nowait(), one(x), rtol=0, atol=0)
+
+
+# -- decode windows on CUDA graphs -----------------------------------------
+
+
+def _window_model(card):
+    cfg = llama_config(num_layers=2, dim=256, num_heads=4, num_kv_heads=2,
+                       ffn_dim=512, vocab_size=512, max_len=128)
+    dec = GptDecoder(cfg, compute_dtype=torch.bfloat16)
+    params = dec.cast_params(
+        dec.init(torch.Generator(device=card).manual_seed(0)))
+    gen = torch.Generator().manual_seed(1)
+    reqs = [(torch.randint(0, 512, (1, n), generator=gen), s)
+            for n, s in ((5, 9), (9, 6), (3, 11), (12, 4), (7, 8))]
+    return dec, params, reqs
+
+
+def test_captured_window_equals_eager_k1_bit_for_bit(card):
+    """decode_window=4 on a CUDA decoder replays a captured graph; its
+    tokens equal the decode_window=1 ticks' bit for bit, and the server
+    captures its greedy window once and keeps it."""
+    dec, params, reqs = _window_model(card)
+    k1, _ = serve_greedy(dec, params, reqs, max_batch=2)
+    srv = DecodeServer(dec, params, max_batch=2, decode_window=4)
+    rids = [srv.submit(p, s) for p, s in reqs]
+    done = srv.run()
+    for r, b in zip(rids, k1):
+        assert torch.equal(done[r], b)
+    assert srv.graph_replays == srv.dispatches > 0
+    assert srv.graph_captures == 1
+    assert list(srv._graphs) == [("argmax", False)]
+
+
+def test_window_replays_launch_k_x_layers_kernels(card):
+    """The profiler's flash_decode kernels during a served window run
+    equal graph_replays x K x layers, which the server reports as
+    window_kernel_launches, and so does the kernel's own count of its
+    runs on the card; flash_decode.launches, a host counter, does not
+    move on a replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from defer_tpu_torch.ops.flash_decode import card_runs, reset_card_runs
+
+    dec, params, reqs = _window_model(card)
+    warm = DecodeServer(dec, params, max_batch=2, decode_window=4)
+    srv = DecodeServer(dec, params, max_batch=2, decode_window=4)
+    for p, s in reqs:
+        warm.submit(p, s)
+        srv.submit(p, s)
+    warm.run()  # captures on its own buffers; srv captures anew below
+    srv._admit()
+    srv._tick()  # this server's capture (warm-up and capture launches)
+    torch.cuda.synchronize()
+    before = flash_decode.launches
+    replays = srv.graph_replays
+    reset_card_runs(card.index)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        srv.run()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "flash_decode" in e.name)
+    done = srv.graph_replays - replays
+    assert done > 0
+    assert n == done * 4 * dec.cfg.num_layers
+    assert card_runs(card.index) == n
+    assert flash_decode.launches == before
+    assert srv.window_kernel_launches == srv.graph_replays * 4 * 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_runs_count_each_eager_launch(card, dtype):
+    """Each eager flash_decode launch adds one to the kernel's own count
+    of its runs on the card (the tensor-core and the f32 kernel alike),
+    as it adds one to the wrapper's host count."""
+    from defer_tpu_torch.ops.flash_decode import card_runs, reset_card_runs
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn(2, 8, 64, generator=gen, device=card).to(dtype)
+    k = torch.randn(2, 2, 96, 64, generator=gen, device=card).to(dtype)
+    v = torch.randn(2, 2, 96, 64, generator=gen, device=card).to(dtype)
+    pos = torch.tensor([95, 7], dtype=torch.int32, device=card)
+    flash_decode(q, k, v, pos)
+    reset_card_runs(card.index)
+    before = flash_decode.launches
+    for _ in range(3):
+        flash_decode(q, k, v, pos)
+    assert card_runs(card.index) == flash_decode.launches - before == 3
+
+
+def test_sampled_window_equals_k1_per_seed(card):
+    dec, params, reqs = _window_model(card)
+    samps = [SamplingParams(temperature=0.8, top_k=20, seed=7), None,
+             SamplingParams(temperature=1.1, top_p=0.9, seed=3),
+             SamplingParams(temperature=0.7, seed=5), None]
+    k1, _ = serve_greedy(dec, params, reqs, max_batch=2, sampling=samps)
+    k8, stats = serve_greedy(dec, params, reqs, max_batch=2,
+                             sampling=samps, decode_window=8)
+    for a, b in zip(k8, k1):
+        assert torch.equal(a, b)
+    assert stats["graph_replays"] > 0
+
+
+def _serve_ids(dec, params, reqs, window, ids=None):
+    srv = DecodeServer(dec, params, max_batch=2, decode_window=window)
+    rids = [srv.submit(p, s, adapter_id=a)
+            for (p, s), a in zip(reqs, ids or [0] * len(reqs))]
+    done = srv.run()
+    return [done[r] for r in rids], srv.graph_replays
+
+
+def test_rolling_and_banked_windows_equal_k1(card):
+    """A captured window over a rolling cache (its warm-up writes and
+    restores slots 0 and W-1, both live here) and over LoRA banks (the
+    adapter ids read in the graph) gives the decode_window=1 tokens."""
+    from defer_tpu_torch.parallel.lora import stack_adapters
+    from defer_tpu_torch.parallel.transformer_stack import lora_target_dims
+
+    cfg = mistral_config(num_layers=2, dim=256, num_heads=4, num_kv_heads=2,
+                         ffn_dim=512, vocab_size=512, max_len=128, window=16)
+    roll = GptDecoder(cfg, compute_dtype=torch.bfloat16, rolling_cache=True)
+    params = roll.cast_params(
+        roll.init(torch.Generator(device=card).manual_seed(0)))
+    gen = torch.Generator().manual_seed(2)
+    reqs = [(torch.randint(0, 512, (1, n), generator=gen), s)
+            for n, s in ((5, 30), (20, 9), (3, 25))]
+    k1, _ = _serve_ids(roll, params, reqs, 1)
+    k4, replays = _serve_ids(roll, params, reqs, 4)
+    assert replays > 0
+    for a, b in zip(k4, k1):
+        assert torch.equal(a, b)
+
+    flat = GptDecoder(cfg, compute_dtype=torch.bfloat16)
+    lcfg = dataclasses.replace(cfg, lora_rank=8, lora_alpha=8.0)
+    dims = lora_target_dims(lcfg)
+    g = torch.Generator(device=card).manual_seed(3)
+    trees = [{"stack": {
+        key: (torch.randn(2, *shape, generator=g, device=card) * 0.05
+              ).to(torch.bfloat16)
+        for t in lcfg.lora_targets
+        for key, shape in ((f"{t}:a", (dims[t][0], 8)),
+                           (f"{t}:b", (8, dims[t][1])))}} for _ in range(2)]
+    banked = stack_adapters(params, trees, lcfg)
+    k1, _ = _serve_ids(flat, banked, reqs, 1, [1, 2, 0])
+    k4, replays = _serve_ids(flat, banked, reqs, 4, [1, 2, 0])
+    assert replays > 0
+    for a, b in zip(k4, k1):
+        assert torch.equal(a, b)

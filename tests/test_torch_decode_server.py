@@ -7,8 +7,9 @@ while decode ticks are shared. Greedy server outputs must also equal
 `defer_tpu`'s DecodeServer on the same weights (carried over with
 `params_from_jax`). Sampled streams are not compared with JAX's: torch
 and JAX generators differ (tests/test_torch_gpt.py holds the
-distribution). The knobs this slice leaves out raise
-NotImplementedError. Everything runs in float32 on the CPU.
+distribution). Decode windows, constraints and adapter banks have their
+own files (test_torch_window.py, test_torch_constrain.py,
+test_torch_lora.py). Everything runs in float32 on the CPU.
 """
 
 import jax
@@ -309,18 +310,24 @@ def test_nosort_dispatch_preserves_solo_parity(gpt64):
 
 
 def test_knobs_not_ported_raise(gpt64):
+    """Every knob of the flat server is ported now: the ones this file's
+    first slice left raising validate their inputs as the JAX package
+    does (windows, constraints, adapter banks)."""
     dec, params = gpt64
-    with pytest.raises(NotImplementedError, match="decode_window"):
-        DecodeServer(dec, params, decode_window=2)
+    DecodeServer(dec, params, decode_window=2)
     with pytest.raises(ValueError, match="decode_window"):
         DecodeServer(dec, params, decode_window=0)
-    with pytest.raises(NotImplementedError, match="constrain"):
+    with pytest.raises(ValueError, match="empty"):
         DecodeServer(dec, params, eos_id=0, constraints={})
-    banked = {**params, "stack": {**params["stack"],
-                                  "wq:a": torch.zeros(4, 1, 64, 2)}}
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        DecodeServer(dec, banked)
+    with pytest.raises(ValueError, match="eos_id"):
+        DecodeServer(dec, params, constraints={})
+    unmerged = {**params, "stack": {**params["stack"],
+                                    "wq:a": torch.zeros(4, 64, 2)}}
+    with pytest.raises(ValueError, match="LoRA"):
+        DecodeServer(dec, unmerged)
     srv = DecodeServer(dec, params, max_batch=1)
-    with pytest.raises(NotImplementedError, match="constrain"):
+    with pytest.raises(ValueError, match="constraint"):
         srv.submit(torch.tensor([[1]]), 2,
                    sampling=SamplingParams(constraint="json"))
+    with pytest.raises(ValueError, match="adapter"):
+        srv.submit(torch.tensor([[1]]), 2, adapter_id=1)

@@ -393,16 +393,27 @@ def test_config_validation_matches_jax(kw):
 
 
 def test_knobs_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="rolling_cache"):
-        GptDecoder(mistral_config(num_layers=1, dim=32, num_heads=4,
-                                  num_kv_heads=2, ffn_dim=64, vocab_size=64,
-                                  max_len=32, window=8),
-                   rolling_cache=True, device=CPU)
+    """Experts stay unported; rolling caches and LoRA factors are
+    ported and refuse what the JAX package refuses."""
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="experts"):
         ts.init_stack(gen, ts.TransformerConfig(num_experts=2))
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        ts.init_stack(gen, ts.TransformerConfig(lora_rank=2))
+    cfg = ts.TransformerConfig(num_layers=2, dim=32, num_heads=4,
+                               ffn_dim=64, lora_rank=2)
+    stack = ts.init_stack(gen, cfg)
+    jstack = jts.init_stack(jax.random.key(0), jts.TransformerConfig(
+        num_layers=2, dim=32, num_heads=4, ffn_dim=64, lora_rank=2))
+    assert {k: tuple(v.shape) for k, v in stack.items()} == {
+        k: tuple(v.shape) for k, v in jstack.items()}
+    assert not stack["wq:b"].any()
+    with pytest.raises(ValueError, match="rolling_cache"):
+        GptDecoder(ts.TransformerConfig(num_layers=1, dim=32, num_heads=4,
+                                        ffn_dim=64, norm_style="pre"),
+                   rolling_cache=True, device=CPU)
+    GptDecoder(mistral_config(num_layers=1, dim=32, num_heads=4,
+                              num_kv_heads=2, ffn_dim=64, vocab_size=64,
+                              max_len=32, window=8),
+               rolling_cache=True, device=CPU)
 
 
 def test_the_decoder_defaults_to_the_card():
