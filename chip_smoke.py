@@ -105,18 +105,33 @@ printing one line per check and failing loudly:
                 tier (spill_bytes=): a system prompt evicted by filler
                 requests from a small int8 pool and revived from host
                 memory, token-identical to a resident radix hit;
+     paged_family — the rest of the paged server on phase 5's setup and
+                weights: the 12-request mix through decode_window 4 and
+                8 on a bf16 pool and 4 on an int8 pool (captured CUDA
+                graphs; token-identical to phases 5 and 6, the paged
+                decode kernel's runs on the card checked at (replays +
+                capture warm-up) x K x 32, a steady window's split);
+                prefill_budget=64 mixed ticks; spec_k=4 with
+                make_draft(layers=4) at K=1 and in a window of 4; the
+                digits regex and the JSON schema at K=1 and 8; three
+                rank-16 LoRA adapters by id; serve_disagg over loopback
+                with a prefill worker in a thread, then as a `python -m
+                defer_tpu_torch.disagg.prefill_worker` process; every
+                token checked as in phases 4-6 (constrained ones among
+                the admissible tokens, LoRA ones on merged weights);
   7. report   — a JSON line of every kernel, the card's name and power
                 limit, and last the line {"ok": true, "device": {...}}.
 
 Every kernel launch count is zeroed just before each path (3, cnn,
-socket, 4, each sub-path of family, 5, 6) and read just after it; a
-path that did not launch its kernels fails (a rolling one fails if it
-launched flash_decode). A captured window's replays run kernels the
-wrappers' host counts cannot see, so the flash_decode kernel counts its
-own runs on the card (ops/flash_decode.py `card_runs`): phase family
-reports that count for its window and constrained runs, and checks it
-against the wrapper's on every path that replays no graph. Every worker process has a time
-limit and is stopped by the end of its phase.
+socket, 4, each sub-path of family, 5, 6, each sub-path of
+paged_family) and read just after it; a path that did not launch its
+kernels fails (a rolling one fails if it launched flash_decode). A
+captured window's replays run kernels the wrappers' host counts cannot
+see, so flash_decode and both paged kernels count their own runs on
+the card (`card_runs`): phases family and paged_family report that
+count for their windows, and check it against the wrapper's on every
+path that replays no graph. Every worker process has a time limit and
+is stopped by the end of its phase.
 
 Exits non-zero, and prints no result, when CUDA is unavailable, when the
 package is not beside this file, or when any phase fails. Imports
@@ -297,14 +312,31 @@ def launch_counters() -> dict:
     }
 
 
-def zero_launches() -> None:
-    """Zero every wrapper's host count and the card's count of
-    flash_decode runs (ops/flash_decode.py `card_runs`)."""
-    from defer_tpu_torch.ops.flash_decode import reset_card_runs
+def _run_counters() -> dict:
+    """The decode and paged kernels' own counts of their runs on the
+    card (each wrapper module's `card_runs` / `reset_card_runs`)."""
+    from defer_tpu_torch.ops import flash_decode as fd
+    from defer_tpu_torch.ops import paged_flash_decode as pfd
+    from defer_tpu_torch.ops import paged_flash_prefill as pfp
 
+    return {"flash_decode": fd, "paged_flash_decode": pfd,
+            "paged_flash_prefill": pfp}
+
+
+def zero_launches() -> None:
+    """Zero every wrapper's host count and the cards' counts of the
+    decode and paged kernels' runs (`card_runs`)."""
     for fn, attr in launch_counters().values():
         setattr(fn, attr, 0)
-    reset_card_runs()
+    for mod in _run_counters().values():
+        mod.reset_card_runs()
+
+
+def read_card_runs() -> dict:
+    """Each decode and paged kernel's runs on the card since
+    zero_launches(), float and int8 pools together, graph replays
+    included."""
+    return {name: mod.card_runs() for name, mod in _run_counters().items()}
 
 
 def eager_decode_launches(label: str) -> dict:
@@ -1300,13 +1332,17 @@ class WorkerProcess:
     """`python -m defer_tpu_torch serve-stage` on the card, its output
     read line by line on a thread; killed by `stop()` if still running."""
 
-    def __init__(self, here: str, next_port: int, *extra: str):
+    def __init__(self, here: str, next_port: int, *extra: str,
+                 command: list | None = None):
+        """`command` replaces the serve-stage arguments (another worker
+        module of the package, with its own flags)."""
         env = {**os.environ, "PYTHONPATH": here}
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "defer_tpu_torch", "serve-stage",
-             "--listen", "0", "--next", f"127.0.0.1:{next_port}",
-             "--device", CARD, "--accept-timeout", str(WORKER_TIMEOUT_S),
-             "--handoff-timeout", str(WORKER_TIMEOUT_S), *extra],
+            [sys.executable, "-m", *(command or [
+                "defer_tpu_torch", "serve-stage",
+                "--listen", "0", "--next", f"127.0.0.1:{next_port}",
+                "--device", CARD, "--accept-timeout", str(WORKER_TIMEOUT_S),
+                "--handoff-timeout", str(WORKER_TIMEOUT_S), *extra])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             cwd=here, env=env,
         )
@@ -2439,22 +2475,15 @@ def family_constrained(dec, params) -> dict:
     return {"launches": launches[1] + launches[8]}
 
 
-def family_lora(dec, params) -> dict:
-    """A bank of LORA_ADAPTERS random rank-LORA_RANK adapters on wq/wv;
-    the 12-request mix spread over adapter ids 0-3 through one
-    DecodeServer; every token a valid greedy choice under
-    reference_logits of its adapter's merge_lora params (one merged
-    copy at a time)."""
+def lora_bank(dec, params) -> tuple:
+    """LORA_ADAPTERS random rank-LORA_RANK adapters on LORA_TARGETS from a
+    seeded generator: (the adapters' config, their trees, params with
+    the stacked bank; id 0 the base)."""
     import dataclasses
 
     import torch
 
-    from defer_tpu_torch import DecodeServer
-    from defer_tpu_torch.parallel.lora import (
-        combine_lora,
-        merge_lora,
-        stack_adapters,
-    )
+    from defer_tpu_torch.parallel.lora import stack_adapters
     from defer_tpu_torch.parallel.transformer_stack import lora_target_dims
 
     cfg = dataclasses.replace(dec.cfg, lora_rank=LORA_RANK,
@@ -2475,7 +2504,37 @@ def family_lora(dec, params) -> dict:
                                         device="cuda") * LORA_B_SCALE
                             ).to(dec.compute_dtype)
         trees.append({"stack": st})
-    banked = stack_adapters(params, trees, cfg)
+    return cfg, trees, stack_adapters(params, trees, cfg)
+
+
+def lora_gaps(label: str, dec, params, cfg, trees, reqs, ids, outs) -> None:
+    """Every adapter's tokens checked under reference_logits of its
+    merge_lora params (one merged copy at a time)."""
+    import torch
+
+    from defer_tpu_torch.parallel.lora import combine_lora, merge_lora
+
+    for a in range(LORA_ADAPTERS + 1):
+        merged = params if a == 0 else merge_lora(
+            combine_lora(params, trees[a - 1]), cfg)
+        mine = [i for i, x in enumerate(ids) if x == a]
+        greedy_gaps(f"{label} adapter {a}", dec, merged,
+                    [reqs[i] for i in mine], [outs[i] for i in mine])
+        del merged
+        torch.cuda.empty_cache()
+
+
+def family_lora(dec, params) -> dict:
+    """A bank of LORA_ADAPTERS random rank-LORA_RANK adapters on wq/wv;
+    the 12-request mix spread over adapter ids 0-3 through one
+    DecodeServer; every token a valid greedy choice under
+    reference_logits of its adapter's merge_lora params (one merged
+    copy at a time)."""
+    import torch
+
+    from defer_tpu_torch import DecodeServer
+
+    cfg, trees, banked = lora_bank(dec, params)
     reqs = decode_requests(dec.cfg.vocab_size)
     ids = [i % (LORA_ADAPTERS + 1) for i in range(len(reqs))]
     srv = DecodeServer(dec, banked, max_batch=DECODE_SLOTS)
@@ -2495,14 +2554,8 @@ def family_lora(dec, params) -> dict:
         f"{srv.ticks} ticks, {wall:.3f}s; flash_decode launches "
         f"{launches['flash_decode']}")
     del banked
-    for a in range(LORA_ADAPTERS + 1):
-        merged = params if a == 0 else merge_lora(
-            combine_lora(params, trees[a - 1]), cfg)
-        mine = [i for i, x in enumerate(ids) if x == a]
-        greedy_gaps(f"family: lora adapter {a}", dec, merged,
-                    [reqs[i] for i in mine], [done[rids[i]] for i in mine])
-        del merged
-        torch.cuda.empty_cache()
+    lora_gaps("family: lora", dec, params, cfg, trees, reqs, ids,
+              [done[r] for r in rids])
     return {"launches": launches["flash_decode"]}
 
 
@@ -2739,7 +2792,8 @@ def serve_mix(phase: str, dec, params, kv_dtype: str, weight_bytes: int,
     log_split(phase, split, f"{lo}-{int(srv.pos.max()) - 1}",
               weight_bytes)
     return {"launches": launches, "ticks": ticks, "srv": srv, "tick": tick,
-            "split": split}
+            "split": split, "outs": [done[r] for r in rids],
+            "tokens_per_s": generated / wall}
 
 
 def phase_paged(dec, params, weight_bytes: int) -> dict:
@@ -2843,6 +2897,407 @@ def phase_spill(dec, params) -> dict:
     return {"spill_hits": srv_s.spill_hits_n, "spilled": spilled}
 
 
+# -- phase paged_family: the rest of the paged server ----------------------
+
+# Paged decode windows (K sub-steps a captured CUDA graph) by pool; the
+# mixed ticks' prompt tokens a tick and concurrent prefill seats; the
+# speculative server's proposals a round (SPEC_K) and its window; the
+# steady window's seated depth and budget (its rows never freeze: the
+# timed replays run 19 windows past the depth); the disagg worker's time
+# limits.
+PAGED_WINDOWS = ((4, "fp"), (8, "fp"), (4, "int8"))
+MIXED_BUDGET, MIXED_LOOKAHEAD = 64, 2
+SPEC_WINDOW = 4
+STEADY_DEPTH, STEADY_BUDGET = 150, 400
+PREFILL_WORKER_TIMEOUT_S = 300
+
+
+def paged_server(dec, params, **knobs):
+    """Phase 5's server (the pallas kernels, the radix cache, chunked
+    prefill) with `knobs` on top."""
+    from defer_tpu_torch import PagedDecodeServer
+
+    base = dict(num_blocks=PAGED_BLOCKS, block_size=PAGED_BS,
+                max_batch=DECODE_SLOTS, attention="pallas",
+                prefix_cache=True, prefill_chunk=PAGED_CHUNK)
+    return PagedDecodeServer(dec, params, **{**base, **knobs})
+
+
+def serve_counted(label: str, srv, reqs, **submit) -> tuple:
+    """Serve `reqs` through `srv` with every count zeroed just before and
+    read just after: (outputs, wall s, host launches, card runs)."""
+    import torch
+
+    rids = [srv.submit(p, s, **submit) for p, s in reqs]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(done) == len(reqs), f"{label}: {len(done)} of {len(reqs)} "
+          "served")
+    return [done[r] for r in rids], wall, read_launches(), read_card_runs()
+
+
+def steady_window(srv, vocab: int):
+    """Seat every slot at STEADY_DEPTH with a far budget, run the first
+    window (its capture), and return the replay closure `_tick_window`
+    issues (the budget upload as a fill, the replay), without the
+    drain."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(srv.B):
+        srv.submit(torch.randint(0, vocab, (1, STEADY_DEPTH), generator=gen),
+                   STEADY_BUDGET)
+    srv.step()
+    check(all(s is not None for s in srv.slots),
+          "the steady window's requests did not all get a slot")
+    kind = "spec" if srv.spec_k else "decode"
+    program = srv._window_program(kind, "argmax", False)
+    w = srv._wbuf
+
+    def tick():
+        w["budget"].fill_(1 << 20)
+        program()
+
+    return tick
+
+
+def paged_windows(dec, params, reqs, outs, tps) -> dict:
+    """The mix through decode_window 4 and 8 on a bf16 pool and 4 on an
+    int8 pool: token-identical to phases 5 and 6; paged_flash_decode run
+    on the card (replays + capture warm-ups) x K x layers times (the
+    wrapper's host count: 2 x K x layers a capture, its warm-up and the
+    capture itself); the prefill kernel's runs equal to its eager
+    launches; then one steady window's split and its kernel runs."""
+    L = dec.cfg.num_layers
+    res = {}
+    for K, pool in PAGED_WINDOWS:
+        label = f"paged_family: window K={K} {pool}"
+        int8 = pool == "int8"
+        dkey = "paged_flash_decode_int8" if int8 else "paged_flash_decode"
+        pkey = "paged_flash_prefill_int8" if int8 else "paged_flash_prefill"
+        srv = paged_server(dec, params, decode_window=K, kv_dtype=pool)
+        got, wall, host, card = serve_counted(label, srv, reqs)
+        for i, (a, b) in enumerate(zip(got, outs[pool])):
+            check(a.equal(b), f"{label}: request {i} differs from phase "
+                  f"{'6' if int8 else '5'}'s decode_window=1 output")
+        replays, caps = srv.graph_replays, srv.graph_captures
+        check(replays > 0 and caps == 1, f"{label}: {replays} replays, "
+              f"{caps} captures")
+        check(host[dkey] == 2 * K * L * caps,
+              f"{label}: {dkey} host count {host[dkey]}, expected 2 x {K} "
+              f"x {L} x {caps}")
+        want = (replays + caps) * K * L
+        check(card["paged_flash_decode"] == want,
+              f"{label}: the card ran {card['paged_flash_decode']} "
+              f"paged_flash_decode kernels, expected ({replays} replays + "
+              f"{caps} warm-up) x {K} x {L}")
+        check(card["paged_flash_prefill"] == host[pkey] > 0,
+              f"{label}: the card ran {card['paged_flash_prefill']} prefill "
+              f"kernels, the wrapper launched {host[pkey]}")
+        generated = sum(s for _, s in reqs)
+        del srv
+        tsrv = paged_server(dec, params, decode_window=K, kv_dtype=pool)
+        tick = steady_window(tsrv, dec.cfg.vocab_size)
+        split = time_tick(tick)
+        zero_launches()
+        tick()
+        one = read_card_runs()["paged_flash_decode"]
+        check(one == K * L, f"{label}: one replay ran {one} paged decode "
+              f"kernels, expected {K} x {L}")
+        log(f"{label}: {len(reqs)} requests token-identical to decode_window"
+            f"=1; {generated} tokens in {wall:.3f}s, {generated / wall:.1f} "
+            f"tokens/s incl. admission prefills (decode_window=1: "
+            f"{tps[pool]:.1f}); graph_replays {replays}; paged_flash_decode "
+            f"kernels run on the card {card['paged_flash_decode']} = "
+            f"({replays} + {caps} warm-up) x {K} x {L} (host launches "
+            f"{host[dkey]}); paged_flash_prefill {card['paged_flash_prefill']}"
+            f" (= its eager launches)")
+        log(f"{label}, one steady window of {DECODE_SLOTS} slots from depth "
+            f"{STEADY_DEPTH}: host {split['host_ms']:.4f} ms to issue (idle "
+            f"card), wall {split['wall_ms']:.4f} ms, device "
+            f"{split['device_ms']:.4f} ms of kernels ({split['launches']:.1f}"
+            f" launches by profiler, the card's paged_flash_decode count "
+            f"{one}; " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                   split["family_ms"].items())
+            + f"); idle share {split['idle_share']:.4f}; a token "
+            f"{split['wall_ms'] / K:.4f} ms")
+        res[f"window{K}_{pool}"] = {
+            "decode_runs": card["paged_flash_decode"],
+            "prefill_runs": card["paged_flash_prefill"], "split": split,
+            "tokens_per_s": generated / wall, "graph_replays": replays}
+        del tsrv
+    return res
+
+
+def paged_mixed(dec, params, reqs) -> dict:
+    """prefill_budget=MIXED_BUDGET, prefill_lookahead=MIXED_LOOKAHEAD on
+    a bf16 pool: every token a valid greedy choice; the mixed ticks, the
+    stall fraction and each kernel's runs (all eager: each equals its
+    wrapper's launches)."""
+    label = "paged_family: mixed"
+    srv = paged_server(dec, params, prefill_budget=MIXED_BUDGET,
+                       prefill_lookahead=MIXED_LOOKAHEAD)
+    got, wall, host, card = serve_counted(label, srv, reqs)
+    for name in ("paged_flash_decode", "paged_flash_prefill"):
+        check(card[name] == host[name] > 0,
+              f"{label}: the card ran {card[name]} {name} kernels, the "
+              f"wrapper launched {host[name]}")
+    check(srv.mixed_ticks_n > 0 and srv.prefill_stall_ticks_n == 0,
+          f"{label}: {srv.mixed_ticks_n} mixed ticks, "
+          f"{srv.prefill_stall_ticks_n} stall ticks")
+    generated = sum(s for _, s in reqs)
+    log(f"{label}: prefill_budget={MIXED_BUDGET}, prefill_lookahead="
+        f"{MIXED_LOOKAHEAD}: {len(reqs)} requests, {generated} tokens in "
+        f"{wall:.3f}s, {generated / wall:.1f} tokens/s; {srv.ticks} "
+        f"dispatches of which {srv.mixed_ticks_n} mixed, carrying "
+        f"{srv.mixed_prefill_tokens_n} prompt tokens; stall ticks "
+        f"{srv.prefill_stall_ticks_n}, decode stall fraction "
+        f"{srv.decode_stall_fraction_last:.4f}; kernels run on the card: "
+        f"paged_flash_prefill {card['paged_flash_prefill']}, "
+        f"paged_flash_decode {card['paged_flash_decode']}")
+    greedy_gaps(label, dec, params, reqs, got)
+    return {"decode_runs": card["paged_flash_decode"],
+            "prefill_runs": card["paged_flash_prefill"],
+            "mixed_ticks": srv.mixed_ticks_n, "tokens_per_s": generated / wall}
+
+
+def paged_speculative(dec, params, reqs) -> dict:
+    """spec_k=SPEC_K with make_draft(layers=SPEC_LAYERS), at K=1 and in a
+    window of SPEC_WINDOW rounds: every token a valid greedy choice; the
+    acceptance and rounds; the verify's paged_flash_prefill runs (each
+    round's one a layer, replays included) and the draft's flash_decode
+    runs."""
+    from defer_tpu_torch.models.transplant import make_draft
+
+    draft, dparams = make_draft(dec, params, layers=SPEC_LAYERS)
+    L = dec.cfg.num_layers
+    res = {}
+    for K in (1, SPEC_WINDOW):
+        label = f"paged_family: speculative K={K}"
+        srv = paged_server(dec, params, spec_k=SPEC_K, spec_draft=draft,
+                           spec_params=dparams, decode_window=K)
+        got, wall, host, card = serve_counted(label, srv, reqs)
+        replays, caps = srv.graph_replays, srv.graph_captures
+        # The verify and the admission chunks launch the prefill kernel
+        # eagerly; a window's graph runs its verify at the capture's
+        # warm-up and each replay (the wrapper counts the warm-up and the
+        # capture).
+        eager = host["paged_flash_prefill"] - 2 * K * L * caps
+        want = eager + (replays + caps) * K * L if K > 1 else eager
+        check(card["paged_flash_prefill"] == want and want > 0,
+              f"{label}: the card ran {card['paged_flash_prefill']} prefill "
+              f"kernels, expected {want}")
+        check(srv.spec_rounds_n > 0 and card["flash_decode"] > 0,
+              f"{label}: {srv.spec_rounds_n} rounds, the draft ran "
+              f"{card['flash_decode']} flash_decode kernels")
+        check(card["paged_flash_decode"] == 0,
+              f"{label}: a speculative server ran paged_flash_decode")
+        generated = sum(s for _, s in reqs)
+        acc = srv.spec_accepted_n / max(srv.spec_proposed_n, 1)
+        log(f"{label}, spec_k={SPEC_K}, make_draft(layers={SPEC_LAYERS}): "
+            f"{generated} tokens in {wall:.3f}s, {generated / wall:.1f} "
+            f"tokens/s; {srv.spec_rounds_n} rounds in {srv.dispatches} "
+            f"dispatches ({replays} graph replays), acceptance {acc:.4f} "
+            f"({srv.spec_accepted_n} of {srv.spec_proposed_n}); kernels run "
+            f"on the card: paged_flash_prefill {card['paged_flash_prefill']}"
+            f" (verify and admission), the draft's flash_decode "
+            f"{card['flash_decode']}")
+        greedy_gaps(label, dec, params, reqs, got)
+        res[f"spec{K}"] = {"prefill_runs": card["paged_flash_prefill"],
+                           "flash_decode_runs": card["flash_decode"],
+                           "acceptance": acc, "rounds": srv.spec_rounds_n,
+                           "tokens_per_s": generated / wall}
+        del srv
+    return res
+
+
+def paged_constrained(dec, params, reqs) -> dict:
+    """Phase family's digits regex and JSON schema over its synthetic
+    vocabulary, two requests each through the paged server at
+    decode_window 1 and 8: outputs in grammar, identical at both K,
+    every token the greedy admissible choice; the decode kernel's runs
+    (K=8: (replays + warm-up) x 8 x layers)."""
+    import json
+    import re
+
+    from defer_tpu_torch import SamplingParams
+    from defer_tpu_torch.constrain import compile_json_schema, compile_regex
+
+    vocab = synthetic_vocab(dec.cfg.vocab_size)
+    dfas = {"digits": compile_regex("[0-9]+", vocab),
+            "obj": compile_json_schema(CONSTRAIN_SCHEMA, vocab)}
+    pattern = {"digits": "[0-9]+", "obj": dfas["obj"].pattern}
+    names = ["digits", "obj", "digits", "obj"]
+    creqs = [(n, p, CONSTRAIN_STEPS) for n, (p, _) in zip(names, reqs)]
+    L = dec.cfg.num_layers
+    runs, runs_card = [], {}
+    for K in (1, 8):
+        label = f"paged_family: constrained K={K}"
+        srv = paged_server(dec, params, eos_id=CONSTRAIN_EOS, decode_window=K,
+                           constraints=dfas)
+        rids = [srv.submit(p, s, sampling=SamplingParams(constraint=n))
+                for n, p, s in creqs]
+        zero_launches()
+        done = srv.run()
+        host, card = read_launches(), read_card_runs()
+        want = ((srv.graph_replays + srv.graph_captures) * K * L if K > 1
+                else host["paged_flash_decode"])
+        check(card["paged_flash_decode"] == want > 0,
+              f"{label}: the card ran {card['paged_flash_decode']} paged "
+              f"decode kernels, expected {want}")
+        check(not srv.errors, f"{label}: errors {srv.errors}")
+        runs.append([done[r] for r in rids])
+        runs_card[K] = card["paged_flash_decode"]
+    texts = []
+    for (name, prompt, _), a, b in zip(creqs, *runs):
+        check(a.equal(b), f"paged_family: constrained {name}: "
+              "decode_window=8 differs from 1")
+        text = "".join(vocab[t] for t in a[0, prompt.shape[1]:].tolist())
+        texts.append(text)
+        check(re.fullmatch(pattern[name], text) is not None,
+              f"paged_family: constrained {name}: {text!r} off its grammar")
+        if name == "obj":
+            check(json.loads(text) in ({"ok": True}, {"ok": False}),
+                  f"paged_family: constrained obj: {text!r}")
+    gap = _constrained_gaps(dec, params, dfas, creqs, runs[0])
+    check(gap <= GREEDY_TIE_TOL, f"paged_family: constrained: a token is "
+          f"{gap:.4g} below the best admissible")
+    log(f"paged_family: constrained, digits and schema over the "
+        f"{len(vocab)}-string vocabulary: {len(creqs)} requests at "
+        f"decode_window 1 and 8 token-identical, outputs {texts}; greedy "
+        f"gap among admissible tokens max {gap:.4g} (tolerance "
+        f"{GREEDY_TIE_TOL}); paged_flash_decode run on the card "
+        f"{runs_card[1]} (K=1, its eager launches), {runs_card[8]} (K=8, "
+        f"(replays + warm-up) x 8 x {L})")
+    return {"decode_runs": runs_card[1] + runs_card[8]}
+
+
+def paged_lora(dec, params, reqs) -> dict:
+    """Phase family's three rank-16 adapters on the paged server (the
+    radix cache off: cached prefix K/V would be adapter-dependent), the
+    mix over adapter ids 0-3; every token checked under reference_logits
+    of its adapter's merged weights."""
+    cfg, trees, banked = lora_bank(dec, params)
+    ids = [i % (LORA_ADAPTERS + 1) for i in range(len(reqs))]
+    label = "paged_family: lora"
+    srv = paged_server(dec, banked, prefix_cache=False)
+    rids = [srv.submit(p, s, adapter_id=a) for (p, s), a in zip(reqs, ids)]
+    zero_launches()
+    t0 = time.perf_counter()
+    done = srv.run()
+    wall = time.perf_counter() - t0
+    host, card = read_launches(), read_card_runs()
+    for name in ("paged_flash_decode", "paged_flash_prefill"):
+        check(card[name] == host[name] > 0,
+              f"{label}: the card ran {card[name]} {name} kernels, the "
+              f"wrapper launched {host[name]}")
+    log(f"{label}: {LORA_ADAPTERS} rank-{LORA_RANK} adapters, {len(reqs)} "
+        f"requests over adapter ids 0-{LORA_ADAPTERS} in {srv.ticks} ticks, "
+        f"{wall:.3f}s; kernels run on the card: paged_flash_decode "
+        f"{card['paged_flash_decode']}, paged_flash_prefill "
+        f"{card['paged_flash_prefill']}")
+    del srv, banked
+    lora_gaps(label, dec, params, cfg, trees, reqs, ids,
+              [done[r] for r in rids])
+    return {"decode_runs": card["paged_flash_decode"],
+            "prefill_runs": card["paged_flash_prefill"]}
+
+
+class PrefillWorker(WorkerProcess):
+    """`python -m defer_tpu_torch.disagg.prefill_worker` on the card."""
+
+    def __init__(self, here: str):
+        super().__init__(here, 0, command=[
+            "defer_tpu_torch.disagg.prefill_worker", "--listen", "0",
+            "--listen-host", "127.0.0.1", "--device", CARD,
+            "--accept-timeout", str(PREFILL_WORKER_TIMEOUT_S),
+            "--read-timeout", str(PREFILL_WORKER_TIMEOUT_S)])
+
+
+def paged_disagg(dec, params, reqs, here: str) -> dict:
+    """serve_disagg over loopback, the prefill worker first in a thread
+    of this process, then `python -m defer_tpu_torch.disagg.
+    prefill_worker` as a process with a time limit: the weights cross
+    once a session (raw frames: zstd over 14.5 GB would take longer than
+    the serving), each request's KV comes back as pool blocks. Every
+    token a valid greedy choice; the KV bytes on the wire and the ms the
+    decode host took to seat them."""
+    from defer_tpu_torch.disagg import serve_disagg
+
+    res = {}
+    knobs = dict(num_blocks=PAGED_BLOCKS, block_size=PAGED_BS,
+                 max_batch=DECODE_SLOTS, attention="pallas",
+                 prefix_cache=True, compress=False,
+                 accept_timeout_s=PREFILL_WORKER_TIMEOUT_S,
+                 read_timeout_s=PREFILL_WORKER_TIMEOUT_S)
+    for where in ("thread", "process"):
+        label = f"paged_family: disagg ({where} worker)"
+        worker = None
+        spawn = None
+        if where == "process":
+            worker = PrefillWorker(here)
+            spawn = lambda: ("127.0.0.1", worker.port)  # noqa: E731
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            got, stats = serve_disagg(dec, params, reqs, spawn_worker=spawn,
+                                      **knobs)
+            wall = time.perf_counter() - t0
+            host, card = read_launches(), read_card_runs()
+            if worker is not None:
+                done = worker._expect("DONE ")
+                check(done == f"DONE {len(reqs)}",
+                      f"{label}: the worker printed {done!r}")
+                check(worker.proc.wait(timeout=60) == 0,
+                      f"{label}: the worker exited {worker.proc.returncode}")
+        finally:
+            if worker is not None:
+                worker.stop()
+        check(card["paged_flash_decode"] == host["paged_flash_decode"] > 0,
+              f"{label}: the decode host ran {card['paged_flash_decode']} "
+              f"paged decode kernels, the wrapper launched "
+              f"{host['paged_flash_decode']}")
+        check(stats["kv_bytes_recv"] > 0 and stats["worker_restarts"] == 0,
+              f"{label}: {stats['kv_bytes_recv']} KV bytes, "
+              f"{stats['worker_restarts']} restarts")
+        log(f"{label}: {len(reqs)} requests in {wall:.3f}s (the weights' "
+            f"{stats['dispatch_bytes_sent']} B dispatch included); KV on the "
+            f"wire {stats['kv_bytes_recv']} B ({stats['kv_bytes_recv_per_request']:.0f}"
+            f" B a request); the decode host seated it in "
+            f"{stats['ingest_ms']:.3f} ms of host time; {stats['ticks']} "
+            f"ticks, paged_flash_decode run on the card "
+            f"{card['paged_flash_decode']}")
+        greedy_gaps(label, dec, params, reqs, got)
+        res[where] = {"kv_bytes": stats["kv_bytes_recv"],
+                      "ingest_ms": stats["ingest_ms"], "wall_s": wall,
+                      "decode_runs": card["paged_flash_decode"]}
+    return res
+
+
+def phase_paged_family(dec, params, paged_res: dict, int8_res: dict,
+                       here: str) -> dict:
+    """Phase paged_family, on phase 5's server setup: windows, mixed
+    ticks, speculation, constraints, LoRA and disaggregated prefill; each
+    path zeroes the kernel counts before it runs and reads them after."""
+    t0 = time.perf_counter()
+    reqs = paged_requests(dec.cfg.vocab_size)
+    res = paged_windows(dec, params, reqs,
+                        {"fp": paged_res["outs"], "int8": int8_res["outs"]},
+                        {"fp": paged_res["tokens_per_s"],
+                         "int8": int8_res["tokens_per_s"]})
+    res["mixed"] = paged_mixed(dec, params, reqs)
+    res.update(paged_speculative(dec, params, reqs))
+    res["constrained"] = paged_constrained(dec, params, reqs)
+    res["lora"] = paged_lora(dec, params, reqs)
+    res["disagg"] = paged_disagg(dec, params, reqs, here)
+    log(f"paged_family: phase done in {time.perf_counter() - t0:.1f}s")
+    return res
+
+
 # -- entry point -----------------------------------------------------------
 
 def main() -> int:
@@ -2878,6 +3333,7 @@ def main() -> int:
         int8_res = phase_int8(dec, params, decode_res["weight_bytes"],
                               paged_res)
         phase_spill(dec, params)
+        pfam_res = phase_paged_family(dec, params, paged_res, int8_res, here)
         for name in ("jax", "defer_tpu"):
             check(name not in sys.modules, f"{name} was imported")
     except Exception as e:  # every phase failure ends the run non-zero
@@ -2921,6 +3377,27 @@ def main() -> int:
                 for path in ("window4", "window8", "rolling", "speculative",
                              "constrained", "lora", "beam")
             }
+            report[-1]["paged_family"] = {
+                f"speculative{K}": pfam_res[f"spec{K}"]["flash_decode_runs"]
+                for K in (1, SPEC_WINDOW)
+            }
+        if name in ("paged_flash_decode", "paged_flash_prefill"):
+            # The paged family's paths, each its own run's kernel runs on
+            # the card (float and int8 pools together; captured windows'
+            # replays included).
+            key = ("decode_runs" if name == "paged_flash_decode"
+                   else "prefill_runs")
+            paths = {f"window{K}_{pool}": pfam_res[f"window{K}_{pool}"]
+                     for K, pool in PAGED_WINDOWS}
+            paths.update(mixed=pfam_res["mixed"], lora=pfam_res["lora"],
+                         **{f"speculative{K}": pfam_res[f"spec{K}"]
+                            for K in (1, SPEC_WINDOW)})
+            if key == "decode_runs":
+                paths.update(constrained=pfam_res["constrained"],
+                             **{f"disagg_{w}": pfam_res["disagg"][w]
+                                for w in ("thread", "process")})
+            report[-1]["paged_family"] = {
+                path: run.get(key, 0) for path, run in paths.items()}
     log(json.dumps({"kernels": report}))
     log(card)
     log(json.dumps({

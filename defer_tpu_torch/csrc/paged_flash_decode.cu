@@ -77,7 +77,17 @@ struct Params {
   int hq, group, bs, mb, window;
   float scale;
   dtile::FastDiv bs_div;  // division by bs, set up on the host
+  unsigned long long* runs;  // the card's count of this kernel's runs
 };
+
+// One thread of the grid adds one to the card's count of runs, so a launch
+// replayed from a captured CUDA graph is counted where it runs.
+__device__ __forceinline__ void count_run(const Params& p) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == 0) {
+    atomicAdd(p.runs, 1ull);
+  }
+}
 
 // Ring stages of the tensor-core path: an int8 slice is half the bytes, so
 // 5 stages keep as many bytes in flight as 3 of a bf16 pool, in the same
@@ -90,6 +100,7 @@ template <typename T, typename P, int kD>
 __global__ void __launch_bounds__(dtile::kThreads)
     paged_decode_mma(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  count_run(p);
   const int qgroups = (p.group + dtile::kQRows - 1) / dtile::kQRows;
   const int kvh = blockIdx.y / qgroups;
   const int g0 = (blockIdx.y % qgroups) * dtile::kQRows;
@@ -181,6 +192,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_f32(Params p) {
   __shared__ float sm_l[kWarps][kG];
   __shared__ float sm_acc[kWarps][kG][kDh];
   __shared__ dtile::Partial<kG, kDh> part;
+
+  count_run(p);
 
   const int qgroups = (p.group + kG - 1) / kG;
   const int kvh = blockIdx.y / qgroups;
@@ -401,13 +414,14 @@ extern "C" int defer_paged_flash_decode(
     const int* pos, long long pos_stride, int dtype, int pool_dtype,
     int batch, int hq, int hkv, int bs, int mb, int dh,
     const long long* strides, int window, int cluster, float scale,
-    void* stream) {
+    void* stream, unsigned long long* runs) {
   const bool int8_pool = pool_dtype == 3;
   if (batch < 1 || hkv < 1 || hq < hkv || hq % hkv || bs < 1 || mb < 1 ||
       bs >= (1 << 16) || (long long)mb * bs >= (1 << 24) ||
       cluster < 1 || cluster > dtile::kMaxCluster || batch > 65535 ||
       hq > 65535 || (pool_dtype != dtype && !int8_pool) ||
-      (int8_pool && (scale_k == nullptr || scale_v == nullptr))) {
+      (int8_pool && (scale_k == nullptr || scale_v == nullptr)) ||
+      runs == nullptr) {
     return int(cudaErrorInvalidValue);
   }
   Params p;
@@ -442,6 +456,7 @@ extern "C" int defer_paged_flash_decode(
   p.mb = mb;
   p.window = window;
   p.scale = scale;
+  p.runs = runs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

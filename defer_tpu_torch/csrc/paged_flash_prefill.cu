@@ -91,7 +91,18 @@ struct Params {
   long long svn, svh;
   int hkv, group, t_q, bs, mb, dh, window, splits;
   float scale;
+  unsigned long long* runs;  // the card's count of this kernel's runs
 };
+
+// One thread of the grid adds one to the card's count of runs, so a launch
+// replayed from a captured CUDA graph is counted where it runs. The split-K
+// merge that follows a split launch does not count: a call is one run.
+__device__ __forceinline__ void count_run(const Params& p) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == 0) {
+    atomicAdd(p.runs, 1ull);
+  }
+}
 
 // The live columns [c0, hi] of the token-major rows r0 .. r0 + 63 of slot b,
 // how many 64-column tiles they span from c0, and how many tiles a split
@@ -154,6 +165,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_mma(Params p) {
   constexpr int kTileP = kCols * ldp;
 
   extern __shared__ __align__(16) unsigned char smem[];
+  count_run(p);
   T* qs = reinterpret_cast<T*>(smem);               // [kRows][ld]
   P* kst = reinterpret_cast<P*>(qs + kRows * ld);   // [2][kCols][ldp]
   P* vst = kst + 2 * kTileP;                        // [2][kCols][ldp]
@@ -511,6 +523,7 @@ template <typename P, int kDh>
 __global__ void __launch_bounds__(kF32Threads) paged_prefill_f32(Params p) {
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
   extern __shared__ float fsmem[];
+  count_run(p);
   constexpr int ld = kDh + 1;
   float* qs = fsmem;                   // [kF32Rows][ld]
   float* ks = qs + kF32Rows * ld;      // [kCols][ld]
@@ -714,21 +727,23 @@ cudaError_t launch_pool(const Params& p, bool int8_pool, int batch,
 // the split-K count for float16 / bfloat16 q (float32 q takes 1); above 1,
 // part_acc / part_ml are f32 workspaces of B*Hkv*splits*R*Dh and
 // B*Hkv*splits*R*2 floats, R = ceil(T*G/64)*64 (unused, may be null, with
-// one split). Returns a cudaError_t value; 0 means launched.
+// one split). runs: a device uint64 the kernel adds one to each time it
+// runs. Returns a cudaError_t value; 0 means launched.
 extern "C" int defer_paged_flash_prefill(
     const void* q, const void* pool_k, const void* pool_v, void* o,
     const int* tables, const float* scale_k, const float* scale_v,
     const int* start, long long start_stride, float* part_acc,
     float* part_ml, int dtype, int pool_dtype, int batch, int hq, int hkv,
     int t_q, int bs, int mb, int dh, const long long* strides, int window,
-    int splits, float scale, void* stream) {
+    int splits, float scale, void* stream, unsigned long long* runs) {
   const bool int8_pool = pool_dtype == 3;
   if (batch < 1 || hkv < 1 || hq < hkv || hq % hkv || t_q < 1 || bs < 1 ||
       mb < 1 || splits < 1 || batch > 65535 || (dtype == 0 && splits != 1) ||
       (long long)(t_q * (hq / hkv) + kRows - 1) / kRows * hkv > 65535 ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
       (pool_dtype != dtype && !int8_pool) ||
-      (int8_pool && (scale_k == nullptr || scale_v == nullptr))) {
+      (int8_pool && (scale_k == nullptr || scale_v == nullptr)) ||
+      runs == nullptr) {
     return int(cudaErrorInvalidValue);
   }
   Params p;
@@ -769,6 +784,7 @@ extern "C" int defer_paged_flash_prefill(
   p.window = window;
   p.splits = splits;
   p.scale = scale;
+  p.runs = runs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return int(launch_pool<float>(p, int8_pool, batch, st));

@@ -13,7 +13,8 @@ report `defer_host_dispatches_total`, `defer_tokens_per_dispatch` and
 counters and the `defer_spec_acceptance` histogram. The instruments of
 servers not ported yet (pipeline stages) are registered all the same,
 so the exposition's shape does not depend on which server ran.
-`DisaggMetrics` and `FleetMetrics` wait for their servers.
+`DisaggMetrics` instruments the disaggregated prefill/decode split
+(defer_tpu_torch/disagg/); `FleetMetrics` waits for its server.
 
 `ServerStats` is the structured return of `serve_greedy`: a dict with
 attribute access and the registry snapshot under `stats.metrics`.
@@ -329,6 +330,44 @@ class ServingMetrics:
             )
             for lab in per
         ]
+
+
+class DisaggMetrics:
+    """Pre-bound instruments for one disaggregated-serving role.
+
+    Both halves of a prefill/decode split emit the same names and
+    differ by the `role` label ("prefill" | "decode"), the `server`
+    label convention above. Byte counters count WIRE bytes (transport
+    header + codec frame), so sent and received agree exactly on a
+    lossless link and the sent/raw ratio prices the quantized mode."""
+
+    def __init__(self, role: str, registry: MetricsRegistry | None = None):
+        reg = registry if registry is not None else get_registry()
+        self.registry = reg
+        labels = {"role": role}
+        self.kv_blocks_shipped = reg.counter(
+            "defer_kv_blocks_shipped_total",
+            "Finished KV pool blocks framed onto the wire (full blocks "
+            "plus at most one tail block per request)", labels,
+        )
+        self.kv_bytes_sent = reg.counter(
+            "defer_kv_block_bytes_sent_total",
+            "Wire bytes of KV-block payload frames sent", labels,
+        )
+        self.kv_bytes_recv = reg.counter(
+            "defer_kv_block_bytes_recv_total",
+            "Wire bytes of KV-block payload frames received", labels,
+        )
+        self.ingest_wait = reg.histogram(
+            "defer_kv_ingest_wait_seconds",
+            "Received KV payload parked in the ingest queue before the "
+            "decode server admitted it", _LATENCY_BUCKETS, labels,
+        )
+        self.worker_restarts = reg.counter(
+            "defer_disagg_worker_restarts_total",
+            "Prefill worker sessions restarted after a mid-stream "
+            "transport failure", labels,
+        )
 
 
 class ServerStats(dict):

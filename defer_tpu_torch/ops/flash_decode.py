@@ -156,30 +156,40 @@ def _kernel():
     return fn
 
 
-@functools.cache
-def _runs(index: int) -> torch.Tensor:
-    """Device `index`'s count of kernel runs, which each launch's kernel
-    adds one to on the card. Made at the device's first launch, which
-    must not be under graph capture (nor can it be: `_launch_plan`
-    queries the card)."""
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            "the first flash_decode launch on a device must run eagerly, "
-            "before any graph capture"
-        )
-    return torch.zeros((), dtype=torch.int64, device=f"cuda:{index}")
+def run_counter(kernel: str) -> tuple:
+    """A kernel's count of its own runs on the card, as the functions
+    (`_runs`, `card_runs`, `reset_card_runs`) its wrapper module exports:
+    `_runs(index)` is device `index`'s uint64 counter, which each launch
+    hands the kernel and one thread of its grid adds one to, made at the
+    device's first launch (which must not be under graph capture, nor
+    can it be: a launch plan queries the card); `card_runs(index)` reads
+    the runs since `reset_card_runs(index)` to the host: eager launches
+    and launches replayed from a captured CUDA graph alike, which the
+    wrapper's host count (`.launches`) cannot see."""
+
+    @functools.cache
+    def _runs(index: int) -> torch.Tensor:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the first {kernel} launch on a device must run eagerly, "
+                "before any graph capture"
+            )
+        return torch.zeros((), dtype=torch.int64, device=f"cuda:{index}")
+
+    def card_runs(index: int = 0) -> int:
+        return int(_runs(index))
+
+    def reset_card_runs(index: int = 0) -> None:
+        _runs(index).zero_()
+
+    card_runs.__doc__ = (
+        f"The {kernel} kernels card `index` has run since "
+        "`reset_card_runs`, graph replays included (`run_counter`)."
+    )
+    return _runs, card_runs, reset_card_runs
 
 
-def card_runs(index: int = 0) -> int:
-    """The flash_decode kernels card `index` has run since
-    `reset_card_runs`: eager launches and launches replayed from a
-    captured CUDA graph alike, which `flash_decode.launches` (a host
-    count) cannot see. Reads the count to the host."""
-    return int(_runs(index))
-
-
-def reset_card_runs(index: int = 0) -> None:
-    _runs(index).zero_()
+_runs, card_runs, reset_card_runs = run_counter("flash_decode")
 
 
 @functools.cache

@@ -58,6 +58,7 @@ from defer_tpu_torch.ops.flash_decode import (  # noqa: F401 (_decode_lo_hi)
     _cluster_size,
     _decode_lo_hi,
     _warp_slices,
+    run_counter,
 )
 
 _SOURCE = "paged_flash_decode.cu"
@@ -214,9 +215,12 @@ def _kernel():
         # dtype, pool_dtype, batch, hq, hkv, bs, mb, dh
         *[ctypes.c_int] * 8,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
     return fn
+
+
+_runs, card_runs, reset_card_runs = run_counter("paged_flash_decode")
 
 
 def _table_reads(lo: int, hi: int, bs: int, cluster: int) -> dict:
@@ -340,6 +344,7 @@ def _decode_cuda(q, pool_k, pool_v, tables, pos, window, scale_k,
         hq, pool_k.shape[1], pool_k.shape[2], tables.shape[1], dh, strides,
         0 if window is None else int(window), cluster, dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
+        _runs(q.device.index).data_ptr(),
     )
     if torch.cuda.current_device() == q.device.index:
         rc = _kernel()(*args)
@@ -382,7 +387,9 @@ def paged_flash_decode(
     Dh in 32/64/128, float32/float16/bfloat16 q) and raise on what it
     does not take; CPU and meta tensors run `paged_flash_decode_plain`.
     `paged_flash_decode.launches` counts kernel launches on a float pool,
-    `paged_flash_decode.launches_int8` those on an int8 pool."""
+    `paged_flash_decode.launches_int8` those on an int8 pool. Both are
+    host counts; `card_runs` counts the kernel's runs on the card,
+    graph replays included."""
     _check(q, pool_k, pool_v, tables, window)
     _check_scales(pool_k, pool_v, scale_k, scale_v)
     if q.device.type == "cuda":

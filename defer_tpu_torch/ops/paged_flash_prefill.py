@@ -57,6 +57,7 @@ from defer_tpu_torch.ops.flash_decode import (
     _HEAD_DIMS,
     _MASK_VALUE,
     _sm_count,
+    run_counter,
 )
 from defer_tpu_torch.ops.paged_flash_decode import (
     _check_pool,
@@ -235,9 +236,12 @@ def _kernel():
         # dtype, pool_dtype, batch, hq, hkv, t_q, bs, mb, dh
         *[ctypes.c_int] * 9,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
     return fn
+
+
+_runs, card_runs, reset_card_runs = run_counter("paged_flash_prefill")
 
 
 @functools.lru_cache(maxsize=256)
@@ -328,6 +332,7 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
         pool_k.shape[2], tables.shape[1], dh, strides,
         0 if window is None else int(window), splits, dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
+        _runs(q.device.index).data_ptr(),
     )
     if torch.cuda.current_device() == q.device.index:
         rc = _kernel()(*args)
@@ -371,7 +376,9 @@ def paged_flash_prefill(
     not take; CPU and meta tensors run `paged_flash_prefill_plain`.
     `paged_flash_prefill.launches` counts calls that launch the kernel
     (and its merge, when it splits) on a float pool,
-    `paged_flash_prefill.launches_int8` those on an int8 pool."""
+    `paged_flash_prefill.launches_int8` those on an int8 pool. Both are
+    host counts; `card_runs` counts the kernel's runs on the card,
+    graph replays included."""
     _check(q, pool_k, pool_v, tables, window)
     _check_scales(pool_k, pool_v, scale_k, scale_v)
     if q.device.type == "cuda":

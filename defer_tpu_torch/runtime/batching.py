@@ -178,6 +178,27 @@ def split_output(out: Any, sizes: list[int]) -> list[Any]:
     return parts
 
 
+class TimedQueue:
+    """Thread-safe FIFO that times each item from put() to pop() into a
+    caller-supplied histogram: how long produced work sat waiting for
+    its consumer. The disagg ingest path surfaces
+    `defer_kv_ingest_wait_seconds` through it (disagg/ingest.py)."""
+
+    def __init__(self, histogram=None):
+        self._q: "queue_mod.Queue[tuple[float, Any]]" = queue_mod.Queue()
+        self._hist = histogram
+
+    def put(self, item: Any) -> None:
+        self._q.put((time.monotonic(), item))
+
+    def pop(self, timeout: float | None = None) -> Any:
+        """Blocking get; raises queue.Empty on timeout like Queue.get."""
+        t_in, item = self._q.get(timeout=timeout)
+        if self._hist is not None:
+            self._hist.observe(time.monotonic() - t_in)
+        return item
+
+
 def window_drain_order(valid_lens, width: int):
     """Tick-major order for draining a decode window's [B, K] token
     buffer with per-slot valid lengths: yields (t, i) for every accepted

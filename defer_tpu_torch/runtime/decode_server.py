@@ -343,14 +343,18 @@ class DraftLanes:
         self.ck.zero_()
         self.cv.zero_()
 
-    def _catch_up(self, posm, feed2, adv):
+    def _upload(self, posm, feed2, adv):
+        """Host round inputs on the lanes' device, as int32."""
+        dev = self.ck.device
+        return tuple(
+            torch.as_tensor(np.asarray(a), dtype=torch.int32).to(dev)
+            for a in (posm, feed2, adv)
+        )
+
+    def _catch_up(self, dpos, feed2, adv):
         """The [B, 2] catch-up step: (logits of the last real pending
         token [B, V], per-slot positions after it)."""
-        dev = self.ck.device
         raw = self.dec.decode_step_fn()
-        dpos = torch.as_tensor(np.asarray(posm), dtype=torch.int32).to(dev)
-        feed2 = torch.as_tensor(np.asarray(feed2), dtype=torch.int32).to(dev)
-        adv = torch.as_tensor(np.asarray(adv), dtype=torch.int32).to(dev)
         logits2, _ = raw(
             self.params, {"k": self.ck, "v": self.cv, "pos": dpos}, feed2
         )
@@ -378,7 +382,13 @@ class DraftLanes:
         count. Returns device [B, k] int32 proposals (garbage rows for
         adv=0 slots: the caller masks by slot). Lane coverage afterwards
         is posm + adv + k - 1 for speculating rows."""
-        first_l, pos = self._catch_up(posm, feed2, adv)
+        return self.propose_dev(k, *self._upload(posm, feed2, adv))
+
+    def propose_dev(self, k, dpos, feed2, adv):
+        """propose() on int32 device inputs (dpos [B], feed2 [B, 2],
+        adv [B]): no host value is read, so it also runs inside a
+        captured CUDA graph (the paged server's speculative window)."""
+        first_l, pos = self._catch_up(dpos, feed2, adv)
         tok = torch.argmax(first_l, dim=-1).to(torch.int32)
         props = [tok]
         for _ in range(k - 1):
@@ -396,6 +406,12 @@ class DraftLanes:
         state. Free rows (cid 0) fold an all-True mask: their proposals
         equal propose()'s. The policy is the tick's (constrain/runtime.py
         `constrained_pick`): a dead local state proposes eos."""
+        return self.propose_c_dev(k, *self._upload(posm, feed2, adv), eos,
+                                  cid, cstate, ctrans, cacc)
+
+    def propose_c_dev(self, k, dpos, feed2, adv, eos, cid, cstate, ctrans,
+                      cacc):
+        """propose_c() on int32 device inputs, as propose_dev()."""
         every = torch.ones_like(cid, dtype=torch.bool)
 
         def pick(logits, cs):
@@ -404,7 +420,7 @@ class DraftLanes:
             )
             return settle(torch.argmax(ll, dim=-1).to(torch.int32))
 
-        first_l, pos = self._catch_up(posm, feed2, adv)
+        first_l, pos = self._catch_up(dpos, feed2, adv)
         tok, cs = pick(first_l, cstate)
         props = [tok]
         for _ in range(k - 1):

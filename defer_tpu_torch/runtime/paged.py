@@ -40,7 +40,37 @@ budgets. The design is the JAX package's:
   * `spill_bytes=` adds the host-RAM tier `HostKVSpill` under the radix
     cache: an evicted prefix block's stored bytes (int8 payload and
     scales, or fp rows) drain to host memory off the serving thread, and
-    a later walk miss revives them verbatim into a fresh block.
+    a later walk miss revives them verbatim into a fresh block;
+  * `decode_window=K` runs K decode sub-steps a host dispatch. Each
+    sub-step zeroes frozen rows' position and table row (their writes
+    land in trash block 0 row 0, where an idle slot writes), runs the T=1
+    paged step, samples on the device, counts the token against the
+    row's budget and freezes rows that hit eos or their budget; the host
+    drains one [B, K] transfer a window, and admissions, finishes and
+    block allocation happen at window boundaries only (a slot's table
+    already holds every block its request can reach). On a CPU server
+    the body runs eagerly; on a CUDA server it is one
+    `torch.cuda.CUDAGraph` per (mode, constrained), captured once and
+    kept on the server, every input a fixed device tensor written in
+    place (positions, the feed, the active mask, the budgets, the block
+    tables, the sampler rows). The "blockwise" fold reads the table's
+    whole span MB in a window (its host bound cannot move inside a
+    graph; the extra columns are fully masked and add nothing), and the
+    gathered path's plan is worked out on the device;
+  * `prefill_budget=N`: stall-free mixed ticks (runtime/schedule.py).
+    A new request takes a SEAT and its prompt rides inside the decode
+    dispatches, up to N prompt tokens a tick beside every decode row, in
+    one multi-token step (`_mt`, the prefill kernel); a mixed tick runs
+    eagerly, its T a pow2 bucket that changes from tick to tick;
+  * `spec_k=k`: speculative decoding. `DraftLanes` proposes k greedy
+    tokens a slot, the target verifies all k + 1 in one `_mt` step whose
+    candidate rows land in the slot's blocks, and the accept test keeps
+    the target's own chain. `decode_window > 1` fuses W whole rounds into
+    one dispatch, a captured graph on the card like a decode window;
+  * `constraints=` (grammar DFAs) and multi-LoRA adapter banks
+    (`adapter_id=`) ride every step body, as on the flat server;
+  * `submit_prefilled` / `deliver_kv` seat K/V prefilled elsewhere
+    (defer_tpu_torch/disagg/).
 
 What differs from JAX, and why:
 
@@ -54,19 +84,21 @@ What differs from JAX, and why:
     block_size rounds (one per row-in-block) instead of one per token;
     each block sees its rows in the same order, so the pool is
     bit-identical to the JAX package's token-by-token loop;
-  * block tables, positions and the active mask live on the device and
-    change only at admission and finish; idle slots sit at position 0
-    with an all-trash table, and a tick advances the live positions on
-    the device, so a steady tick makes no host sync. Host mirrors serve
-    the accounting (rows read) and the blockwise fold's bound, a host
-    int where the JAX package traces `jnp.max(pos)`;
-  * there is no jit, so no program memo: each step runs eagerly.
+  * block tables, positions, adapters and the active mask live on the
+    device and change only at admission and finish; idle slots sit at
+    position 0 with an all-trash table, and a tick advances the live
+    positions on the device, so a steady tick makes no host sync. Host
+    mirrors serve the accounting (rows read) and the blockwise fold's
+    bound, a host int where the JAX package traces `jnp.max(pos)`;
+  * there is no jit, so no program memo: each step runs eagerly, except
+    the captured windows, which belong to their server;
+  * the draft proposes eos at a dead DFA state where the JAX package's
+    proposes a garbage argmax; the verify accepts neither, so the
+    committed tokens are the same.
 
 Not ported yet (each raises NotImplementedError, naming its ROADMAP
-Queue 1 item): `decode_window > 1`, `spec_k`, `prefill_budget`,
-`mesh=`/`device=`, `constraints=`, `pp_*`, multi-LoRA adapter banks and
-`adapter_id != 0`, and the disagg/fleet seams (`submit_prefilled`,
-`deliver_kv`, `export_prefix_blocks`, `import_prefix_blocks`).
+Queue 1 item): `mesh=` and `pp_*` (item 7), `device=` and the fleet
+seams `export_prefix_blocks` / `import_prefix_blocks` (item 6, fleet/).
 """
 
 from __future__ import annotations
@@ -83,7 +115,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from defer_tpu_torch.models.gpt import _layer_view
+from defer_tpu_torch.constrain import runtime as crt
+from defer_tpu_torch.models.gpt import (
+    _layer_view,
+    sample_token_batched_nosort_u,
+    sample_token_batched_u,
+)
 from defer_tpu_torch.models.quant import (
     dequantize_symmetric,
     quantize_symmetric,
@@ -99,7 +136,14 @@ from defer_tpu_torch.ops.paged_flash_prefill import (
     paged_flash_prefill,
     paged_flash_prefill_plain,
 )
-from defer_tpu_torch.runtime.decode_server import SlotSampler
+from defer_tpu_torch.parallel.lora import adapter_bank_info
+from defer_tpu_torch.runtime.batching import accept_lengths, window_drain_order
+from defer_tpu_torch.runtime.decode_server import (
+    _DEAD_END,
+    DraftLanes,
+    SlotSampler,
+)
+from defer_tpu_torch.runtime.schedule import PrefillSeat, plan_mixed_tick
 from defer_tpu_torch.runtime.stopping import matcher_or_none, normalize_stops
 
 
@@ -529,13 +573,31 @@ class PagedDecodeServer:
         head: about half an fp16 pool's bytes). `spill_bytes`: a host-RAM
         spill tier of this many bytes for evicted prefix blocks (needs
         prefix_cache). `on_token(request_id, token_id, done)`: streaming
-        callback; `eos_id`: stop token. The knobs this slice does not
-        port raise NotImplementedError where the JAX package would
-        accept them."""
+        callback; `eos_id`: stop token.
+
+        `decode_window=K`: K decode sub-steps a host dispatch (the module
+        docstring). `spec_k=k` with `spec_draft`/`spec_params`: a draft
+        proposes k greedy tokens a round for every greedy slot and the
+        target verifies all k + 1 in one multi-token step; greedy output
+        is token-identical to spec_k=0. `prefill_budget=N`: stall-free
+        mixed ticks, each carrying the decode rows plus up to N prompt
+        tokens of at most `prefill_lookahead` seated prefills
+        (runtime/schedule.py). `constraints={name: TokenDFA}`: grammars a
+        request selects with SamplingParams(constraint=name); needs
+        `eos_id`. Params with adapter banks (parallel/lora.py
+        `stack_adapters`) serve a LoRA adapter per request
+        (`submit(adapter_id=)`, 0 = the base model).
+
+        `mesh=`, `device=` and `pp_*` raise NotImplementedError, naming
+        their ROADMAP Queue 1 item."""
         if getattr(dec, "rolling_cache", False):
             raise ValueError("paged serving does not support rolling caches")
-        if any(":" in k for k in params["stack"]):
-            raise _not_ported("multi-LoRA adapter banks", "6 (h)")
+        # Multi-LoRA: adapter banks make the slot -> adapter assignment
+        # per-slot state, as on the flat server; id 0 = base model.
+        n_adapters = adapter_bank_info(params)
+        self.multi_lora = n_adapters is not None
+        if self.multi_lora:
+            self.num_adapters = n_adapters
         if block_size < 1 or num_blocks < 2:
             raise ValueError(
                 f"need block_size >= 1 and num_blocks >= 2 (one trash "
@@ -577,7 +639,23 @@ class PagedDecodeServer:
                     "spec_k > 0 needs both spec_draft and spec_params "
                     "(the proposal model and its weights)"
                 )
-            raise _not_ported("speculative decoding (spec_k > 0)", "6 (e)")
+            if prefix_ids is not None:
+                raise ValueError(
+                    "spec_k > 0 does not compose with constructor "
+                    "prefix_ids (the draft lane has no shared-prefix "
+                    "plumbing); use prefix_cache=True"
+                )
+            if self.multi_lora:
+                raise ValueError(
+                    "spec_k > 0 with multi-LoRA is unsupported: one "
+                    "draft model cannot propose for per-slot adapters"
+                )
+            if spec_draft.cfg.max_len < dec.cfg.max_len:
+                raise ValueError(
+                    f"draft max_len {spec_draft.cfg.max_len} < target "
+                    f"max_len {dec.cfg.max_len}: the draft lane must "
+                    "cover every position the target can reach"
+                )
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}"
@@ -592,9 +670,26 @@ class PagedDecodeServer:
                     f"prefill_budget must be >= 1 prompt tokens per "
                     f"tick, got {prefill_budget}"
                 )
-            raise _not_ported(
-                "stall-free mixed batching (prefill_budget=)", "6 (g)"
-            )
+            if spec_k:
+                raise ValueError(
+                    "prefill_budget does not compose with spec_k > 0 "
+                    "yet: the verify forward already owns the "
+                    "multi-token rows a mixed tick would budget, and "
+                    "fusing draft catch-up with mid-prefill seats "
+                    "needs a draft-side seat lifecycle. Fix: serve "
+                    "speculation on a prefill_budget=None server, or "
+                    "set spec_k=0 here."
+                )
+            if pp_stages > 1:
+                raise ValueError(
+                    "prefill_budget does not compose with pp_stages "
+                    "> 1 yet: the pipelined window schedules whole "
+                    "microbatch groups and a mixed tick would need "
+                    "per-stage budget accounting across the in-flight "
+                    "groups. Fix: run mixed-mode admission on a "
+                    "pp_stages=1 server (tensor-parallel via mesh= "
+                    "composes), or set prefill_budget=None here."
+                )
         if mesh is not None and device is not None:
             raise ValueError(
                 "mesh= and device= are mutually exclusive: a mesh "
@@ -625,17 +720,8 @@ class PagedDecodeServer:
         if device is not None:
             raise _not_ported(
                 "pinning a server to a device (device=; it runs on "
-                "dec.device)", "7"
+                "dec.device)", "6, fleet/"
             )
-        if decode_window > 1:
-            raise _not_ported("decode_window > 1", "6 (d)")
-        if constraints is not None:
-            if eos_id is None:
-                raise ValueError(
-                    "constraints= requires eos_id: a satisfied "
-                    "constraint stops by emitting eos"
-                )
-            raise _not_ported("constrained decoding (constraints=)", "6 (h)")
         cfg = dec.cfg
         self.decode_window = decode_window
         self.attention = attention
@@ -679,14 +765,20 @@ class PagedDecodeServer:
         # Host mirrors (accounting, the blockwise fold's bound) and their
         # device copies (what the steps read); both change only at
         # admission and finish, except the positions a tick advances.
+        # Every device tensor here keeps its address for the server's
+        # life (written in place), so a captured window reads the
+        # current values at each replay.
         self.tables = np.zeros((max_batch, self.MB), np.int32)
         self.pos = np.zeros((max_batch,), np.int32)
+        self.adapter = np.zeros((max_batch,), np.int32)
         self._tables_dev = torch.zeros((max_batch, self.MB),
                                        dtype=torch.int32, device=self.device)
         self._pos_dev = torch.zeros((max_batch,), dtype=torch.int32,
                                     device=self.device)
         self._active = torch.zeros((max_batch,), dtype=torch.int32,
                                    device=self.device)
+        self._adapter_dev = torch.zeros((max_batch,), dtype=torch.int32,
+                                        device=self.device)
         self._rows = torch.arange(max_batch, device=self.device)
         self.slots: list[dict | None] = [None] * max_batch
         # Persistent tick feed: each slot's next input token in row i.
@@ -694,23 +786,79 @@ class PagedDecodeServer:
                                  device=self.device)
         self._sampler = SlotSampler(max_batch, self.device)
         self.pending: collections.deque[tuple] = collections.deque()
+        # Externally prefilled admissions (disagg/): rid -> entry whose
+        # "kv" field `deliver_kv` fills in from another thread; the pool
+        # itself is touched by `_admit` on the serving thread only.
+        self.pending_prefilled: dict[int, dict] = {}
+        self._prefilled_order: list[int] = []
+        # Host seconds spent seating delivered KV (`_admit_prefilled`).
+        self.prefilled_admit_s = 0.0
         self.done: dict[int, torch.Tensor] = {}
         self._next_id = 0
         self.ticks = 0
         self.blocks_peak = 0
         self.dispatches = 0
         self.window_tokens = 0
+        # Captured windows replayed, and how many were captured; each
+        # graph (with its body) is bound to this server's buffers, so it
+        # lives and dies with the server, keyed by (kind, mode,
+        # constrained).
+        self.graph_replays = 0
+        self.graph_captures = 0
+        self._graphs: dict[tuple, Any] = {}
+        self._wbuf: dict | None = None
         # Prefill chunks run through the multi-token step (host count).
         self.prefill_chunks = 0
         self.obs = ServingMetrics("paged")
         self.obs.kv_pool_bytes.set(self.pool_bytes)
         self._submit_t: dict[int, float] = {}
         self._last_tick_t: float | None = None
+        # Constrained decoding tables: stacked [C, S_max, V] transitions
+        # and [C, S_max] accepting bits, cid 0 the free row; None when
+        # the feature is off, and every tick then runs the ops it runs
+        # without constraints.
+        self._ctrans = None
+        self._cacc = None
+        self._cnames: dict[str, int] = {}
+        self._cdfas: list = [None]
+        if constraints is not None:
+            if eos_id is None:
+                raise ValueError(
+                    "constraints= requires eos_id: a satisfied "
+                    "constraint stops by emitting eos"
+                )
+            self._cnames, self._ctrans, self._cacc = crt.stack_token_dfas(
+                constraints, cfg.vocab_size, self.device
+            )
+            self._cdfas += [
+                constraints[n]
+                for n in sorted(self._cnames, key=self._cnames.get)
+            ]
+        # Per-request constraint failures (hand-built DFA dead ends).
+        self.errors: dict[int, str] = {}
+        self.constrained_tokens_n = 0
+        self.constraint_dead_ends_n = 0
+        self.spec_k = spec_k
         self.prefill_chunk = prefill_chunk
+        self.prefill_budget = prefill_budget
+        self.prefill_lookahead = prefill_lookahead
         # Stall accounting: admission-prefill dispatches issued while a
-        # decode slot sat waiting.
+        # decode slot sat waiting (0 in mixed mode); mixed tokens are the
+        # prompt tokens fused mixed ticks carried.
         self.prefill_stall_ticks_n = 0
+        self.mixed_prefill_tokens_n = 0
+        self.mixed_ticks_n = 0
         self.decode_stall_fraction_last = 0.0
+        # The draft's flat lanes (runtime/decode_server.py DraftLanes).
+        self._draft = (
+            DraftLanes(spec_draft, spec_params, max_batch, target=dec)
+            if spec_k
+            else None
+        )
+        self.spec_rounds_n = 0
+        self.spec_proposed_n = 0
+        self.spec_accepted_n = 0
+        self.spec_draft_tokens_n = 0
         self.prefix_len = 0
         self.shared_blocks: list[int] = []
         self._prefix_cache = None
@@ -725,6 +873,11 @@ class PagedDecodeServer:
                     "— pass the system prompt as part of each "
                     "request's prompt and it shares automatically"
                 )
+            if self.multi_lora:
+                raise ValueError(
+                    "prefix_cache + multi-LoRA is unsupported: cached "
+                    "prefix K/V would be adapter-dependent"
+                )
             if spill_bytes:
                 self._spill = HostKVSpill(spill_bytes, obs=self.obs)
             self.radix = PrefixBlockCache(
@@ -734,6 +887,11 @@ class PagedDecodeServer:
                 ),
             )
         if prefix_ids is not None:
+            if self.multi_lora:
+                raise ValueError(
+                    "prefix caching + multi-LoRA is unsupported: the "
+                    "shared prefix K/V would be adapter-dependent"
+                )
             if prefix_ids.ndim != 2 or prefix_ids.shape[0] != 1:
                 raise ValueError("prefix_ids must be [1, P]")
             P = int(prefix_ids.shape[1])
@@ -780,29 +938,50 @@ class PagedDecodeServer:
         stop: Any = None,
     ) -> int:
         """Queue a request [1, T]; returns its id (resolved in .done).
-        `sampling`: an optional SamplingParams (None or temperature 0 =
-        greedy); the slot samples inside the shared tick from its own
-        seeded generator. `stop`: optional multi-token stop sequences;
-        the request finishes the moment its generated tail equals one,
+        `adapter_id`: the request's LoRA adapter when banks are attached
+        (0 = base model). `sampling`: an optional SamplingParams (None or
+        temperature 0 = greedy; its `constraint` applies either way); the
+        slot samples inside the shared tick from its own seeded
+        generator. `stop`: optional multi-token stop sequences; the
+        request finishes the moment its generated tail equals one,
         freeing its blocks mid-budget."""
         if prompt_ids.ndim != 2 or prompt_ids.shape[0] != 1:
             raise ValueError("submit one request at a time ([1, T])")
+        cid = 0
         if sampling is not None:
             sampling.validate()
-            if sampling.constraint is not None:
-                raise _not_ported("constrained decoding (constraint=)", "6 (h)")
+            # The constraint survives the greedy normalization below.
+            cid = self._resolve_constraint(sampling.constraint)
             if sampling.temperature == 0:
                 sampling = None  # greedy: keep the argmax fast path
         stop_seqs = normalize_stops(stop)
         if adapter_id:
-            raise _not_ported("multi-LoRA adapters (adapter_id != 0)", "6 (h)")
+            if not self.multi_lora:
+                raise ValueError(
+                    "adapter_id set but params carry no adapter banks "
+                    "(parallel/lora.py::stack_adapters)"
+                )
+            if not 0 <= adapter_id < self.num_adapters:
+                raise ValueError(
+                    f"adapter_id {adapter_id} out of range "
+                    f"[0, {self.num_adapters})"
+                )
         t0 = prompt_ids.shape[1]
         if t0 < 1 or num_steps < 1:
             raise ValueError("need at least 1 prompt token and 1 step")
-        if self.prefix_len + t0 + num_steps > self.dec.cfg.max_len:
+        # spec_k rows of write headroom: a verify at position p writes
+        # candidate rows through p + spec_k.
+        if (
+            self.prefix_len + t0 + num_steps + self.spec_k
+            > self.dec.cfg.max_len
+        ):
+            extra = (
+                f" + spec_k {self.spec_k} headroom" if self.spec_k else ""
+            )
             raise ValueError(
                 f"prefix {self.prefix_len} + prompt {t0} + steps "
-                f"{num_steps} exceeds max_len {self.dec.cfg.max_len}"
+                f"{num_steps}{extra} exceeds max_len "
+                f"{self.dec.cfg.max_len}"
             )
         need = self._own_need(t0, num_steps)
         usable = self.num_blocks - 1 - len(self.shared_blocks)
@@ -819,10 +998,15 @@ class PagedDecodeServer:
         # and the output.
         self.pending.append(
             (rid, prompt_ids.cpu(), prompt_ids.to(self.device), num_steps,
-             sampling, stop_seqs)
+             adapter_id, sampling, stop_seqs, cid)
         )
         self._submit_t[rid] = time.perf_counter()
         return rid
+
+    def _resolve_constraint(self, name: str | None) -> int:
+        return crt.resolve_constraint(
+            name, self._ctrans, self._cnames, self._cdfas
+        )
 
     def _own_need(self, t0: int, steps: int) -> int:
         """Blocks a request must own: its total span minus the shared
@@ -830,11 +1014,112 @@ class PagedDecodeServer:
         total = -(-(self.prefix_len + t0 + steps) // self.bs)
         return total - len(self.shared_blocks)
 
-    def submit_prefilled(self, *args, **kwargs):
-        raise _not_ported("disaggregated prefill (submit_prefilled)", "6, disagg/")
+    def submit_prefilled(
+        self,
+        prompt_ids: Any,
+        num_steps: int,
+        *,
+        sampling: Any = None,
+        stop: Any = None,
+    ) -> int:
+        """Register a request whose prefill runs elsewhere (a disagg
+        prefill worker): it waits in `pending_prefilled` until
+        `deliver_kv` hands over its finished KV blocks, then admission
+        seats those blocks in the pool with no local prefill step. Same
+        sampling/stop semantics as `submit`. The base model only, and no
+        constructor `prefix_ids` (prefix_cache=True composes: ingested
+        full prompt blocks register in the radix cache; spec_k > 0
+        composes: the draft lane re-prefills locally from the prompt
+        ids)."""
+        if self.shared_blocks or self.prefix_len:
+            raise ValueError(
+                "externally prefilled admission does not compose with "
+                "constructor-level prefix_ids; use prefix_cache=True"
+            )
+        if self.multi_lora:
+            raise ValueError(
+                "externally prefilled admission supports the base "
+                "model only (adapter-specific K/V would need the "
+                "worker to run the same adapter banks)"
+            )
+        prompt = np.asarray(
+            prompt_ids.cpu() if isinstance(prompt_ids, torch.Tensor)
+            else prompt_ids
+        )
+        if prompt.ndim != 2 or prompt.shape[0] != 1:
+            raise ValueError("submit one request at a time ([1, T])")
+        cid = 0
+        if sampling is not None:
+            sampling.validate()
+            cid = self._resolve_constraint(sampling.constraint)
+            if sampling.temperature == 0:
+                sampling = None
+        stop_seqs = normalize_stops(stop)
+        t0 = prompt.shape[1]
+        if t0 < 1 or num_steps < 1:
+            raise ValueError("need at least 1 prompt token and 1 step")
+        if t0 + num_steps + self.spec_k > self.dec.cfg.max_len:
+            extra = (
+                f" + spec_k {self.spec_k} headroom" if self.spec_k else ""
+            )
+            raise ValueError(
+                f"prompt {t0} + steps {num_steps}{extra} exceeds "
+                f"max_len {self.dec.cfg.max_len}"
+            )
+        need = self._own_need(t0, num_steps)
+        usable = self.num_blocks - 1
+        if need > usable:
+            raise ValueError(
+                f"request needs {need} blocks but the pool has "
+                f"{usable} usable"
+            )
+        rid = self._next_id
+        self._next_id += 1
+        self.pending_prefilled[rid] = {
+            "prompt": prompt.astype(np.int32),
+            "steps": num_steps,
+            "samp": sampling,
+            "stop": stop_seqs,
+            "cid": cid,
+            "kv": None,
+        }
+        self._prefilled_order.append(rid)
+        self._submit_t[rid] = time.perf_counter()
+        return rid
 
-    def deliver_kv(self, *args, **kwargs):
-        raise _not_ported("disaggregated prefill (deliver_kv)", "6, disagg/")
+    def deliver_kv(self, rid: int, k_blocks, v_blocks, first_logits) -> None:
+        """Hand a pending_prefilled request its finished KV state:
+        [L, n_blocks, Hkv, bs, Dh] K/V block stacks covering the prompt
+        rows (tensors or numpy arrays, on the host), and the [1, V]
+        logits row of the last prompt position (the first generated
+        token is drawn from it). Thread-safe against the serving loop:
+        this only assigns the entry's "kv" field; the pool is touched by
+        `_admit` on the serving thread alone."""
+        entry = self.pending_prefilled.get(rid)
+        if entry is None:
+            raise KeyError(f"no pending prefilled request {rid}")
+        t0 = entry["prompt"].shape[1]
+        n_need = -(-t0 // self.bs)
+        cfg = self.dec.cfg
+        expect = (
+            cfg.num_layers,
+            n_need,
+            cfg.kv_heads,
+            self.bs,
+            cfg.dim // cfg.num_heads,
+        )
+        if tuple(k_blocks.shape) != expect or tuple(v_blocks.shape) != expect:
+            raise ValueError(
+                f"KV block stack shape {tuple(k_blocks.shape)}/"
+                f"{tuple(v_blocks.shape)} != expected {expect} for "
+                f"rid {rid} (t0={t0}, block_size={self.bs})"
+            )
+        if tuple(first_logits.shape) != (1, cfg.vocab_size):
+            raise ValueError(
+                f"first_logits shape {tuple(first_logits.shape)} != "
+                f"(1, {cfg.vocab_size})"
+            )
+        entry["kv"] = (k_blocks, v_blocks, first_logits)
 
     def export_prefix_blocks(self, *args, **kwargs):
         raise _not_ported("prefix migration (export_prefix_blocks)", "6, fleet/")
@@ -852,15 +1137,20 @@ class PagedDecodeServer:
 
     def step(self) -> bool:
         """One round of `run`: admit what the pool and the free slots
-        take, then one decode tick over the live slots. Returns False,
+        take, then one decode dispatch over the live slots (a tick, a
+        window, a mixed tick or a speculative round). Returns False,
         doing nothing, once every submitted request has completed. With
-        nothing to admit, a round is exactly one tick, so a caller can
-        drive and time steady ticks through it."""
-        if not (self.pending or any(self.slots)):
+        nothing to admit, a round is exactly one dispatch, so a caller
+        can drive and time steady ticks through it. A round with nothing
+        seated while externally prefilled requests wait for their KV
+        yields for a millisecond instead of spinning."""
+        if not (self.pending or self.pending_prefilled or any(self.slots)):
             return False
         self._admit()
         if any(s is not None for s in self.slots):
             self._tick()
+        elif self.pending_prefilled:
+            time.sleep(1e-3)
         return True
 
     @property
@@ -892,7 +1182,7 @@ class PagedDecodeServer:
 
     # -- pool programs ----------------------------------------------------
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+    def _upload(self, arr) -> torch.Tensor:
         """A host int array on the device, as int32 (the kernels' table
         type), without a host sync: on CUDA through a fresh pinned
         buffer that is never written again, so the asynchronous copy
@@ -901,6 +1191,11 @@ class PagedDecodeServer:
         if self.device.type != "cuda":
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _adapters(self):
+        """The slots' adapter ids for the bank gather, or None without
+        adapter banks (the steps then run the base-model ops only)."""
+        return self._adapter_dev.long() if self.multi_lora else None
 
     def _insert(self, small_k, small_v, table_row, skip: int, n: int,
                 valid: int | None = None):
@@ -973,20 +1268,33 @@ class PagedDecodeServer:
 
     @torch.no_grad()
     def _step(self, nb_live: int) -> torch.Tensor:
-        """One decode tick over every slot: feed [B, 1] at the device
-        positions through the slots' tables. Idle slots sit at position
-        0 with an all-trash table, so their write lands in trash block 0
-        row 0. Returns logits [B, 1, V] in f32."""
+        """One decode tick over every slot: the feed [B, 1] at the
+        device positions through the slots' tables. Idle slots sit at
+        position 0 with an all-trash table, so their write lands in
+        trash block 0 row 0. Returns logits [B, 1, V] in f32."""
+        return self._decode(self._tables_dev, self._pos_dev, self._feed,
+                            nb_live)
+
+    @torch.no_grad()
+    def _decode(self, tables, pos, feed, nb_live: int) -> torch.Tensor:
+        """The T=1 paged step on explicit device inputs: the K=1 tick
+        runs it on the server's tables and positions, a decode window on
+        the per-sub-step masked copies (frozen rows at position 0 with an
+        all-trash table). `nb_live` bounds the "blockwise" fold: a host
+        int, the batch's deepest live block at K=1 and the table's span
+        MB in a window, whose positions move on the device (the extra
+        columns are fully masked and add exactly nothing)."""
         dec, bs = self.dec, self.bs
         params = self.params
         window = dec.cfg.window
-        tables, pos = self._tables_dev, self._pos_dev
-        x = dec._embed_tokens(params, self._feed, pos)
+        aid = self._adapters()
+        x = dec._embed_tokens(params, feed, pos)
         blk_w = tables.gather(1, (pos // bs).long()[:, None])[:, 0].long()
         row_w = (pos % bs).long()
         stack = params["stack"]
         if self.attention == "gathered":
             plan = dec._plan(pos, 1, self.MB * bs)
+            plan["adapter"] = aid
             idx = tables.long()
             posl = pos.long()
             for layer in range(dec.cfg.num_layers):
@@ -1011,7 +1319,7 @@ class PagedDecodeServer:
             p = _layer_view(stack, layer)
             pk_l = _pool_layer(self.pool_k, layer)
             pv_l = _pool_layer(self.pool_v, layer)
-            q, k_new, v_new = dec._attn_qkv(p, x, rope)
+            q, k_new, v_new = dec._attn_qkv(p, x, rope, aid)
             # Write-then-attend, on one stream.
             _pool_write_rows(pk_l, blk_w, row_w, k_new[:, :, 0, :])
             _pool_write_rows(pv_l, blk_w, row_w, v_new[:, :, 0, :])
@@ -1022,20 +1330,26 @@ class PagedDecodeServer:
                 window=window, scale_k=_pool_scale(pk_l),
                 scale_v=_pool_scale(pv_l),
             ).to(x.dtype).reshape(b, 1, hq * dh)
-            x = dec._attn_out(p, x, attn)
+            x = dec._attn_out(p, x, attn, aid)
         return dec._final_logits(params, x)
 
     @torch.no_grad()
-    def _mt(self, tables, pos, ids, n_keep, keep_from, nb_live):
+    def _mt(self, tables, pos, ids, n_keep, keep_from, nb_live,
+            adapter=None):
         """The multi-token paged step: ids [B, T], row t of slot b at
         absolute position pos[b] + t, K/V read through the tables and
         all T new rows scattered back. A row's write redirects to trash
         block 0 when the slot does not keep it: row index >= n_keep[b]
-        (a prefill tail's pad rows) or position < keep_from[b] (radix
-        hit rows, other requests' memory). Returns logits [B, T, V]."""
+        (a prefill tail's pad rows, a sampled slot's candidates in a
+        speculative round, a frozen row's) or position < keep_from[b]
+        (radix hit rows, other requests' memory). `adapter` [B]: the
+        rows' LoRA adapter ids (None without banks). Serves chunked
+        prefill, mixed ticks and the speculative verify. Returns logits
+        [B, T, V]."""
         dec, bs, mb = self.dec, self.bs, self.MB
         params = self.params
         window = dec.cfg.window
+        aid = adapter.long() if adapter is not None else None
         b, t = ids.shape
         steps = torch.arange(t, device=self.device)
         pvec = pos[:, None] + steps  # [B, T]
@@ -1051,6 +1365,7 @@ class PagedDecodeServer:
         stack = params["stack"]
         if self.attention == "gathered":
             plan = dec._plan(pos, t, mb * bs)
+            plan["adapter"] = aid
             idx = tables.long()
             rows = torch.arange(b, device=self.device)[:, None]
             for layer in range(dec.cfg.num_layers):
@@ -1063,7 +1378,7 @@ class PagedDecodeServer:
                 _pool_write_rows_mt(pk_l, dest, rowi, kc[rows, :, pvec])
                 _pool_write_rows_mt(pv_l, dest, rowi, vc[rows, :, pvec])
             return dec._final_logits(params, x)
-        # The multi-token sibling of `_step`'s choice (the JAX package's
+        # The multi-token sibling of `_decode`'s choice (the JAX package's
         # `_blockwise_attend_mt` fold, or the prefill kernel).
         attend = (
             functools.partial(paged_flash_prefill_plain, num_blocks=nb_live)
@@ -1074,7 +1389,7 @@ class PagedDecodeServer:
             p = _layer_view(stack, layer)
             pk_l = _pool_layer(self.pool_k, layer)
             pv_l = _pool_layer(self.pool_v, layer)
-            q, k_new, v_new = dec._attn_qkv(p, x, rope)
+            q, k_new, v_new = dec._attn_qkv(p, x, rope, aid)
             # Write-then-attend, on one stream.
             _pool_write_rows_mt(pk_l, dest, rowi, k_new.transpose(1, 2))
             _pool_write_rows_mt(pv_l, dest, rowi, v_new.transpose(1, 2))
@@ -1084,10 +1399,11 @@ class PagedDecodeServer:
                 window=window, scale_k=_pool_scale(pk_l),
                 scale_v=_pool_scale(pv_l),
             ).transpose(1, 2).reshape(b, t, hq * dh).to(x.dtype)
-            x = dec._attn_out(p, x, attn)
+            x = dec._attn_out(p, x, attn, aid)
         return dec._final_logits(params, x)
 
-    def _prefill_paged(self, prompt, table_row, *, base, keep_from):
+    def _prefill_paged(self, prompt, table_row, *, base, keep_from,
+                       adapter_id=0):
         """Chunked POOL-NATIVE prefill: run `prompt` [1, T0] (on the
         device) through the multi-token step in prefill_chunk-token
         chunks, writing K/V straight into the allocated blocks through
@@ -1102,6 +1418,8 @@ class PagedDecodeServer:
         dev = self.device
         tab = self._upload(table_row[None, :])
         kf = torch.full((1,), keep_from, dtype=torch.int32, device=dev)
+        adapter = (torch.full((1,), adapter_id, dtype=torch.int32,
+                              device=dev) if self.multi_lora else None)
         limit = self.MB * self.bs
         logits_row = None
         start = 0
@@ -1123,6 +1441,7 @@ class PagedDecodeServer:
                 torch.full((1,), real, dtype=torch.int32, device=dev),
                 kf,
                 nb_live,
+                adapter,
             )
             self.prefill_chunks += 1
             self._account_kv_rows_prefill(pos0, pad_t)
@@ -1156,10 +1475,59 @@ class PagedDecodeServer:
             rows_read = (hi - lo + 1) * bs
         self._account_kv_rows(rows_read, baseline)
 
+    def _rows_read_multi(self, posm, t: int, lo_first: bool) -> int:
+        """Pool rows one [B, T] multi-token step read: row b attends
+        through posm[b] + t - 1. The window's edge is the first row's
+        (`lo_first`, the speculative verify's accounting) or the last
+        row's (a mixed tick's), as in the JAX package. Derived from
+        max_len and live spans, never pool size."""
+        bs = self.bs
+        if self.attention == "gathered":
+            return self.B * self.MB * bs
+        if self.attention == "blockwise":
+            return self.B * ((int(posm.max()) + t - 1) // bs + 1) * bs
+        win = self.dec.cfg.window
+        hi = (posm + t - 1) // bs
+        if win is None:
+            lo = np.zeros_like(posm)
+        else:
+            edge = posm - win + 1 if lo_first else posm + t - win
+            lo = np.maximum(edge, 0) // bs
+        return int(np.sum(hi - lo + 1)) * bs
+
+    def _rows_read_decode(self, posm) -> int:
+        """Pool rows one T=1 step read over the positions `posm` (idle
+        and frozen rows at 0): "blockwise" every slot to the batch's
+        deepest live block, "pallas" each slot its own live span."""
+        bs = self.bs
+        if self.attention == "gathered":
+            return self.B * self.MB * bs
+        if self.attention == "blockwise":
+            return self.B * (int(max(posm)) // bs + 1) * bs
+        spans = (_decode_lo_hi(int(p), bs, self.dec.cfg.window)
+                 for p in posm)
+        return sum(hi - lo + 1 for lo, hi in spans) * bs
+
+    def _account_kv_rows_window(self, posm, emitted) -> None:
+        """A window's rows, sub-step by sub-step: a row active at
+        sub-step t (t < emitted[i]) reads at depth posm[i] + t; frozen
+        and idle rows sit at position 0, as the window's masking puts
+        them."""
+        K = self.decode_window
+        pos_l = [int(p) for p in posm]
+        rows_read = sum(
+            self._rows_read_decode(
+                [p + t if t < e else 0 for p, e in zip(pos_l, emitted)]
+            )
+            for t in range(K)
+        )
+        self._account_kv_rows(rows_read, K * self.B * self.MB * self.bs)
+
     def _note_prefill_stall(self, n_dispatches: int) -> None:
-        """Account admission-prefill dispatches: each one issued while a
-        decode slot is live is a stall tick."""
-        if any(s is not None for s in self.slots):
+        """Account admission-prefill dispatches of the serialized path:
+        each one issued while a decode slot (not a prefill seat) is live
+        is a stall tick."""
+        if any(s is not None and "prefill" not in s for s in self.slots):
             self.prefill_stall_ticks_n += n_dispatches
             self.obs.prefill_stall_ticks.inc(n_dispatches)
         self._update_stall_fraction()
@@ -1175,6 +1543,22 @@ class PagedDecodeServer:
     def _update_pool_gauges(self) -> None:
         self.obs.pool_blocks_free.set(len(self.free))
         self.obs.pool_blocks_used.set(self.blocks_in_use)
+
+    def _note_dispatch(self, n_live: int, n_dispatches: int = 1,
+                       stall: bool = True) -> None:
+        """A decode dispatch's tick, dispatch and inter-token accounting;
+        `stall` republishes the stall fraction (a speculative round does
+        not, as in the JAX package)."""
+        self.ticks += 1
+        self.dispatches += n_dispatches
+        now = time.perf_counter()
+        if self._last_tick_t is not None and n_live:
+            self.obs.itl.observe(now - self._last_tick_t, n_live)
+        self._last_tick_t = now
+        self.obs.ticks.inc()
+        self.obs.host_dispatches.inc(n_dispatches)
+        if stall:
+            self._update_stall_fraction()
 
     # -- the spill tier ---------------------------------------------------
 
@@ -1236,7 +1620,7 @@ class PagedDecodeServer:
 
     # -- admission --------------------------------------------------------
 
-    def _flat_prefill(self, small, suffix, base):
+    def _flat_prefill(self, small, suffix, base, adapter_id=0):
         """Contiguous prefill of `suffix` [1, ts] at offset `base` on the
         flat lane `small`, bucketed to a power of two and capped inside
         max_len, as the flat server's admission: returns (the last real
@@ -1245,14 +1629,52 @@ class PagedDecodeServer:
         pad = 1 << (ts - 1).bit_length()
         pad = min(pad, self.dec.cfg.max_len - base)
         padded = torch.cat([suffix, suffix.new_zeros((1, pad - ts))], dim=1)
+        if self.multi_lora:
+            small = {**small, "adapter": torch.full(
+                (1,), adapter_id, dtype=torch.int32, device=self.device)}
         logits, small = self.dec.make_step(
             donate=self._prefix_cache is None
         )(self.params, small, padded)
         self._note_prefill_stall(1)
         return logits[:, ts - 1, :], small
 
-    def _admit_radix(self, i, rid, prompt, prompt_dev, steps, samp,
-                     stop_seqs) -> bool:
+    def _walk(self, tokens: np.ndarray, n_full: int, total: int):
+        """A radix admission's block plan: the walk's leading hits
+        (spill revivals included), the chain keys and own-token bytes of
+        every full prompt block, and `total - hits` fresh blocks (parked
+        blocks evicted only under pressure). None, with the hits' refs
+        rolled back, when even eviction cannot cover the need."""
+        bs = self.bs
+        hits, keys, toks = self.radix.walk(tokens, n_full, bs)
+        if self._spill is not None and len(hits) < n_full:
+            hits = self._revive_spilled(hits, keys, toks, n_full)
+        need = total - len(hits)
+        if need > len(self.free):
+            self.free.extend(self.radix.evict(need - len(self.free)))
+        if need > len(self.free):
+            for blk in hits:
+                self.radix.release(blk)
+            return None
+        own = [self.free.pop() for _ in range(need)]
+        self.obs.requests_admitted.inc()
+        self.obs.prefix_hits.inc(len(hits))
+        self.obs.prefix_misses.inc(n_full - len(hits))
+        return hits, keys, toks, own
+
+    def _register(self, table_row, keys, toks, lo: int, hi: int) -> list:
+        """Publish a request's fresh full prompt blocks lo..hi-1 in the
+        radix cache (every row written); returns them."""
+        out = []
+        for j in range(lo, hi):
+            blk = int(table_row[j])
+            displaced = self.radix.register(keys[j], toks[j], blk)
+            if displaced is not None:
+                self.free.append(displaced)
+            out.append(blk)
+        return out
+
+    def _admit_radix(self, i, rid, prompt, prompt_dev, steps, adapter_id,
+                     samp, stop_seqs, cid) -> bool:
         """Admission through the PrefixBlockCache: walk leading full
         prompt blocks for hits (refcount++), allocate the rest (evicting
         parked blocks only under pressure), prefill ONLY the suffix,
@@ -1263,20 +1685,10 @@ class PagedDecodeServer:
         t0 = prompt.shape[1]
         n_full = t0 // bs
         total = -(-(t0 + steps) // bs)
-        hits, keys, toks = self.radix.walk(prompt[0].numpy(), n_full, bs)
-        if self._spill is not None and len(hits) < n_full:
-            hits = self._revive_spilled(hits, keys, toks, n_full)
-        need = total - len(hits)
-        if need > len(self.free):
-            self.free.extend(self.radix.evict(need - len(self.free)))
-        if need > len(self.free):
-            for blk in hits:
-                self.radix.release(blk)
+        plan = self._walk(prompt[0].numpy(), n_full, total)
+        if plan is None:
             return False
-        own = [self.free.pop() for _ in range(need)]
-        self.obs.requests_admitted.inc()
-        self.obs.prefix_hits.inc(len(hits))
-        self.obs.prefix_misses.inc(n_full - len(hits))
+        hits, keys, toks, own = plan
         self.obs.queue_wait.observe(
             time.perf_counter() - self._submit_t[rid]
         )
@@ -1292,7 +1704,8 @@ class PagedDecodeServer:
             # rows scatter into this request's blocks chunk by chunk,
             # and rows below keep_from (hit rows) redirect to trash.
             logits_row = self._prefill_paged(
-                suffix, table_row, base=suffix_pos, keep_from=len(hits) * bs
+                suffix, table_row, base=suffix_pos, keep_from=len(hits) * bs,
+                adapter_id=adapter_id,
             )
         else:
             if hits:
@@ -1305,33 +1718,129 @@ class PagedDecodeServer:
                 }
             else:
                 small = self.dec.init_cache(1)
-            logits_row, small = self._flat_prefill(small, suffix, suffix_pos)
+            logits_row, small = self._flat_prefill(small, suffix, suffix_pos,
+                                                   adapter_id)
             # Hit blocks are never rewritten: their recomputed rows are
             # equivalent, not guaranteed identical, and they belong to
             # every holder of the chain.
             self._insert(small["k"], small["v"], table_row, len(hits), total,
                          valid=t0)
-        for j in range(len(hits), n_full):
-            displaced = self.radix.register(keys[j], toks[j],
-                                            int(table_row[j]))
-            if displaced is not None:
-                self.free.append(displaced)
-        shared = hits + [int(table_row[j]) for j in range(len(hits), n_full)]
+        shared = hits + self._register(table_row, keys, toks, len(hits),
+                                       n_full)
         owned = [int(table_row[j]) for j in range(n_full, total)]
         self.prefill_tokens_saved += suffix_pos
         self.blocks_peak = max(self.blocks_peak, self.blocks_in_use)
         self._seat(i, rid, prompt_dev, steps, samp, stop_seqs, table_row,
-                   t0, logits_row, owned, shared)
+                   t0, logits_row, owned, shared, adapter_id=adapter_id,
+                   cid=cid)
         return True
 
-    def _admit(self) -> None:
-        for i in range(self.B):
-            if self.slots[i] is not None or not self.pending:
+    def _blocks_to_lane(self, blocks) -> torch.Tensor:
+        """[L, n, Hkv, bs, Dh] host block stack (a tensor or a numpy
+        array) -> the flat [L, 1, Hkv, n * bs, Dh] lane `_insert` takes,
+        on the device in the compute dtype."""
+        t = torch.as_tensor(np.asarray(blocks) if not isinstance(
+            blocks, torch.Tensor) else blocks)
+        L, n, hkv, bs, dh = t.shape
+        lane = t.transpose(1, 2).reshape(L, hkv, n * bs, dh)[:, None]
+        lane = lane.to(self.dec.compute_dtype)
+        if self.device.type == "cuda":
+            return lane.pin_memory().to(self.device, non_blocking=True)
+        return lane.to(self.device)
+
+    def _admit_prefilled(self, i: int, rid: int, entry: dict) -> bool:
+        """Seat a request whose KV arrived from a prefill worker: no
+        prefill step runs here. The delivered blocks scatter straight
+        into the allocated pool blocks (radix HIT blocks never
+        rewritten), the first token is drawn from the shipped logits
+        row, and fresh full prompt blocks register in the radix cache
+        like locally prefilled ones. False when the pool cannot cover
+        the request even after eviction (it stays pending)."""
+        prompt = entry["prompt"]
+        steps = entry["steps"]
+        samp = entry["samp"]
+        k_blocks, v_blocks, first_logits = entry["kv"]
+        bs = self.bs
+        t0 = prompt.shape[1]
+        n_full = t0 // bs
+        total = -(-(t0 + steps) // bs)
+        if self.radix is not None:
+            plan = self._walk(prompt[0].astype(np.int64), n_full, total)
+            if plan is None:
+                return False
+            hits, keys, toks, own = plan
+        else:
+            need = total
+            if need > len(self.free):
+                return False
+            hits = []
+            own = [self.free.pop() for _ in range(need)]
+            self.obs.requests_admitted.inc()
+        self.obs.queue_wait.observe(
+            time.perf_counter() - self._submit_t[rid]
+        )
+        table_row = np.zeros((self.MB,), np.int32)
+        table_row[:total] = hits + own
+        self._insert(self._blocks_to_lane(k_blocks),
+                     self._blocks_to_lane(v_blocks), table_row, len(hits),
+                     total, valid=t0)
+        if self.radix is not None:
+            shared = hits + self._register(table_row, keys, toks, len(hits),
+                                           n_full)
+            owned = [int(table_row[j]) for j in range(n_full, total)]
+            self.blocks_peak = max(self.blocks_peak, self.blocks_in_use)
+        else:
+            shared = None
+            owned = own
+            self.blocks_peak = max(self.blocks_peak,
+                                   self.blocks_in_use + total)
+        lrow = torch.as_tensor(np.asarray(first_logits) if not isinstance(
+            first_logits, torch.Tensor) else first_logits)
+        lrow = lrow.to(self.device, torch.float32)
+        prompt_dev = torch.from_numpy(prompt).to(self.device)
+        self._seat(i, rid, prompt_dev, steps, samp, entry["stop"], table_row,
+                   t0, lrow, owned, shared, cid=entry["cid"])
+        return True
+
+    def _admit_prefilled_ready(self, i: int) -> bool | None:
+        """Seat the oldest DELIVERED prefilled request in slot i. True =
+        seated; False = one was ready but the pool cannot cover it (wait
+        for a finisher); None = nothing deliverable now."""
+        for rid in self._prefilled_order:
+            entry = self.pending_prefilled[rid]
+            if entry["kv"] is None:
                 continue
-            rid, prompt, prompt_dev, steps, samp, stop_seqs = self.pending[0]
+            t0 = time.perf_counter()
+            seated = self._admit_prefilled(i, rid, entry)
+            self.prefilled_admit_s += time.perf_counter() - t0
+            if not seated:
+                return False
+            self._prefilled_order.remove(rid)
+            del self.pending_prefilled[rid]
+            return True
+        return None
+
+    def _admit(self) -> None:
+        if self.prefill_budget is not None:
+            # Mixed mode: new prompts take SEATS and prefill inside the
+            # decode dispatches; the serialized path below never runs.
+            return self._admit_mixed()
+        for i in range(self.B):
+            if self.slots[i] is not None:
+                continue
+            # Externally prefilled requests seat first: their compute is
+            # already spent, so every tick they wait is added TTFT.
+            seated = self._admit_prefilled_ready(i)
+            if seated:
+                continue
+            if seated is False:
+                return  # pool exhausted even after eviction
+            if not self.pending:
+                continue
+            (rid, prompt, prompt_dev, steps, adapter_id, samp, stop_seqs,
+             cid) = self.pending[0]
             if self.radix is not None:
-                if not self._admit_radix(i, rid, prompt, prompt_dev, steps,
-                                         samp, stop_seqs):
+                if not self._admit_radix(i, *self.pending[0]):
                     return  # pool exhausted even after eviction
                 self.pending.popleft()
                 continue
@@ -1357,7 +1866,8 @@ class PagedDecodeServer:
                 # A global shared prefix (base=P) is read from its pool
                 # blocks by the block-table attention.
                 logits_row = self._prefill_paged(
-                    prompt_dev, table_row, base=P, keep_from=0
+                    prompt_dev, table_row, base=P, keep_from=0,
+                    adapter_id=adapter_id,
                 )
             else:
                 # Contiguous prefill through the flat decoder, then page
@@ -1369,24 +1879,52 @@ class PagedDecodeServer:
                     if self._prefix_cache is None
                     else self._prefix_cache
                 )
-                logits_row, small = self._flat_prefill(small, prompt_dev, P)
+                logits_row, small = self._flat_prefill(small, prompt_dev, P,
+                                                       adapter_id)
                 self._insert(small["k"], small["v"], table_row, n_shared,
                              n_shared + need)
             self._seat(i, rid, prompt_dev, steps, samp, stop_seqs, table_row,
-                       P + t0, logits_row, blocks, None)
+                       P + t0, logits_row, blocks, None,
+                       adapter_id=adapter_id, cid=cid)
+
+    def _first_token(self, i, samp, lrow, dtype, cid):
+        """Admission's first generated token: a constrained slot masks
+        the prefill logits row with its DFA's start-state row before the
+        argmax or first draw, then installs the advanced state (a device
+        scalar: no sync beyond the admission's own)."""
+        if cid:
+            # Submit refused a dead start state, so no row is dead here.
+            cidv = torch.full((1,), cid, dtype=torch.int32,
+                              device=self.device)
+            lrow, _, settle, frac = crt.constrained_pick(
+                self._ctrans, self._cacc, lrow, cidv, torch.zeros_like(cidv),
+                torch.ones((1,), dtype=torch.bool, device=self.device),
+                self.eos_id,
+            )
+        first = self._sampler.admit_first(i, samp, lrow, dtype)
+        if cid:
+            _, state = settle(first[0].long())
+            self._sampler.admit_constraint(i, cid, state[0])
+            self.obs.constrain_masked_frac.observe(float(frac[0]))
+            self.obs.constrained_tokens.inc()
+            self.constrained_tokens_n += 1
+        return first
 
     def _seat(self, i, rid, prompt_dev, steps, samp, stop_seqs, table_row,
-              pos_val, logits_row, owned, shared) -> None:
+              pos_val, logits_row, owned, shared, *, adapter_id=0,
+              cid=0) -> None:
         """Install an admitted request in slot i: its first token, its
-        table and position (host and device), and the eos/streaming/
-        finish bookkeeping."""
-        first = self._sampler.admit_first(i, samp, logits_row,
-                                          prompt_dev.dtype)
+        table, position and adapter (host and device), its draft lane
+        (speculation), and the eos/streaming/finish bookkeeping."""
+        first = self._first_token(i, samp, logits_row, prompt_dev.dtype, cid)
         self.tables[i] = table_row
         self.pos[i] = pos_val
+        self.adapter[i] = adapter_id
         self._tables_dev[i] = self._upload(table_row)
         self._pos_dev[i] = pos_val
         self._active[i] = 1
+        if self.multi_lora:
+            self._adapter_dev[i] = adapter_id
         slot = {
             "rid": rid,
             "remaining": steps - 1,
@@ -1395,10 +1933,17 @@ class PagedDecodeServer:
             "blocks": owned,
             "sampling": samp is not None,
             "stop": matcher_or_none(stop_seqs),
+            "cid": cid,
         }
         if shared is not None:
             slot["shared"] = shared
         self.slots[i] = slot
+        if self._draft is not None and samp is None:
+            # The first token is the slot's first pending draft token;
+            # the draft lane prefills the FULL prompt (radix hits are a
+            # pool concept the draft does not share).
+            slot["pend"] = [int(first[0, 0])]
+            self._draft.admit(i, prompt_dev)
         self._feed[i, 0] = first[0, 0]
         # ttft spans queue + prefill (popped here, the drain point).
         self.obs.ttft.observe(time.perf_counter() - self._submit_t.pop(rid))
@@ -1410,46 +1955,331 @@ class PagedDecodeServer:
         )
         self._emit_token(i, slot, int(first[0, 0]) if need_host else None)
 
+    # -- mixed ticks (prefill_budget=) --------------------------------------
+
+    def _seat_slots(self) -> list[int]:
+        """Slots holding a PREFILL SEAT (admitted, mid-prefill, not yet
+        decoding), in admission order."""
+        return [i for i, s in enumerate(self.slots)
+                if s is not None and "prefill" in s]
+
+    def _admit_mixed(self) -> None:
+        """Seat-only admission for `prefill_budget=` servers: a new
+        request claims a free slot and its blocks at once, but no
+        prefill runs here; its prompt tokens ride inside later mixed
+        dispatches (`_tick_mixed`) until the last chunk lands and the
+        seat flips to decoding (`_flip_seat`). Externally prefilled
+        requests bypass the budget: their compute is already spent."""
+        for i in range(self.B):
+            if self.slots[i] is not None:
+                continue
+            seated = self._admit_prefilled_ready(i)
+            if seated:
+                continue
+            if seated is False:
+                return  # pool exhausted even after eviction
+            if not self.pending:
+                continue
+            if len(self._seat_slots()) >= self.prefill_lookahead:
+                # Bounded lookahead keeps admission near-FIFO.
+                return
+            seat = (self._seat_radix if self.radix is not None
+                    else self._seat_plain)
+            if not seat(i, *self.pending[0]):
+                return  # pool exhausted: wait for a finisher
+            self.pending.popleft()
+
+    def _seat_common(self, i, rid, prompt_dev, steps, adapter_id, samp,
+                     stop_seqs, cid, seat, table_row, blocks, shared,
+                     meta_extra=None) -> None:
+        """Install a mid-prefill seat: its table (host and device) and
+        base position. Sampling, stop and constraint state install at
+        flip time, where `_seat` reseeds the sampler row, so sampled
+        streams match the stall path draw for draw."""
+        self.blocks_peak = max(self.blocks_peak, self.blocks_in_use)
+        self.adapter[i] = adapter_id
+        if self.multi_lora:
+            self._adapter_dev[i] = adapter_id
+        self.tables[i] = table_row
+        self._tables_dev[i] = self._upload(table_row)
+        self.pos[i] = seat.base
+        meta = {"prompt_dev": prompt_dev, "steps": steps, "samp": samp,
+                "stop": stop_seqs, "cid": cid, **(meta_extra or {})}
+        self.slots[i] = {
+            "rid": rid,
+            "prefill": seat,
+            "meta": meta,
+            "blocks": blocks,
+            "shared": shared,
+            "sampling": samp is not None,
+            "stop": None,
+            "cid": 0,
+        }
+        self._update_pool_gauges()
+
+    def _seat_plain(self, i, rid, prompt, prompt_dev, steps, adapter_id,
+                    samp, stop_seqs, cid) -> bool:
+        """Seat a request on a non-radix server: its blocks (plus the
+        global shared prefix's), the whole prompt scheduled at
+        base=prefix_len. False = the pool cannot cover it yet."""
+        t0 = prompt.shape[1]
+        need = self._own_need(t0, steps)
+        if need > len(self.free):
+            return False
+        blocks = [self.free.pop() for _ in range(need)]
+        self.obs.requests_admitted.inc()
+        self.obs.prefill_tokens.inc(t0)
+        self.obs.queue_wait.observe(
+            time.perf_counter() - self._submit_t[rid]
+        )
+        n_shared = len(self.shared_blocks)
+        table_row = np.zeros((self.MB,), np.int32)
+        table_row[:n_shared] = self.shared_blocks
+        table_row[n_shared : n_shared + need] = blocks
+        seat = PrefillSeat(rid=rid, tokens=prompt[0].numpy(),
+                           base=self.prefix_len, keep_from=0)
+        self._seat_common(i, rid, prompt_dev, steps, adapter_id, samp,
+                          stop_seqs, cid, seat, table_row, blocks, [])
+        return True
+
+    def _seat_radix(self, i, rid, prompt, prompt_dev, steps, adapter_id,
+                    samp, stop_seqs, cid) -> bool:
+        """Seat a request through the PrefixBlockCache: its hits pinned
+        (refcount++) while the seat prefills, the rest allocated, and
+        ONLY the non-shared suffix scheduled. Its own full prompt blocks
+        register at flip time, once every row is written."""
+        bs = self.bs
+        t0 = prompt.shape[1]
+        tokens = prompt[0].numpy()
+        n_full = t0 // bs
+        total = -(-(t0 + steps) // bs)
+        plan = self._walk(tokens, n_full, total)
+        if plan is None:
+            return False
+        hits, keys, toks, own = plan
+        self.obs.queue_wait.observe(
+            time.perf_counter() - self._submit_t[rid]
+        )
+        table_row = np.zeros((self.MB,), np.int32)
+        table_row[:total] = hits + own
+        # Reuse at most t0 - 1 cached positions: the LAST prompt token
+        # runs so that its logits seed the first generated token.
+        suffix_pos = min(len(hits) * bs, t0 - 1)
+        self.obs.prefill_tokens.inc(t0 - suffix_pos)
+        self.prefill_tokens_saved += suffix_pos
+        seat = PrefillSeat(rid=rid, tokens=tokens[suffix_pos:],
+                           base=suffix_pos, keep_from=len(hits) * bs)
+        self._seat_common(
+            i, rid, prompt_dev, steps, adapter_id, samp, stop_seqs, cid,
+            seat, table_row, own, list(hits),
+            {"keys": keys, "toks": toks, "n_full": n_full,
+             "n_hits": len(hits)},
+        )
+        return True
+
+    def _flip_seat(self, i: int, slot: dict, lrow) -> None:
+        """The seat's last chunk just landed: its final logits row
+        `lrow` [1, V] (the row the stall path draws from at admission)
+        seeds the first generated token, and the seat becomes a decoding
+        slot. A radix server publishes the request's fresh full prompt
+        blocks now that every row is written."""
+        meta = slot.pop("meta")
+        del slot["prefill"]
+        if self.radix is not None:
+            fresh = []
+            for j in range(meta["n_hits"], meta["n_full"]):
+                if meta["keys"][j] in self.radix.by_key:
+                    # A concurrent seat with the same prefix flipped
+                    # first and published this key: our duplicate block
+                    # stays privately owned and frees at finish.
+                    continue
+                fresh += self._register(self.tables[i], meta["keys"],
+                                        meta["toks"], j, j + 1)
+            slot["shared"] = slot["shared"] + fresh
+            slot["blocks"] = [b for b in slot["blocks"] if b not in fresh]
+        self._seat(i, slot["rid"], meta["prompt_dev"], meta["steps"],
+                   meta["samp"], meta["stop"], self.tables[i].copy(),
+                   int(self.pos[i]), lrow, slot["blocks"], slot["shared"],
+                   adapter_id=int(self.adapter[i]), cid=meta["cid"])
+
+    def _tick_mixed(self) -> None:
+        """One MIXED dispatch: every live decode row advances exactly one
+        token AND up to `prefill_budget` prompt tokens of the seats ride
+        along, in one multi-token step (`_mt`, through
+        paged_flash_prefill). It runs eagerly: its T changes from tick to
+        tick (pow2 buckets). Decode rows feed their last token at pos
+        with n_keep 1; seat rows their next chunk at base + done; idle
+        rows keep nothing and write trash. Sampling, eos and stop apply
+        to decode rows only; a seat's logits are used once, when its
+        last chunk lands and it flips."""
+        seats = self._seat_slots()
+        decode_live = [s is not None and "prefill" not in s
+                       for s in self.slots]
+        limit = self.MB * self.bs
+        # The gathered step writes T rows at EVERY row's position, so T
+        # is bounded by the deepest live row (submit's spec headroom
+        # and _prefill_paged's tail cap keep the same invariant).
+        max_pos = max(int(self.pos[i]) for i, s in enumerate(self.slots)
+                      if s is not None)
+        chunk_cap = (self.prefill_chunk if self.prefill_chunk is not None
+                     else limit)
+        T, ns = plan_mixed_tick(
+            [self.slots[i]["prefill"].remaining for i in seats],
+            self.prefill_budget, chunk_cap, limit - max_pos,
+        )
+        ids_np = np.zeros((self.B, T), np.int32)
+        n_keep = np.zeros((self.B,), np.int32)
+        keep_from = np.zeros((self.B,), np.int32)
+        posm = np.zeros((self.B,), np.int32)
+        emit_idx = np.zeros((self.B,), np.int32)
+        for i in range(self.B):
+            if decode_live[i]:
+                n_keep[i] = 1
+                posm[i] = self.pos[i]
+        planned: list[tuple[int, int]] = []
+        total_new = 0
+        for i, n in zip(seats, ns):
+            if n <= 0:
+                continue  # budget exhausted: the seat idles (trash)
+            seat = self.slots[i]["prefill"]
+            posm[i] = seat.pos
+            keep_from[i] = seat.keep_from
+            ids_np[i, :n] = seat.take(n)
+            n_keep[i] = n
+            emit_idx[i] = n - 1
+            planned.append((i, n))
+            total_new += n
+        # Decode rows' input token is the device feed, merged on the
+        # device so the host never reads it.
+        ids = self._upload(ids_np)
+        dec_mask = self._upload(decode_live).bool()
+        ids[:, :1] = torch.where(dec_mask[:, None], self._feed, ids[:, :1])
+        nb_live = min((int(posm.max()) + T - 1) // self.bs + 1, self.MB)
+        logits = self._mt(self._tables_dev, self._upload(posm), ids,
+                          self._upload(n_keep), self._upload(keep_from),
+                          nb_live, self._adapter_dev if self.multi_lora
+                          else None)
+        self.mixed_ticks_n += 1
+        n_live = sum(decode_live)
+        self._note_dispatch(n_live)
+        self.obs.mixed_prefill_tokens.inc(total_new)
+        self.mixed_prefill_tokens_n += total_new
+        self._account_kv_rows(self._rows_read_multi(posm, T, False),
+                              self.B * self.MB * self.bs)
+        # Each row's emit position: 0 for decode rows, the chunk's last
+        # real token for seats (used only when the seat flips).
+        ll = logits[self._rows, self._upload(emit_idx).long()]
+        ll_raw = ll
+        sm = self._sampler
+        constrained = any(sm.row_constrained)
+        if constrained:
+            ll, dead, settle, mfrac = crt.constrained_pick(
+                self._ctrans, self._cacc, ll, sm.cid, sm.cstate, dec_mask,
+                self.eos_id,
+            )
+        # Seat rows never steer the draw-vs-argmax choice: their sampler
+        # rows install at flip.
+        if any(s is not None and "prefill" not in s and s["sampling"]
+               for s in self.slots):
+            nxt = sm.draw(ll)
+        else:
+            nxt = torch.argmax(ll, dim=-1)
+        if constrained:
+            nxt, state = settle(nxt)
+            sm.cstate.copy_(state)
+        self._feed.copy_(nxt[:, None])
+        # Decode rows advance one row on the device (seats are not
+        # active; a flip installs its own position).
+        self._pos_dev += self._active
+        need_host = (
+            self.eos_id is not None
+            or self.on_token is not None
+            or any(s is not None and s.get("stop") is not None
+                   for s in self.slots)
+        )
+        host_nxt = nxt.tolist() if need_host else None
+        if constrained:
+            dead_host = dead.tolist()
+            mfrac_host = mfrac.tolist()
+        accepted = 0
+        for i, slot in enumerate(self.slots):
+            if slot is None or not decode_live[i]:
+                continue
+            if constrained and slot["cid"]:
+                if dead_host[i]:
+                    self._dead_end(i, slot)
+                    continue
+                self.constrained_tokens_n += 1
+                self.obs.constrained_tokens.inc()
+                self.obs.constrain_masked_frac.observe(mfrac_host[i])
+            tok = nxt[i].reshape(1, 1).to(slot["last"].dtype)
+            slot["last"] = tok
+            slot["toks"].append(tok)
+            slot["remaining"] -= 1
+            self.pos[i] += 1
+            accepted += 1
+            self._emit_token(i, slot,
+                             host_nxt[i] if host_nxt is not None else None)
+        # Seats advance after the decode drain; a seat whose last chunk
+        # just landed flips to decoding this very tick.
+        for i, _ in planned:
+            slot = self.slots[i]
+            seat = slot["prefill"]
+            self.pos[i] = seat.pos
+            if seat.finished:
+                self._flip_seat(i, slot, ll_raw[i : i + 1])
+                accepted += 1
+        self.obs.tokens_per_dispatch.set(float(accepted))
+        self.window_tokens += accepted
+
     # -- the tick ---------------------------------------------------------
 
     def _tick(self) -> None:
+        if self.spec_k:
+            if self.decode_window > 1:
+                return self._tick_spec_window()
+            return self._tick_spec()
+        if self._seat_slots():
+            # Mixed mode engages only while a seat is mid-prefill;
+            # pure-decode stretches run the plain tick or window.
+            return self._tick_mixed()
+        if self.decode_window > 1:
+            return self._tick_window()
         live = [s is not None for s in self.slots]
         if not any(live):
             return
         posm = np.where(live, self.pos, 0)
         nb_live = int(posm.max()) // self.bs + 1
         logits = self._step(nb_live)
-        self.ticks += 1
-        self.dispatches += 1
         n_live = sum(live)
-        now = time.perf_counter()
-        if self._last_tick_t is not None:
-            self.obs.itl.observe(now - self._last_tick_t, n_live)
-        self._last_tick_t = now
-        self.obs.ticks.inc()
-        self.obs.host_dispatches.inc()
-        self._update_stall_fraction()
+        self._note_dispatch(n_live)
         self.obs.tokens_per_dispatch.set(float(n_live))
         self.window_tokens += n_live
         # K/V rows the attention path read this tick vs the gathered
-        # baseline: "blockwise" reads every slot to the batch's deepest
-        # live block, "pallas" each slot's own live span.
-        baseline = self.B * self.MB * self.bs
-        if self.attention == "gathered":
-            rows_read = baseline
-        elif self.attention == "blockwise":
-            rows_read = self.B * nb_live * self.bs
-        else:  # pallas
-            spans = (_decode_lo_hi(int(p), self.bs, self.dec.cfg.window)
-                     for p in posm)
-            rows_read = sum(hi - lo + 1 for lo, hi in spans) * self.bs
-        self._account_kv_rows(rows_read, baseline)
+        # baseline.
+        self._account_kv_rows(self._rows_read_decode(posm),
+                              self.B * self.MB * self.bs)
         ll = logits[:, -1, :]
+        sm = self._sampler
+        # Constrained rows: the DFA mask folds into the logits before the
+        # argmax or draw and the states advance after, guarded by the
+        # host mirror (unconstrained serving runs the ops it always ran).
+        # A dead end (hand-built DFAs only) is forced to eos; the loop
+        # below drops the forced token and records the error.
+        constrained = any(sm.row_constrained)
+        if constrained:
+            ll, dead, settle, mfrac = crt.constrained_pick(
+                self._ctrans, self._cacc, ll, sm.cid, sm.cstate,
+                self._active != 0, self.eos_id,
+            )
         if any(s is not None and s["sampling"] for s in self.slots):
-            nxt = self._sampler.draw(ll)
+            nxt = sm.draw(ll)
         else:
             nxt = torch.argmax(ll, dim=-1)
-        self._feed = nxt[:, None].to(torch.int32)
+        if constrained:
+            nxt, state = settle(nxt)
+            sm.cstate.copy_(state)
+        self._feed.copy_(nxt[:, None])
         # Live slots advance one row, on the device; idle ones stay at 0.
         self._pos_dev += self._active
         # One device->host transfer per tick, and only for a consumer of
@@ -1461,9 +2291,21 @@ class PagedDecodeServer:
                    for s in self.slots)
         )
         host_nxt = nxt.tolist() if need_host else None
+        if constrained:
+            # One batched transfer of the dead-end flags and masked
+            # fractions, only while a constrained row is live.
+            dead_host = dead.tolist()
+            mfrac_host = mfrac.tolist()
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
+            if constrained and slot["cid"]:
+                if dead_host[i]:
+                    self._dead_end(i, slot)
+                    continue
+                self.constrained_tokens_n += 1
+                self.obs.constrained_tokens.inc()
+                self.obs.constrain_masked_frac.observe(mfrac_host[i])
             tok = nxt[i].reshape(1, 1).to(slot["last"].dtype)
             slot["last"] = tok
             slot["toks"].append(tok)
@@ -1471,6 +2313,820 @@ class PagedDecodeServer:
             self.pos[i] += 1
             self._emit_token(i, slot,
                              host_nxt[i] if host_nxt is not None else None)
+
+    def _dead_end(self, i: int, slot: dict) -> None:
+        """A constrained row reached a DFA state that admits nothing: the
+        forced eos never enters the output, the request ends at its last
+        admissible token with an error, not a hang."""
+        self.errors[slot["rid"]] = _DEAD_END
+        self.constraint_dead_ends_n += 1
+        self.obs.constrain_dead_ends.inc()
+        slot["remaining"] = 0
+        self._finish(i)
+
+    # -- decode windows -----------------------------------------------------
+
+    def _window_state(self) -> dict:
+        """The windows' static buffers, made once: each row's budget
+        (uploaded before each window) and token count, the alive mask
+        the window freezes in place, the [B, K] tokens, the [K, B, V]
+        uniforms, and the constrained outputs (dead-end flags, [B, K]
+        masked fractions). A speculative window adds its round inputs
+        and per-round outputs (`_spec_state`)."""
+        if self._wbuf is None:
+            B, K, dev = self.B, self.decode_window, self.device
+            V = self.dec.cfg.vocab_size
+            self._wbuf = {
+                "budget": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "n": torch.zeros((B,), dtype=torch.int32, device=dev),
+                "alive": torch.zeros((B,), dtype=torch.bool, device=dev),
+                "toks": torch.zeros((B, K), dtype=torch.int64, device=dev),
+                "u": torch.full((K, B, V), 0.5, device=dev),
+                "died": torch.zeros((B,), dtype=torch.bool, device=dev),
+                "fracs": torch.zeros((B, K), device=dev),
+            }
+        return self._wbuf
+
+    def _window_body(self, mode: str, constrained: bool):
+        """The K sub-steps of one paged window over the static buffers,
+        in place: a closure the CPU runs eagerly and a CUDA server
+        captures. The alive mask starts as the slots' active mask; each
+        sub-step zeroes frozen rows' position and table row (their writes
+        land in trash block 0 row 0, the idle-slot invariant), runs the
+        T=1 paged step, folds the constraint (constrained windows), draws
+        in `mode`, counts the token against the row's budget, and freezes
+        rows that hit eos or their budget for the rest of the window.
+        Live rows' positions advance on the device."""
+        K, eos, mb = self.decode_window, self.eos_id, self.MB
+        w = self._window_state()
+        sm = self._sampler
+        tables, pos, feed = self._tables_dev, self._pos_dev, self._feed
+        alive, n = w["alive"], w["n"]
+
+        def body():
+            n.zero_()
+            alive.copy_(self._active != 0)
+            if constrained:
+                w["died"].zero_()
+            for s in range(K):
+                pos_eff = torch.where(alive, pos, 0)
+                tab_eff = torch.where(alive[:, None], tables, 0)
+                ll = self._decode(tab_eff, pos_eff, feed, mb)[:, -1, :]
+                if constrained:
+                    ll, dead, settle, frac = crt.constrained_pick(
+                        self._ctrans, self._cacc, ll, sm.cid, sm.cstate,
+                        alive, eos,
+                    )
+                nxt = self._pick(mode, ll, w["u"][s])
+                if constrained:
+                    nxt, state = settle(nxt)
+                    sm.cstate.copy_(state)
+                    w["fracs"][:, s].copy_(frac)
+                    w["died"].logical_or_(dead)
+                adv = alive.to(torch.int32)
+                pos.add_(adv)
+                n.add_(adv)
+                still = alive & (n < w["budget"])
+                if eos is not None:
+                    still &= nxt != eos
+                alive.copy_(still)
+                feed.copy_(nxt[:, None])
+                w["toks"][:, s].copy_(nxt)
+
+        return body
+
+    def _pick(self, mode: str, ll, u):
+        """One batched token choice in a window's mode: the argmax, or
+        the sampler's draw (with or without the sorting filters) from the
+        uniforms `u` [B, V] drawn before the replay."""
+        sm = self._sampler
+        if mode == "argmax":
+            return torch.argmax(ll, dim=-1)
+        if mode == "nosort":
+            return sample_token_batched_nosort_u(ll, u, sm.temp, sm.minp)
+        return sample_token_batched_u(ll, u, sm.temp, sm.topk, sm.topp,
+                                      sm.minp)
+
+    def _window_program(self, kind: str, mode: str, constrained: bool):
+        """A window of `kind` ("decode" or "spec") for (mode,
+        constrained): the eager body on a CPU server; on a CUDA server
+        its CUDA graph, captured once and kept on this server (bound to
+        its buffers, it is freed with them) together with the body, whose
+        closure owns tensors the graph reads (a freed one's memory would
+        be reused under the graph). A capture that fails raises."""
+        build = (self._window_body if kind == "decode"
+                 else self._spec_window_body)
+        if self.device.type != "cuda":
+            return build(mode, constrained)
+        key = (kind, mode, constrained)
+        if key not in self._graphs:
+            body = build(mode, constrained)
+            self._graphs[key] = (self._capture(body, kind), body)
+            self.graph_captures += 1
+        return self._graphs[key][0].replay
+
+    def _capture(self, body, kind: str):
+        """Warm the body up, then capture it. The warm-up (the kernels'
+        launch plans and cluster fits, which query the card, and lazy
+        library setup) runs the body with every row inactive: the target
+        pool's writes then land in trash block 0, and every other state
+        it writes (positions, the feed, the DFA states, and a speculative
+        window's draft-lane rows 0..k+1 and round inputs) is saved
+        before and restored after, so it changes nothing the server
+        holds."""
+        sm = self._sampler
+        state = [self._pos_dev, self._feed, self._active, sm.cstate]
+        if kind == "spec":
+            sw = self._spec_state()
+            state += [sw[k] for k in ("pos", "dpos", "feed2", "adv",
+                                      "alive", "samp")]
+            head = self.spec_k + 2
+            state += [self._draft.ck[:, :, :, :head],
+                      self._draft.cv[:, :, :, :head]]
+        saved = [t.clone() for t in state]
+        self._active.zero_()
+        if kind == "spec":
+            sw["alive"].zero_()
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.no_grad():
+            body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for t, old in zip(state, saved):
+            t.copy_(old)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph), torch.no_grad():
+            body()
+        return graph
+
+    def _tick_window(self) -> None:
+        """One dispatch of up to decode_window tokens per live slot; one
+        batched host transfer drains the [B, K] token buffer (plus the
+        per-slot valid-length and alive vectors when eos is set)."""
+        live = [s is not None for s in self.slots]
+        if not any(live):
+            return
+        K = self.decode_window
+        sm = self._sampler
+        sampling = any(s is not None and s["sampling"] for s in self.slots)
+        mode = sm.window_mode(sampling)
+        constrained = any(sm.row_constrained)
+        budget = [s["remaining"] if s is not None else 0
+                  for s in self.slots]
+        posm = np.where(live, self.pos, 0)
+        w = self._window_state()
+        w["budget"].copy_(self._upload(budget))
+        program = self._window_program("decode", mode, constrained)
+        if mode != "argmax":
+            sm.fill_uniforms(w["u"])
+        program()
+        if self.device.type == "cuda":
+            self.graph_replays += 1
+        toks = w["toks"].clone()  # the next window overwrites the buffer
+        self._note_dispatch(sum(live))
+        need_toks = self.on_token is not None or any(
+            s is not None and s["stop"] is not None for s in self.slots
+        )
+        if self.eos_id is not None:
+            # One batched per-window transfer of the valid lengths and
+            # alive flags: K tokens amortize this sync.
+            emitted = w["n"].tolist()
+            alive_host = w["alive"].tolist()
+        else:
+            # No eos: the device can only freeze rows on budget, which
+            # the host already knows.
+            emitted = [min(b, K) for b in budget]
+            alive_host = [b > K for b in budget]
+        toks_host = toks.tolist() if need_toks else None
+        died_host = fracs_host = None
+        if constrained:
+            died_host = w["died"].tolist()
+            fracs_host = w["fracs"].tolist()
+        self._account_kv_rows_window(posm, emitted)
+        self._drain_window(toks, toks_host, emitted, alive_host, budget,
+                           died_host, fracs_host)
+
+    def _drain_window(self, toks, toks_host, emitted, alive_host, budget,
+                      died_host=None, fracs_host=None) -> None:
+        """Host-side window drain, per-token-equivalent to the K=1 tick
+        loop: stop sequences truncate the window's overshoot, budgets
+        and finishes mirror the per-token bookkeeping, streaming fires in
+        tick-major order (batching.window_drain_order), and block
+        release (`_finish`) happens at the window boundary."""
+        K = self.decode_window
+        accepted = [0] * self.B
+        finishing = [False] * self.B
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            n_i = emitted[i]
+            a_i = n_i
+            stopped = False
+            dead = bool(died_host is not None and died_host[i]
+                        and slot["cid"])
+            if dead:
+                # A dead end froze the row with a forced eos (counted in
+                # n_i): drop it, so the output ends at the last
+                # admissible token and the failure surfaces as an error.
+                a_i = n_i - 1
+            if slot["stop"] is not None:
+                hit = slot["stop"].push_window(toks_host[i][:a_i])
+                if hit is not None:
+                    a_i, stopped = hit, True
+            accepted[i] = a_i
+            if a_i < min(budget[i], K):
+                self.obs.window_truncated.inc()
+            slot["remaining"] -= a_i
+            if stopped or not alive_host[i]:
+                # eos froze the row on the device, a stop sequence cut it
+                # on drain, or its budget ran out mid-window.
+                slot["remaining"] = 0
+            if dead:
+                slot["remaining"] = 0
+                self.errors[slot["rid"]] = _DEAD_END
+                self.constraint_dead_ends_n += 1
+                self.obs.constrain_dead_ends.inc()
+            if slot["cid"] and fracs_host is not None:
+                self.constrained_tokens_n += a_i
+                if a_i:
+                    self.obs.constrained_tokens.inc(a_i)
+                for fr in fracs_host[i][:a_i]:
+                    self.obs.constrain_masked_frac.observe(fr)
+            if a_i:
+                tok_block = toks[i, :a_i][None, :].to(slot["last"].dtype)
+                slot["toks"].append(tok_block)
+                slot["last"] = tok_block[:, -1:]
+            self.pos[i] += a_i
+            finishing[i] = slot["remaining"] == 0
+            self.obs.tokens_generated.inc(a_i)
+            self.window_tokens += a_i
+        self.obs.tokens_per_dispatch.set(float(sum(accepted)))
+        if self.on_token is not None:
+            for t, i in window_drain_order(accepted, K):
+                slot = self.slots[i]
+                self.on_token(slot["rid"], toks_host[i][t],
+                              finishing[i] and t == accepted[i] - 1)
+        for i in range(self.B):
+            if finishing[i]:
+                self._finish(i)
+
+    # -- speculative decoding (spec_k > 0) -----------------------------------
+
+    def _draft_seeds(self):
+        """Round-0 draft inputs from host truth: per greedy slot its
+        pending tokens (emitted, not yet in its draft lane: 1 after a
+        partial accept, 2 after a full one; a lone token is fed twice),
+        their count, and the lane's write head pos + 1 - len(pend).
+        Idle and sampled rows stay 0, the idle-lane idiom."""
+        feed2 = np.zeros((self.B, 2), np.int32)
+        adv = np.zeros((self.B,), np.int32)
+        dposm = np.zeros((self.B,), np.int32)
+        for i, slot in enumerate(self.slots):
+            if slot is None or slot["sampling"]:
+                continue
+            pend = slot["pend"]
+            adv[i] = len(pend)
+            feed2[i, 0] = pend[0]
+            feed2[i, 1] = pend[-1]
+            dposm[i] = self.pos[i] + 1 - len(pend)
+        return feed2, adv, dposm
+
+    def _constrained_preds(self, logits, props, k, active=None):
+        """The target's constrained greedy walk of one round: position
+        j's pred is the masked argmax at state s_j, where s_{j+1} =
+        trans[s_j, props_j] follows the PROPOSAL chain, so the accept
+        test stops at the first proposal the target's mask rejects and
+        the output is the spec_k=0 constrained chain. A dead state makes
+        pred -1 (never accepted). Device ops only. Returns (preds
+        [B, k+1], crow0, cmask0, post-states [B, k+1] (the state after
+        committing pred_j), dead [B, k+1], masked fractions [B, k+1]);
+        `active` masks the fractions (a window's frozen rows)."""
+        sm = self._sampler
+        cvec = sm.cid > 0
+        live = cvec if active is None else cvec & active
+        s = sm.cstate
+        preds, posts, deads, fracs = [], [], [], []
+        crow0 = cmask0 = None
+        for j in range(k + 1):
+            crow, acc = crt.constrain_rows(self._ctrans, self._cacc, sm.cid, s)
+            cmask = crt.constrain_mask(crow, acc, self.eos_id)
+            if j == 0:
+                crow0, cmask0 = crow, cmask
+            dead_j = cvec & ~cmask.any(-1)
+            p = torch.argmax(crt.fold_mask(logits[:, j, :], cmask), dim=-1)
+            p = torch.where(dead_j, -1, p.to(torch.int32))
+            preds.append(p)
+            posts.append(crt.advance_state(crow, s, p.clamp(min=0),
+                                           cvec & ~dead_j))
+            deads.append(dead_j)
+            fracs.append(crt.masked_frac(cmask, live))
+            if j < k:
+                s = crt.advance_state(crow, s, props[:, j], cvec)
+        return (torch.stack(preds, 1), crow0, cmask0, torch.stack(posts, 1),
+                torch.stack(deads, 1), torch.stack(fracs, 1))
+
+    def _propose(self, k, dpos, feed2, adv, constrained):
+        """The draft's k proposals [B, k] int32 from device round inputs:
+        the constrained twin while a constrained row is live."""
+        sm = self._sampler
+        if constrained:
+            return self._draft.propose_c_dev(
+                k, dpos, feed2, adv, self.eos_id, sm.cid, sm.cstate,
+                self._ctrans, self._cacc,
+            )
+        return self._draft.propose_dev(k, dpos, feed2, adv)
+
+    def _tick_spec(self) -> None:
+        """One speculative round: the draft proposes k greedy tokens for
+        every greedy slot (`DraftLanes`), the target verifies all k + 1
+        positions in ONE multi-token step (`_mt`, through
+        paged_flash_prefill, T = k + 1) whose candidate rows land in the
+        slots' blocks in the same call (sampled slots keep row 0 only,
+        idle slots none), and one batched transfer feeds the accept test
+        (batching.accept_lengths): slot i emits props[:a] and the
+        target's own token at the first mismatch (or the bonus row), so
+        the greedy chain is the target's, token for token. Rejected rows
+        sit stale behind the position mask until the next round rewrites
+        them. Sampled slots advance one token a round, drawn from the
+        verify's row 0."""
+        live = [s is not None for s in self.slots]
+        if not any(live):
+            return
+        k = self.spec_k
+        feed2, adv, dposm = self._draft_seeds()
+        sm = self._sampler
+        constrained = any(sm.row_constrained)
+        props = self._propose(k, self._upload(dposm), self._upload(feed2),
+                              self._upload(adv), constrained)
+        verify_in = torch.cat([self._feed, props], dim=1)
+        n_keep = np.zeros((self.B,), np.int32)
+        for i, slot in enumerate(self.slots):
+            if slot is not None:
+                n_keep[i] = 1 if slot["sampling"] else k + 1
+        posm = np.where(live, self.pos, 0).astype(np.int32)
+        nb_live = min((int(posm.max()) + k) // self.bs + 1, self.MB)
+        logits = self._mt(self._tables_dev, self._upload(posm), verify_in,
+                          self._upload(n_keep),
+                          torch.zeros_like(self._pos_dev), nb_live)
+        if constrained:
+            (preds, crow0, cmask0, post_states, dead_all,
+             fracs) = self._constrained_preds(logits, props, k)
+        else:
+            preds = torch.argmax(logits, dim=-1).to(torch.int32)
+        draw = None
+        if any(s is not None and s["sampling"] for s in self.slots):
+            ll0 = logits[:, 0, :]
+            if constrained:
+                ll0 = crt.fold_mask(ll0, cmask0)
+            draw = sm.draw(ll0)
+        n_live = sum(live)
+        self._note_dispatch(n_live, 2, stall=False)
+        self._account_kv_rows(self._rows_read_multi(posm, k + 1, True),
+                              self.B * self.MB * self.bs)
+        # The ONE batched transfer of the round.
+        preds_host = preds.cpu().numpy()
+        props_host = props.cpu().numpy()
+        draw_host = draw.tolist() if draw is not None else None
+        if constrained:
+            dead_host = dead_all.tolist()
+            fracs_host = fracs.tolist()
+        a_vec = accept_lengths(props_host, preds_host[:, :k])
+        proposed = accepted_draft = draft_toks = 0
+        accepted = [0] * self.B
+        finishing = [False] * self.B
+        toks_host: list = [None] * self.B
+        feedv = np.zeros((self.B,), np.int32)
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            dead_i = False
+            if slot["sampling"]:
+                emitted = [int(draw_host[i])]
+                if constrained and slot["cid"] and dead_host[i][0]:
+                    dead_i, emitted = True, []
+            else:
+                a = int(a_vec[i])
+                proposed += k
+                accepted_draft += a
+                draft_toks += int(adv[i]) + k - 1
+                self.obs.spec_acceptance.observe(a)
+                emitted = [int(t) for t in props_host[i, :a]]
+                emitted.append(int(preds_host[i, a]))
+                if constrained and slot["cid"] and dead_host[i][a]:
+                    # The correction hit a dead DFA state: its pred is
+                    # the -1 sentinel, dropped here with an error.
+                    dead_i = True
+                    emitted = emitted[:-1]
+            kept, stopped = self._keep(slot, emitted)
+            if kept < len(emitted):
+                self.obs.window_truncated.inc()
+            slot["remaining"] -= kept
+            if stopped:
+                slot["remaining"] = 0
+            if dead_i and kept == len(emitted) and not stopped:
+                slot["remaining"] = 0
+                self.errors[slot["rid"]] = _DEAD_END
+                self.constraint_dead_ends_n += 1
+                self.obs.constrain_dead_ends.inc()
+            if constrained and slot["cid"]:
+                self.constrained_tokens_n += kept
+                if kept:
+                    self.obs.constrained_tokens.inc(kept)
+                for j in range(kept):
+                    self.obs.constrain_masked_frac.observe(fracs_host[i][j])
+            self._append_tokens(slot, emitted[:kept])
+            self.pos[i] += kept
+            accepted[i] = kept
+            toks_host[i] = emitted[:kept]
+            finishing[i] = slot["remaining"] == 0
+            self.obs.tokens_generated.inc(kept)
+            self.window_tokens += kept
+            feedv[i] = emitted[-1] if emitted else 0
+            if not slot["sampling"] and not finishing[i]:
+                # kept == a + 1 here (a truncation finishes the slot):
+                # a partial accept leaves the correction token pending,
+                # a full one also the never-consumed k-th proposal.
+                if a < k:
+                    slot["pend"] = [emitted[-1]]
+                else:
+                    slot["pend"] = [int(props_host[i, k - 1]), emitted[-1]]
+                self._draft.pos[i] = self.pos[i] + 1 - len(slot["pend"])
+        if constrained:
+            # Commit DFA states for rows continuing past the round:
+            # greedy rows take the post-state at their accept length,
+            # sampled rows advance one step by their draw.
+            sel = np.zeros((self.B,), np.int32)
+            use_post = np.zeros((self.B,), bool)
+            use_draw = np.zeros((self.B,), bool)
+            for i, slot in enumerate(self.slots):
+                if slot is None or not slot["cid"] or finishing[i]:
+                    continue
+                if slot["sampling"]:
+                    use_draw[i] = True
+                else:
+                    use_post[i] = True
+                    sel[i] = int(a_vec[i])
+            new_c = post_states.gather(1, self._upload(sel).long()[:, None])
+            cst = torch.where(self._upload(use_post).bool(), new_c[:, 0],
+                              sm.cstate)
+            if draw is not None:
+                cst = crt.advance_state(crow0, cst, draw,
+                                        self._upload(use_draw).bool())
+            sm.cstate.copy_(cst)
+        self._feed.copy_(self._upload(feedv[:, None]))
+        self._note_spec(1, proposed, accepted_draft, draft_toks)
+        # Mean per-dispatch yield: a round is two dispatches.
+        self.obs.tokens_per_dispatch.set(float(sum(accepted)) / 2.0)
+        if self.on_token is not None:
+            for t, i in window_drain_order(accepted, k + 1):
+                slot = self.slots[i]
+                self.on_token(slot["rid"], toks_host[i][t],
+                              finishing[i] and t == accepted[i] - 1)
+        for i in range(self.B):
+            if finishing[i]:
+                self._finish(i)
+
+    def _keep(self, slot: dict, emitted: list) -> tuple[int, bool]:
+        """The per-token drain of a round, K=1-equivalent: budget, then
+        eos, then stop; the first terminator wins and what follows it is
+        discarded. Returns (tokens kept, whether eos or a stop ended the
+        request)."""
+        kept = 0
+        for tok in emitted:
+            if kept >= slot["remaining"]:
+                break
+            kept += 1
+            if self.eos_id is not None and tok == self.eos_id:
+                return kept, True
+            if slot["stop"] is not None and slot["stop"].push(tok):
+                return kept, True
+        return kept, False
+
+    def _append_tokens(self, slot: dict, toks: list) -> None:
+        """Append host tokens to a slot's output (uploaded, no fetch)."""
+        if not toks:
+            return
+        block = self._upload([toks]).to(slot["last"].dtype)
+        slot["toks"].append(block)
+        slot["last"] = block[:, -1:]
+
+    def _note_spec(self, rounds, proposed, accepted, draft_toks) -> None:
+        self.spec_rounds_n += rounds
+        self.spec_proposed_n += proposed
+        self.spec_accepted_n += accepted
+        self.spec_draft_tokens_n += draft_toks
+        self.obs.spec_rounds.inc(rounds)
+        if proposed:
+            self.obs.spec_proposed.inc(proposed)
+        if accepted:
+            self.obs.spec_accepted.inc(accepted)
+        if draft_toks:
+            self.obs.spec_draft_tokens.inc(draft_toks)
+
+    def _spec_state(self) -> dict:
+        """A speculative window's static buffers beside `_window_state`'s
+        (budget, n, alive, uniforms): the round inputs written before
+        each replay (positions, draft write heads, pending tokens and
+        their counts, the sampled rows) and the [W, B, ...] per-round
+        outputs the drain reads."""
+        w = self._window_state()
+        if "dpos" not in w:
+            B, W, k, dev = self.B, self.decode_window, self.spec_k, self.device
+            i32 = dict(dtype=torch.int32, device=dev)
+            w.update(
+                pos=torch.zeros((B,), **i32),
+                dpos=torch.zeros((B,), **i32),
+                feed2=torch.zeros((B, 2), **i32),
+                adv=torch.zeros((B,), **i32),
+                samp=torch.zeros((B,), dtype=torch.bool, device=dev),
+                zero=torch.zeros((B,), **i32),
+                rtoks=torch.zeros((W, B, k + 1), **i32),
+                kept=torch.zeros((W, B), **i32),
+                a=torch.zeros((W, B), **i32),
+                greedy=torch.zeros((W, B), dtype=torch.bool, device=dev),
+                advu=torch.zeros((W, B), **i32),
+                rfracs=torch.zeros((W, B, k + 1), device=dev),
+            )
+        return w
+
+    def _spec_window_body(self, mode: str, constrained: bool):
+        """W = decode_window whole speculative rounds over the static
+        buffers, in place: a closure the CPU runs eagerly and a CUDA
+        server captures. Each round: the draft proposes (frozen, idle
+        and sampled lanes pinned to position 0 with nothing pending),
+        the target verifies the k + 1 candidates in one `_mt` step (a
+        frozen row keeps nothing, at position 0 with an all-trash
+        table), the accept test runs on the device (first
+        proposal/prediction mismatch, then the bonus row; a constrained
+        round walks the target's masked predictions along the proposals,
+        a dead state forcing an eos that freezes the row), sampled rows
+        draw one token from row 0, eos and budgets freeze rows as in a
+        decode window, and the pending-token recurrence of `_tick_spec`
+        runs on the device between rounds."""
+        k, W, eos, mb = self.spec_k, self.decode_window, self.eos_id, self.MB
+        w = self._spec_state()
+        sm = self._sampler
+        tables, feed = self._tables_dev, self._feed
+        pos, dpos, feed2, adv = w["pos"], w["dpos"], w["feed2"], w["adv"]
+        alive, samp, n, budget = w["alive"], w["samp"], w["n"], w["budget"]
+        dev = self.device
+        steps = torch.arange(k + 1, device=dev)
+
+        def body():
+            n.zero_()
+            if constrained:
+                w["died"].zero_()
+            for r in range(W):
+                greedy = alive & ~samp
+                dpos_eff = torch.where(greedy, dpos, 0)
+                adv_eff = torch.where(greedy, adv, 0)
+                props = self._propose(k, dpos_eff, feed2, adv_eff,
+                                      constrained)
+                verify_in = torch.cat([feed, props], dim=1)
+                n_keep = torch.where(
+                    alive, torch.where(samp, 1, k + 1), 0
+                ).to(torch.int32)
+                pos_eff = torch.where(alive, pos, 0)
+                tab_eff = torch.where(alive[:, None], tables, 0)
+                logits = self._mt(tab_eff, pos_eff, verify_in, n_keep,
+                                  w["zero"], mb)
+                if constrained:
+                    (preds, crow0, cmask0, postm, deadm,
+                     fracm) = self._constrained_preds(logits, props, k,
+                                                      alive)
+                else:
+                    preds = torch.argmax(logits, dim=-1).to(torch.int32)
+                mismatch = props != preds[:, :k]
+                a = torch.where(
+                    mismatch.any(dim=1),
+                    torch.argmax(mismatch.to(torch.int32), dim=1), k,
+                ).to(torch.int32)
+                bonus = preds.gather(1, a.long()[:, None])[:, 0]
+                if constrained:
+                    dead_at = deadm.gather(1, a.long()[:, None])[:, 0]
+                    # The -1 sentinel never enters the stream: a dead
+                    # correction becomes a forced eos that freezes the
+                    # row; the drain drops it.
+                    bonus = torch.where(dead_at, eos, bonus)
+                props_pad = torch.cat(
+                    [props, torch.zeros_like(props[:, :1])], dim=1)
+                toks = torch.where(steps[None, :] < a[:, None], props_pad,
+                                   bonus[:, None])
+                ll = logits[:, 0, :]
+                if constrained:
+                    ll = crt.fold_mask(ll, cmask0)
+                nxt = self._pick(mode, ll, w["u"][r]).to(torch.int32)
+                if constrained:
+                    nxt = torch.where(deadm[:, 0], eos, nxt)
+                toks = torch.where(samp[:, None], nxt[:, None], toks)
+                cand = torch.where(alive, torch.where(samp, 1, a + 1), 0)
+                kept = torch.minimum(cand, (budget - n).clamp(min=0))
+                still = alive.clone()
+                if eos is not None:
+                    hit = (toks == eos) & (steps[None, :] < kept[:, None])
+                    any_eos = hit.any(dim=1)
+                    kept = torch.where(
+                        any_eos,
+                        torch.argmax(hit.to(torch.int32), dim=1) + 1, kept,
+                    ).to(torch.int32)
+                    still &= ~any_eos
+                if constrained:
+                    # Died only when the forced eos made the kept prefix
+                    # (an earlier natural eos or a budget cut ends the
+                    # row without the error).
+                    fpos = torch.where(samp, 0, a)
+                    died_now = torch.where(samp, deadm[:, 0], dead_at)
+                    died_now = died_now & alive & (kept == fpos + 1)
+                n.add_(kept)
+                still &= n < budget
+                last = toks.gather(
+                    1, (kept - 1).clamp(min=0).long()[:, None])[:, 0]
+                feed.copy_(torch.where((kept > 0)[:, None], last[:, None],
+                                       feed))
+                pos.add_(kept)
+                full = a == k
+                adv_next = torch.where(full, 2, 1).to(torch.int32)
+                f2a = torch.where(full, props_pad[:, k - 1], last)
+                upd = still & ~samp
+                adv.copy_(torch.where(upd, adv_next, adv))
+                feed2.copy_(torch.where(upd[:, None],
+                                        torch.stack([f2a, last], dim=1),
+                                        feed2))
+                dpos.copy_(torch.where(upd, pos + 1 - adv_next, dpos))
+                if constrained:
+                    # Commit DFA states for rows continuing past the
+                    # round: the post-state at the accept length, or one
+                    # step by a sampled row's draw.
+                    post_a = postm.gather(1, a.long()[:, None])[:, 0]
+                    cvec = sm.cid > 0
+                    cst = torch.where(upd & cvec, post_a, sm.cstate)
+                    cst = crt.advance_state(crow0, cst, nxt,
+                                            still & samp & cvec)
+                    sm.cstate.copy_(cst)
+                    w["died"].logical_or_(died_now)
+                    w["rfracs"][r].copy_(fracm)
+                w["rtoks"][r].copy_(toks)
+                w["kept"][r].copy_(kept)
+                w["a"][r].copy_(a)
+                w["greedy"][r].copy_(greedy)
+                w["advu"][r].copy_(adv_eff)
+                alive.copy_(still)
+
+        return body
+
+    def _tick_spec_window(self) -> None:
+        """decode_window speculative rounds in ONE dispatch
+        (`_spec_window_body`, a captured graph on the card): one batched
+        sync a window where unfused rounds cost two dispatches and one
+        sync each. Greedy output is token-identical to spec_k=0; stop
+        sequences cut on drain, the overshoot discarded."""
+        live = [s is not None for s in self.slots]
+        if not any(live):
+            return
+        k, W = self.spec_k, self.decode_window
+        sm = self._sampler
+        sampling_rows = [s is not None and s["sampling"] for s in self.slots]
+        mode = sm.window_mode(any(sampling_rows))
+        constrained = any(sm.row_constrained)
+        feed2, adv, dposm = self._draft_seeds()
+        budget = [s["remaining"] if s is not None else 0
+                  for s in self.slots]
+        posm = np.where(live, self.pos, 0).astype(np.int32)
+        w = self._spec_state()
+        for key, val in (("pos", posm), ("dpos", dposm), ("feed2", feed2),
+                         ("adv", adv), ("budget", budget)):
+            w[key].copy_(self._upload(val))
+        w["alive"].copy_(self._upload(live).bool())
+        w["samp"].copy_(self._upload(sampling_rows).bool())
+        program = self._window_program("spec", mode, constrained)
+        if mode != "argmax":
+            sm.fill_uniforms(w["u"])
+        program()
+        if self.device.type == "cuda":
+            self.graph_replays += 1
+        self._note_dispatch(sum(live), stall=False)
+        # The ONE batched sync of the window.
+        toks_h = w["rtoks"].tolist()
+        kept_h = w["kept"].tolist()
+        a_h = w["a"].tolist()
+        greedy_h = w["greedy"].tolist()
+        advu_h = w["advu"].tolist()
+        alive_h = w["alive"].tolist()
+        feed2_h = w["feed2"].tolist()
+        adv_h = w["adv"].tolist()
+        if constrained:
+            died_h = w["died"].tolist()
+            fracs_h = w["rfracs"].tolist()
+        # The verify's rows, round by round: active rows read through
+        # pos_r + k, frozen rows sit at position 0.
+        pos_l = posm.copy()
+        rows_read = 0
+        for r in range(W):
+            kept_r = np.asarray(kept_h[r], np.int32)
+            rows_read += self._rows_read_multi(
+                np.where(kept_r > 0, pos_l, 0), k + 1, True)
+            pos_l = pos_l + kept_r
+        self._account_kv_rows(rows_read, W * self.B * self.MB * self.bs)
+        proposed = accepted_draft = draft_toks = rounds_run = 0
+        kept_rounds = [[0] * self.B for _ in range(W)]
+        total = [0] * self.B
+        finishing = [False] * self.B
+        stream_toks: list = [None] * self.B
+        for r in range(W):
+            ran = False
+            for i, slot in enumerate(self.slots):
+                if slot is None:
+                    continue
+                if greedy_h[r][i]:
+                    ran = True
+                    proposed += k
+                    accepted_draft += a_h[r][i]
+                    draft_toks += advu_h[r][i] + k - 1
+                    self.obs.spec_acceptance.observe(a_h[r][i])
+                n_r = kept_h[r][i]
+                if n_r == 0:
+                    continue
+                row = toks_h[r][i][:n_r]
+                if finishing[i]:
+                    row = []  # overshoot past a stop cut
+                elif slot["stop"] is not None:
+                    hit = slot["stop"].push_window(row)
+                    if hit is not None:
+                        row = row[:hit]
+                        finishing[i] = True
+                        self.obs.window_truncated.inc()
+                kept_rounds[r][i] = len(row)
+                total[i] += len(row)
+                if stream_toks[i] is None:
+                    stream_toks[i] = [[] for _ in range(W)]
+                stream_toks[i][r] = row
+            rounds_run += ran
+        for i, slot in enumerate(self.slots):
+            if slot is None or not constrained:
+                continue
+            if slot["cid"] and died_h[i] and not finishing[i]:
+                # A dead DFA state mid-window: the device froze the row
+                # with a forced eos, its last kept token; drop it, so the
+                # output ends at the last admissible token.
+                for r in range(W - 1, -1, -1):
+                    if kept_rounds[r][i]:
+                        kept_rounds[r][i] -= 1
+                        stream_toks[i][r].pop()
+                        total[i] -= 1
+                        break
+                self.errors[slot["rid"]] = _DEAD_END
+                self.constraint_dead_ends_n += 1
+                self.obs.constrain_dead_ends.inc()
+            if slot["cid"]:
+                for r in range(W):
+                    kr = kept_rounds[r][i]
+                    self.constrained_tokens_n += kr
+                    if kr:
+                        self.obs.constrained_tokens.inc(kr)
+                    for j in range(kr):
+                        self.obs.constrain_masked_frac.observe(
+                            fracs_h[r][i][j])
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            n_i = total[i]
+            slot["remaining"] -= n_i
+            if finishing[i] or not alive_h[i]:
+                slot["remaining"] = 0
+            self._append_tokens(slot, [t for r in range(W)
+                                       for t in (stream_toks[i][r]
+                                                 if stream_toks[i] else [])])
+            self.pos[i] += n_i
+            finishing[i] = slot["remaining"] == 0
+            self.obs.tokens_generated.inc(n_i)
+            self.window_tokens += n_i
+            if not slot["sampling"] and not finishing[i]:
+                # Continuing greedy rows: pend from the device
+                # recurrence's final (feed2, adv), the next window's
+                # round-0 seed.
+                av = adv_h[i]
+                slot["pend"] = feed2_h[i][2 - av:]
+                self._draft.pos[i] = self.pos[i] + 1 - len(slot["pend"])
+        self._note_spec(rounds_run, proposed, accepted_draft, draft_toks)
+        self.obs.tokens_per_dispatch.set(float(sum(total)))
+        if self.on_token is not None:
+            last_r = [max((r for r in range(W) if kept_rounds[r][i]),
+                          default=0) for i in range(self.B)]
+            for r in range(W):
+                for t, i in window_drain_order(kept_rounds[r], k + 1):
+                    slot = self.slots[i]
+                    self.on_token(
+                        slot["rid"], stream_toks[i][r][t],
+                        finishing[i] and r == last_r[i]
+                        and t == kept_rounds[r][i] - 1,
+                    )
+        for i in range(self.B):
+            if finishing[i]:
+                self._finish(i)
+
+    # -- emission and release -------------------------------------------------
 
     def _emit_token(self, i: int, slot: dict, tok: int | None) -> None:
         """Shared eos/streaming/finish bookkeeping for one emitted token:
@@ -1503,10 +3159,15 @@ class PagedDecodeServer:
         self.free.extend(slot["blocks"])
         self.tables[i] = 0
         self.pos[i] = 0
+        self.adapter[i] = 0
         self._tables_dev[i] = 0
         self._pos_dev[i] = 0
         self._active[i] = 0
+        if self.multi_lora:
+            self._adapter_dev[i] = 0
         self.slots[i] = None
+        if self._draft is not None:
+            self._draft.release(i)
         self._sampler.release(i)
         self._update_pool_gauges()
 
@@ -1545,10 +3206,14 @@ def serve_paged(
     pp_balance: str = "equal",
 ) -> tuple[list[torch.Tensor], ServerStats]:
     """One-shot paged serving: returns (outputs in submission order,
-    stats incl. peak pool usage, `kv_dtype`, `pool_bytes` and the spill
-    tier's totals). The knobs are PagedDecodeServer's;
-    `adapter_ids` and `sampling` assign an adapter (not ported: only 0)
-    and a SamplingParams per request."""
+    stats). The knobs are PagedDecodeServer's; `adapter_ids` and
+    `sampling` assign a LoRA adapter and a SamplingParams per request.
+    Stats carry the pool's (peak blocks, `kv_dtype`, `pool_bytes`, the
+    spill tier's totals), the windows' (`decode_window`,
+    `host_dispatches`, `tokens_per_dispatch`, `graph_replays`), the
+    speculation's (`spec_*`), the mixed ticks' (`prefill_budget`,
+    `prefill_stall_ticks`, `mixed_ticks`, `mixed_prefill_tokens`,
+    `decode_stall_fraction`) and the constraints' totals."""
     srv = PagedDecodeServer(
         dec,
         params,
@@ -1597,14 +3262,23 @@ def serve_paged(
     done = srv.run()
     # Drain pending spill copies so that the stats read a settled store.
     srv.flush_spill()
-    stats = ServerStats.snapshot(
+    stats = server_stats(srv)
+    if srv._spill is not None:
+        srv._spill.close()  # one-shot: the drain thread ends with the run
+    return [done[r] for r in rids], stats
+
+
+def server_stats(srv: PagedDecodeServer, **extra) -> ServerStats:
+    """A PagedDecodeServer's stats snapshot (serve_paged's, and
+    serve_disagg's with its wire totals in `extra`)."""
+    return ServerStats.snapshot(
         srv.obs.registry,
         ticks=srv.ticks,
-        attention=attention,
+        attention=srv.attention,
         peak_blocks=srv.blocks_peak,
         pool_blocks=srv.num_blocks - 1,
-        block_size=block_size,
-        flat_equivalent_rows=max_batch * dec.cfg.max_len,
+        block_size=srv.bs,
+        flat_equivalent_rows=srv.B * srv.dec.cfg.max_len,
         shared_prefix_blocks=len(srv.shared_blocks),
         prefill_tokens_saved=srv.prefill_tokens_saved,
         cached_blocks=(
@@ -1620,14 +3294,27 @@ def serve_paged(
         spill_stored_bytes=(
             srv._spill.stored_bytes if srv._spill is not None else 0
         ),
-        prefill_stall_ticks=srv.prefill_stall_ticks_n,
-        decode_stall_fraction=srv.decode_stall_fraction_last,
         decode_window=srv.decode_window,
         host_dispatches=srv.dispatches,
         tokens_per_dispatch=(
             srv.window_tokens / srv.dispatches if srv.dispatches else 0.0
         ),
+        graph_replays=srv.graph_replays,
+        spec_k=srv.spec_k,
+        spec_rounds=srv.spec_rounds_n,
+        spec_proposed=srv.spec_proposed_n,
+        spec_accepted=srv.spec_accepted_n,
+        spec_acceptance=(
+            srv.spec_accepted_n / srv.spec_proposed_n
+            if srv.spec_proposed_n else 0.0
+        ),
+        spec_draft_tokens=srv.spec_draft_tokens_n,
+        prefill_budget=srv.prefill_budget,
+        prefill_stall_ticks=srv.prefill_stall_ticks_n,
+        mixed_ticks=srv.mixed_ticks_n,
+        mixed_prefill_tokens=srv.mixed_prefill_tokens_n,
+        decode_stall_fraction=srv.decode_stall_fraction_last,
+        constrained_tokens=srv.constrained_tokens_n,
+        constraint_dead_ends=srv.constraint_dead_ends_n,
+        **extra,
     )
-    if srv._spill is not None:
-        srv._spill.close()  # one-shot: the drain thread ends with the run
-    return [done[r] for r in rids], stats

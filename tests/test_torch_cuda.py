@@ -1051,3 +1051,188 @@ def test_rolling_and_banked_windows_equal_k1(card):
     assert replays > 0
     for a, b in zip(k4, k1):
         assert torch.equal(a, b)
+
+
+# -- the paged server's windows, mixed ticks and speculation on the card -----
+
+
+def _paged_model(card):
+    """A small bf16 llama on the card and five requests behind one shared
+    16-token system prompt: (decoder, params, requests)."""
+    cfg = llama_config(num_layers=2, dim=256, num_heads=4, num_kv_heads=2,
+                       ffn_dim=512, vocab_size=512, max_len=128, window=40)
+    dec = GptDecoder(cfg, compute_dtype=torch.bfloat16)
+    params = dec.cast_params(
+        dec.init(torch.Generator(device=card).manual_seed(0)))
+    gen = torch.Generator().manual_seed(1)
+    system = torch.randint(0, 512, (1, 16), generator=gen)
+    reqs = [(torch.cat([system, torch.randint(0, 512, (1, n),
+                                              generator=gen)], dim=1), s)
+            for n, s in ((5, 9), (9, 6), (3, 11), (12, 4), (7, 8))]
+    return dec, params, reqs
+
+
+PAGED_KNOBS = dict(num_blocks=40, block_size=8, max_batch=2,
+                   attention="pallas", prefix_cache=True, prefill_chunk=8)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_captured_paged_window_equals_eager_k1(card, kv_dtype):
+    """decode_window=4 on a CUDA paged server replays a captured graph
+    of the paged kernels; its tokens equal the decode_window=1 ticks'
+    bit for bit, in bf16 and on an int8 pool, and the server captures
+    its greedy window once."""
+    dec, params, reqs = _paged_model(card)
+    k1, _ = serve_paged(dec, params, reqs, kv_dtype=kv_dtype, **PAGED_KNOBS)
+    srv = PagedDecodeServer(dec, params, decode_window=4, kv_dtype=kv_dtype,
+                            **PAGED_KNOBS)
+    rids = [srv.submit(p, s) for p, s in reqs]
+    done = srv.run()
+    for r, b in zip(rids, k1):
+        assert torch.equal(done[r], b)
+    assert srv.graph_replays == srv.dispatches > 0
+    assert srv.graph_captures == 1
+    assert list(srv._graphs) == [("decode", "argmax", False)]
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [(torch.bfloat16, "fp"),
+                                            (torch.float32, "fp"),
+                                            (torch.bfloat16, "int8")])
+def test_paged_card_runs_count_each_eager_launch(card, dtype, kv_dtype):
+    """Each eager launch of either paged kernel adds one to the kernel's
+    own count of its runs on the card, as to the wrapper's host count
+    (a split prefill and its merge count once)."""
+    from defer_tpu_torch.ops import paged_flash_decode as pfd
+    from defer_tpu_torch.ops import paged_flash_prefill as pfp
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    pool = torch.randn(9, 2, 8, 64, generator=gen, device=card).to(dtype)
+    scale = None
+    if kv_dtype == "int8":
+        pool, scale = quantize_symmetric(pool.float(), axis=(-2, -1))
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32,
+                          device=card)
+    pos = torch.tensor([29, 3], dtype=torch.int32, device=card)
+    q1 = torch.randn(2, 8, 64, generator=gen, device=card).to(dtype)
+    qt = torch.randn(2, 8, 5, 64, generator=gen, device=card).to(dtype)
+    for wrapper, mod, q in ((paged_flash_decode, pfd, q1),
+                            (paged_flash_prefill, pfp, qt)):
+        wrapper(q, pool, pool, tables, pos, scale_k=scale, scale_v=scale)
+        mod.reset_card_runs(card.index)
+        host = "launches_int8" if scale is not None else "launches"
+        before = getattr(wrapper, host)
+        for _ in range(3):
+            wrapper(q, pool, pool, tables, pos, scale_k=scale, scale_v=scale)
+        assert mod.card_runs(card.index) == getattr(wrapper, host) - before \
+            == 3
+
+
+def _steady_window(srv, reqs):
+    """Seat every slot (budgets far off), one window run to capture, and
+    the replay closure; the window's static budget is refilled before
+    each replay."""
+    for p, _ in reqs[: srv.B]:
+        srv.submit(p, 60)
+    srv.step()
+    assert all(s is not None for s in srv.slots)
+    kind = "spec" if srv.spec_k else "decode"
+    program = srv._window_program(kind, "argmax", False)
+    w = srv._wbuf
+
+    def replay():
+        w["budget"].fill_(1 << 20)
+        program()
+
+    return replay
+
+
+def test_paged_window_replay_runs_k_x_layers_decode_kernels(card):
+    """One replay of a captured paged window runs paged_flash_decode
+    K x layers times on the card (the kernel's own count: the wrapper's
+    host count does not move on a replay), and no prefill kernel."""
+    from defer_tpu_torch.ops import paged_flash_decode as pfd
+    from defer_tpu_torch.ops import paged_flash_prefill as pfp
+
+    dec, params, reqs = _paged_model(card)
+    srv = PagedDecodeServer(dec, params, decode_window=4, **PAGED_KNOBS)
+    replay = _steady_window(srv, reqs)
+    torch.cuda.synchronize()
+    host = paged_flash_decode.launches
+    pfd.reset_card_runs(card.index)
+    pfp.reset_card_runs(card.index)
+    replay()
+    replay()
+    assert pfd.card_runs(card.index) == 2 * 4 * dec.cfg.num_layers
+    assert pfp.card_runs(card.index) == 0
+    assert paged_flash_decode.launches == host
+
+
+def test_spec_window_verify_runs_the_prefill_kernel(card):
+    """A captured speculative window (decode_window=4, spec_k=3, the
+    target as its own draft): each replay's four verify steps run
+    paged_flash_prefill once a layer each, by the kernel's count; its
+    tokens equal spec_k=0's."""
+    from defer_tpu_torch.ops import paged_flash_decode as pfd
+    from defer_tpu_torch.ops import paged_flash_prefill as pfp
+
+    dec, params, reqs = _paged_model(card)
+    k1, _ = serve_paged(dec, params, reqs, **PAGED_KNOBS)
+    spec = dict(spec_k=3, spec_draft=dec, spec_params=params)
+    got, stats = serve_paged(dec, params, reqs, decode_window=4, **spec,
+                             **PAGED_KNOBS)
+    for a, b in zip(got, k1):
+        assert torch.equal(a, b)
+    assert stats["graph_replays"] > 0 and stats["spec_acceptance"] == 1.0
+    srv = PagedDecodeServer(dec, params, decode_window=4, **spec,
+                            **PAGED_KNOBS)
+    replay = _steady_window(srv, reqs)
+    torch.cuda.synchronize()
+    pfp.reset_card_runs(card.index)
+    pfd.reset_card_runs(card.index)
+    replay()
+    assert pfp.card_runs(card.index) == 4 * dec.cfg.num_layers
+    assert pfd.card_runs(card.index) == 0
+
+
+@pytest.mark.parametrize("spec_k", [0, 3])
+def test_a_paged_window_replay_makes_no_sync(card, spec_k):
+    """Under torch.cuda.set_sync_debug_mode("error"), a paged window's
+    replay (and a speculative window's) makes no synchronizing call."""
+    dec, params, reqs = _paged_model(card)
+    spec = dict(spec_k=spec_k, spec_draft=dec, spec_params=params) \
+        if spec_k else {}
+    srv = PagedDecodeServer(dec, params, decode_window=4, kv_dtype="int8",
+                            **spec, **PAGED_KNOBS)
+    replay = _steady_window(srv, reqs)
+    replay()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_mixed_ticks_and_constraints_on_the_card(card):
+    """prefill_budget mixed ticks (eager, through paged_flash_prefill)
+    give the stall path's tokens, and a constrained window the
+    constrained K=1 ticks' tokens."""
+    from defer_tpu_torch.constrain import compile_regex
+
+    dec, params, reqs = _paged_model(card)
+    k1, _ = serve_paged(dec, params, reqs, **PAGED_KNOBS)
+    mixed, stats = serve_paged(dec, params, reqs, prefill_budget=16,
+                               **PAGED_KNOBS)
+    assert stats["mixed_ticks"] > 0
+    for a, b in zip(mixed, k1):
+        assert torch.equal(a, b)
+    vocab = [""] + [chr(48 + i % 10) if i < 100 else f"<{i}>"
+                    for i in range(1, 512)]
+    cons = {"d": compile_regex("[0-9]+", vocab)}
+    samp = [SamplingParams(constraint="d")] * len(reqs)
+    runs = [serve_paged(dec, params, reqs, eos_id=0, constraints=cons,
+                        sampling=samp, decode_window=K, **PAGED_KNOBS)[0]
+            for K in (1, 4)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -13,7 +13,10 @@ pin the per-slot row counters). `PrefixBlockCache` must give the JAX
 class's digests and decisions. Sampled slots are held against the
 port's solo `generate` with the same seed (torch and JAX generators
 differ). The knobs the port leaves out raise NotImplementedError (the
-int8 pool and the spill tier: tests/test_torch_kv_quant.py).
+int8 pool and the spill tier: tests/test_torch_kv_quant.py; windows,
+mixed ticks, speculation, constraints, LoRA and disagg: the
+test_torch_paged_*.py, test_torch_mixed.py and test_torch_disagg.py
+files).
 """
 
 import itertools
@@ -371,27 +374,40 @@ def test_device_tables_and_positions_follow_the_host():
 
 
 def test_knobs_not_ported_raise():
+    """The knobs that wait for a later slice raise NotImplementedError
+    naming their ROADMAP item (mesh=, device=, pp_*, the fleet seams);
+    the ones ported since check the JAX package's validation errors."""
     dec, params, _, _ = _model("gpt", 32)
     base = dict(num_blocks=8, block_size=4)
-    for kw in (dict(decode_window=2),
-               dict(spec_k=1, spec_draft=dec, spec_params=params),
-               dict(prefill_budget=4), dict(mesh=object()),
-               dict(device=CPU), dict(constraints={}, eos_id=0),
-               dict(pp_stages=2)):
+    for kw in (dict(mesh=object()), dict(device=CPU), dict(pp_stages=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PagedDecodeServer(dec, params, **base, **kw)
+    for kw, match in (
+        (dict(decode_window=0), "decode_window"),
+        (dict(spec_k=1), "spec_draft"),
+        (dict(spec_k=1, spec_draft=dec, spec_params=params,
+              prefix_ids=torch.zeros((1, 4), dtype=torch.long)),
+         "prefix_ids"),
+        (dict(spec_k=1, spec_draft=dec, spec_params=params,
+              prefill_budget=4), "prefill_budget"),
+        (dict(prefill_budget=0), "prefill_budget"),
+        (dict(constraints={}, eos_id=None), "eos_id"),
+    ):
+        with pytest.raises(ValueError, match=match):
             PagedDecodeServer(dec, params, **base, **kw)
     banked = {**params, "stack": {**params["stack"],
                                   "wq:a": torch.zeros(4, 1, 64, 2)}}
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        PagedDecodeServer(dec, banked, **base)
+    with pytest.raises(ValueError, match="LoRA"):
+        PagedDecodeServer(dec, banked, prefix_cache=True, **base)
     srv = PagedDecodeServer(dec, params, **base)
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(ValueError, match="adapter banks"):
         srv.submit(torch.tensor([[1]]), 2, adapter_id=1)
-    with pytest.raises(NotImplementedError, match="constrain"):
+    with pytest.raises(ValueError, match="without constraints"):
         srv.submit(torch.tensor([[1]]), 2,
                    sampling=SamplingParams(constraint="json"))
-    for name in ("submit_prefilled", "deliver_kv", "export_prefix_blocks",
-                 "import_prefix_blocks"):
+    with pytest.raises(KeyError, match="no pending prefilled"):
+        srv.deliver_kv(7, torch.zeros(1), torch.zeros(1), torch.zeros(1))
+    for name in ("export_prefix_blocks", "import_prefix_blocks"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(srv, name)()
 
