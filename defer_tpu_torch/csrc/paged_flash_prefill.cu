@@ -92,15 +92,17 @@ struct Params {
   int hkv, group, t_q, bs, mb, dh, window, splits;
   float scale;
   unsigned long long* runs;  // the card's count of this kernel's runs
+  unsigned long long* merge_runs;  // and of its split-K merge's
 };
 
 // One thread of the grid adds one to the card's count of runs, so a launch
 // replayed from a captured CUDA graph is counted where it runs. The split-K
-// merge that follows a split launch does not count: a call is one run.
-__device__ __forceinline__ void count_run(const Params& p) {
+// merge that follows a split launch counts its own runs apart (merge_runs):
+// a call is one run of the main kernel, plus one merge when it split.
+__device__ __forceinline__ void count_run(unsigned long long* runs) {
   if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
       threadIdx.x == 0) {
-    atomicAdd(p.runs, 1ull);
+    atomicAdd(runs, 1ull);
   }
 }
 
@@ -165,7 +167,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_mma(Params p) {
   constexpr int kTileP = kCols * ldp;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  count_run(p);
+  count_run(p.runs);
   T* qs = reinterpret_cast<T*>(smem);               // [kRows][ld]
   P* kst = reinterpret_cast<P*>(qs + kRows * ld);   // [2][kCols][ldp]
   P* vst = kst + 2 * kTileP;                        // [2][kCols][ldp]
@@ -402,6 +404,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_mma(Params p) {
 // kernel keeps it). The grid is (row tiles * 64 * Dh / 4 / 128, Hkv, B).
 template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads) paged_prefill_merge(Params p) {
+  count_run(p.merge_runs);
   constexpr int kQuads = kD / 4;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const int rr = i / kQuads;  // token-major row
@@ -523,7 +526,7 @@ template <typename P, int kDh>
 __global__ void __launch_bounds__(kF32Threads) paged_prefill_f32(Params p) {
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
   extern __shared__ float fsmem[];
-  count_run(p);
+  count_run(p.runs);
   constexpr int ld = kDh + 1;
   float* qs = fsmem;                   // [kF32Rows][ld]
   float* ks = qs + kF32Rows * ld;      // [kCols][ld]
@@ -728,14 +731,16 @@ cudaError_t launch_pool(const Params& p, bool int8_pool, int batch,
 // part_acc / part_ml are f32 workspaces of B*Hkv*splits*R*Dh and
 // B*Hkv*splits*R*2 floats, R = ceil(T*G/64)*64 (unused, may be null, with
 // one split). runs: a device uint64 the kernel adds one to each time it
-// runs. Returns a cudaError_t value; 0 means launched.
+// runs; merge_runs: one the split-K merge adds one to each time it runs.
+// Returns a cudaError_t value; 0 means launched.
 extern "C" int defer_paged_flash_prefill(
     const void* q, const void* pool_k, const void* pool_v, void* o,
     const int* tables, const float* scale_k, const float* scale_v,
     const int* start, long long start_stride, float* part_acc,
     float* part_ml, int dtype, int pool_dtype, int batch, int hq, int hkv,
     int t_q, int bs, int mb, int dh, const long long* strides, int window,
-    int splits, float scale, void* stream, unsigned long long* runs) {
+    int splits, float scale, void* stream, unsigned long long* runs,
+    unsigned long long* merge_runs) {
   const bool int8_pool = pool_dtype == 3;
   if (batch < 1 || hkv < 1 || hq < hkv || hq % hkv || t_q < 1 || bs < 1 ||
       mb < 1 || splits < 1 || batch > 65535 || (dtype == 0 && splits != 1) ||
@@ -743,7 +748,7 @@ extern "C" int defer_paged_flash_prefill(
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
       (pool_dtype != dtype && !int8_pool) ||
       (int8_pool && (scale_k == nullptr || scale_v == nullptr)) ||
-      runs == nullptr) {
+      runs == nullptr || merge_runs == nullptr) {
     return int(cudaErrorInvalidValue);
   }
   Params p;
@@ -785,6 +790,7 @@ extern "C" int defer_paged_flash_prefill(
   p.splits = splits;
   p.scale = scale;
   p.runs = runs;
+  p.merge_runs = merge_runs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return int(launch_pool<float>(p, int8_pool, batch, st));

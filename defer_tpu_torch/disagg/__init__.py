@@ -16,7 +16,8 @@ the host transport:
                         entry point (greedy tokens identical to
                         `serve_paged`)
 
-The fleet's prefix migration (`PrefixPayload`) waits with `fleet/`.
+`wire.PrefixPayload` carries the fleet's prefix migration
+(defer_tpu_torch/fleet/).
 """
 
 from defer_tpu_torch.disagg.api import serve_disagg
@@ -26,12 +27,13 @@ from defer_tpu_torch.disagg.prefill_worker import (
     run_prefill,
     serve_prefill,
 )
-from defer_tpu_torch.disagg.wire import WIRE_VERSION, KVPayload
+from defer_tpu_torch.disagg.wire import WIRE_VERSION, KVPayload, PrefixPayload
 
 __all__ = [
     "IngestError",
     "KVBlockIngest",
     "KVPayload",
+    "PrefixPayload",
     "WIRE_VERSION",
     "prefill_schedule",
     "run_prefill",

@@ -28,6 +28,13 @@ One result stream (worker -> decode host), per request:
                        [n_blocks, kv_heads, block_size, head_dim], in
                        the sender's quantize mode
 
+One prefix chain (fleet migration, replica -> replica):
+
+    blob   prefix      {kind: prefix, version, n_blocks, layers,
+                        block_size, kv_heads, head_dim, dtype, toks}
+    frames K/V         2 * layers frames, layer-major K-then-V, ALWAYS
+                       lossless
+
 bfloat16 tensors cross as uint16 views plus the dtype token "bfloat16"
 (the JAX package's convention), so the int8 quantized mode applies to
 real float dtypes and bf16 ships lossless. Every blob carries `version`;
@@ -394,3 +401,95 @@ def iter_kv_payloads(receiver: ArrayReceiver,
             wire_bytes=nbytes,
             quantized=meta.get("quantized", False),
         )
+
+
+# -- prefix chains (fleet migration) ---------------------------------------
+
+
+@dataclasses.dataclass
+class PrefixPayload:
+    """A root-anchored radix prefix chain lifted out of one replica's
+    pool for fleet migration: per-block OWN-token bytes (int64, the
+    radix cache's tok_of encoding) plus [layers, n, kv_heads,
+    block_size, head_dim] K/V block stacks (tensors or numpy arrays on
+    the host). Carries token bytes and NOT digests: the importer
+    recomputes the chained keys itself
+    (runtime/paged.py::import_prefix_blocks), so a corrupted payload
+    mis-keys into digests nothing looks up instead of aliasing a
+    resident chain."""
+
+    toks: list[bytes]
+    k: Any
+    v: Any
+    wire_bytes: int = 0
+
+
+def send_prefix_payload(sender: ArraySender, payload: PrefixPayload) -> int:
+    """Frame one prefix chain onto a stream: a "prefix" blob, then
+    2 * layers frames, layer-major K-then-V. Pinned LOSSLESS end to end
+    (bf16 as its 2-byte pattern): a migrated block becomes long-lived
+    shared cache state on the importer, so a lossy copy would skew every
+    future sharer. Returns wire bytes sent."""
+    L, n_blocks, hkv, bs, dh = payload.k.shape
+    if len(payload.toks) != n_blocks:
+        raise ValueError(
+            f"{len(payload.toks)} token blobs for {n_blocks} blocks"
+        )
+    k_w, token = to_wire_array(payload.k)
+    v_w, _ = to_wire_array(payload.v)
+    n = send_blob(
+        sender,
+        {
+            "kind": "prefix",
+            "version": WIRE_VERSION,
+            "n_blocks": n_blocks,
+            "layers": L,
+            "block_size": bs,
+            "kv_heads": hkv,
+            "head_dim": dh,
+            "dtype": token,
+            "toks": [t.hex() for t in payload.toks],
+        },
+    )
+    saved = sender.quantize
+    sender.quantize = None
+    try:
+        for layer in range(L):
+            n += sender.send(k_w[layer])
+            n += sender.send(v_w[layer])
+    finally:
+        sender.quantize = saved
+    return n
+
+
+def read_prefix_payload(
+    it: Iterator[torch.Tensor], receiver: ArrayReceiver | None = None
+) -> PrefixPayload | None:
+    """Next prefix chain off a stream as CPU tensors (None at a clean
+    end). Pass the receiver to account wire bytes on the payload."""
+    start = receiver.rx_frame_bytes if receiver is not None else 0
+    meta = read_blob(it)
+    if meta is None:
+        return None
+    if meta.get("kind") != "prefix":
+        raise TransportError(
+            f"expected 'prefix' blob, got {meta.get('kind')!r}"
+        )
+    if meta.get("version") != WIRE_VERSION:
+        raise TransportError(
+            f"wire version {meta.get('version')} != {WIRE_VERSION}"
+        )
+    token = meta["dtype"]
+    ks, vs = [], []
+    for layer in range(meta["layers"]):
+        ks.append(from_wire_array(
+            next_frame(it, f"layer {layer} prefix K frame"), token))
+        vs.append(from_wire_array(
+            next_frame(it, f"layer {layer} prefix V frame"), token))
+    nbytes = receiver.rx_frame_bytes - start if receiver is not None else 0
+    return PrefixPayload(
+        toks=[bytes.fromhex(t) for t in meta["toks"]],
+        k=torch.stack(ks),
+        v=torch.stack(vs),
+        wire_bytes=nbytes,
+    )

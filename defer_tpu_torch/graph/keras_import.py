@@ -6,8 +6,10 @@ dispatcher ships `model.to_json()` strings (reference
 src/dispatcher.py:52) and nodes rebuild with `model_from_json`
 (reference src/node.py:38). This module is the compatibility path for
 that ecosystem: a user bringing a serialized Keras model gets an IR
-Graph that partitions/pipelines like any zoo model, on random init (the
-h5 weights path needs `h5py`; `models/transplant.py` loads a weights dict).
+Graph that partitions/pipelines like any zoo model, on random init or
+on the weights of its `save_weights` h5 file (`model_from_keras(...,
+weights_h5=)`, through `models/transplant.py`'s `load_keras_h5`, which
+imports `h5py` when called).
 
 Supports both JSON dialects: the classic functional layout
 (`config.layers` with `inbound_nodes` as
@@ -577,28 +579,24 @@ def model_from_keras(
     *,
     weights_h5: str | None = None,
     params=None,
+    generator=None,
+    device=None,
 ):
-    """Keras JSON -> (Model, params | None).
+    """Keras JSON (+ optional h5 weights) -> (Model, params | None).
 
-    The compatibility path: the artifact a reference user already has
-    (a `model.to_json()` string) becomes a zoo-style Model with
-    auto-discovered cut candidates, ready for `DEFER().run_defer`.
-    Returns (model, params): `params` passes through (None: init with
-    `model.init(generator)` as usual). `weights_h5` raises: reading Keras
-    h5 weights (the JAX package's `load_keras_h5`, fed to
-    `models/transplant.py`) needs `h5py`, which the port does not
-    depend on; a `{layer: [arrays]}` dict loads through
-    `transplant(graph, params, KerasWeights(...))` instead."""
+    The compatibility path: the artifacts a reference user already has
+    (a `model.to_json()` string, a `save_weights` h5 file) become a
+    zoo-style Model with auto-discovered cut candidates, ready for
+    `DEFER().run_defer`. Returns (model, params): `params` passes
+    through unless `weights_h5` is given, which loads the file
+    (`models/transplant.py` `load_keras_h5`, needing h5py) into the
+    model's params: their shapes are drawn first from `generator` (one
+    seeded 0 on `device` when None; `device` defaults to the first CUDA
+    device and raises without one), and the loaded values land on the
+    generator's device."""
     from defer_tpu_torch.graph.partition import chain_boundaries
     from defer_tpu_torch.models import Model
 
-    if weights_h5 is not None:
-        raise NotImplementedError(
-            "weights_h5= (Keras h5 weights) needs h5py, which the port "
-            "does not depend on (ROADMAP.md Queue 1); load a {layer: "
-            "[arrays]} dict with models/transplant.py's transplant("
-            "graph, params, KerasWeights(...)) instead"
-        )
     graph, input_shape = from_keras_json(text)
     model = Model(
         name=graph.name,
@@ -609,4 +607,23 @@ def model_from_keras(
         # separates the chain (NASNet-class imports).
         cut_candidates=tuple(chain_boundaries(graph, max_width=2)),
     )
-    return model, params
+    loaded = params
+    if weights_h5 is not None:
+        from defer_tpu_torch.models.transplant import (
+            KerasWeights,
+            load_keras_h5,
+            transplant,
+        )
+
+        import torch
+
+        from defer_tpu_torch.parallel.mesh import cuda_devices
+
+        if generator is None:
+            dev = device if device is not None else cuda_devices()[0]
+            generator = torch.Generator(device=dev).manual_seed(0)
+        base = model.init(generator)
+        loaded = transplant(
+            graph, base, KerasWeights(load_keras_h5(weights_h5, text))
+        )
+    return model, loaded

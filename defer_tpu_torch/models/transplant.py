@@ -2,9 +2,9 @@
 speculation drafts carved out of a decoder.
 
 Counterpart of `defer_tpu/models/transplant.py` (`tensor_to_numpy`,
-`_from_torch`, the weight sources, `transplant`, `draft_width_geometry`
-and `make_draft`). `transplant` walks a graph, asks a `WeightSource` for
-each parameter, converts the source's layout to the port's (the JAX
+`_from_torch`, the weight sources, `transplant`, `export_keras_weights`,
+`load_keras_h5`, `draft_width_geometry` and `make_draft`). `transplant`
+walks a graph, asks a `WeightSource` for each parameter, converts the source's layout to the port's (the JAX
 package's: NHWC activations, HWIO conv kernels), shape-checks, and
 returns a fresh params tree on each parameter's device. Two sources:
 
@@ -12,9 +12,10 @@ returns a fresh params tree on each parameter's device. Two sources:
   * `TorchStateDict`: a torch `state_dict` (OIHW conv kernels, (out, in)
     linears, BN running stats) with a node-name -> module-prefix map.
 
-`load_keras_h5` (reading that dict out of an HDF5 file) needs `h5py`,
-which the port does not depend on; `graph/keras_import.py`'s
-`weights_h5=` raises for the same reason.
+`load_keras_h5` reads that dict out of a Keras `save_weights` HDF5 file
+(the classic TF2-era layout and Keras 3's `.weights.h5`), importing
+`h5py` only when called: the port does not depend on it.
+`export_keras_weights` writes params back in Keras layout.
 """
 
 from __future__ import annotations
@@ -67,6 +68,18 @@ def _from_keras(op: str, param: str, value: np.ndarray) -> np.ndarray:
         # c*mult + m, the grouped convolution's order.
         kh, kw = value.shape[:2]
         return value.reshape(kh, kw, 1, -1)
+    return value
+
+
+def _to_keras(op: str, param: str, value: np.ndarray, attrs) -> np.ndarray:
+    if op == "separable_conv" and param == "dw_kernel":
+        kh, kw, _, cm = value.shape
+        mult = int(attrs.get("depth_multiplier", 1))
+        return value.reshape(kh, kw, cm // mult, mult)
+    if op == "depthwise_conv" and param == "kernel":
+        kh, kw, _, cm = value.shape
+        mult = int(attrs.get("depth_multiplier", 1))
+        return value.reshape(kh, kw, cm // mult, mult)
     return value
 
 
@@ -242,6 +255,121 @@ def transplant(
             "transplant: %d checkpoint keys unused, e.g. %s",
             len(unused), sorted(unused)[:5],
         )
+    return out
+
+
+def export_keras_weights(
+    graph, params: Mapping[str, Mapping[str, torch.Tensor]]
+) -> dict[str, list[np.ndarray]]:
+    """Params -> Keras-layout `{layer: [numpy arrays]}` on the host
+    (round-trippable through KerasWeights, and loadable into a
+    same-architecture Keras model via `set_weights`)."""
+    out: dict[str, list[np.ndarray]] = {}
+    node_map = graph.node_map
+    for name, node_params in params.items():
+        if not node_params:
+            continue
+        node = node_map[name]
+        order = _KERAS_ORDER.get(node.op)
+        if order is None:
+            raise TransplantError(
+                f"no Keras layout rule for op {node.op!r} (node {name!r})"
+            )
+        out[name] = [
+            _to_keras(node.op, p, tensor_to_numpy(node_params[p]),
+                      node.attrs)
+            for p in order
+            if p in node_params
+        ]
+    return out
+
+
+def _to_snake_case(name: str) -> str:
+    """Keras's class-name -> object-name rule (Conv2D -> conv2d,
+    BatchNormalization -> batch_normalization, ReLU -> re_lu)."""
+    import re
+
+    name = re.sub(r"\W+", "", name)
+    name = re.sub("(.)([A-Z][a-z]+)", r"\1_\2", name)
+    return re.sub("([a-z])([A-Z])", r"\1_\2", name).lower()
+
+
+def _keras3_group_names(model_json) -> dict[str, str]:
+    """h5 group name -> real layer name for a Keras 3 `.weights.h5`.
+
+    Keras 3 names each layer's h5 group by snake-cased class name with
+    a per-class counter in model.layers order (NOT by `layer.name`);
+    the model JSON's config.layers order reproduces that assignment.
+    """
+    import json as _json
+
+    spec = (
+        _json.loads(model_json) if isinstance(model_json, str) else model_json
+    )
+    layers = spec.get("config", {}).get("layers", [])
+    counters: dict[str, int] = {}
+    mapping: dict[str, str] = {}
+    for layer in layers:
+        cls = layer.get("class_name", "")
+        name = layer.get("name") or layer.get("config", {}).get("name")
+        base = _to_snake_case(cls)
+        idx = counters.get(base, 0)
+        counters[base] = idx + 1
+        mapping[base if idx == 0 else f"{base}_{idx}"] = name
+    return mapping
+
+
+def load_keras_h5(
+    path: str, model_json=None
+) -> dict[str, list[np.ndarray]]:
+    """Read a Keras `save_weights` HDF5 file into `{layer: [arrays]}`.
+
+    Supports both on-disk layouts: the classic topological layout
+    (`layer_names` / `weight_names` attrs) that TF1/2-era Keras writes, and the Keras 3 `.weights.h5`
+    layout (`layers/<object_name>/vars/<i>` datasets in
+    `layer.weights` order, which matches `get_weights()` ordering).
+    Keras 3 group names are per-class counters, not layer names; pass
+    the model's `to_json()` string as `model_json` to resolve them to
+    real layer names (otherwise the raw object names are returned).
+    Needs `h5py`, imported here: the port does not depend on it.
+    """
+    import h5py
+
+    out: dict[str, list[np.ndarray]] = {}
+    with h5py.File(path, "r") as f:
+        if "layers" in f and "layer_names" not in f.attrs:
+            # Keras 3 layout.
+            resolve = (
+                _keras3_group_names(model_json) if model_json is not None
+                else {}
+            )
+            layers_group = f["layers"]
+            for lname in layers_group:
+                g = layers_group[lname]
+                if "vars" not in g:
+                    continue
+                vars_group = g["vars"]
+                arrays = [
+                    np.asarray(vars_group[k])
+                    for k in sorted(vars_group, key=int)
+                ]
+                if arrays:
+                    out[resolve.get(lname, lname)] = arrays
+            return out
+        root = f["model_weights"] if "model_weights" in f else f
+        layer_names = [
+            n.decode() if isinstance(n, bytes) else n
+            for n in root.attrs.get("layer_names", list(root.keys()))
+        ]
+        for lname in layer_names:
+            g = root[lname]
+            weight_names = [
+                n.decode() if isinstance(n, bytes) else n
+                for n in g.attrs.get("weight_names", [])
+            ]
+            arrays = [np.asarray(g[w]) for w in weight_names]
+            if arrays:
+                out[lname] = arrays
     return out
 
 

@@ -1,10 +1,18 @@
-"""Export sinks for the metrics registry (the pull-based half of
+"""Export sinks for the metrics registry (counterpart of
 `defer_tpu/obs/export.py`): `prometheus_text(registry)` renders the text
 exposition format 0.0.4; `MetricsRegistry.to_dict()` (obs/metrics.py)
-keys its snapshot by `sample_name`.
+keys its snapshot by `sample_name`; `PeriodicDumper` pushes either form
+to a file or the logger from a daemon thread.
 """
 
 from __future__ import annotations
+
+import json
+import threading
+
+from defer_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 def _escape(v: str) -> str:
     return (
@@ -80,3 +88,72 @@ def prometheus_text(registry) -> str:
                 f"{sample_name(m.name, m.labels)} {_fmt(m._snapshot())}"
             )
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+class PeriodicDumper:
+    """Daemon thread that snapshots the registry every `interval_s`
+    and writes it to a file (`path`) or the module logger. The thread
+    only ever *reads* instruments, so a dumper costs the hot paths
+    nothing; `fmt` is "json" or "prometheus"."""
+
+    def __init__(
+        self,
+        registry,
+        interval_s: float = 10.0,
+        path: str | None = None,
+        fmt: str = "json",
+    ):
+        if fmt not in ("json", "prometheus"):
+            raise ValueError(f"fmt must be json|prometheus, got {fmt!r}")
+        if interval_s <= 0:
+            raise ValueError(f"interval_s must be > 0, got {interval_s}")
+        self.registry = registry
+        self.interval_s = interval_s
+        self.path = path
+        self.fmt = fmt
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def _render(self) -> str:
+        if self.fmt == "prometheus":
+            return self.registry.to_prometheus()
+        return json.dumps(self.registry.to_dict(), sort_keys=True)
+
+    def dump_once(self) -> str:
+        text = self._render()
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(text if text.endswith("\n") else text + "\n")
+        else:
+            log.info("metrics: %s", text)
+        return text
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.dump_once()
+            except Exception:  # a broken sink must not kill the server
+                log.exception("metrics dump failed")
+
+    def start(self) -> "PeriodicDumper":
+        if self._thread is not None:
+            raise RuntimeError("dumper already started")
+        self._thread = threading.Thread(
+            target=self._run, name="obs-dumper", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self, final_dump: bool = True) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        if final_dump:
+            self.dump_once()
+
+    def __enter__(self) -> "PeriodicDumper":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop(final_dump=not any(exc))

@@ -14,10 +14,13 @@ counters and the `defer_spec_acceptance` histogram. The instruments of
 servers not ported yet (pipeline stages) are registered all the same,
 so the exposition's shape does not depend on which server ran.
 `DisaggMetrics` instruments the disaggregated prefill/decode split
-(defer_tpu_torch/disagg/); `FleetMetrics` waits for its server.
+(defer_tpu_torch/disagg/); `FleetMetrics` the fleet front-end
+(defer_tpu_torch/fleet/), with the JAX package's names, labels and
+reasons.
 
 `ServerStats` is the structured return of `serve_greedy`: a dict with
-attribute access and the registry snapshot under `stats.metrics`.
+attribute access and the registry snapshot under `stats.metrics`;
+`FleetStats` is `serve_fleet`'s.
 """
 
 from __future__ import annotations
@@ -370,6 +373,93 @@ class DisaggMetrics:
         )
 
 
+class FleetMetrics:
+    """Pre-bound instruments for the fleet front-end
+    (defer_tpu_torch/fleet/). One process-wide set of fleet instruments; the
+    per-replica signals (queue depth/wait, in-flight slots, pool
+    headroom) carry a `replica` label because every replica's OWN
+    `ServingMetrics("paged")` resolves to the same shared instruments
+    — per-replica load must be separable for the router to read it."""
+
+    ROUTE_REASONS = ("prefix", "migrate", "load", "fallback")
+    SHED_REASONS = ("queue_full", "slo")
+
+    def __init__(
+        self, n_replicas: int, registry: MetricsRegistry | None = None
+    ):
+        reg = registry if registry is not None else get_registry()
+        self.registry = reg
+        self.n_replicas = n_replicas
+        self.routed = {
+            reason: reg.counter(
+                "defer_fleet_routed_total",
+                "Requests routed to a replica, by routing reason "
+                "(prefix = deepest resident prefix; migrate = prefix "
+                "holder overloaded, blocks shipped to the target; "
+                "load = no resident prefix anywhere, least-loaded; "
+                "fallback = prefix existed but was unusable — holder "
+                "dead or migration failed)",
+                {"reason": reason},
+            )
+            for reason in self.ROUTE_REASONS
+        }
+        self.shed = {
+            reason: reg.counter(
+                "defer_fleet_shed_total",
+                "Requests rejected by admission control, by reason "
+                "(queue_full = bounded queue never drained within the "
+                "deadline; slo = rolling queue-wait p99 already above "
+                "the configured SLO)",
+                {"reason": reason},
+            )
+            for reason in self.SHED_REASONS
+        }
+        self.migrated_blocks = reg.counter(
+            "defer_fleet_migrated_blocks_total",
+            "Prefix KV blocks shipped between replica pools instead "
+            "of being re-prefilled",
+        )
+        self.advert_age = reg.gauge(
+            "defer_fleet_digest_advert_age_seconds",
+            "Age of the OLDEST replica digest advertisement at the "
+            "most recent routing decision — how stale the prefix "
+            "signal can be",
+        )
+        per = [{"replica": str(i)} for i in range(n_replicas)]
+        self.queue_wait = [
+            reg.histogram(
+                "defer_fleet_queue_wait_seconds",
+                "Admission enqueue to replica pickup, per replica",
+                _LATENCY_BUCKETS, lab,
+            )
+            for lab in per
+        ]
+        self.queue_depth = [
+            reg.gauge(
+                "defer_fleet_queue_depth",
+                "Requests waiting in a replica's admission queue",
+                lab,
+            )
+            for lab in per
+        ]
+        self.inflight = [
+            reg.gauge(
+                "defer_fleet_inflight_requests",
+                "Requests seated or pending inside a replica's server",
+                lab,
+            )
+            for lab in per
+        ]
+        self.pool_free = [
+            reg.gauge(
+                "defer_fleet_pool_blocks_free",
+                "Replica KV pool headroom (free-list blocks)",
+                lab,
+            )
+            for lab in per
+        ]
+
+
 class ServerStats(dict):
     """Dict-compatible structured stats snapshot.
 
@@ -395,3 +485,8 @@ class ServerStats(dict):
         out["metrics"] = reg.to_dict()
         return out
 
+
+class FleetStats(ServerStats):
+    """ServerStats for a fleet run: the fleet-level snapshot (routing
+    reasons, shed counts, migration totals) plus `replicas`, a list of
+    per-replica ServerStats in replica-index order."""

@@ -236,12 +236,17 @@ def _kernel():
         # dtype, pool_dtype, batch, hq, hkv, t_q, bs, mb, dh
         *[ctypes.c_int] * 9,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     return fn
 
 
 _runs, card_runs, reset_card_runs = run_counter("paged_flash_prefill")
+# The split-K merge kernel's own count: a call that splits runs the main
+# kernel once and the merge once; one that does not, no merge.
+_merge_runs, merge_card_runs, reset_merge_card_runs = run_counter(
+    "paged_flash_prefill's split-K merge"
+)
 
 
 @functools.lru_cache(maxsize=256)
@@ -333,6 +338,7 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
         0 if window is None else int(window), splits, dh**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
         _runs(q.device.index).data_ptr(),
+        _merge_runs(q.device.index).data_ptr(),
     )
     if torch.cuda.current_device() == q.device.index:
         rc = _kernel()(*args)

@@ -43,6 +43,9 @@ class Deadline:
         """Seconds of budget left (negative once expired)."""
         return self.at - time.monotonic()
 
+    def expired(self) -> bool:
+        return self.remaining() <= 0
+
     def elapsed(self) -> float:
         """Seconds since the deadline was armed."""
         return time.monotonic() - self.t0

@@ -76,6 +76,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Any
 
@@ -98,6 +99,32 @@ _DEAD_END = (
     "constraint dead end: DFA state admits no token and is not accepting"
 )
 
+
+
+# One lock a card: a warm-up and capture holds it, so that two servers on
+# one card (fleet replicas, each on its own thread) never capture at once.
+_CAPTURE_LOCKS: dict = collections.defaultdict(threading.Lock)
+
+
+def capture_graph(body, device: torch.device, warm_up) -> "torch.cuda.CUDAGraph":
+    """Warm `body` up with `warm_up()`, then capture it into a CUDA graph
+    on `device`. Servers on other threads of the same card go on ticking
+    meanwhile (allocating, copying to the host, synchronizing their own
+    streams), so the capture is thread-local
+    (`capture_error_mode="thread_local"`: in the default global mode
+    their next such call would break it); their work runs on their own
+    streams, which the capture stream, a non-blocking one, does not
+    join. What no thread may do while a stream of the card captures is
+    synchronize the whole device, as a warm-up ends and as a capture
+    begins: so the two happen under the card's capture lock, and one
+    card's captures take turns. A failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    with _CAPTURE_LOCKS[device.index], torch.no_grad():
+        warm_up()
+        torch.cuda.synchronize(device)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            body()
+    return graph
 
 class SlotSampler:
     """Per-slot sampling state: one generator per sampled slot plus the
@@ -981,27 +1008,26 @@ class DecodeServer:
         before and restored after with every other state the body
         writes, so it changes nothing the server holds."""
         sm, cache = self._sampler, self.cache
-        state = (cache["pos"], self._feed, self._active, sm.cstate)
-        saved = [t.clone() for t in state]
-        last = cache["k"].shape[3] - 1
-        rows = [(t, r, t[:, :, :, r].clone())
-                for t in (cache["k"], cache["v"]) for r in (0, last)]
-        self._active.zero_()
-        cache["pos"].fill_(last)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        for t, r, old in rows:
-            t[:, :, :, r] = old
-        for t, old in zip(state, saved):
-            t.copy_(old)
-        torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            body()
-        return graph
+
+        def warm_up():
+            state = (cache["pos"], self._feed, self._active, sm.cstate)
+            saved = [t.clone() for t in state]
+            last = cache["k"].shape[3] - 1
+            rows = [(t, r, t[:, :, :, r].clone())
+                    for t in (cache["k"], cache["v"]) for r in (0, last)]
+            self._active.zero_()
+            cache["pos"].fill_(last)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            for t, r, old in rows:
+                t[:, :, :, r] = old
+            for t, old in zip(state, saved):
+                t.copy_(old)
+
+        return capture_graph(body, self.device, warm_up)
 
     def _tick_window(self) -> None:
         """One dispatch of up to decode_window tokens per active slot;

@@ -96,14 +96,20 @@ What differs from JAX, and why:
     proposes a garbage argmax; the verify accepts neither, so the
     committed tokens are the same.
 
+The fleet seams (defer_tpu_torch/fleet/): `device=` pins a server and
+its pool to one device (params move with `.to`, so replicas on one card
+share one set of weights), `resident_digests` is the routing
+advertisement, and `export_prefix_blocks` / `import_prefix_blocks` move
+a parked prefix chain between pools, on the serving thread only.
+
 Not ported yet (each raises NotImplementedError, naming its ROADMAP
-Queue 1 item): `mesh=` and `pp_*` (item 7), `device=` and the fleet
-seams `export_prefix_blocks` / `import_prefix_blocks` (item 6, fleet/).
+Queue 1 item): `mesh=` and `pp_*` (item 7).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import hashlib
 import queue
@@ -142,6 +148,7 @@ from defer_tpu_torch.runtime.decode_server import (
     _DEAD_END,
     DraftLanes,
     SlotSampler,
+    capture_graph,
 )
 from defer_tpu_torch.runtime.schedule import PrefillSeat, plan_mixed_tick
 from defer_tpu_torch.runtime.stopping import matcher_or_none, normalize_stops
@@ -151,6 +158,34 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
     )
+
+
+def pinned_device(device) -> torch.device:
+    """`device=` as a torch.device that exists in this process, with a
+    CUDA index made explicit; raises for a card that is not there (a
+    server never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"device={dev}: the port serves on cuda or cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device={dev}: this process sees no CUDA device")
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx >= torch.cuda.device_count():
+        raise ValueError(
+            f"device={dev}: only {torch.cuda.device_count()} CUDA "
+            "device(s) here"
+        )
+    return torch.device("cuda", idx)
+
+
+def tree_to(tree, device: torch.device):
+    """A param tree on `device`; `.to` returns a leaf already there as
+    it is, so no copy is made."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def _pool_layer(pool, layer: int):
@@ -521,8 +556,9 @@ class PagedDecodeServer:
     Protocol-compatible with runtime/decode_server.DecodeServer (submit
     -> run -> {rid: ids}), with the pool replacing per-slot max_len
     lanes. `num_blocks` INCLUDES the reserved trash block 0. The server
-    runs on `dec.device` (CUDA unless the decoder was built on the CPU),
-    where `params` must live."""
+    runs on `device=` when given (params are moved there), else on
+    `dec.device` (CUDA unless the decoder was built on the CPU), where
+    `params` must live."""
 
     def __init__(
         self,
@@ -588,8 +624,10 @@ class PagedDecodeServer:
         `stack_adapters`) serve a LoRA adapter per request
         (`submit(adapter_id=)`, 0 = the base model).
 
-        `mesh=`, `device=` and `pp_*` raise NotImplementedError, naming
-        their ROADMAP Queue 1 item."""
+        `device=`: the one device the server, its pool and its params
+        live on (default: `dec.device`); a device this process does not
+        have raises. `mesh=` and `pp_*` raise NotImplementedError,
+        naming their ROADMAP Queue 1 item."""
         if getattr(dec, "rolling_cache", False):
             raise ValueError("paged serving does not support rolling caches")
         # Multi-LoRA: adapter banks make the slot -> adapter assignment
@@ -718,10 +756,19 @@ class PagedDecodeServer:
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh=)", "7")
         if device is not None:
-            raise _not_ported(
-                "pinning a server to a device (device=; it runs on "
-                "dec.device)", "6, fleet/"
-            )
+            # Pin the server, its pool and its params to `device`: the
+            # decoder (and a draft) is replaced by one placed there, so
+            # every step of this server reads this device, and params
+            # move with .to(), a no-op for a tensor already there (two
+            # replicas on one card share one set of weights).
+            device = pinned_device(device)
+            if device != dec.device:
+                dec = dataclasses.replace(dec, device=device)
+            params = tree_to(params, device)
+            if spec_k and device != spec_draft.device:
+                spec_draft = dataclasses.replace(spec_draft, device=device)
+            if spec_k:
+                spec_params = tree_to(spec_params, device)
         cfg = dec.cfg
         self.decode_window = decode_window
         self.attention = attention
@@ -729,6 +776,8 @@ class PagedDecodeServer:
         self.dec = dec
         self.params = params
         self.device = dec.device
+        # The fleet's per-replica stats read it; a mesh is item 7.
+        self.mesh_label = None
         self.B = max_batch
         self.bs = block_size
         self.eos_id = eos_id
@@ -1121,11 +1170,118 @@ class PagedDecodeServer:
             )
         entry["kv"] = (k_blocks, v_blocks, first_logits)
 
-    def export_prefix_blocks(self, *args, **kwargs):
-        raise _not_ported("prefix migration (export_prefix_blocks)", "6, fleet/")
+    def export_prefix_blocks(
+        self, keys: list[bytes]
+    ) -> tuple[list[bytes], torch.Tensor, torch.Tensor] | None:
+        """Copy a resident prefix chain OUT of the pool for migration:
+        `keys` is a root-anchored run of chained digests (the router's
+        walk order); returns (own-block token bytes per block,
+        [L, n, Hkv, bs, Dh] K and V block stacks as CPU tensors in the
+        compute dtype; an int8 pool dequantizes first) or None if a key
+        was evicted since the advertisement the caller routed on.
 
-    def import_prefix_blocks(self, *args, **kwargs):
-        raise _not_ported("prefix migration (import_prefix_blocks)", "6, fleet/")
+        SERVING-THREAD ONLY: a tick writes the pool in place (a captured
+        window replays into the same storage), so a reader on another
+        thread could copy rows mid-write. Fleet replicas run this as an
+        ops-queue command between ticks. The copy is self-contained:
+        once returned, eviction here cannot hurt the importer."""
+        if self.radix is None:
+            raise ValueError("export needs prefix_cache=True")
+        blks: list[int] = []
+        toks: list[bytes] = []
+        for key in keys:
+            blk = self.radix.by_key.get(key)
+            if blk is None:
+                return None  # evicted since the advert; stale route
+            blks.append(blk)
+            toks.append(self.radix.tok_of[blk])
+        idx = self._upload(blks).long()
+        out = []
+        for pool in (self.pool_k, self.pool_v):
+            if isinstance(pool, dict):
+                # Widened in f32 and rounded once to the compute dtype
+                # (the JAX package multiplies in the compute dtype): the
+                # importer's requantization then gives back the payload.
+                blocks = dequantize_symmetric(
+                    pool["q"][:, idx], pool["s"][:, idx][..., None, None],
+                ).to(self.dec.compute_dtype)
+            else:
+                blocks = pool[:, idx]
+            # The copy to host memory IS the operation: a migration ships
+            # the payload over a host wire.
+            out.append(blocks.cpu())
+        return toks, out[0], out[1]
+
+    def import_prefix_blocks(self, toks: list[bytes], k_blocks,
+                             v_blocks) -> int:
+        """Seat a migrated prefix chain (an export_prefix_blocks payload;
+        tensors or numpy arrays) in this pool as PARKED radix entries:
+        the next admission sharing the prefix revives them through the
+        normal walk, with no re-prefill. Chained digests are recomputed
+        HERE from the token bytes (never trusted from the wire), so a
+        corrupted payload mis-keys into digests nothing looks up.
+        Already-resident leading blocks are skipped; allocation evicts
+        parked LRU blocks under pressure and truncates the (deep) tail
+        when the pool still cannot cover it. The blocks land with one
+        indexed write a pool (an int8 pool quantizes them per (layer,
+        block, head) as they land). Returns the blocks imported.
+
+        SERVING-THREAD ONLY, as export. The JAX package pads the span to
+        a power of two for its compile shapes; eager writes need no pad,
+        and the count and the radix state are the same."""
+        if self.radix is None:
+            raise ValueError("import needs prefix_cache=True")
+        n = len(toks)
+        cfg = self.dec.cfg
+        expect = (cfg.num_layers, n, cfg.kv_heads, self.bs,
+                  cfg.dim // cfg.num_heads)
+        if tuple(k_blocks.shape) != expect or tuple(v_blocks.shape) != expect:
+            raise ValueError(
+                f"prefix block stack shape {tuple(k_blocks.shape)}/"
+                f"{tuple(v_blocks.shape)} != expected {expect}"
+            )
+        keys: list[bytes] = []
+        prev = b""
+        for bb in toks:
+            prev = PrefixBlockCache._hash(prev, bb)
+            keys.append(prev)
+        # Skip the already-resident leading run (tok-guarded, as walk()).
+        m = 0
+        while m < n:
+            blk = self.radix.by_key.get(keys[m])
+            if blk is None or self.radix.tok_of[blk] != toks[m]:
+                break
+            m += 1
+        if m == n:
+            return 0
+        need = n - m
+        if need > len(self.free):
+            self.free.extend(self.radix.evict(need - len(self.free)))
+        take = min(need, len(self.free))
+        if take == 0:
+            return 0
+        own = [self.free.pop() for _ in range(take)]
+        dest = self._upload(own).long()
+        for pool, arr in ((self.pool_k, k_blocks), (self.pool_v, v_blocks)):
+            blocks = torch.as_tensor(arr)[:, m : m + take].to(
+                self.device, self.dec.compute_dtype
+            )
+            if isinstance(pool, dict):
+                q, sc = _quantize_blocks(blocks)
+                pool["q"][:, dest] = q
+                pool["s"][:, dest] = sc
+            else:
+                pool[:, dest] = blocks
+        for j, blk in enumerate(own):
+            displaced = self.radix.register(keys[m + j], toks[m + j], blk)
+            if displaced is not None:
+                self.free.append(displaced)
+        # Park deepest-first (as _finish): LRU then evicts the deep end
+        # of the chain before its shallow prerequisites.
+        for blk in reversed(own):
+            self.radix.release(blk)
+        self._update_pool_gauges()
+        return take
 
     def run(self) -> dict[int, torch.Tensor]:
         """Serve until every submitted request completes; returns
@@ -2435,31 +2591,30 @@ class PagedDecodeServer:
         before and restored after, so it changes nothing the server
         holds."""
         sm = self._sampler
-        state = [self._pos_dev, self._feed, self._active, sm.cstate]
-        if kind == "spec":
-            sw = self._spec_state()
-            state += [sw[k] for k in ("pos", "dpos", "feed2", "adv",
-                                      "alive", "samp")]
-            head = self.spec_k + 2
-            state += [self._draft.ck[:, :, :, :head],
-                      self._draft.cv[:, :, :, :head]]
-        saved = [t.clone() for t in state]
-        self._active.zero_()
-        if kind == "spec":
-            sw["alive"].zero_()
         dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.no_grad():
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        for t, old in zip(state, saved):
-            t.copy_(old)
-        torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph), torch.no_grad():
-            body()
-        return graph
+
+        def warm_up():
+            state = [self._pos_dev, self._feed, self._active, sm.cstate]
+            if kind == "spec":
+                sw = self._spec_state()
+                state += [sw[k] for k in ("pos", "dpos", "feed2", "adv",
+                                          "alive", "samp")]
+                head = self.spec_k + 2
+                state += [self._draft.ck[:, :, :, :head],
+                          self._draft.cv[:, :, :, :head]]
+            saved = [t.clone() for t in state]
+            self._active.zero_()
+            if kind == "spec":
+                sw["alive"].zero_()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), torch.no_grad():
+                body()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            for t, old in zip(state, saved):
+                t.copy_(old)
+
+        return capture_graph(body, dev, warm_up)
 
     def _tick_window(self) -> None:
         """One dispatch of up to decode_window tokens per live slot; one

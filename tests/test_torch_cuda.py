@@ -4,7 +4,11 @@ decode server and the paged server, on a float and an int8 pool); the
 decode server's windows as captured CUDA graphs against its
 decode_window=1 ticks; the CNN ops through cuDNN against their CPU path,
 and the image models' stages; a remote stage worker on the card behind a
-loopback socket, and run_defer with replicas=2.
+loopback socket, and run_defer with replicas=2; what a kernel call runs
+on the card (each kernel's own run counter, the split-K merge's among
+them, and the aten ops it dispatches); and fleet serving on one card
+(prefix migration between two servers, two windowed replicas capturing
+at once, device= placement).
 
 Every test here is marked `cuda` and skips without a CUDA card. The
 file imports neither jax nor defer_tpu, so on the card it runs on its
@@ -29,6 +33,8 @@ import time
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from defer_tpu_torch import DEFER, DeferConfig
 from defer_tpu_torch.models import get_model
@@ -664,23 +670,83 @@ def test_decode_kernels_read_only_live_rows_at_mistral_shape(card, kind,
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+def _counters() -> dict:
+    """Every kernel's own count of its runs on the card, the split-K
+    merge's among them."""
+    from defer_tpu_torch.ops import flash_decode as fd
+    from defer_tpu_torch.ops import paged_flash_decode as pfd
+    from defer_tpu_torch.ops import paged_flash_prefill as pfp
+
+    return {"flat": fd.card_runs, "paged": pfd.card_runs,
+            "prefill": pfp.card_runs, "merge": pfp.merge_card_runs}
+
+
+class _CudaOps(TorchDispatchMode):
+    """Records the aten ops dispatched with a CUDA tensor among their
+    arguments or results."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        flat = tree_leaves((args, kwargs, out))
+        if any(isinstance(t, torch.Tensor) and t.is_cuda for t in flat):
+            self.ops.append(str(func.overloadpacket))
+        return out
+
+
+_FILL_COPY = ("fill", "zero", "zeros", "full", "ones", "copy", "_to_copy",
+              "clone", "index_put", "masked_fill")
+
+
+def _ops_and_runs(call) -> tuple:
+    """(the aten ops on CUDA tensors one call dispatches, each counter's
+    advance over it), after a warm-up call."""
+    call()
+    torch.cuda.synchronize()
+    before = {k: f() for k, f in _counters().items()}
+    with _CudaOps() as mode:
+        call()
+    torch.cuda.synchronize()
+    return mode.ops, {k: f() - before[k] for k, f in _counters().items()}
+
+
 @pytest.mark.parametrize("kind", ["flat", "paged", "int8"])
 def test_a_decode_call_is_one_cuda_kernel(card, kind):
     """The CTAs that share a sequence merge in the kernel (a thread
-    block cluster): a call launches one CUDA kernel and nothing else, no
-    merge kernel and no workspace fill."""
-    from torch.profiler import ProfilerActivity, profile
+    block cluster): a call runs its kernel once on the card (its own
+    `card_runs`), no split-K merge and no other counted kernel, and
+    dispatches no fill or copy beside it (no workspace to clear): the
+    only aten op on CUDA tensors is the output's allocation."""
+    ops, runs = _ops_and_runs(_decode_call(card, kind, [4095, 2047, 130, 0]))
+    main = "flat" if kind == "flat" else "paged"
+    assert runs == {k: int(k == main) for k in runs}, runs
+    assert not [op for op in ops if any(w in op for w in _FILL_COPY)], ops
+    assert ops == ["aten.empty"], ops
 
-    call = _decode_call(card, kind, [4095, 2047, 130, 0])
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 1, [e.name for e in kernels]
-    assert "decode" in kernels[0].name
+
+@pytest.mark.parametrize("mb,start", [(256, 0), (256, 1984), (4, 0)])
+def test_a_prefill_call_counts_its_merge(card, mb, start):
+    """A 64-token chunk of Mistral-7B's heads runs the prefill kernel
+    once on the card, plus the split-K merge once where the launch plan
+    splits the table span (256 blocks: a phase-5 chunk and a deep one)
+    and never where it does not (4 blocks); the workspace is allocated,
+    never filled."""
+    from defer_tpu_torch.ops.paged_flash_prefill import _prefill_splits
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits = _prefill_splits(sms, 1, 32, 8, 64, 16, mb)
+    q, pk, pv, tables, _ = _paged_inputs(card, 1, 32, 8, 64, 128, 16, mb,
+                                         torch.bfloat16, [start])
+    at = torch.tensor([start], dtype=torch.int32, device=card)
+    ops, runs = _ops_and_runs(
+        lambda: paged_flash_prefill(q, pk, pv, tables, at, window=4096))
+    assert (mb == 4) == (splits == 1)
+    assert runs == {"flat": 0, "paged": 0, "prefill": 1,
+                    "merge": int(splits > 1)}, runs
+    assert not [op for op in ops if any(w in op for w in _FILL_COPY)], ops
 
 
 # -- the CNN ops and the image models --------------------------------------
@@ -1236,3 +1302,101 @@ def test_mixed_ticks_and_constraints_on_the_card(card):
             for K in (1, 4)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# -- fleet serving on one card -----------------------------------------------
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_prefix_migration_between_servers_on_the_card(card, kv_dtype):
+    """A parked system-prompt chain exported from one server on cuda:0
+    and imported into another (the 16-token hit is two whole 8-token
+    prefill chunks, so the suffix prefill chunks alike). A bf16 pool's
+    blocks cross bit for bit, and the migrated request serves the same
+    tokens as a local radix hit. An int8 pool's blocks cross the wire
+    dequantized to bf16 (the JAX package's format) and requantize on
+    landing: the payload comes back bit for bit, each (layer, block,
+    head) scale within bf16's rounding (2^-8 relative), and every
+    migrated token is within the int8 pool's accuracy contract (5% of
+    its row's logit scale of the reference row max, as for any int8
+    pool) instead of token-identical."""
+    dec, params, reqs = _paged_model(card)
+    from defer_tpu_torch.fleet import chain_digests
+
+    knobs = dict(PAGED_KNOBS, kv_dtype=kv_dtype, device=card)
+    src = PagedDecodeServer(dec, params, **knobs)
+    src.submit(*reqs[0])
+    src.run()
+    keys = chain_digests(reqs[1][0], 2, 8)
+    toks, k, v = src.export_prefix_blocks(keys)
+    assert k.device.type == "cpu" and k.dtype == torch.bfloat16
+    blks = [src.radix.by_key[key] for key in keys]
+    rid = src.submit(*reqs[1])
+    local = src.run()[rid]
+    dst = PagedDecodeServer(dec, params, **knobs)
+    assert dst.import_prefix_blocks(toks, k, v) == 2
+    got = [dst.radix.by_key[key] for key in keys]
+    for a, b in ((src.pool_k, dst.pool_k), (src.pool_v, dst.pool_v)):
+        if kv_dtype == "fp":
+            assert torch.equal(a[:, blks], b[:, got])
+        else:
+            assert torch.equal(a["q"][:, blks], b["q"][:, got])
+            torch.testing.assert_close(b["s"][:, got], a["s"][:, blks],
+                                       rtol=2**-8, atol=0)
+    rid = dst.submit(*reqs[1])
+    migrated = dst.run()[rid]
+    assert dst.prefill_tokens_saved == 16
+    if kv_dtype == "fp":
+        assert torch.equal(migrated, local)
+        return
+    t_in = reqs[1][0].shape[1]
+    rows = dec.reference_logits(params, migrated[:, :-1])[0, t_in - 1:]
+    chosen = rows.gather(-1, migrated[0, t_in:].long()[:, None])[:, 0]
+    gap = (rows.amax(-1) - chosen) / rows.abs().amax(-1)
+    assert float(gap.max()) <= 0.05
+
+
+def test_window_replicas_capture_concurrently(card):
+    """Two decode_window=4 replicas on cuda:0, each on its own thread,
+    capture their windows while the other serves; the fleet's tokens
+    equal the decode_window=1 server's."""
+    from defer_tpu_torch.fleet import FleetFrontend
+
+    dec, params, reqs = _paged_model(card)
+    k1, _ = serve_paged(dec, params, reqs, **PAGED_KNOBS)
+    fe = FleetFrontend(dec, params, n_replicas=2, devices=[card],
+                       decode_window=4, policy="round_robin",
+                       **PAGED_KNOBS)
+    try:
+        gids = [fe.submit(p, s) for p, s in reqs]
+        outs = [fe.result(g, timeout=300) for g in gids]
+        captures = [r.srv.graph_captures for r in fe.replicas]
+    finally:
+        fe.close()
+    assert captures == [1, 1]
+    for a, b in zip(outs, k1):
+        assert torch.equal(a, b)
+
+
+def test_device_moves_cpu_params_to_the_card(card):
+    """device="cuda:0" with a CPU decoder and CPU params moves them to the
+    card and serves the CUDA server's tokens; params already on the card
+    are shared, not copied; a card this process lacks raises."""
+    dec, params, reqs = _paged_model(card)
+    host = GptDecoder(dec.cfg, compute_dtype=torch.bfloat16, device="cpu")
+    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    srv = PagedDecodeServer(host, cpu_params, device="cuda:0", **PAGED_KNOBS)
+    assert srv.device == card and srv.dec.device == card
+    assert srv.params["token_embedding"].device == card
+    got, _ = serve_paged(dec, params, reqs, **PAGED_KNOBS)
+    rids = [srv.submit(p, s) for p, s in reqs]
+    done = srv.run()
+    for rid, want in zip(rids, got):
+        assert torch.equal(done[rid], want)
+    shared = PagedDecodeServer(dec, params, device="cuda", **PAGED_KNOBS)
+    assert shared.params["token_embedding"] is params["token_embedding"]
+    with pytest.raises(ValueError, match="device"):
+        PagedDecodeServer(dec, params, **PAGED_KNOBS,
+                          device=f"cuda:{torch.cuda.device_count()}")

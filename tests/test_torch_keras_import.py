@@ -118,9 +118,40 @@ def test_model_from_keras_discovers_the_references_cuts():
     assert supported_layers() == jki.supported_layers()
 
 
-def test_weights_h5_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="transplant"):
-        model_from_keras(_residual_json(), weights_h5="w.h5")
+def write_classic_h5(h5py, path, weights: dict) -> None:
+    """{layer: [arrays]} in the classic (TF2-era) HDF5 layout:
+    `layer_names` on the root, `weight_names` on each layer group."""
+    with h5py.File(path, "w") as f:
+        f.attrs["layer_names"] = [n.encode() for n in weights]
+        for lname, arrays in weights.items():
+            g = f.create_group(lname)
+            names = [f"{lname}/w{i}:0" for i in range(len(arrays))]
+            g.attrs["weight_names"] = [n.encode() for n in names]
+            for n, a in zip(names, arrays):
+                g.create_dataset(n, data=a)
+
+
+def test_weights_h5_raises_naming_the_roadmap_item(tmp_path):
+    """weights_h5= loads since the port reads Keras HDF5 weights
+    (tests/test_torch_keras_h5.py holds it against tf.keras): the
+    residual JSON's params written in the classic h5 layout come back bit
+    for bit, and a file that is not there raises (h5py's OSError) where
+    the port used to raise NotImplementedError naming its ROADMAP item."""
+    h5py = pytest.importorskip("h5py")
+    from defer_tpu_torch.models.transplant import export_keras_weights
+
+    model, _ = model_from_keras(_residual_json())
+    params = model.init(torch.Generator().manual_seed(3))
+    path = str(tmp_path / "w.h5")
+    write_classic_h5(h5py, path, export_keras_weights(model.graph, params))
+    _, loaded = model_from_keras(_residual_json(), weights_h5=path,
+                                 generator=torch.Generator())
+    for node, ps in params.items():
+        for p, v in ps.items():
+            assert torch.equal(loaded[node][p], v), (node, p)
+    with pytest.raises(OSError):
+        model_from_keras(_residual_json(), weights_h5=str(tmp_path / "no.h5"),
+                         generator=torch.Generator())
 
 
 def test_build_pipeline_takes_a_keras_json_string():

@@ -375,13 +375,16 @@ def test_device_tables_and_positions_follow_the_host():
 
 def test_knobs_not_ported_raise():
     """The knobs that wait for a later slice raise NotImplementedError
-    naming their ROADMAP item (mesh=, device=, pp_*, the fleet seams);
-    the ones ported since check the JAX package's validation errors."""
+    naming their ROADMAP item (mesh=, pp_*); the ones ported since check
+    the JAX package's validation errors: device= (ported with the fleet)
+    pins the server where it is asked to, and the fleet seams refuse a
+    server without the radix cache."""
     dec, params, _, _ = _model("gpt", 32)
     base = dict(num_blocks=8, block_size=4)
-    for kw in (dict(mesh=object()), dict(device=CPU), dict(pp_stages=2)):
+    for kw in (dict(mesh=object()), dict(pp_stages=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PagedDecodeServer(dec, params, **base, **kw)
+    assert PagedDecodeServer(dec, params, **base, device=CPU).device == CPU
     for kw, match in (
         (dict(decode_window=0), "decode_window"),
         (dict(spec_k=1), "spec_draft"),
@@ -407,9 +410,12 @@ def test_knobs_not_ported_raise():
                    sampling=SamplingParams(constraint="json"))
     with pytest.raises(KeyError, match="no pending prefilled"):
         srv.deliver_kv(7, torch.zeros(1), torch.zeros(1), torch.zeros(1))
-    for name in ("export_prefix_blocks", "import_prefix_blocks"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(srv, name)()
+    # The fleet seams, ported since, refuse a server without the radix
+    # cache as the JAX package's do (tests/test_torch_fleet.py has them).
+    with pytest.raises(ValueError, match="prefix_cache"):
+        srv.export_prefix_blocks([])
+    with pytest.raises(ValueError, match="prefix_cache"):
+        srv.import_prefix_blocks([], torch.zeros(1), torch.zeros(1))
 
 
 def test_validation():
