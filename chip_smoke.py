@@ -11,7 +11,8 @@ printing one line per check and failing loudly:
                 all started together);
   2. kernels  — each kernel against its plain PyTorch version on the
                 card, at its main paths' shapes (flash_attention at
-                BERT's and at ViT-B/16's) and at the edge cases,
+                BERT's, at ViT-B/16's and, causal, at GPT-2 small's
+                training shape) and at the edge cases,
                 with the tolerance stated (the decode kernels also at the
                 depths of the serving ticks, TICK_POS, beside the deep
                 mix DEEP_POS, and both are timed); then the kernel's time,
@@ -63,6 +64,26 @@ printing one line per check and failing loudly:
      roofline, checkpoint — ResNet50's batch-32 roofline on this card
                 beside phase cnn's measured ms, and a bit-equal
                 save_checkpoint/load_checkpoint round trip of its params;
+     train    — training on cuda:0, params f32 and compute bf16, random
+                weights from seeded generators: SpmdBert at bench.py
+                bench_bert's shape (BERT-base, {"stage": 1}, M 8 x B 16
+                x S 128; tokens/s, MFU, 96 flash_attention launches a
+                step, pooled output against an f32 forward through the
+                plain attention); the BERT-base classifier on
+                {"stage": 4} over [cuda:0] x 4 (8 AdamW steps on one
+                batch, the loss falling; step 1's loss and gradient norm
+                against an f32 plain computation; step ms, peak memory,
+                launches; one remat step: the same loss, twice the
+                launches, a lower peak); the MoE FFN with 8 experts at
+                top-1 and top-2 (a2a against dense at a capacity that
+                cannot drop, the dropped share at cf 1.25, a train step
+                each dispatch); GPT-2 small (HF gpt2's widths) trained
+                as an LM on an lm_batches block of 512 tokens, its
+                pipeline logits against GptDecoder.reference_logits,
+                and its flattened tree served on DecodeServer at K=1
+                under the split greedy check; DPO (step 1 at log 2, the
+                reference tree bit for bit) and LoRA rank 16 (the base
+                bit for bit, no .grad);
   4. decode   — DecodeServer(max_batch=4) over GptDecoder at
                 mistral_config()'s full width and depth (32 layers, dim
                 4096, 32 heads, 8 KV heads, FFN 14336, vocab 32000,
@@ -74,8 +95,10 @@ printing one line per check and failing loudly:
                 recorded on a second server that serves the mix again,
                 untimed and token-identical, and that row within
                 SERVED_LOGIT_BOUND of an f32 forward on the same
-                weights); then the host and device time of one steady
-                tick;
+                weights); one untimed 256-token greedy generation whose
+                served rows' largest gap from f32 is printed for each
+                64-token bucket (reported, not gated); then the host and
+                device time of one steady tick;
      family   — the rest of the decoder family on phase 4's decoder and
                 weights: the mix through decode_window=4 and 8 (captured
                 CUDA graphs; token-identical to phase 4's outputs, the
@@ -151,7 +174,7 @@ printing one line per check and failing loudly:
                 limit, and last the line {"ok": true, "device": {...}}.
 
 Every kernel launch count is zeroed just before each path (3, cnn,
-socket, 4, each sub-path of family, 5, 6, each sub-path of
+socket, each sub-path of train, 4, each sub-path of family, 5, 6, each sub-path of
 paged_family and of fleet, t5) and read just after it; a path that did not launch its
 kernels fails (a rolling one fails if it launched flash_decode). A
 captured window's replays run kernels the wrappers' host counts cannot
@@ -169,7 +192,9 @@ neither jax nor defer_tpu.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
+import math
 import os
 import queue
 import statistics
@@ -193,6 +218,9 @@ BATCH, SEQ, MICROBATCHES = 16, 128, 64
 IMAGE_BATCH, AUTO_MICROBATCHES = 32, 8
 VIT_CUTS = ["block_2_out", "block_5_out", "block_8_out"]
 VIT_ATTN = (IMAGE_BATCH, 12, 197, 64)
+# flash_attention at the LM training step's shape: GPT-2 small, causal,
+# a microbatch of 4 x 512 tokens (phase train).
+GPT2_ATTN = (4, 12, 512, 64)
 # Every other zoo entry: one bf16 forward at batch 8 and its published
 # resolution, against the same graph in f32 on the card (TF32 off).
 ZOO_BATCH = 8
@@ -481,6 +509,7 @@ def check_flash_attention() -> dict:
         ("bert", (BATCH, 12, SEQ, 64), SEQ, bf16, False),
         ("vit", VIT_ATTN, VIT_ATTN[2], bf16, False),
         ("causal", (BATCH, 12, SEQ, 64), SEQ, bf16, True),
+        ("gpt2_causal", GPT2_ATTN, GPT2_ATTN[2], bf16, True),
         ("ragged77", (2, 12, 77, 64), 77, bf16, False),
         ("ragged200", (2, 12, 200, 64), 200, bf16, False),
         ("ragged200_causal", (2, 12, 200, 64), 200, bf16, True),
@@ -505,27 +534,34 @@ def check_flash_attention() -> dict:
                         f"q={tuple(q.shape)} s_k={s_k} causal={causal}")
         errs[label] = max_err
 
-    def timed(shape) -> dict:
+    def timed(shape, causal: bool = False) -> dict:
         b, h, s, dh = shape
         q, k, v = _bert_qkv(gen, b, h, s, dh, bf16)
-        kernel_ms = cuda_time_ms(lambda: flash_attention(q, k, v))
-        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v))
+        kernel_ms = cuda_time_ms(
+            lambda: flash_attention(q, k, v, causal=causal))
+        plain_ms = cuda_time_ms(
+            lambda: flash_attention_plain(q, k, v, causal=causal))
         library_ms = cuda_time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)
         )
         nbytes = 4 * q.numel() * q.element_size()
-        flops = 4 * b * h * s * s * dh
+        # A causal call needs the products of the lower triangle only.
+        flops = 4 * b * h * s * s * dh // (2 if causal else 1)
         bound_ms, bound_by = _bound(nbytes, flops)
-        log(f"kernels: flash_attention at {tuple(q.shape)} bf16: kernel_ms "
-            f"{kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms (sdpa) "
-            f"{library_ms:.5f} bound_us {bound_ms * 1e3:.3f} "
-            f"({nbytes} B, {flops} FLOP)")
+        log(f"kernels: flash_attention at {tuple(q.shape)} bf16 causal="
+            f"{causal}: kernel_ms {kernel_ms:.5f} plain_ms {plain_ms:.5f} "
+            f"library_ms (sdpa, is_causal={causal}) {library_ms:.5f} "
+            f"bound_us {bound_ms * 1e3:.3f} ({nbytes} B, {flops} FLOP)")
         return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms}
 
-    # BERT's shape at the top (as in earlier runs), ViT-B/16's beside it.
+    # BERT's shape at the top (as in earlier runs), ViT-B/16's and GPT-2
+    # small's causal training shape beside it.
     return {"max_abs_err": errs["bert"], **timed((BATCH, 12, SEQ, 64)),
-            "vit": {"max_abs_err": errs["vit"], **timed(VIT_ATTN)}}
+            "vit": {"max_abs_err": errs["vit"], **timed(VIT_ATTN)},
+            "gpt2_causal": {"max_abs_err": errs["gpt2_causal"],
+                            **timed(GPT2_ATTN, causal=True)}}
 
 
 def _decode_qkv(gen, b, hq, hkv, s, dh, dtype):
@@ -2284,6 +2320,48 @@ def greedy_gaps(phase: str, dec, params, reqs, outs, share: float) -> None:
           "row max")
 
 
+# The long run of phase decode (reported, not gated): one greedy request
+# of DRIFT_STEPS tokens, its served rows' largest gap from the f32
+# forward in each DRIFT_BUCKET-token bucket.
+DRIFT_STEPS, DRIFT_BUCKET = 256, 64
+
+
+def long_drift(dec, params) -> list:
+    """How far the served bf16 rows drift from f32 over a long greedy
+    generation: one request of DRIFT_STEPS tokens on an untimed
+    DecodeServer recording its rows (ServedRows), each token checked as
+    its row's argmax; returns the largest |served - f32| of each bucket
+    of DRIFT_BUCKET generated tokens. SERVED_LOGIT_BOUND is not applied
+    here: the readings say what that bound assumes."""
+    import torch
+
+    from defer_tpu_torch import DecodeServer
+
+    prompt = torch.randint(0, dec.cfg.vocab_size, (1, 16),
+                           generator=torch.Generator().manual_seed(7))
+    srv = DecodeServer(dec, params, max_batch=DECODE_SLOTS)
+    served = ServedRows(srv)
+    rid = srv.submit(prompt, DRIFT_STEPS)
+    out = srv.run()[rid]
+    rows = torch.stack(served.of(rid))
+    served.close()
+    check(tuple(out.shape) == (1, 16 + DRIFT_STEPS)
+          and rows.shape[0] == DRIFT_STEPS,
+          f"decode long run: output {tuple(out.shape)}, {rows.shape[0]} rows")
+    check(torch.equal(rows.argmax(-1), out[0, 16:].long().to(rows.device)),
+          "decode long run: a token is not the argmax of its served row")
+    ref = f32_reference_logits(dec, params, out[:, :-1])[0, 15:]
+    gap = (rows - ref).abs().amax(-1).cpu()
+    buckets = [float(gap[i : i + DRIFT_BUCKET].max())
+               for i in range(0, DRIFT_STEPS, DRIFT_BUCKET)]
+    log(f"decode: one {DRIFT_STEPS}-token greedy generation (untimed, "
+        f"reported, not gated): largest served-row gap from f32 by "
+        f"{DRIFT_BUCKET}-token bucket "
+        f"{', '.join(f'{b:.4g}' for b in buckets)} (SERVED_LOGIT_BOUND "
+        f"{SERVED_LOGIT_BOUND}{'; a bucket reads above it' if max(buckets) > SERVED_LOGIT_BOUND else ''})")
+    return buckets
+
+
 def phase_decode() -> dict:
     import torch
 
@@ -2339,12 +2417,633 @@ def phase_decode() -> dict:
     served_bound("decode", dec, params, reqs, outs, rows)
     del rows
     torch.cuda.empty_cache()
+    drift = long_drift(dec, params)
+    torch.cuda.empty_cache()
     depth = 150
     split = time_tick(flat_tick(dec, params, depth))
     log_split("decode", split, depth, weight_bytes)
     return {"launches": launches, "ticks": ticks, "dec": dec,
             "params": params, "weight_bytes": weight_bytes, "outs": outs,
-            "tokens_per_s": generated / wall, "split": split}
+            "tokens_per_s": generated / wall, "split": split,
+            "drift": drift}
+
+
+# -- phase train: the SPMD encoder stack and the trainers --------------------
+
+# BERT-base at bench.py bench_bert's widths, and GPT-2 small at the
+# widths of HF openai-community/gpt2's config.json (tanh gelu, pre-LN,
+# learned positions, tied head). Params f32, compute bf16.
+BERT_BASE = dict(num_layers=12, dim=768, num_heads=12, ffn_dim=3072,
+                 vocab_size=30522, max_len=512)
+GPT2_SMALL = dict(num_layers=12, dim=768, num_heads=12, ffn_dim=3072,
+                  vocab_size=50257, max_len=1024, layer_norm_eps=1e-5,
+                  norm_style="pre", causal=True)
+GPT2_EOS = 50256
+# bench_bert's forward: M microbatches of B x S tokens on {"stage": 1}.
+FWD_M, FWD_B, FWD_S = 8, 16, 128
+# The classifier: {"stage": 4} on [cuda:0] x 4, M x B x S, 8 AdamW steps
+# on one fixed batch (the last 7 timed), 2 classes. Adam's first step
+# moves each of the ~110M weights by about lr along its gradient's sign,
+# which on one batch of 32 random sequences overshoots at lr >= 1e-5
+# (step 2's loss 1.8-3.3 against 0.81 at step 1, in an f32 run of this
+# width); at CLS_LR the loss falls step by step (0.81 to 0.57 there).
+CLS_M, CLS_B, CLS_S, CLS_STEPS, CLS_CLASSES = 4, 8, 128, 8, 2
+CLS_LR = 2e-6
+# bf16 against f32 on the same weights: the classifier's step-1 loss
+# within 1e-2 relative and its gradient norm within 5e-2 (bf16 keeps 8
+# bits; 12 layers of rounded activations put a few 1e-3 on the loss
+# and more on gradients, which sum products of two rounded factors).
+CLS_LOSS_RTOL, CLS_GRAD_RTOL = 1e-2, 5e-2
+# The MoE FFN: 8 experts at BERT-base widths, top-1 and top-2; a2a at a
+# capacity that cannot drop (cf = E / k) against dense, and the drops at
+# cf 1.25; one train step each dispatch on M x B x S.
+MOE_E, MOE_M, MOE_B = 8, 2, 8
+# GPT-2 small LM: lm_batches over a synthetic corpus packed to S = 512,
+# M = 2, B = 4, 10 Adam steps on one block; then 4 prompts x 32 greedy
+# tokens on DecodeServer from the trained tree.
+LM_M, LM_B, LM_S, LM_STEPS, LM_PROMPTS, LM_GEN = 2, 4, 512, 10, 4, 32
+# The pipeline's last-position logits against GptDecoder.reference_logits
+# on the same (f32-stored, bf16-computed) weights: the two differ in the
+# attention kernel (flash against the decoder's masked einsum) and the
+# order of sums only; logits have unit scale, a bf16 ulp there is 4e-3.
+LM_LOGIT_TOL = 0.1
+# DPO: 3 steps on M x B pairs of a 64-token prompt and 64-token
+# completions; step 1 at log 2 within 1e-3 (policy = reference).
+DPO_M, DPO_B, DPO_PROMPT, DPO_STEPS = 2, 4, 64, 3
+# LoRA: rank 16 on wq and wv of BERT-base, 3 steps at the classifier's
+# shape.
+LORA_RANK, LORA_STEPS = 16, 3
+
+
+def _peak_reset() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb() -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _train_flops(cfg, tokens: int, seq: int, vocab: bool) -> float:
+    """A training step's model FLOPs: three times transformer_flops (the
+    forward, and a backward of twice its products), the tied head's
+    product with the LM."""
+    from defer_tpu_torch.utils.flops import transformer_flops
+
+    return 3 * transformer_flops(
+        num_layers=cfg.num_layers, dim=cfg.dim, ffn_dim=cfg.ffn_dim,
+        seq_len=seq, batch=tokens // seq,
+        vocab_size=cfg.vocab_size if vocab else 0)
+
+
+def _recording(opt_cls, **kw):
+    """An optimizer factory whose optimizer records the global gradient
+    norm of each step it takes (a tensor on the card, read after)."""
+    import torch
+
+    class Recording(opt_cls):
+        norms: list
+
+        def step(self, closure=None):
+            grads = [p.grad for g in self.param_groups for p in g["params"]
+                     if p.grad is not None]
+            self.norms.append(torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads])))
+            return super().step(closure)
+
+    def factory(params):
+        opt = Recording(params, **kw)
+        opt.norms = []
+        return opt
+
+    return factory
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict)
+            else v.detach().clone() for k, v in tree.items()}
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+
+    return all(
+        _tree_equal(a[k], b[k]) if isinstance(a[k], dict)
+        else torch.equal(a[k], b[k]) for k in a)
+
+
+def train_forward(dev) -> dict:
+    """SpmdBert at bench_bert's shape: tokens/s, MFU, 96 flash_attention
+    launches a step, the pooled output against an f32 forward through
+    the plain attention on the same weights (TF32 off)."""
+    import torch
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+    from defer_tpu_torch.utils.flops import transformer_flops
+
+    cfg = TransformerConfig(**BERT_BASE)
+    mesh = make_mesh({"stage": 1}, [dev])
+    sb = SpmdBert(mesh, cfg, compute_dtype=torch.bfloat16)
+    params = sb.init(torch.Generator(device=dev).manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (FWD_M, FWD_B, FWD_S),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    step = sb.make_step()
+    with torch.inference_mode():
+        step(params, ids)  # warm-up
+    torch.cuda.synchronize()
+    # Outside inference mode: the card's run counters are made at their
+    # first use and must stay writable.
+    zero_launches()
+    with torch.inference_mode():
+        out = step(params, ids)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(params, ids)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        # The host's time to issue one step on an idle card: near the
+        # step's time, the card waits on the host.
+        issue_ms = host_time_us(lambda: step(params, ids), iters=3) / 1e3
+    want_launches = cfg.num_layers * FWD_M
+    check(launches["flash_attention"] == want_launches,
+          f"train forward: flash_attention launched "
+          f"{launches['flash_attention']} times a step, expected "
+          f"{want_launches}")
+    tokens = FWD_M * FWD_B * FWD_S
+    flops = transformer_flops(num_layers=cfg.num_layers, dim=cfg.dim,
+                              ffn_dim=cfg.ffn_dim, seq_len=FWD_S,
+                              batch=FWD_M * FWD_B)
+    mfu = flops / dt / BF16_FLOP_PER_S
+
+    sb32 = SpmdBert(mesh, cfg, compute_dtype=torch.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = sb32.reference_apply(params, ids)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = out.float()
+    rel = float((got - want).norm() / want.norm())
+    check(tuple(out.shape) == (FWD_M, FWD_B, cfg.dim)
+          and bool(torch.isfinite(got).all()) and rel <= ZOO_REL_L2,
+          f"train forward: pooled output {rel:.3e} (relative L2) from the "
+          f"f32 plain forward, tol {ZOO_REL_L2}")
+    log(f"train: SpmdBert forward, BERT-base, stage 1, M {FWD_M} x B "
+        f"{FWD_B} x S {FWD_S}: {dt * 1e3:.3f} ms a step ({issue_ms:.3f} ms "
+        f"of host to issue one), {tokens / dt:.1f} tokens/s, MFU "
+        f"{mfu:.4f}; flash_attention "
+        f"{launches['flash_attention']} launches a step (= {cfg.num_layers}"
+        f" x {FWD_M}); pooled bf16 vs f32 plain forward: relative L2 "
+        f"{rel:.3e} (tol {ZOO_REL_L2}), max abs "
+        f"{float((got - want).abs().max()):.3e}")
+    return {"launches": launches["flash_attention"], "ms": dt * 1e3,
+            "issue_ms": issue_ms, "tokens_per_s": tokens / dt, "mfu": mfu,
+            "rel_l2": rel}
+
+
+def train_classifier(dev) -> dict:
+    """BERT-base classification fine-tuning on {"stage": 4} over [cuda:0]
+    x 4: step 1's loss and gradient norm against an f32 plain
+    computation on the same weights, the loss falling over CLS_STEPS
+    AdamW steps, step ms, peak memory and launches; then one step with
+    remat=True from the same init: the same loss, twice the launches,
+    less peak memory."""
+    import dataclasses
+
+    import torch
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel import train
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+
+    cfg = TransformerConfig(**BERT_BASE)
+    mesh = make_mesh({"stage": 4}, [dev] * 4)
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, cfg.vocab_size, (CLS_M, CLS_B, CLS_S),
+                        generator=gen).to(dev)
+    labels = torch.randint(0, CLS_CLASSES, (CLS_M, CLS_B),
+                           generator=gen).to(dev)
+    opt = _recording(torch.optim.AdamW, lr=CLS_LR, weight_decay=1e-4)
+
+    def fresh(c):
+        sb = SpmdBert(mesh, c, compute_dtype=torch.bfloat16)
+        init, step = train.make_train_step(sb, opt, num_classes=CLS_CLASSES)
+        return init(torch.Generator(device=dev).manual_seed(3)), step
+
+    state, step = fresh(cfg)
+    p0 = _clone_tree(state.params)
+    _peak_reset()
+    zero_launches()
+    state, loss = step(state, ids, labels)
+    torch.cuda.synchronize()
+    launches1 = read_launches()["flash_attention"]
+    peak = _peak_gb()
+    losses = [loss]
+    t0 = time.perf_counter()
+    for _ in range(CLS_STEPS - 1):
+        state, loss = step(state, ids, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (CLS_STEPS - 1) * 1e3
+    losses = [float(x) for x in losses]
+    norm1 = float(state.opt_state.norms[0])
+    del state
+    check(launches1 == cfg.num_layers * CLS_M,
+          f"classifier: flash_attention launched {launches1} times in a "
+          f"step, expected {cfg.num_layers} x {CLS_M}")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"classifier: the loss did not fall: {losses}")
+
+    # The f32 plain computation: the same weights, the plain attention,
+    # TF32 off; loss and gradients by autograd.
+    sb32 = SpmdBert(mesh, cfg, compute_dtype=torch.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        leaves = [t.requires_grad_() for t in train.tree_leaves(p0)]
+        ref = train.classifier_loss(sb32.reference_apply, p0, p0, ids, labels)
+        grads = torch.autograd.grad(ref, leaves)
+        ref_norm = float(torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads])))
+        ref = float(ref.detach())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del p0, leaves, grads
+    loss_err = abs(losses[0] - ref) / abs(ref)
+    norm_err = abs(norm1 - ref_norm) / ref_norm
+    check(loss_err <= CLS_LOSS_RTOL and norm_err <= CLS_GRAD_RTOL,
+          f"classifier: step 1 loss {losses[0]:.6f} / grad norm {norm1:.6f}"
+          f" against f32 {ref:.6f} / {ref_norm:.6f}")
+
+    state, step = fresh(dataclasses.replace(cfg, remat=True))
+    _peak_reset()
+    zero_launches()
+    state, loss_r = step(state, ids, labels)
+    torch.cuda.synchronize()
+    launches_r = read_launches()["flash_attention"]
+    peak_r = _peak_gb()
+    loss_r = float(loss_r)
+    del state
+    check(launches_r == 2 * launches1,
+          f"classifier remat: {launches_r} flash_attention launches, "
+          f"expected twice {launches1} (the backward recomputes)")
+    check(abs(loss_r - losses[0]) <= CLS_LOSS_RTOL * abs(losses[0])
+          and peak_r < peak,
+          f"classifier remat: loss {loss_r} against {losses[0]}, peak "
+          f"{peak_r:.3f} GB against {peak:.3f} GB")
+    tokens = CLS_M * CLS_B * CLS_S
+    mfu = _train_flops(cfg, tokens, CLS_S, False) / (step_ms / 1e3) \
+        / BF16_FLOP_PER_S
+    log(f"train: classifier, BERT-base on {{'stage': 4}} over [cuda:0] x 4, "
+        f"M {CLS_M} x B {CLS_B} x S {CLS_S}, AdamW: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; step 1 loss "
+        f"{losses[0]:.6f} vs f32 plain {ref:.6f} (rel {loss_err:.2e}, tol "
+        f"{CLS_LOSS_RTOL}), grad norm {norm1:.6f} vs {ref_norm:.6f} (rel "
+        f"{norm_err:.2e}, tol {CLS_GRAD_RTOL}); {step_ms:.3f} ms a step "
+        f"(steps 2-{CLS_STEPS}), {tokens / (step_ms / 1e3):.1f} tokens/s, "
+        f"MFU {mfu:.4f}; flash_attention {launches1} launches a step; peak "
+        f"{peak:.3f} GB")
+    log(f"train: classifier remat=True, one step from the same init: loss "
+        f"{loss_r:.6f} (vs {losses[0]:.6f}), flash_attention {launches_r} "
+        f"launches (the recompute doubles them), peak {peak_r:.3f} GB "
+        f"against {peak:.3f} GB")
+    return {"launches": launches1, "remat_launches": launches_r,
+            "step_ms": step_ms, "peak_gb": peak, "remat_peak_gb": peak_r,
+            "losses": losses, "loss_rel_err": loss_err,
+            "grad_norm_rel_err": norm_err, "mfu": mfu}
+
+
+def train_moe(dev) -> dict:
+    """MoE at BERT-base widths with MOE_E experts, top-1 and top-2: the
+    a2a dispatch against dense at a capacity that cannot drop (one
+    layer, bf16, the kernels' bf16 tolerance), the dropped share at cf
+    1.25, and one train step of the whole model each dispatch."""
+    import dataclasses
+
+    import torch
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel import train
+    from defer_tpu_torch.parallel import transformer_stack as ts
+    from defer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = ts.TransformerConfig(**BERT_BASE, num_experts=MOE_E)
+    layer = ts.init_stack(torch.Generator(device=dev).manual_seed(4),
+                          dataclasses.replace(cfg, num_layers=1))
+    p = {k: v[0] for k, v in layer.items()}
+    x = torch.randn(MOE_B, SEQ, cfg.dim, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    x = x.to(torch.bfloat16)
+    n = MOE_B * SEQ
+    mesh = make_mesh({"stage": 2}, [dev] * 2)
+    gen = torch.Generator().manual_seed(6)
+    ids = torch.randint(0, cfg.vocab_size, (MOE_M, MOE_B, SEQ),
+                        generator=gen).to(dev)
+    labels = torch.randint(0, CLS_CLASSES, (MOE_M, MOE_B),
+                           generator=gen).to(dev)
+    res = {}
+    for k in (1, 2):
+        with torch.inference_mode():
+            dense = ts.moe_ffn(p, x, top_k=k)
+            a2a = ts.moe_ffn_a2a(p, x, capacity_factor=MOE_E / k, top_k=k)
+            err = _held(f"top{k} a2a (cf {MOE_E / k:g}) vs dense", "moe_ffn",
+                        a2a, dense, torch.bfloat16,
+                        f"x={tuple(x.shape)} E={MOE_E}")
+            idx, w = ts._route_topk(p["router"], x.reshape(n, cfg.dim), k)
+            cap = ts.moe_capacity(n, MOE_E, k, 1.25)
+            _, _, keep = ts.a2a_slots(idx, w, MOE_E, cap)
+            dropped = 1.0 - float(keep.sum()) / (k * n)
+        steps = {}
+        for dispatch in ("dense", "a2a"):
+            c = dataclasses.replace(cfg, moe_top_k=k, moe_dispatch=dispatch,
+                                    capacity_factor=1.25)
+            sb = SpmdBert(mesh, c, compute_dtype=torch.bfloat16)
+            init, step = train.make_train_step(
+                sb, functools.partial(torch.optim.AdamW, lr=1e-4,
+                                      weight_decay=1e-4),
+                num_classes=CLS_CLASSES)
+            state = init(torch.Generator(device=dev).manual_seed(3))
+            _peak_reset()
+            zero_launches()
+            t0 = time.perf_counter()
+            state, loss = step(state, ids, labels)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()["flash_attention"]
+            loss = float(loss)
+            check(math.isfinite(loss) and launches == cfg.num_layers * MOE_M,
+                  f"moe top{k} {dispatch}: loss {loss}, {launches} "
+                  "flash_attention launches")
+            steps[dispatch] = {"loss": loss, "ms": ms, "launches": launches,
+                               "peak_gb": _peak_gb()}
+            del state, init, step, sb
+        log(f"train: moe top-{k}, {MOE_E} experts at BERT-base widths: a2a "
+            f"at cf {MOE_E / k:g} vs dense max_abs_err {err:.3e}; at cf 1.25 "
+            f"(capacity {cap} of {k * n} slots claimed) {dropped:.4f} of "
+            f"the (token, expert) pairs dropped; one train step each "
+            f"(M {MOE_M} x B {MOE_B} x S {SEQ}, stage 2): "
+            + "; ".join(f"{d} loss {s['loss']:.4f}, {s['ms']:.1f} ms (the "
+                        f"first, allocations included), peak "
+                        f"{s['peak_gb']:.3f} GB, flash_attention "
+                        f"{s['launches']}" for d, s in steps.items()))
+        res[f"top{k}"] = {"a2a_vs_dense_err": err, "dropped": dropped,
+                          **{d: s for d, s in steps.items()}}
+    return res
+
+
+def synthetic_corpus(vocab: int, seed: int = 0) -> list:
+    """Documents of 64-480 tokens drawn from `seed` (token ids below the
+    eos id): enough to pack one LM block."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab - 1, int(rng.integers(64, 480))).tolist()
+            for _ in range(48)]
+
+
+def train_lm(dev) -> dict:
+    """GPT-2 small next-token training on {"stage": 2} over [cuda:0] x 2:
+    LM_STEPS Adam steps on one lm_batches block (the loss must fall);
+    the pipeline's last-position logits against GptDecoder's
+    reference_logits on the same weights; the stage stack flattened and
+    served on DecodeServer at K=1, every token under the split greedy
+    check, flash_decode counted."""
+    import torch
+
+    from defer_tpu_torch import DecodeServer, GptDecoder
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel import train
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.parallel.spmd_pipeline import unstack_stages
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+    from defer_tpu_torch.runtime.text_data import lm_batches
+
+    cfg = TransformerConfig(**GPT2_SMALL)
+    sb = SpmdBert(make_mesh({"stage": 2}, [dev] * 2), cfg,
+                  compute_dtype=torch.bfloat16)
+    init, step = train.make_lm_train_step(
+        sb, functools.partial(torch.optim.Adam, lr=3e-4))
+    state = init(torch.Generator(device=dev).manual_seed(8))
+    block = next(lm_batches(synthetic_corpus(cfg.vocab_size), seq_len=LM_S,
+                            batch=LM_B, num_microbatches=LM_M,
+                            eos_id=GPT2_EOS, seed=0))
+    ids = torch.from_numpy(block).to(dev)
+    _peak_reset()
+    zero_launches()
+    state, loss = step(state, ids)
+    torch.cuda.synchronize()
+    launches = read_launches()["flash_attention"]
+    peak = _peak_gb()
+    losses = [loss]
+    t0 = time.perf_counter()
+    for _ in range(LM_STEPS - 1):
+        state, loss = step(state, ids)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (LM_STEPS - 1) * 1e3
+    losses = [float(x) for x in losses]
+    check(launches == cfg.num_layers * LM_M,
+          f"lm: flash_attention launched {launches} times in a step, "
+          f"expected {cfg.num_layers} x {LM_M}")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"lm: the loss did not fall: {losses}")
+    tokens = LM_M * LM_B * LM_S
+    mfu = _train_flops(cfg, tokens, LM_S, True) / (step_ms / 1e3) \
+        / BF16_FLOP_PER_S
+    log(f"train: lm, GPT-2 small on {{'stage': 2}} over [cuda:0] x 2, "
+        f"lm_batches M {LM_M} x B {LM_B} x S {LM_S}, Adam: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; {step_ms:.3f} ms a step "
+        f"(steps 2-{LM_STEPS}), {tokens / (step_ms / 1e3):.1f} tokens/s, "
+        f"MFU {mfu:.4f}; flash_attention {launches} launches a step "
+        f"(causal); peak {peak:.3f} GB")
+
+    flat = {k: v.detach() for k, v in state.params.items() if k != "stack"}
+    flat["stack"] = {k: v.detach()
+                     for k, v in unstack_stages(state.params["stack"]).items()}
+    dec = GptDecoder(cfg, compute_dtype=torch.bfloat16, device=dev)
+    with torch.inference_mode():
+        got = train._lm_logits(sb, state.params, ids[:1])[0, :, -1]
+        want = dec.reference_logits(flat, ids[0])[:, -1]
+    del state
+    lm_err = float((got - want).abs().max())
+    check(lm_err <= LM_LOGIT_TOL,
+          f"lm: pipeline logits {lm_err:.4g} from the decoder's, tol "
+          f"{LM_LOGIT_TOL}")
+    params = dec.cast_params(flat)
+    del flat
+    reqs = [(ids[0, i : i + 1, :16].cpu(), LM_GEN) for i in range(LM_PROMPTS)]
+    srv = DecodeServer(dec, params, max_batch=LM_PROMPTS)
+    rids = [srv.submit(pr, s) for pr, s in reqs]
+    torch.cuda.synchronize()
+    zero_launches()
+    done = srv.run()
+    torch.cuda.synchronize()
+    serve = eager_decode_launches("train serve")
+    ticks = srv.ticks
+    outs = [done[r] for r in rids]
+    check(serve["flash_decode"] >= cfg.num_layers * ticks,
+          f"train serve: flash_decode ran {serve['flash_decode']} times, "
+          f"expected >= {cfg.num_layers} x {ticks} ticks")
+    log(f"train: the trained tree, stack flattened, on GptDecoder: the "
+        f"pipeline's last-position logits within {lm_err:.4g} of "
+        f"reference_logits (tol {LM_LOGIT_TOL}); DecodeServer at K=1 served "
+        f"{LM_PROMPTS} prompts x {LM_GEN} greedy tokens in {ticks} ticks, "
+        f"flash_decode {serve['flash_decode']} runs on the card")
+    rows = recorded_rows("train serve", DecodeServer(
+        dec, params, max_batch=LM_PROMPTS), reqs, outs)
+    served_bound("train serve", dec, params, reqs, outs, rows)
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak,
+            "losses": losses, "mfu": mfu, "logit_err": lm_err,
+            "serve_launches": serve["flash_decode"], "ticks": ticks}
+
+
+def train_dpo(dev) -> dict:
+    """DPO on GPT-2 small, DPO_STEPS steps: step 1 at log 2 (policy =
+    reference), the reference tree bit for bit unchanged, the accuracy
+    printed."""
+    import torch
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel import train
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+
+    cfg = TransformerConfig(**GPT2_SMALL)
+    sb = SpmdBert(make_mesh({"stage": 2}, [dev] * 2), cfg,
+                  compute_dtype=torch.bfloat16)
+    init, step = train.make_dpo_train_step(
+        sb, functools.partial(torch.optim.Adam, lr=1e-5), beta=0.1)
+    state = init(torch.Generator(device=dev).manual_seed(9))
+    ref = _clone_tree(state.params)
+    ref_copy = _clone_tree(ref)
+    gen = torch.Generator().manual_seed(10)
+    shape = (DPO_M, DPO_B)
+    prompt = torch.randint(0, GPT2_EOS, (*shape, DPO_PROMPT), generator=gen)
+    chosen = torch.cat([prompt, torch.randint(
+        0, GPT2_EOS, (*shape, DPO_PROMPT), generator=gen)], -1).to(dev)
+    rejected = torch.cat([prompt, torch.randint(
+        0, GPT2_EOS, (*shape, DPO_PROMPT), generator=gen)], -1).to(dev)
+    mask = torch.cat([torch.zeros(*shape, DPO_PROMPT),
+                      torch.ones(*shape, DPO_PROMPT)], -1).to(dev)
+    _peak_reset()
+    zero_launches()
+    out = [step(state, ref, chosen, rejected, mask, mask)[1]]
+    torch.cuda.synchronize()
+    launches = read_launches()["flash_attention"]
+    t0 = time.perf_counter()
+    for _ in range(DPO_STEPS - 1):
+        out.append(step(state, ref, chosen, rejected, mask, mask)[1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (DPO_STEPS - 1) * 1e3
+    peak = _peak_gb()
+    losses = [float(x) for x, _ in out]
+    accs = [float(a) for _, a in out]
+    del state
+    check(abs(losses[0] - math.log(2.0)) <= 1e-3,
+          f"dpo: step 1 loss {losses[0]} is not log 2 within 1e-3")
+    check(_tree_equal(ref, ref_copy), "dpo: the reference tree changed")
+    check(launches == 2 * cfg.num_layers * DPO_M,
+          f"dpo: {launches} flash_attention launches in a step, expected "
+          f"policy + reference = 2 x {cfg.num_layers} x {DPO_M}")
+    log(f"train: dpo, GPT-2 small, M {DPO_M} x B {DPO_B} pairs of "
+        f"{DPO_PROMPT}-token prompts and completions: losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)} (step 1 - log 2 = "
+        f"{losses[0] - math.log(2.0):.2e}), accuracy "
+        f"{', '.join(f'{a:.3f}' for a in accs)}; the reference tree bit for "
+        f"bit unchanged; {step_ms:.3f} ms a step, peak {peak:.3f} GB, "
+        f"flash_attention {launches} launches a step (policy + reference)")
+    return {"launches": launches, "step_ms": step_ms, "losses": losses,
+            "accs": accs, "peak_gb": peak}
+
+
+def train_lora(dev) -> dict:
+    """LoRA rank LORA_RANK on wq / wv of BERT-base, LORA_STEPS steps at
+    the classifier's shape: the base bit for bit unchanged with no
+    .grad, the trainable count printed."""
+    import torch
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel import train
+    from defer_tpu_torch.parallel.lora import make_lora_train_step
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+
+    cfg = TransformerConfig(**BERT_BASE, lora_rank=LORA_RANK,
+                            lora_targets=("wq", "wv"))
+    sb = SpmdBert(make_mesh({"stage": 4}, [dev] * 4), cfg,
+                  compute_dtype=torch.bfloat16)
+    init, step = make_lora_train_step(
+        sb, functools.partial(torch.optim.AdamW, lr=1e-3, weight_decay=1e-4),
+        num_classes=CLS_CLASSES)
+    state, base = init(torch.Generator(device=dev).manual_seed(11))
+    base_copy = _clone_tree(base)
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, cfg.vocab_size, (CLS_M, CLS_B, CLS_S),
+                        generator=gen).to(dev)
+    labels = torch.randint(0, CLS_CLASSES, (CLS_M, CLS_B),
+                           generator=gen).to(dev)
+    n_train = sum(t.numel() for t in train.tree_leaves(state.params))
+    n_base = sum(t.numel() for t in train.tree_leaves(base))
+    _peak_reset()
+    zero_launches()
+    losses = [step(state, base, ids, labels)[1]]
+    torch.cuda.synchronize()
+    launches = read_launches()["flash_attention"]
+    t0 = time.perf_counter()
+    for _ in range(LORA_STEPS - 1):
+        losses.append(step(state, base, ids, labels)[1])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (LORA_STEPS - 1) * 1e3
+    peak = _peak_gb()
+    losses = [float(x) for x in losses]
+    leaves = train.tree_leaves(base)
+    check(_tree_equal(base, base_copy)
+          and all(t.grad is None and not t.requires_grad for t in leaves),
+          "lora: a base tensor changed or holds a gradient")
+    check(launches == cfg.num_layers * CLS_M and all(map(math.isfinite,
+                                                         losses)),
+          f"lora: losses {losses}, {launches} flash_attention launches")
+    log(f"train: lora rank {LORA_RANK} on wq/wv, BERT-base on "
+        f"{{'stage': 4}}: {n_train} trainable parameters (adapters + head) "
+        f"over a frozen base of {n_base}; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; every base tensor bit for "
+        f"bit unchanged, none holds a .grad; {step_ms:.3f} ms a step, peak "
+        f"{peak:.3f} GB, flash_attention {launches} launches a step")
+    return {"launches": launches, "step_ms": step_ms, "trainable": n_train,
+            "losses": losses, "peak_gb": peak}
+
+
+def phase_train() -> dict:
+    """The SPMD encoder stack and the four trainers at full width on
+    cuda:0 (each sub-path's kernel counts zeroed just before it)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    res = {}
+    for name, fn in (("forward", train_forward),
+                     ("classifier", train_classifier), ("moe", train_moe),
+                     ("lm", train_lm), ("dpo", train_dpo),
+                     ("lora", train_lora)):
+        t1 = time.perf_counter()
+        res[name] = fn(dev)
+        torch.cuda.empty_cache()
+        log(f"train: {name} done in {time.perf_counter() - t1:.1f}s")
+    log(f"train: phase done in {time.perf_counter() - t0:.1f}s")
+    return res
 
 
 # -- phase family: the rest of the decoder family ---------------------------
@@ -4148,6 +4847,7 @@ def main() -> int:
         phase_replicas(cnn_res)
         phase_keras()
         phase_roofline_checkpoint(cnn_res)
+        train_res = phase_train()
         decode_res = phase_decode()
         dec, params = decode_res.pop("dec"), decode_res.pop("params")
         family_res = phase_family(dec, params, decode_res)
@@ -4167,6 +4867,20 @@ def main() -> int:
     # Each kernel's launches are those of the path that runs it.
     kernels["flash_attention"]["vit"]["launches"] = (
         cnn_res["vit_b16"]["launches"]["flash_attention"])
+    kernels["flash_attention"]["gpt2_causal"]["launches"] = (
+        train_res["lm"]["launches"])
+    # The training paths' launches a step (phase train), the remat step's
+    # recompute included.
+    kernels["flash_attention"]["train"] = {
+        "spmd_forward": train_res["forward"]["launches"],
+        "classifier": train_res["classifier"]["launches"],
+        "classifier_remat": train_res["classifier"]["remat_launches"],
+        **{f"moe_top{k}_{d}": train_res["moe"][f"top{k}"][d]["launches"]
+           for k in (1, 2) for d in ("dense", "a2a")},
+        "lm": train_res["lm"]["launches"],
+        "dpo": train_res["dpo"]["launches"],
+        "lora": train_res["lora"]["launches"],
+    }
     path_launches = {
         "flash_attention": main_res["launches"]["flash_attention"],
         "flash_decode": decode_res["launches"]["flash_decode"],
@@ -4192,7 +4906,8 @@ def main() -> int:
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-            **{key: k[key] for key in ("deep", "tick", "vit") if key in k},
+            **{key: k[key] for key in ("deep", "tick", "vit", "gpt2_causal",
+                                       "train") if key in k},
         })
         if name == "flash_decode":
             # The decoder family's paths (phase family), each its own
@@ -4206,6 +4921,8 @@ def main() -> int:
                 f"speculative{K}": pfam_res[f"spec{K}"]["flash_decode_runs"]
                 for K in (1, SPEC_WINDOW)
             }
+            # The trained GPT-2 small tree served at K=1 (phase train).
+            report[-1]["train_serve"] = train_res["lm"]["serve_launches"]
         if name in ("paged_flash_decode", "paged_flash_prefill"):
             # The paged family's paths, each its own run's kernel runs on
             # the card (float and int8 pools together; captured windows'

@@ -1,15 +1,39 @@
-"""BERT-base encoder, IR form (counterpart of `bert_base`/`bert_tiny` in
-`defer_tpu/models/bert.py`): token-id input, embeddings, encoder
-blocks, CLS pooler. Cut candidates are the block outputs
-(`encoder_{i}_out`), so the pipeline cuts it at block boundaries.
+"""BERT-base encoder (counterpart of `defer_tpu/models/bert.py`), in two
+forms:
+
+  * IR graph (`bert_base`, `bert_tiny`): token-id input, embeddings,
+    encoder blocks, CLS pooler. Cut candidates are the block outputs
+    (`encoder_{i}_out`), so the pipeline cuts it at block boundaries.
+  * SPMD form (`SpmdBert`): stacked encoder blocks
+    (`parallel/transformer_stack.py`) on the stage pipeline
+    (`parallel/spmd_pipeline.py`), the forward the trainers
+    (`parallel/train.py`) differentiate. Its "stage" axis may have any
+    size; the other mesh axes must be 1 until the collectives land.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 
 from defer_tpu_torch.graph.ir import GraphBuilder
 from defer_tpu_torch.models import Model, register_model
+from defer_tpu_torch.parallel.mesh import Mesh
+from defer_tpu_torch.parallel.spmd_pipeline import (
+    check_stage_only,
+    make_spmd_pipeline,
+    stack_for_stages,
+    unstack_stages,
+)
+from defer_tpu_torch.parallel.transformer_stack import (
+    TransformerConfig,
+    build_fsdp_plan,
+    init_stack,
+    layers_apply,
+    normal,
+)
 
 
 def _build_bert(
@@ -84,3 +108,152 @@ def bert_tiny(seq_len: int = 16) -> Model:
         max_len=64,
         seq_len=seq_len,
     )
+
+
+# --------------------------------------------------------------------------
+# SPMD form
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SpmdBert:
+    """BERT encoder on the stage pipeline: token (+ learned position)
+    embedding in f32, cast to compute_dtype -> S-stage pipeline ->
+    pooler. Parameters live on the mesh's first device, in f32, the
+    stack stage-stacked [S, L/S, ...] with the JAX package's keys.
+
+    Mesh axes: "stage" (any size, its devices may repeat); "data",
+    "model", "seq" and "expert" must be 1 (NotImplementedError naming
+    ROADMAP Queue 1 item 7), after the JAX package's own validations;
+    fsdp=True without a data axis raises the JAX package's ValueError.
+    (The JAX package's sp_strategy, ring or Ulysses over a "seq" axis,
+    comes with the sequence-parallel collectives.)"""
+
+    mesh: Mesh
+    cfg: TransformerConfig
+    compute_dtype: Any = torch.bfloat16
+    fsdp: bool = False
+
+    def __post_init__(self):
+        if "stage" not in self.mesh.axis_names:
+            raise ValueError(
+                "SpmdBert needs a 'stage' mesh axis (size 1 is fine): "
+                f"got axes {self.mesh.axis_names}"
+            )
+        shape = self.mesh.shape
+        self.num_stages = shape.get("stage", 1)
+        self.tp_axis = "model" if shape.get("model", 1) > 1 else None
+        self.sp_axis = "seq" if shape.get("seq", 1) > 1 else None
+        ep = shape.get("expert", 1)
+        self.ep_axis = "expert" if ep > 1 else None
+        if self.cfg.num_experts and self.cfg.num_experts % ep:
+            raise ValueError(
+                f"{self.cfg.num_experts} experts not divisible by the "
+                f"expert axis size {ep}"
+            )
+        if ep > 1 and not self.cfg.num_experts:
+            raise ValueError(
+                "mesh has an expert axis but cfg.num_experts == 0"
+            )
+        if self.cfg.num_layers % self.num_stages:
+            raise ValueError(
+                f"{self.cfg.num_layers} layers not divisible by "
+                f"{self.num_stages} pipeline stages"
+            )
+        tp = shape.get("model", 1)
+        if self.cfg.num_heads % tp or self.cfg.dim % tp or self.cfg.ffn_dim % tp:
+            raise ValueError(
+                f"heads={self.cfg.num_heads}, dim={self.cfg.dim}, "
+                f"ffn_dim={self.cfg.ffn_dim} must all divide by the model "
+                f"axis size {tp} — otherwise attention silently computes "
+                "with the wrong head grouping"
+            )
+        if self.cfg.kv_heads % tp:
+            raise ValueError(
+                f"num_kv_heads={self.cfg.kv_heads} must divide by the "
+                f"model axis size {tp} (whole kv head groups per shard)"
+            )
+        if self.fsdp:
+            build_fsdp_plan(self.mesh)
+        check_stage_only(self.mesh)
+        self.device = self.mesh.devices.flat[0]
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random f32 parameters on the mesh's first device, drawn from
+        `generator` (which must live there): the JAX package's
+        distributions, not its values."""
+        cfg, dev = self.cfg, self.device
+        params = {
+            "token_embedding": normal(
+                generator, (cfg.vocab_size, cfg.dim), 0.02, device=dev
+            ),
+            "pooler_w": normal(
+                generator, (cfg.dim, cfg.dim), cfg.dim**-0.5, device=dev
+            ),
+            "pooler_b": torch.zeros((cfg.dim,), device=dev),
+            "stack": stack_for_stages(
+                init_stack(generator, cfg, device=dev), self.num_stages
+            ),
+        }
+        if cfg.pos_style == "learned":
+            params["pos_embedding"] = normal(
+                generator, (cfg.max_len, cfg.dim), 0.02, device=dev
+            )
+        return params
+
+    def _embed(self, params: dict, ids: torch.Tensor) -> torch.Tensor:
+        """Token (+ learned position) embedding in f32, then the compute
+        dtype: [..., S] ids -> [..., S, D]."""
+        ids = ids.to(self.device)
+        emb = params["token_embedding"][ids]
+        if self.cfg.pos_style == "learned":
+            emb = emb + params["pos_embedding"][: ids.shape[-1]]
+        return emb.to(self.compute_dtype)
+
+    def _pool(self, params: dict, ys: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return torch.tanh(
+            ys[:, :, 0, :] @ params["pooler_w"].to(cd)
+            + params["pooler_b"].to(cd)
+        )
+
+    def make_hidden_step(self):
+        """(params, ids [M, B, S]) -> per-position hidden states
+        [M, B, S, D] in compute_dtype (no pooler): the forward a
+        next-token LM head needs (parallel/train.py)."""
+        cfg = self.cfg
+
+        def stage_fn(stack_local, x):
+            return layers_apply(
+                stack_local, x, cfg, tp_axis=self.tp_axis,
+                sp_axis=self.sp_axis, ep_axis=self.ep_axis,
+            )
+
+        pipe = make_spmd_pipeline(self.mesh, stage_fn)
+
+        def hidden(params, ids):
+            return pipe(params["stack"], self._embed(params, ids))
+
+        return hidden
+
+    def make_step(self):
+        """(params, ids [M, B, S]) -> pooled [M, B, D] in compute_dtype."""
+        hidden = self.make_hidden_step()
+
+        def step(params, ids):
+            return self._pool(params, hidden(params, ids))
+
+        return step
+
+    def reference_apply(self, params: dict, ids: torch.Tensor) -> torch.Tensor:
+        """Unpipelined reference for correctness checks: the stage stack
+        flattened to [L, ...], each microbatch through every block in
+        turn, attention through the plain version (`attention_reference`)
+        on any device, so the kernel under test takes no part."""
+        emb = self._embed(params, ids)
+        flat = unstack_stages(params["stack"])
+        ys = torch.stack([
+            layers_apply(flat, emb[m], self.cfg, plain=True)
+            for m in range(emb.shape[0])
+        ])
+        return self._pool(params, ys)

@@ -15,6 +15,7 @@ from typing import Any, Mapping
 import torch
 
 from defer_tpu_torch.models.gpt import GptDecoder
+from defer_tpu_torch.parallel.mesh import cuda_devices
 from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
 
 
@@ -81,10 +82,13 @@ def tiny_llama(seq_len: int = 32, *, device=None) -> GptDecoder:
 def from_hf_state_dict(
     cfg: TransformerConfig,
     state_dict: Mapping[str, Any],
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> dict:
     """Map a HuggingFace `LlamaForCausalLM.state_dict()` onto the
     decoder's params, on `device`, each leaf in the checkpoint's dtype.
+    `device` None is the first CUDA device, as the JAX package puts the
+    arrays on its default (accelerator) device; it raises without a
+    card: pass device="cpu" to load on the CPU.
 
     Torch Linear stores [out, in]; the stack computes x @ W with
     [in, out], so every projection transposes. w1 = gate (the silu
@@ -92,6 +96,7 @@ def from_hf_state_dict(
     is tied to `token_embedding` unless the checkpoint ships an
     `lm_head.weight` that differs from it (untied releases); a tied
     checkpoint that lists the aliased head keeps the tied tree."""
+    device = device if device is not None else cuda_devices()[0]
     L = cfg.num_layers
 
     def t(name: str) -> torch.Tensor:

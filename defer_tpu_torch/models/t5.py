@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from defer_tpu_torch.models.gpt import _layer_view, _resolve_device
 from defer_tpu_torch.models.gpt import sampled_decode_loop
+from defer_tpu_torch.parallel.mesh import cuda_devices
 from defer_tpu_torch.parallel.transformer_stack import (
     _rms_norm,
     embed_lookup,
@@ -559,13 +560,16 @@ def tiny_t5(*, device=None, **overrides: Any) -> T5:
 
 
 def from_hf_state_dict(cfg: T5Config, state_dict: Mapping[str, Any],
-                       device: torch.device | str = "cpu") -> dict:
+                       device: torch.device | str | None = None) -> dict:
     """Map a HuggingFace `T5ForConditionalGeneration.state_dict()` onto
     the T5 params, on `device`, each leaf in the checkpoint's dtype
     (torch Linear stores [out, in]; the stacks compute x @ W with
     [in, out], so projections transpose). A head tying that disagrees
     with `cfg.tie_word_embeddings` raises: the tied-only dim**-0.5
-    scaling would put every logit off by sqrt(dim) silently."""
+    scaling would put every logit off by sqrt(dim) silently. `device`
+    None is the first CUDA device (the JAX package's default device);
+    it raises without a card: pass device="cpu" to load on the CPU."""
+    device = device if device is not None else cuda_devices()[0]
 
     def t(name: str) -> torch.Tensor:
         return torch.as_tensor(state_dict[name]).detach().to(device)

@@ -9,14 +9,37 @@ Pre-LN ViT (Dosovitskiy et al., arXiv 2010.11929):
 
 Each block's `mha` runs the hand-written `flash_attention` kernel on the
 card (S = (image / patch)^2 + 1, 197 at 224 / 16). Cut candidates are
-the per-block residual outputs (`block_{i}_out`). The SPMD form
-(`SpmdVit`) waits for the port's multi-device work.
+the per-block residual outputs (`block_{i}_out`).
+
+The SPMD form (`SpmdVit`) runs the same pre-LN stack on the stage
+pipeline (`parallel/spmd_pipeline.py`), under the mesh rules of
+`SpmdBert`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
+import torch
+
 from defer_tpu_torch.graph.ir import GraphBuilder
 from defer_tpu_torch.models import Model, register_model
+from defer_tpu_torch.parallel.mesh import Mesh
+from defer_tpu_torch.parallel.spmd_pipeline import (
+    check_stage_only,
+    make_spmd_pipeline,
+    stack_for_stages,
+    unstack_stages,
+)
+from defer_tpu_torch.parallel.transformer_stack import (
+    TransformerConfig,
+    _layer_norm,
+    build_fsdp_plan,
+    init_stack,
+    layers_apply,
+    normal,
+)
 
 
 def _build_vit(
@@ -116,3 +139,129 @@ def vit_tiny(image_size: int = 32) -> Model:
         mlp_dim=128,
         num_classes=10,
     )
+
+
+# --------------------------------------------------------------------------
+# SPMD form
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SpmdVit:
+    """ViT on the stage pipeline (pre-LN stack): patch embed -> S-stage
+    pipeline -> final LN on the [class] token -> head. Parameters keep
+    the JAX package's keys and layouts (`patch_kernel` HWIO
+    [p, p, 3, D]), in f32 on the mesh's first device; images are NHWC.
+
+    Mesh rules as SpmdBert's: "stage" of any size, every other axis 1
+    (NotImplementedError naming ROADMAP Queue 1 item 7)."""
+
+    mesh: Mesh
+    cfg: TransformerConfig
+    image_size: int = 224
+    patch_size: int = 16
+    num_classes: int = 1000
+    compute_dtype: Any = torch.bfloat16
+    fsdp: bool = False
+
+    def __post_init__(self):
+        if "stage" not in self.mesh.axis_names:
+            raise ValueError("SpmdVit needs a 'stage' mesh axis")
+        if self.cfg.norm_style != "pre":
+            raise ValueError("ViT uses pre-LN: cfg.norm_style must be 'pre'")
+        if self.image_size % self.patch_size:
+            raise ValueError(
+                f"image {self.image_size} not divisible by patch "
+                f"{self.patch_size}"
+            )
+        self.num_stages = self.mesh.shape.get("stage", 1)
+        self.tp_axis = (
+            "model" if self.mesh.shape.get("model", 1) > 1 else None
+        )
+        if self.cfg.num_layers % self.num_stages:
+            raise ValueError(
+                f"{self.cfg.num_layers} layers not divisible by "
+                f"{self.num_stages} stages"
+            )
+        self.grid = self.image_size // self.patch_size
+        self.num_tokens = self.grid * self.grid + 1
+        if self.fsdp:
+            build_fsdp_plan(self.mesh)
+        check_stage_only(self.mesh)
+        self.device = self.mesh.devices.flat[0]
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random f32 parameters on the mesh's first device, drawn from
+        `generator` (which must live there)."""
+        cfg, dev = self.cfg, self.device
+        pp, d = self.patch_size, cfg.dim
+        return {
+            "patch_kernel": normal(
+                generator, (pp, pp, 3, d), (pp * pp * 3) ** -0.5, device=dev
+            ),
+            "patch_bias": torch.zeros((d,), device=dev),
+            "cls": normal(generator, (1, 1, d), 0.02, device=dev),
+            "pos": normal(generator, (self.num_tokens, d), 0.02, device=dev),
+            "final_ln_scale": torch.ones((d,), device=dev),
+            "final_ln_bias": torch.zeros((d,), device=dev),
+            "head_w": normal(
+                generator, (d, self.num_classes), d**-0.5, device=dev
+            ),
+            "head_b": torch.zeros((self.num_classes,), device=dev),
+            "stack": stack_for_stages(
+                init_stack(generator, cfg, device=dev), self.num_stages
+            ),
+        }
+
+    def _embed(self, params: dict, images: torch.Tensor) -> torch.Tensor:
+        """[M, B, H, W, 3] -> [M, B, tokens, D]: the VALID stride-p patch
+        conv as the product of each flattened (p, p, 3) patch with the
+        HWIO kernel, then the [class] token and the position table."""
+        cd = self.compute_dtype
+        m, b = images.shape[:2]
+        g, pp, d = self.grid, self.patch_size, self.cfg.dim
+        x = images.to(self.device, cd).reshape(m * b, g, pp, g, pp, 3)
+        patches = x.permute(0, 1, 3, 2, 4, 5).reshape(m * b, g * g, -1)
+        x = patches @ params["patch_kernel"].to(cd).reshape(-1, d)
+        x = x + params["patch_bias"].to(cd)
+        cls = params["cls"].to(cd).expand(m * b, 1, d)
+        x = torch.cat([cls, x], dim=1) + params["pos"].to(cd)
+        return x.reshape(m, b, self.num_tokens, d)
+
+    def _head(self, params: dict, ys: torch.Tensor) -> torch.Tensor:
+        """Final LN on the [class] token + classifier head: one
+        definition for the pipelined step and the reference."""
+        cd = self.compute_dtype
+        cls = _layer_norm(
+            ys[:, :, 0, :].to(cd),
+            params["final_ln_scale"],
+            params["final_ln_bias"],
+            self.cfg.layer_norm_eps,
+        )
+        return cls @ params["head_w"].to(cd) + params["head_b"].to(cd)
+
+    def make_step(self):
+        """(params, images [M, B, H, W, 3]) -> logits [M, B, C]."""
+        cfg = self.cfg
+
+        def stage_fn(stack_local, x):
+            return layers_apply(stack_local, x, cfg, tp_axis=self.tp_axis)
+
+        pipe = make_spmd_pipeline(self.mesh, stage_fn)
+
+        def step(params, images):
+            return self._head(
+                params, pipe(params["stack"], self._embed(params, images))
+            )
+
+        return step
+
+    def reference_apply(self, params: dict, images: torch.Tensor) -> torch.Tensor:
+        """Unpipelined reference, attention through the plain version."""
+        emb = self._embed(params, images)
+        flat = unstack_stages(params["stack"])
+        ys = torch.stack([
+            layers_apply(flat, emb[i], self.cfg, plain=True)
+            for i in range(emb.shape[0])
+        ])
+        return self._head(params, ys)

@@ -1,6 +1,6 @@
-"""LoRA adapters for serving: split, merge and multi-tenant banks.
+"""LoRA adapters: fine-tuning, split, merge and multi-tenant banks.
 
-Counterpart of the serving half of `defer_tpu/parallel/lora.py`.
+Counterpart of `defer_tpu/parallel/lora.py`.
 Adapter factors live inside the stacked param tree (`{target}:a`
 [L, in, r] / `{target}:b` [L, r, out], transformer_stack.init_stack):
 
@@ -13,11 +13,14 @@ Adapter factors live inside the stacked param tree (`{target}:a`
     row's bank by the slot's adapter id (`cache["adapter"]`), and
     `DecodeServer.submit(adapter_id=)` picks it.
 
-`make_lora_train_step` (LoRA training) waits with the port's training
-stack (ROADMAP Queue 1 item 7).
+`make_lora_train_step` fine-tunes a classifier on `SpmdBert` with the
+base tree frozen (requires_grad=False, so no base gradient is ever
+built) and an optimizer over the adapters and the head alone.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -108,3 +111,50 @@ def adapter_bank_info(params: dict) -> int | None:
             "[L, A, in, r]"
         )
     return int(bank.shape[1])
+
+
+def make_lora_train_step(
+    sb, optimizer, *, num_classes: int
+) -> tuple[Callable, Callable]:
+    """LoRA counterpart of train.make_train_step. Returns
+    (init_state, train_step):
+
+      * init_state(generator) -> (state, base): state.params holds only
+        the trainable leaves (adapter factors + classifier head), the
+        optimizer covers just those; `base` is the frozen tree, its
+        leaves requires_grad=False (reuse a pretrained checkpoint here).
+      * train_step(state, base, ids [M, B, S], labels [M, B]) ->
+        (state, loss): gradients flow through the whole pipelined
+        forward but only into the trainable leaves.
+
+    sb.cfg.lora_rank must be > 0 (init_stack then creates the factors
+    this splits on)."""
+    from defer_tpu_torch.parallel.train import (
+        _new_state,
+        apply_update,
+        classifier_loss,
+        make_classifier_params,
+        tree_leaves,
+    )
+
+    if not sb.cfg.lora_rank:
+        raise ValueError(
+            "make_lora_train_step needs cfg.lora_rank > 0 — with no "
+            "adapter keys in the stack there is nothing to train"
+        )
+    forward = sb.make_step()
+
+    def init_state(generator: torch.Generator):
+        base, trainable = split_lora(sb.init(generator))
+        trainable.update(make_classifier_params(generator, sb, num_classes))
+        for t in tree_leaves(base):
+            t.requires_grad_(False)
+        return _new_state(trainable, optimizer), base
+
+    def train_step(state, base: dict, ids, labels):
+        loss = classifier_loss(forward, combine_lora(base, state.params),
+                               state.params, ids, labels)
+        apply_update(state, loss)
+        return state, loss.detach()
+
+    return init_state, train_step

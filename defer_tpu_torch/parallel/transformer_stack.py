@@ -1,26 +1,49 @@
-"""The transformer stack's config, parameters and per-token helpers, as
-the KV-cache decoder (`models/gpt.py`) uses them.
+"""The homogeneous transformer stack: config, parameters, the encoder
+block and its mixture-of-experts FFN (counterpart of
+`defer_tpu/parallel/transformer_stack.py`).
 
-Counterpart of a subset of `defer_tpu/parallel/transformer_stack.py`:
-`TransformerConfig` with every field and validation, `init_stack` for
-the dense path with its LoRA adapter factors ({t}:a [L, in, r] /
-{t}:b [L, r, out], b zero), `lora_target_dims`, `embed_lookup` (one
-device, int8 tables included), the norms with f32 statistics, and
-rotary embeddings. Parameters are plain nested dicts of tensors with a
-leading [L] layer axis, keyed as the JAX package keys them, so
-`weights.params_from_jax` maps one tree onto the other.
+`TransformerConfig` with every field and validation; `init_stack` with
+the JAX package's key set (GQA, biases, rms norms, swiglu, the MoE keys
+router [L, D, E] / w1 [L, E, D, F] / b1 / w2 [L, E, F, D] / b2, LoRA
+factors {t}:a [L, in, r] / {t}:b [L, r, out], b zero); `block_apply`
+(post- and pre-LN, GQA, rope, LoRA projections, gelu / swiglu / MoE FFN)
+and `layers_apply` (the blocks of one stage, each rematerialized under
+`torch.utils.checkpoint` when cfg.remat); both MoE dispatches, dense
+(`moe_ffn`) and capacity-bounded all-to-all (`moe_ffn_a2a`, with the
+Switch-style drops), on one routing (`_route_topk`); `embed_lookup`,
+the norms with f32 statistics, and rotary embeddings, which the
+KV-cache decoder (`models/gpt.py`) shares. Parameters are plain nested
+dicts of tensors with a leading [L] layer axis, keyed as the JAX
+package keys them, so `weights.params_from_jax` maps one tree onto the
+other.
 
-Not ported yet: the mixture-of-experts FFN, the SPMD encoder stack and
-its partition specs (ROADMAP Queue 1 item 7). `init_stack` raises
-`NotImplementedError` for a config that asks for experts.
+Every collective of the JAX stack goes through one call here: `psum`
+(the tp partial sums of wo / w2 and inside the experts, the ep sums of
+both dispatches), `all_to_all` (the a2a dispatch's two routes),
+`all_gather` (FSDP's just-in-time weights), `axis_size` /
+`axis_index`, and sequence-parallel attention (`multi_head_attention`'s
+sp_axis). Each is the identity at an axis of size 1 (passed as None),
+the only size the SPMD models accept off the "stage" axis; a named
+axis raises until the torch.distributed legs swap in at these calls
+(ROADMAP Queue 1 item 7). The partition specs wait with them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from defer_tpu_torch.ops.attention import (
+    _merge_heads,
+    _split_heads,
+    attention_reference,
+    multi_head_attention,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,13 +190,11 @@ def init_stack(
     norm_type="rms" drops the norm biases, and ffn_style="swiglu" adds
     the w3 up-projection; lora_rank > 0 adds {t}:a [L, in, r] (scaled
     in**-0.5) and a zero {t}:b [L, r, out] per target, so a fresh
-    adapter changes nothing. The draws have the JAX package's
-    distributions, not its values: torch and JAX generators differ."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "mixture-of-experts stacks are not ported yet (ROADMAP "
-            "Queue 1 item 7)"
-        )
+    adapter changes nothing; num_experts > 0 replaces the dense FFN
+    with a router [L, D, E] and per-expert w1 [L, E, D, F], b1, w2
+    [L, E, F, D] (scaled F**-0.5) and b2. The draws have the JAX
+    package's distributions, not its values: torch and JAX generators
+    differ."""
     device = generator.device if device is None else torch.device(device)
     L, D, F = cfg.num_layers, cfg.dim, cfg.ffn_dim
     dkv = cfg.kv_heads * (D // cfg.num_heads)
@@ -204,11 +225,21 @@ def init_stack(
         p.update(ln1_bias=const(0.0, (L, D)), ln2_bias=const(0.0, (L, D)))
     if cfg.ffn_style == "swiglu":
         p["w3"] = draw((L, D, F), s)
-    p["w1"] = draw((L, D, F), s)
-    p["w2"] = draw((L, F, D), F**-0.5)
-    if cfg.use_bias:
-        p["b1"] = const(0.0, (L, F))
-        p["b2"] = const(0.0, (L, D))
+    if cfg.num_experts:
+        E = cfg.num_experts
+        p.update(
+            router=draw((L, D, E), s),
+            w1=draw((L, E, D, F), s),
+            b1=const(0.0, (L, E, F)),
+            w2=draw((L, E, F, D), F**-0.5),
+            b2=const(0.0, (L, E, D)),
+        )
+    else:
+        p["w1"] = draw((L, D, F), s)
+        p["w2"] = draw((L, F, D), F**-0.5)
+        if cfg.use_bias:
+            p["b1"] = const(0.0, (L, F))
+            p["b2"] = const(0.0, (L, D))
     if cfg.lora_rank:
         r = cfg.lora_rank
         dims = lora_target_dims(cfg)
@@ -300,3 +331,329 @@ def apply_rope(
     across the batch, or (B, T) per batch element (continuous batching,
     where every slot sits at its own depth)."""
     return rotate(x_flat, head_dim, *rope_tables(head_dim, positions, theta))
+
+
+# -- collective sites ---------------------------------------------------
+
+
+def _not_ported(what: str, axis: str):
+    raise NotImplementedError(
+        f"{what} over mesh axis {axis!r} is not ported yet: the "
+        "collectives wait for ROADMAP Queue 1 item 7"
+    )
+
+
+def axis_size(axis: str | None) -> int:
+    """Size of a mesh axis inside a stage (lax.axis_size)."""
+    return 1 if axis is None else _not_ported("axis_size", axis)
+
+
+def axis_index(axis: str | None) -> int:
+    """This device's index along a mesh axis (lax.axis_index)."""
+    return 0 if axis is None else _not_ported("axis_index", axis)
+
+
+def psum(x: torch.Tensor, axis: str | None) -> torch.Tensor:
+    """Sum over a mesh axis (lax.psum): the tp partial sums, the ep sum."""
+    return x if axis is None else _not_ported("psum", axis)
+
+
+def all_to_all(
+    x: torch.Tensor, axis: str | None, *, split_axis: int, concat_axis: int
+) -> torch.Tensor:
+    """lax.all_to_all(tiled=True): the a2a dispatch's two routes."""
+    return x if axis is None else _not_ported("all_to_all", axis)
+
+
+def all_gather(x: torch.Tensor, axis: str | None, *, dim: int) -> torch.Tensor:
+    """lax.all_gather(tiled=True): FSDP's just-in-time weights."""
+    return x if axis is None else _not_ported("all_gather", axis)
+
+
+def build_fsdp_plan(mesh) -> dict:
+    """The SPMD models' fsdp=True setup: a mesh without a "data" axis
+    larger than 1 has nothing to shard the weights over (the JAX
+    package's ValueError); with one, FSDP waits for the collectives."""
+    if mesh.shape.get("data", 1) <= 1:
+        raise ValueError(
+            "fsdp=True needs a 'data' mesh axis of size > 1 "
+            "(there is nothing to shard the weights over)"
+        )
+    return _not_ported("FSDP", "data")
+
+
+# -- mixture of experts -------------------------------------------------
+
+
+def _route_topk(router: torch.Tensor, x: torch.Tensor, k: int):
+    """Top-k routing, f32 softmax over the global expert count: returns
+    (expert indices [..., k] int64, weights [..., k] f32). One definition
+    for both dispatches. k=1 keeps the raw top probability (Switch); k>1
+    renormalizes over the selected experts (Mixtral). Among equal
+    probabilities the lower index comes first, as lax.top_k orders them:
+    a stable descending sort, where torch.topk promises no order."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[..., :k], idx[..., :k]
+    if k > 1:
+        w = w / w.sum(dim=-1, keepdim=True)
+    return idx, w
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hot of `idx` over n classes, all zeros where idx is
+    outside [0, n) (jax.nn.one_hot's rule; F.one_hot raises there, and
+    may read the indices back to the host to check)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def _dispatch_weights(idx: torch.Tensor, w: torch.Tensor, e_global: int):
+    """(member [..., E] in {0, 1}, gate [..., E]) from top-k routing."""
+    sel = _one_hot(idx, e_global)  # (..., k, E)
+    return sel.sum(dim=-2), (sel * w[..., None]).sum(dim=-2)
+
+
+def moe_ffn(
+    p: dict,
+    x: torch.Tensor,
+    *,
+    tp_axis: str | None = None,
+    ep_axis: str | None = None,
+    top_k: int = 1,
+) -> torch.Tensor:
+    """Top-k mixture-of-experts FFN on (B, S, D), dense dispatch: every
+    local expert runs on every token and the top-k gate zeroes the rest
+    (no capacity, no drops). Expert outputs combine in f32; one psum
+    over ep closes the partition of experts."""
+    dt = x.dtype
+    e_local = p["w1"].shape[0]
+    ep = axis_size(ep_axis)
+    idx, wts = _route_topk(p["router"], x, top_k)  # (B, S, k)
+    _, gate = _dispatch_weights(idx, wts, ep * e_local)  # (B, S, E)
+    # This device's expert columns of the global gate matrix.
+    e0 = axis_index(ep_axis) * e_local
+    dispatch = gate[..., e0 : e0 + e_local]
+    h = (
+        torch.einsum("bsd,edf->ebsf", x, p["w1"].to(dt))
+        + p["b1"].to(dt)[:, None, None, :]
+    )
+    h = F.gelu(h, approximate="tanh")
+    y = torch.einsum("ebsf,efd->ebsd", h, p["w2"].to(dt))
+    y = psum(y, tp_axis)
+    y = y + p["b2"].to(dt)[:, None, None, :]
+    out = torch.einsum("ebsd,bse->bsd", y.float(), dispatch)
+    return psum(out, ep_axis).to(dt)
+
+
+def moe_capacity(
+    tokens: int, e_global: int, top_k: int, capacity_factor: float
+) -> int:
+    """The a2a dispatch's static slots an expert: each of `tokens`
+    claims top_k, so C = ceil(cf * k * tokens / E), at least 1."""
+    return max(1, math.ceil(capacity_factor * top_k * tokens / e_global))
+
+
+def a2a_slots(idx: torch.Tensor, w: torch.Tensor, e_global: int, cap: int):
+    """Capacity slots of routed tokens (n, k): (dispatch [n, E, C] f32,
+    one-hot of each kept (token, expert) pair's slot; combine = dispatch
+    x gate; keep [n, E] bool). A token's slot in an expert's queue is
+    its arrival position (a cumsum down the tokens); positions >= cap
+    are dropped, Switch-style, and fall through on the residual."""
+    member, gate = _dispatch_weights(idx, w, e_global)
+    member_i = member.to(torch.int64)
+    pos_in_e = member_i.cumsum(dim=0) - 1  # (n, E)
+    keep = (pos_in_e < cap) & (member_i > 0)
+    dispatch = _one_hot(pos_in_e, cap) * keep[..., None]
+    return dispatch, dispatch * gate[..., None], keep
+
+
+def moe_ffn_a2a(
+    p: dict,
+    x: torch.Tensor,
+    *,
+    capacity_factor: float = 1.25,
+    tp_axis: str | None = None,
+    ep_axis: str | None = None,
+    top_k: int = 1,
+) -> torch.Tensor:
+    """Top-k MoE FFN with all-to-all expert dispatch on (B, S, D).
+
+    Each device along ep takes its own 1/ep slice of the tokens, routes
+    it into a static (E, C, D) capacity buffer (`a2a_slots`), sends each
+    expert's slots to that expert's device (one all_to_all), runs its
+    local experts and returns the outputs by the inverse all_to_all;
+    one psum reassembles the stream. Routing is moe_ffn's, so at a
+    capacity that drops nothing the two dispatches agree."""
+    dt = x.dtype
+    b, s, d = x.shape
+    n = b * s
+    e_local = p["w1"].shape[0]
+    ep = axis_size(ep_axis)
+    e_global = ep * e_local
+    if n % ep:
+        raise ValueError(
+            f"a2a dispatch needs tokens ({n} = {b}x{s}) divisible by "
+            f"the expert axis size {ep}"
+        )
+    n_l = n // ep
+    cap = moe_capacity(n_l, e_global, top_k, capacity_factor)
+    t0 = axis_index(ep_axis) * n_l
+    x_own = x.reshape(n, d)[t0 : t0 + n_l]  # (n_l, D)
+    idx, wts = _route_topk(p["router"], x_own, top_k)
+    dispatch, combine, _ = a2a_slots(idx, wts, e_global, cap)
+
+    xin = torch.einsum("nd,nec->ecd", x_own.float(), dispatch)
+    xin = all_to_all(xin, ep_axis, split_axis=0, concat_axis=1)
+    h = torch.einsum("ecd,edf->ecf", xin.to(dt), p["w1"].to(dt))
+    h = F.gelu(h + p["b1"].to(dt)[:, None, :], approximate="tanh")
+    y = torch.einsum("ecf,efd->ecd", h, p["w2"].to(dt))
+    y = psum(y, tp_axis)
+    y = y + p["b2"].to(dt)[:, None, :]
+    y = all_to_all(y, ep_axis, split_axis=1, concat_axis=0)
+    out_own = torch.einsum("ecd,nec->nd", y.float(), combine)
+    if ep_axis is None:
+        return out_own.to(dt).reshape(b, s, d)
+    out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
+    out[t0 : t0 + n_l] = out_own
+    return psum(out, ep_axis).to(dt).reshape(b, s, d)
+
+
+# -- the encoder block ----------------------------------------------------
+
+
+def repeat_kv(x_flat: torch.Tensor, head_dim: int, groups: int) -> torch.Tensor:
+    """Expand a flat (B, T, H_kv*Dh) K/V projection to (B, T, H*Dh) by
+    repeating each KV head for its query-head group (GQA)."""
+    if groups == 1:
+        return x_flat
+    b, t, d = x_flat.shape
+    x = x_flat.reshape(b, t, d // head_dim, head_dim)
+    return x.repeat_interleave(groups, dim=2).reshape(b, t, d * groups)
+
+
+def block_apply(
+    p: dict,
+    x: torch.Tensor,
+    cfg: TransformerConfig,
+    *,
+    tp_axis: str | None = None,
+    sp_axis: str | None = None,
+    ep_axis: str | None = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """One encoder block on (B, S, D), post- or pre-LN per
+    cfg.norm_style; params have no layer axis. Each weight is cast to
+    x's dtype where it is used, so gradients land on the stored (f32)
+    masters. Attention goes through `multi_head_attention` (the flash
+    kernel on a CUDA tensor without a window), or with plain=True
+    through `attention_reference` on any device: the unpipelined
+    references' path, independent of the kernel under test."""
+    dt = x.dtype
+    local_heads = cfg.num_heads // axis_size(tp_axis)
+    dh = cfg.dim // cfg.num_heads
+    groups = cfg.num_heads // cfg.kv_heads
+    pre = cfg.norm_style == "pre"
+    lora_scale = cfg.lora_scale
+
+    def bias(h, name):
+        return h + p[name].to(dt) if name in p else h
+
+    def proj(h, name):
+        """Base matmul plus the low-rank adapter path when present."""
+        y = h @ p[name].to(dt)
+        a = p.get(f"{name}:a")
+        if a is not None:
+            y = y + ((h @ a.to(dt)) @ p[f"{name}:b"].to(dt)) * lora_scale
+        return y
+
+    a_in = norm_apply(cfg, x, p, "ln1") if pre else x
+    q = bias(proj(a_in, "wq"), "bq")
+    k = bias(proj(a_in, "wk"), "bk")
+    v = bias(proj(a_in, "wv"), "bv")
+    if cfg.pos_style == "rope":
+        s_local = q.shape[1]
+        positions = axis_index(sp_axis) * s_local + torch.arange(
+            s_local, device=x.device
+        )
+        q = apply_rope(q, dh, positions, cfg.rope_theta)
+        k = apply_rope(k, dh, positions, cfg.rope_theta)
+    # GQA: expand the KV heads after rope, so each query head of a group
+    # attends its shared rotated KV head.
+    k = repeat_kv(k, dh, groups)
+    v = repeat_kv(v, dh, groups)
+    if plain:
+        attn = _merge_heads(attention_reference(
+            *(_split_heads(t, local_heads) for t in (q, k, v)),
+            causal=cfg.causal, window=cfg.window,
+        ))
+    else:
+        attn = multi_head_attention(
+            q, k, v, num_heads=local_heads, causal=cfg.causal,
+            window=cfg.window, sp_axis=sp_axis,
+        )
+    attn = bias(psum(proj(attn, "wo"), tp_axis), "bo")
+    if pre:
+        x = x + attn
+        f_in = norm_apply(cfg, x, p, "ln2")
+    else:
+        x = norm_apply(cfg, x + attn, p, "ln1")
+        f_in = x
+
+    if "router" in p:
+        if cfg.moe_dispatch == "a2a":
+            h = moe_ffn_a2a(
+                p, f_in, capacity_factor=cfg.capacity_factor,
+                tp_axis=tp_axis, ep_axis=ep_axis, top_k=cfg.moe_top_k,
+            )
+        else:
+            h = moe_ffn(p, f_in, tp_axis=tp_axis, ep_axis=ep_axis,
+                        top_k=cfg.moe_top_k)
+    elif cfg.ffn_style == "swiglu":
+        # llama FFN: silu(gate) * up -> down (w1=gate, w3=up, w2=down).
+        gate = F.silu(proj(f_in, "w1"))
+        h = psum(proj(gate * proj(f_in, "w3"), "w2"), tp_axis)
+    else:
+        h = F.gelu(bias(proj(f_in, "w1"), "b1"), approximate="tanh")
+        h = bias(psum(proj(h, "w2"), tp_axis), "b2")
+    if pre:
+        return x + h
+    return norm_apply(cfg, x + h, p, "ln2")
+
+
+def layers_apply(
+    stacked: dict,
+    x: torch.Tensor,
+    cfg: TransformerConfig,
+    *,
+    tp_axis: str | None = None,
+    sp_axis: str | None = None,
+    ep_axis: str | None = None,
+    fsdp_axis: str | None = None,
+    fsdp_gather: dict | None = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Apply a [L_local, ...]-stacked group of blocks in order. With
+    cfg.remat each block runs under
+    `torch.utils.checkpoint.checkpoint(use_reentrant=False)`: only its
+    input is kept for the backward, which recomputes the block (its
+    flash_attention launches too). With fsdp_axis set, each leaf named
+    in fsdp_gather is all-gathered on its dim inside the block."""
+
+    def block(p_one, h):
+        if fsdp_axis is not None and fsdp_gather:
+            p_one = {
+                k: all_gather(v, fsdp_axis, dim=fsdp_gather[k])
+                if k in fsdp_gather else v
+                for k, v in p_one.items()
+            }
+        return block_apply(p_one, h, cfg, tp_axis=tp_axis, sp_axis=sp_axis,
+                           ep_axis=ep_axis, plain=plain)
+
+    depth = next(iter(stacked.values())).shape[0]
+    for layer in range(depth):
+        p_one = {k: v[layer] for k, v in stacked.items()}
+        if cfg.remat:
+            x = checkpoint(block, p_one, x, use_reentrant=False)
+        else:
+            x = block(p_one, x)
+    return x

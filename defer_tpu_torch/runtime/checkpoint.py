@@ -15,12 +15,19 @@ the manifest, as the JAX package writes it.
 File: magic line, 8-byte LE manifest length, JSON manifest
 [{key, dtype, frame_len}...], then the codec frames back-to-back.
 
+A training state (`parallel/train.py` `TrainState`: params, a
+torch.optim optimizer, the step) checkpoints through the same pytree
+files: `save_train_state` writes params, the optimizer's `state_dict()`
+and the step; `load_train_state` restores them in place, so a resumed
+run continues bit for bit.
+
 The sharded (multi-host) checkpoints and the orbax bridge wait for the
 port's multi-device leg (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import struct
@@ -135,7 +142,12 @@ def _rebuild(template: Any, leaves: Any) -> Any:
         if hasattr(template, "_fields"):  # a NamedTuple
             return type(template)(*items)
         return type(template)(items)
-    return next(leaves)
+    leaf = next(leaves)
+    if isinstance(template, (bool, int, float)):
+        # A Python scalar (an optimizer's hyperparameter) comes back as
+        # one, not as the 0-d tensor the file holds.
+        return type(template)(leaf.item())
+    return leaf
 
 
 def save_pytree(path: str, tree: Any, *, level: int = 3) -> None:
@@ -156,7 +168,8 @@ def save_pytree(path: str, tree: Any, *, level: int = 3) -> None:
 def load_pytree(path: str, template: Any, *, device: Any = None) -> Any:
     """Restore a tree saved by save_pytree into `template`'s structure
     (values of `template` are ignored; shapes/dtypes of the stored
-    leaves win). Raises if the leaf count doesn't match."""
+    leaves win, but a Python bool/int/float template leaf comes back as
+    its type). Raises if the leaf count doesn't match."""
     stored = load_checkpoint(path, device=device)["__leaves__"]
     n = len(_leaves(template))
     if n != len(stored):
@@ -165,3 +178,55 @@ def load_pytree(path: str, template: Any, *, device: Any = None) -> Any:
             f"structure expects {n}"
         )
     return _rebuild(template, iter(stored[str(i)] for i in range(n)))
+
+
+# -- training states (parallel/train.py TrainState) -------------------------
+
+
+def _optimizer_template(opt: torch.optim.Optimizer) -> dict:
+    """A state_dict with the structure `opt`'s takes once every
+    parameter has state: its own when it has, else that of a copy
+    stepped once on zero gradients (torch optimizers create their
+    state at the first step; only the structure is read)."""
+    n = sum(len(g["params"]) for g in opt.param_groups)
+    if len(opt.state) == n:
+        return opt.state_dict()
+    shadow = copy.deepcopy(opt)
+    for group in shadow.param_groups:
+        for p in group["params"]:
+            p.grad = torch.zeros_like(p)
+    shadow.step()
+    return shadow.state_dict()
+
+
+def save_train_state(path: str, state: Any, *, level: int = 3) -> None:
+    """Checkpoint a TrainState: {"params", "opt_state": the optimizer's
+    state_dict(), "step"} through save_pytree."""
+    save_pytree(path, {"params": state.params,
+                       "opt_state": state.opt_state.state_dict(),
+                       "step": state.step}, level=level)
+
+
+def load_train_state(path: str, state: Any) -> Any:
+    """Restore a save_train_state file into `state` in place (params and
+    step copied into their tensors, the optimizer through
+    load_state_dict, which places its moments beside their params) and
+    return it. `state` gives the structure: a TrainState built the way
+    the saved one was (its values are overwritten)."""
+    template = {"params": state.params,
+                "opt_state": _optimizer_template(state.opt_state),
+                "step": state.step}
+    tree = load_pytree(path, template, device="cpu")
+
+    def copy_into(dst, src):
+        if isinstance(dst, Mapping):
+            for k in dst:
+                copy_into(dst[k], src[k])
+        else:
+            dst.copy_(src)
+
+    with torch.no_grad():
+        copy_into(state.params, tree["params"])
+        state.step.copy_(tree["step"])
+    state.opt_state.load_state_dict(tree["opt_state"])
+    return state

@@ -8,7 +8,9 @@ loopback socket, and run_defer with replicas=2; what a kernel call runs
 on the card (each kernel's own run counter, the split-K merge's among
 them, and the aten ops it dispatches); and fleet serving on one card
 (prefix migration between two servers, two windowed replicas capturing
-at once, device= placement).
+at once, device= placement); training on the card (a BERT-base-width
+train step's flash_attention launches with and without remat, the
+kernel's gradient, the MoE dispatches).
 
 Every test here is marked `cuda` and skips without a CUDA card. The
 file imports neither jax nor defer_tpu, so on the card it runs on its
@@ -1400,3 +1402,78 @@ def test_device_moves_cpu_params_to_the_card(card):
     with pytest.raises(ValueError, match="device"):
         PagedDecodeServer(dec, params, **PAGED_KNOBS,
                           device=f"cuda:{torch.cuda.device_count()}")
+
+
+# -- training on the card -----------------------------------------------------
+
+BERT_BASE = dict(num_layers=12, dim=768, num_heads=12, ffn_dim=3072,
+                 vocab_size=30522, max_len=512)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_bert_base_train_step_launches_the_kernel(card, remat):
+    """A BERT-base-width classifier step on {"stage": 4} over the card
+    launches flash_attention 12 x M times in its forward, and 24 x M
+    under remat, whose backward recomputes each block (flash's own
+    backward runs the plain version and launches nothing)."""
+    import functools
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel import train
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+
+    m, b, s = 2, 4, 128
+    cfg = TransformerConfig(**BERT_BASE, remat=remat)
+    sb = SpmdBert(make_mesh({"stage": 4}, [card] * 4), cfg,
+                  compute_dtype=torch.bfloat16)
+    init, step = train.make_train_step(
+        sb, functools.partial(torch.optim.AdamW, lr=1e-4), num_classes=2)
+    state = init(torch.Generator(device=card).manual_seed(0))
+    gen = torch.Generator(device=card).manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (m, b, s), generator=gen,
+                        device=card)
+    labels = torch.randint(0, 2, (m, b), generator=gen, device=card)
+    before = flash_attention.launches
+    state, loss = step(state, ids, labels)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == (24 if remat else 12) * m
+    assert loss.device == card and bool(torch.isfinite(loss))
+
+
+def test_flash_gradient_on_the_card_equals_the_plain_ones(card):
+    """_Flash's backward on bf16 card tensors (the kernel's forward, the
+    plain version's recompute) against differentiating the plain version
+    itself: bf16 tolerance, 2e-2 (the upstream gradient is the kernel's
+    output, rounded to bf16 like the plain one's)."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    for causal in (False, True):
+        qkv = [torch.randn(2, 12, 128, 64, generator=gen, device=card)
+               .bfloat16().requires_grad_() for _ in range(3)]
+        g = torch.randn(2, 12, 128, 64, generator=gen, device=card).bfloat16()
+        got = torch.autograd.grad(
+            flash_attention(*qkv, causal=causal), qkv, g)
+        want = torch.autograd.grad(
+            flash_attention_plain(*qkv, causal=causal), qkv, g)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_moe_dense_equals_a2a_on_the_card(card, k):
+    """At BERT-base widths with 8 experts, the a2a dispatch at a capacity
+    that cannot drop (cf = E / k) equals dense within the bf16 kernel
+    tolerance (1e-2): the same routing, expert products batched
+    differently."""
+    from defer_tpu_torch.parallel import transformer_stack as ts
+
+    cfg = ts.TransformerConfig(**dict(BERT_BASE, num_layers=1),
+                               num_experts=8)
+    p = {key: v[0] for key, v in ts.init_stack(
+        torch.Generator(device=card).manual_seed(4), cfg).items()}
+    x = torch.randn(8, 128, cfg.dim, device=card,
+                    generator=torch.Generator(device=card).manual_seed(5))
+    x = x.bfloat16()
+    dense = ts.moe_ffn(p, x, top_k=k)
+    a2a = ts.moe_ffn_a2a(p, x, capacity_factor=8 / k, top_k=k)
+    torch.testing.assert_close(a2a, dense, atol=1e-2, rtol=1e-2)

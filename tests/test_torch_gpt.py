@@ -393,11 +393,18 @@ def test_config_validation_matches_jax(kw):
 
 
 def test_knobs_not_ported_raise():
-    """Experts stay unported; rolling caches and LoRA factors are
-    ported and refuse what the JAX package refuses."""
+    """Experts, rolling caches and LoRA factors are ported and refuse
+    what the JAX package refuses: init_stack draws the JAX package's MoE
+    key set and shapes, and the decoder takes no MoE blocks."""
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="experts"):
-        ts.init_stack(gen, ts.TransformerConfig(num_experts=2))
+    moe = dict(num_layers=2, dim=32, num_heads=4, ffn_dim=64, num_experts=2,
+               norm_style="pre")
+    stack = ts.init_stack(gen, ts.TransformerConfig(**moe))
+    jstack = jts.init_stack(jax.random.key(0), jts.TransformerConfig(**moe))
+    assert {k: tuple(v.shape) for k, v in stack.items()} == {
+        k: tuple(v.shape) for k, v in jstack.items()}
+    with pytest.raises(ValueError, match="MoE"):
+        GptDecoder(ts.TransformerConfig(**moe), device=CPU)
     cfg = ts.TransformerConfig(num_layers=2, dim=32, num_heads=4,
                                ffn_dim=64, lora_rank=2)
     stack = ts.init_stack(gen, cfg)

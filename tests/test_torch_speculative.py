@@ -303,12 +303,26 @@ def _hf_state_dict(cfg, seed, untied):
     return sd
 
 
+def test_from_hf_state_dict_defaults_to_the_card():
+    """Without a device the params land on the first CUDA device, as the
+    JAX package's land on its accelerator; with no card the call raises
+    and names the CPU opt-in."""
+    cfg = llama.llama_config(**LLAMA)
+    sd = _hf_state_dict(cfg, 5, False)
+    if torch.cuda.is_available():
+        got = llama.from_hf_state_dict(cfg, sd)
+        assert got["token_embedding"].device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            llama.from_hf_state_dict(cfg, sd)
+
+
 @pytest.mark.parametrize("untied", [False, True])
 def test_from_hf_state_dict_matches_jax(untied):
     cfg = llama.llama_config(**LLAMA)
     jcfg = jllama.llama_config(**LLAMA)
     sd = _hf_state_dict(cfg, 5, untied)
-    got = llama.from_hf_state_dict(cfg, sd)
+    got = llama.from_hf_state_dict(cfg, sd, device="cpu")
     want = jllama.from_hf_state_dict(jcfg, sd)
     assert ("lm_head" in got) == ("lm_head" in want) == untied
     got_np = params_to_numpy(got)

@@ -321,7 +321,7 @@ def test_hf_t5_bucket_parity():
 def test_hf_t5_parity():
     hf = _hf(0)
     m = tiny_t5(device=CPU)
-    params = from_hf_state_dict(m.cfg, hf.state_dict())
+    params = from_hf_state_dict(m.cfg, hf.state_dict(), device=CPU)
     assert "lm_head" not in params
     enc, dec = _ids(0, (2, 7)), _ids(1, (2, 5))
     with torch.no_grad():
@@ -334,21 +334,35 @@ def test_hf_t5_parity():
             **HF_TOL)
 
 
+def test_hf_transplant_defaults_to_the_card():
+    """No device: the first CUDA device (the JAX package's default
+    device); with no card the call raises naming the CPU opt-in."""
+    hf = _hf(0)
+    cfg = tiny_t5(device=CPU).cfg
+    if torch.cuda.is_available():
+        params = from_hf_state_dict(cfg, hf.state_dict())
+        assert params["token_embedding"].device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            from_hf_state_dict(cfg, hf.state_dict())
+
+
 def test_hf_transplant_tie_mismatch_is_loud():
     hf = _hf(3, tie_word_embeddings=False)
     with pytest.raises(ValueError, match="tie_word_embeddings"):
-        from_hf_state_dict(tiny_t5(device=CPU).cfg, hf.state_dict())
+        from_hf_state_dict(tiny_t5(device=CPU).cfg, hf.state_dict(),
+                           device=CPU)
     tied = _hf(3)
     with pytest.raises(ValueError, match="tie_word_embeddings"):
         from_hf_state_dict(tiny_t5(device=CPU,
                                    tie_word_embeddings=False).cfg,
-                           tied.state_dict())
+                           tied.state_dict(), device=CPU)
 
 
 def test_hf_t5_masked_parity():
     hf = _hf(2)
     m = tiny_t5(device=CPU)
-    params = from_hf_state_dict(m.cfg, hf.state_dict())
+    params = from_hf_state_dict(m.cfg, hf.state_dict(), device=CPU)
     enc = _ids(3, (2, 8), lo=1)
     enc[0, 5:] = 0
     mask = np.ones((2, 8), np.int64)
@@ -365,7 +379,7 @@ def test_hf_t5_v11_parity():
     hf = _hf(1, feed_forward_proj="gated-gelu", tie_word_embeddings=False)
     m = tiny_t5(device=CPU, ffn_style="gated-gelu",
                 tie_word_embeddings=False)
-    params = from_hf_state_dict(m.cfg, hf.state_dict())
+    params = from_hf_state_dict(m.cfg, hf.state_dict(), device=CPU)
     assert "lm_head" in params
     enc, dec = _ids(1, (2, 6)), _ids(2, (2, 4))
     with torch.no_grad():
@@ -379,7 +393,7 @@ def test_hf_greedy_generate_matches():
     tokens on the transplanted weights."""
     hf = _hf(4)
     m = tiny_t5(device=CPU)
-    params = from_hf_state_dict(m.cfg, hf.state_dict())
+    params = from_hf_state_dict(m.cfg, hf.state_dict(), device=CPU)
     enc = _ids(6, (2, 6), lo=1)
     hf.generation_config.eos_token_id = None  # no early stop: 8 tokens
     with torch.no_grad():
