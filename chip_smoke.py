@@ -84,6 +84,19 @@ printing one line per check and failing loudly:
                 under the split greedy check; DPO (step 1 at log 2, the
                 reference tree bit for bit) and LoRA rank 16 (the base
                 bit for bit, no .grad);
+     dist     — the training collectives (parallel/collectives.py):
+                each op once on a world-size-1 NCCL group on cuda:0 (and
+                NCCL refused for two ranks on one card), then two gloo
+                ranks sharing cuda:0 (this script with --dist-rank),
+                started once: tp + LoRA rank 16, dp, dp + ZeRO-1, FSDP,
+                ep at 8 experts top-2 (dense and a2a), sp ring and
+                Ulysses, and the stage axis across the ranks, at
+                BERT-base widths and depth, each a forward and 2 AdamW
+                steps against the one-process {"stage": 1} run on the
+                same card, weights and batch (pooled, step-1 loss, ZeRO-1
+                bit for bit against plain dp); each layout's step ms
+                beside one process's, the bytes its collectives move a
+                step by axis, flash_attention launches a step per rank;
   4. decode   — DecodeServer(max_batch=4) over GptDecoder at
                 mistral_config()'s full width and depth (32 layers, dim
                 4096, 32 heads, 8 KV heads, FFN 14336, vocab 32000,
@@ -174,7 +187,8 @@ printing one line per check and failing loudly:
                 limit, and last the line {"ok": true, "device": {...}}.
 
 Every kernel launch count is zeroed just before each path (3, cnn,
-socket, each sub-path of train, 4, each sub-path of family, 5, 6, each sub-path of
+socket, each sub-path of train, each layout of dist on each rank, 4,
+each sub-path of family, 5, 6, each sub-path of
 paged_family and of fleet, t5) and read just after it; a path that did not launch its
 kernels fails (a rolling one fails if it launched flash_decode). A
 captured window's replays run kernels the wrappers' host counts cannot
@@ -185,8 +199,10 @@ path that replays no graph. Every worker process has a time limit and
 is stopped by the end of its phase.
 
 Exits non-zero, and prints no result, when CUDA is unavailable, when the
-package is not beside this file, or when any phase fails. Imports
-neither jax nor defer_tpu.
+package is not beside this file, or when any phase fails (a dist rank
+that fails, hangs past DIST_TIMEOUT or exits non-zero among them).
+Imports neither jax nor defer_tpu. `--dist-rank R PORT OUT` runs one of
+phase dist's ranks; the phase starts them itself.
 """
 
 from __future__ import annotations
@@ -3046,6 +3062,327 @@ def phase_train() -> dict:
     return res
 
 
+# -- phase dist: the training collectives on two ranks of cuda:0 -------------
+
+# Two ranks share cuda:0 over gloo (NCCL refuses two ranks on one card),
+# both started once for every layout, at BERT-base widths and depth: M
+# microbatches of B x S tokens, bf16 compute, f32 params, 2 AdamW steps
+# a layout (step 2 timed), each against the one-process {"stage": 1}
+# run of the same config on the same card, weights and batch. The a2a
+# layout runs at a capacity that cannot drop (cf = E / k), where it
+# equals the dense dispatch and the one-process run; the CPU tests hold
+# the drop set at cf 1.25 to the JAX package's. The expert layouts and
+# their reference compute in f32: in bf16 the ep psum's other order of
+# sums flips near-tied top-2 routes a few layers on (the pooled output
+# 1.031e-01 from one process in relative L2, step-1 loss 1.7e-3, in a
+# bf16 run), which is the routing's sensitivity, not the collectives'.
+DIST_WORLD, DIST_M, DIST_B, DIST_S, DIST_CLASSES = 2, 2, 8, 128, 2
+DIST_LR, DIST_STEPS = 1e-5, 2
+# Seconds the two ranks may take, every layout included.
+DIST_TIMEOUT = 600
+# Step 1's loss against the one-process run's, absolute: bf16 steps of
+# one config differ in the order of their sums only.
+DIST_LOSS_ATOL = 1e-2
+DIST_LORA = dict(lora_rank=16, lora_targets=("wq", "wv"))
+DIST_MOE = dict(num_experts=8, moe_top_k=2)
+# (layout, mesh axes, config overrides, SpmdBert keywords, trainer options)
+DIST_LAYOUTS = [
+    ("tp_lora", {"stage": 1, "model": 2}, DIST_LORA, {}, {"lora": True}),
+    ("dp", {"data": 2, "stage": 1}, {}, {}, {}),
+    ("dp_zero1", {"data": 2, "stage": 1}, {}, {}, {"zero1": True}),
+    ("dp_fsdp", {"data": 2, "stage": 1}, {}, {"fsdp": True}, {}),
+    ("ep_dense", {"stage": 1, "expert": 2}, DIST_MOE, {}, {}),
+    ("ep_a2a", {"stage": 1, "expert": 2},
+     dict(DIST_MOE, moe_dispatch="a2a", capacity_factor=4.0), {}, {}),
+    ("seq_ring", {"stage": 1, "seq": 2}, {}, {"sp_strategy": "ring"}, {}),
+    ("seq_ulysses", {"stage": 1, "seq": 2}, {},
+     {"sp_strategy": "ulysses"}, {}),
+    ("stage2", {"stage": 2}, {}, {}, {}),
+]
+
+
+def _dist_launches(axes: dict) -> int:
+    """flash_attention launches a step on each rank: every layer a rank
+    holds, once a microbatch step; M + S - 1 steps with the stage axis
+    across ranks (the bubble steps are computed); none under sp."""
+    if axes.get("seq", 1) > 1:
+        return 0
+    stages = axes.get("stage", 1)
+    return BERT_BASE["num_layers"] // stages * (DIST_M + stages - 1)
+
+
+class _ByteCount:
+    """The bytes each mesh axis's collectives are handed in a step: the
+    torch.distributed calls of parallel/collectives.py, wrapped in this
+    rank process only (the tensor an all_reduce reduces, the output an
+    all_gather fills, the input a reduce_scatter or an all_to_all
+    sends)."""
+
+    CALLS = {"all_reduce": 0, "all_gather_into_tensor": 0,
+             "reduce_scatter_tensor": 1, "all_to_all_single": 1}
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.axis_of: dict = {}
+        self.bytes: dict = {}
+        for name, arg in self.CALLS.items():
+            setattr(dist, name, self._wrap(getattr(dist, name), arg))
+
+    def _wrap(self, fn, arg):
+        def counted(*args, group=None, **kw):
+            axis = self.axis_of.get(id(group), "other")
+            self.bytes[axis] = self.bytes.get(axis, 0) + args[arg].nbytes
+            return fn(*args, group=group, **kw)
+
+        return counted
+
+    def start(self, mesh) -> None:
+        self.axis_of = ({id(g): a for a, g in mesh.groups.items()}
+                        if mesh.distributed else {})
+        self.bytes = {}
+
+
+def _dist_run(over, sb_kw, opts, mesh, dev, batch, counter):
+    """One layout's forward and DIST_STEPS AdamW steps on this rank."""
+    import functools
+
+    import torch
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.ops.flash_attention import flash_attention
+    from defer_tpu_torch.parallel import lora, train
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+
+    ids, labels = batch
+    cfg = TransformerConfig(**BERT_BASE, **over)
+    dtype = torch.float32 if cfg.num_experts else torch.bfloat16
+    sb = SpmdBert(mesh, cfg, compute_dtype=dtype, **sb_kw)
+    opt = functools.partial(torch.optim.AdamW, lr=DIST_LR,
+                            weight_decay=1e-4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if opts.get("lora"):
+        init, step = lora.make_lora_train_step(sb, opt,
+                                               num_classes=DIST_CLASSES)
+        state, base = init(gen)
+        run = functools.partial(step, state, base)
+        params = lora.combine_lora(base, state.params)
+    else:
+        init, step = train.make_train_step(sb, opt, num_classes=DIST_CLASSES,
+                                           zero1=opts.get("zero1", False))
+        state = init(gen)
+        run = functools.partial(step, state)
+        params = state.params
+    with torch.no_grad():
+        pooled = sb.make_step()(params, ids).float()
+    torch.cuda.synchronize()
+    counter.start(mesh)
+    flash_attention.launches = 0
+    _, loss1 = run(ids, labels)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    moved = dict(counter.bytes)
+    t0 = time.perf_counter()
+    _, loss2 = run(ids, labels)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"pooled": pooled, "loss1": float(loss1), "loss2": float(loss2),
+            "ms": ms, "launches": launches, "bytes": moved,
+            "params": _clone_tree(state.params)}
+
+
+def dist_rank(rank: int, port: int, out: str) -> int:
+    """One of phase dist's two ranks: every layout in DIST_LAYOUTS, in
+    order, on cuda:0 over gloo; rank 0 also runs the one-process
+    references (rank 1 waits at a barrier) and writes the results to
+    `out`. Any failure raises: the rank exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from defer_tpu_torch.parallel import multihost
+    from defer_tpu_torch.parallel.mesh import make_mesh
+
+    multihost.initialize(f"tcp://127.0.0.1:{port}", DIST_WORLD, rank,
+                         backend="gloo")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    counter = _ByteCount()
+    gen = torch.Generator().manual_seed(4)
+    batch = (torch.randint(0, BERT_BASE["vocab_size"],
+                           (DIST_M, DIST_B, DIST_S), generator=gen).to(dev),
+             torch.randint(0, DIST_CLASSES, (DIST_M, DIST_B),
+                           generator=gen).to(dev))
+    refs = {}
+    if rank == 0:
+        one = make_mesh({"stage": 1}, [dev])
+        for over, opts in (({}, {}), (DIST_LORA, {"lora": True}),
+                           (DIST_MOE, {}),
+                           (dict(DIST_MOE, moe_dispatch="a2a",
+                                 capacity_factor=4.0), {})):
+            key = json.dumps([over, opts], sort_keys=True)
+            refs[key] = _dist_run(over, {}, opts, one, dev, batch, counter)
+            refs[key].pop("params")
+            torch.cuda.empty_cache()
+    dist.barrier()
+    lines, report, plain = [], {}, None
+    for name, axes, over, sb_kw, opts in DIST_LAYOUTS:
+        mesh = make_mesh(axes, [dev] * DIST_WORLD)
+        got = _dist_run(over, sb_kw, opts, mesh, dev, batch, counter)
+        want = _dist_launches(axes)
+        check(got["launches"] == want,
+              f"dist {name}: rank {rank} launched flash_attention "
+              f"{got['launches']} times a step, expected {want}")
+        if name == "dp":
+            plain = got["params"]
+        if name == "dp_zero1":
+            check(_tree_equal(plain, got["params"]),
+                  f"dist dp_zero1: rank {rank}'s parameters after "
+                  f"{DIST_STEPS} steps are not bit for bit plain dp's")
+        if rank == 0:
+            ref = refs[json.dumps([over, {k: v for k, v in opts.items()
+                                          if k == "lora"}], sort_keys=True)]
+            rel = float((got["pooled"] - ref["pooled"]).norm()
+                        / ref["pooled"].norm())
+            dloss = abs(got["loss1"] - ref["loss1"])
+            check(rel <= ZOO_REL_L2 and dloss <= DIST_LOSS_ATOL
+                  and math.isfinite(got["loss2"]),
+                  f"dist {name}: pooled {rel:.3e} (relative L2, tol "
+                  f"{ZOO_REL_L2}) and step-1 loss {got['loss1']:.6f} vs "
+                  f"{ref['loss1']:.6f} (tol {DIST_LOSS_ATOL}) from the "
+                  f"one-process run")
+            report[name] = {"ms": got["ms"], "ref_ms": ref["ms"],
+                            "launches": got["launches"],
+                            "bytes": got["bytes"], "rel_l2": rel,
+                            "loss1": got["loss1"], "ref_loss1": ref["loss1"]}
+            lines.append(
+                f"dist: {name} {axes} {sb_kw or ''}{opts or ''}: step "
+                f"{got['ms']:.3f} ms against the one-process "
+                f"{ref['ms']:.3f} ms; step-1 loss {got['loss1']:.6f} vs "
+                f"{ref['loss1']:.6f}; pooled relative L2 {rel:.3e}; "
+                f"flash_attention {got['launches']} launches a step on "
+                f"each rank; bytes a step by axis {got['bytes']}")
+        del got
+        torch.cuda.empty_cache()
+    for mod in ("jax", "defer_tpu"):
+        check(mod not in sys.modules, f"dist rank {rank} imported {mod}")
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump({"layouts": report, "lines": lines}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_nccl_ops() -> dict:
+    """A world-size-1 NCCL group on cuda:0: each op of
+    parallel/collectives.py once on BERT-base-sized tensors (an
+    activation microbatch [B, S, D] in bf16, and one layer's FFN weight
+    [D, F] in f32 for the all_gather / reduce_scatter), each the
+    identity at one rank; and the refusal of two ranks on one card."""
+    import torch
+    import torch.distributed as dist
+
+    from defer_tpu_torch.parallel import collectives, multihost
+    from defer_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        multihost.initialize(f"tcp://127.0.0.1:{_free_port()}", 2, 1,
+                             backend="nccl", local_rank=1)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise SmokeError("initialize took NCCL for two ranks on one card")
+    check("backend='gloo'" in refused and not dist.is_initialized(),
+          f"NCCL's refusal did not name gloo: {refused}")
+    multihost.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                         backend="nccl")
+    try:
+        mesh = make_mesh({"seq": 1})
+        dev = mesh.local_device
+        gen = torch.Generator(device=dev).manual_seed(6)
+        act = torch.randn(DIST_B, DIST_S, BERT_BASE["dim"], generator=gen,
+                          device=dev).to(torch.bfloat16)
+        weight = torch.randn(BERT_BASE["dim"], BERT_BASE["ffn_dim"],
+                             generator=gen, device=dev)
+        with collectives.active(mesh):
+            ops = {
+                "all_reduce": (collectives.psum(act, "seq"), act),
+                "all_to_all": (collectives.all_to_all(
+                    act, "seq", split_axis=0, concat_axis=1), act),
+                "all_gather": (collectives.all_gather(weight, "seq", dim=1),
+                               weight),
+                "reduce_scatter": (collectives.scatter_dim(
+                    weight, mesh.group("seq"), 1, 1), weight),
+                "ppermute": (collectives.ppermute(act, "seq", [(0, 0)]),
+                             act),
+            }
+        torch.cuda.synchronize()
+        for op, (got, want) in ops.items():
+            check(torch.equal(got, want),
+                  f"NCCL world 1: {op} is not the identity")
+    finally:
+        dist.destroy_process_group()
+    log(f"dist: NCCL {torch.cuda.nccl.version()} world 1 on cuda:0: "
+        f"{', '.join(ops)} each the identity on BERT-base tensors "
+        f"(activation {tuple(act.shape)} bf16, weight {tuple(weight.shape)}"
+        f" f32); initialize refused two NCCL ranks on one card")
+    return {"ops": list(ops)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(here: str) -> dict:
+    """The training collectives (parallel/collectives.py) on the card:
+    NCCL at world size 1, then DIST_LAYOUTS on two gloo ranks sharing
+    cuda:0, started once. A rank that fails, hangs past DIST_TIMEOUT or
+    exits non-zero fails the phase; every rank is stopped by its end."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    nccl = dist_nccl_ops()
+    tmp = tempfile.mkdtemp(prefix="dist-")
+    out = os.path.join(tmp, "report.json")
+    port = _free_port()
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(DIST_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+         str(port), out], cwd=here, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(DIST_WORLD)]
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        tails.append(f"rank {r} exit {p.returncode}: {f.read()[-4000:]}")
+        f.close()
+    check(all(p.returncode == 0 for p in procs),
+          "dist: a rank failed or hung:\n" + "\n".join(tails))
+    with open(out) as f:
+        res = json.load(f)
+    for line in res["lines"]:
+        log(line)
+    log("dist: gloo ranks sharing one card stage every collective through "
+        "the host: these step times are not NCCL's")
+    log(f"dist: phase done in {time.perf_counter() - t0:.1f}s")
+    return {"nccl": nccl, **res["layouts"]}
+
+
 # -- phase family: the rest of the decoder family ---------------------------
 
 # Decode windows of the flat server (K sub-steps a captured CUDA graph),
@@ -4848,6 +5185,7 @@ def main() -> int:
         phase_keras()
         phase_roofline_checkpoint(cnn_res)
         train_res = phase_train()
+        dist_res = phase_dist(here)
         decode_res = phase_decode()
         dec, params = decode_res.pop("dec"), decode_res.pop("params")
         family_res = phase_family(dec, params, decode_res)
@@ -4880,6 +5218,8 @@ def main() -> int:
         "lm": train_res["lm"]["launches"],
         "dpo": train_res["dpo"]["launches"],
         "lora": train_res["lora"]["launches"],
+        **{f"dist_{name}": dist_res[name]["launches"]
+           for name, *_ in DIST_LAYOUTS},
     }
     path_launches = {
         "flash_attention": main_res["launches"]["flash_attention"],
@@ -4957,4 +5297,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:  # one of phase dist's ranks
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -22,17 +22,21 @@ from defer_tpu_torch.graph.ir import GraphBuilder
 from defer_tpu_torch.models import Model, register_model
 from defer_tpu_torch.parallel.mesh import Mesh
 from defer_tpu_torch.parallel.spmd_pipeline import (
-    check_stage_only,
+    check_process_group,
     make_spmd_pipeline,
     stack_for_stages,
+    staged_specs,
     unstack_stages,
 )
 from defer_tpu_torch.parallel.transformer_stack import (
+    StackPlacement,
     TransformerConfig,
     build_fsdp_plan,
+    fsdp_specs,
     init_stack,
     layers_apply,
     normal,
+    stack_specs,
 )
 
 
@@ -116,22 +120,26 @@ def bert_tiny(seq_len: int = 16) -> Model:
 
 
 @dataclasses.dataclass
-class SpmdBert:
+class SpmdBert(StackPlacement):
     """BERT encoder on the stage pipeline: token (+ learned position)
     embedding in f32, cast to compute_dtype -> S-stage pipeline ->
-    pooler. Parameters live on the mesh's first device, in f32, the
-    stack stage-stacked [S, L/S, ...] with the JAX package's keys.
+    pooler. Parameters are f32 with the JAX package's keys, the stack
+    stage-stacked [S, L/S, ...].
 
-    Mesh axes: "stage" (any size, its devices may repeat); "data",
-    "model", "seq" and "expert" must be 1 (NotImplementedError naming
-    ROADMAP Queue 1 item 7), after the JAX package's own validations;
-    fsdp=True without a data axis raises the JAX package's ValueError.
-    (The JAX package's sp_strategy, ring or Ulysses over a "seq" axis,
-    comes with the sequence-parallel collectives.)"""
+    Mesh axes (any may be size 1; "stage" must exist): "stage"
+    (pipeline), "data" (batch), "model" (tensor parallel), "seq"
+    (sequence parallel, ring or Ulysses by sp_strategy) and "expert"
+    (the MoE FFN's experts), validated as the JAX package validates
+    them. In one process only "stage" may be larger than 1 and every
+    leaf is whole on the mesh's first device; over a process group each
+    rank holds its slice (`param_specs`, `shard_params`), on its own
+    device. fsdp=True also splits each stack weight over "data" and
+    all-gathers it just in time inside the block."""
 
     mesh: Mesh
     cfg: TransformerConfig
     compute_dtype: Any = torch.bfloat16
+    sp_strategy: str = "ring"
     fsdp: bool = False
 
     def __post_init__(self):
@@ -173,15 +181,39 @@ class SpmdBert:
                 f"num_kv_heads={self.cfg.kv_heads} must divide by the "
                 f"model axis size {tp} (whole kv head groups per shard)"
             )
+        self.data_axis = "data" if shape.get("data", 1) > 1 else None
+        self._fsdp_plan: dict = {}
         if self.fsdp:
-            build_fsdp_plan(self.mesh)
-        check_stage_only(self.mesh)
-        self.device = self.mesh.devices.flat[0]
+            self._fsdp_plan = build_fsdp_plan(
+                self.cfg, self._per_layer_specs(), self.mesh
+            )
+        check_process_group(self.mesh)
+        self.device = self.mesh.local_device
+
+    @property
+    def split_axes(self) -> tuple:
+        """The mesh axes that split the batch or the sequence: a stack
+        parameter's gradient is summed over them (parallel/train.py)."""
+        return tuple(a for a in (self.data_axis, self.sp_axis) if a)
+
+    def _per_layer_specs(self) -> dict:
+        return stack_specs(None, self.tp_axis, ep_axis=self.ep_axis,
+                           moe=bool(self.cfg.num_experts), cfg=self.cfg)
+
+    def stack_param_specs(self) -> dict:
+        """The stage-stacked stack's placement, FSDP's data axis
+        included."""
+        per_layer = self._per_layer_specs()
+        if self._fsdp_plan:
+            per_layer = fsdp_specs(per_layer, self._fsdp_plan, "data")
+        return staged_specs(per_layer, "stage")
 
     def init(self, generator: torch.Generator) -> dict:
-        """Random f32 parameters on the mesh's first device, drawn from
+        """Random f32 parameters on this process's device, drawn from
         `generator` (which must live there): the JAX package's
-        distributions, not its values."""
+        distributions, not its values. Every rank draws the whole tree
+        from the same seed and keeps its slice, so a distributed run
+        starts from the weights of {"stage": 1}."""
         cfg, dev = self.cfg, self.device
         params = {
             "token_embedding": normal(
@@ -199,7 +231,7 @@ class SpmdBert:
             params["pos_embedding"] = normal(
                 generator, (cfg.max_len, cfg.dim), 0.02, device=dev
             )
-        return params
+        return self.shard_params(params)
 
     def _embed(self, params: dict, ids: torch.Tensor) -> torch.Tensor:
         """Token (+ learned position) embedding in f32, then the compute
@@ -219,17 +251,22 @@ class SpmdBert:
 
     def make_hidden_step(self):
         """(params, ids [M, B, S]) -> per-position hidden states
-        [M, B, S, D] in compute_dtype (no pooler): the forward a
-        next-token LM head needs (parallel/train.py)."""
+        [M, B, S, D] in compute_dtype (no pooler), whole on every rank:
+        the forward a next-token LM head needs (parallel/train.py)."""
         cfg = self.cfg
+        fsdp_axis = "data" if self._fsdp_plan else None
 
         def stage_fn(stack_local, x):
             return layers_apply(
                 stack_local, x, cfg, tp_axis=self.tp_axis,
-                sp_axis=self.sp_axis, ep_axis=self.ep_axis,
+                sp_axis=self.sp_axis, sp_strategy=self.sp_strategy,
+                ep_axis=self.ep_axis, fsdp_axis=fsdp_axis,
+                fsdp_gather=self._fsdp_plan,
             )
 
-        pipe = make_spmd_pipeline(self.mesh, stage_fn)
+        pipe = make_spmd_pipeline(self.mesh, stage_fn,
+                                  data_axis=self.data_axis,
+                                  seq_axis=self.sp_axis)
 
         def hidden(params, ids):
             return pipe(params["stack"], self._embed(params, ids))
@@ -249,7 +286,8 @@ class SpmdBert:
         """Unpipelined reference for correctness checks: the stage stack
         flattened to [L, ...], each microbatch through every block in
         turn, attention through the plain version (`attention_reference`)
-        on any device, so the kernel under test takes no part."""
+        on any device, so the kernel under test takes no part. Takes the
+        whole tree (gather_params over a process group)."""
         emb = self._embed(params, ids)
         flat = unstack_stages(params["stack"])
         ys = torch.stack([

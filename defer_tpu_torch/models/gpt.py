@@ -52,7 +52,8 @@ logits plus noise from one `torch.rand` of shape (B, V) per emitted
 token, so the distribution is JAX's and a per-slot generator seeded `s`
 reproduces a solo `generate` with a generator seeded `s`.
 
-Not ported yet (ROADMAP Queue 1 item 7): `SpmdGptDecoder`.
+Not ported yet (ROADMAP Queue 1 item 7): `SpmdGptDecoder`, whose
+construction raises.
 """
 
 from __future__ import annotations
@@ -1038,3 +1039,15 @@ def tiny_gpt(seq_len: int = 32, *, device=None) -> GptDecoder:
         compute_dtype=torch.float32,
         device=device,
     )
+
+
+class SpmdGptDecoder(GptDecoder):
+    """Tensor-parallel KV-cache decoding over a "model" mesh axis (the
+    JAX package's SpmdGptDecoder): not ported yet, so construction
+    raises (ROADMAP Queue 1 item 7)."""
+
+    def __init__(self, *args: Any, **kwargs: Any):
+        raise NotImplementedError(
+            "SpmdGptDecoder (tensor-parallel decoding over a 'model' mesh "
+            "axis) is not ported yet (ROADMAP Queue 1 item 7)"
+        )

@@ -29,7 +29,7 @@ HuggingFace `T5ForConditionalGeneration.state_dict()` onto the params,
 held against transformers' own forward in tests/test_torch_t5.py.
 
 Not ported yet (ROADMAP Queue 1 item 7): `SpmdT5` / `spmd_t5`
-(tensor-parallel T5).
+(tensor-parallel T5), which raise.
 """
 
 from __future__ import annotations
@@ -638,3 +638,20 @@ def from_hf_state_dict(cfg: T5Config, state_dict: Mapping[str, Any],
             "distinct lm_head — load it with tie_word_embeddings=True"
         )
     return params
+
+
+class SpmdT5(T5):
+    """Tensor-parallel T5 over a "model" mesh axis (the JAX package's
+    SpmdT5): not ported yet, so construction raises (ROADMAP Queue 1
+    item 7)."""
+
+    def __init__(self, *args: Any, **kwargs: Any):
+        raise NotImplementedError(
+            "SpmdT5 (tensor-parallel T5 over a 'model' mesh axis) is not "
+            "ported yet (ROADMAP Queue 1 item 7)"
+        )
+
+
+def spmd_t5(*args: Any, **kwargs: Any) -> SpmdT5:
+    """The JAX package's SpmdT5 factory: raises as SpmdT5 does."""
+    return SpmdT5(*args, **kwargs)

@@ -27,18 +27,22 @@ from defer_tpu_torch.graph.ir import GraphBuilder
 from defer_tpu_torch.models import Model, register_model
 from defer_tpu_torch.parallel.mesh import Mesh
 from defer_tpu_torch.parallel.spmd_pipeline import (
-    check_stage_only,
+    check_process_group,
     make_spmd_pipeline,
     stack_for_stages,
+    staged_specs,
     unstack_stages,
 )
 from defer_tpu_torch.parallel.transformer_stack import (
+    StackPlacement,
     TransformerConfig,
     _layer_norm,
     build_fsdp_plan,
+    fsdp_specs,
     init_stack,
     layers_apply,
     normal,
+    stack_specs,
 )
 
 
@@ -147,14 +151,17 @@ def vit_tiny(image_size: int = 32) -> Model:
 
 
 @dataclasses.dataclass
-class SpmdVit:
+class SpmdVit(StackPlacement):
     """ViT on the stage pipeline (pre-LN stack): patch embed -> S-stage
     pipeline -> final LN on the [class] token -> head. Parameters keep
     the JAX package's keys and layouts (`patch_kernel` HWIO
-    [p, p, 3, D]), in f32 on the mesh's first device; images are NHWC.
+    [p, p, 3, D]), in f32; images are NHWC.
 
-    Mesh rules as SpmdBert's: "stage" of any size, every other axis 1
-    (NotImplementedError naming ROADMAP Queue 1 item 7)."""
+    Mesh axes as the JAX package's SpmdVit reads them: "stage"
+    (pipeline), "data" (batch) and "model" (tensor parallel); fsdp=True
+    splits the stack weights over "data" as SpmdBert's does. Any other
+    axis computes replicated. In one process only "stage" may be larger
+    than 1."""
 
     mesh: Mesh
     cfg: TransformerConfig
@@ -185,17 +192,38 @@ class SpmdVit:
             )
         self.grid = self.image_size // self.patch_size
         self.num_tokens = self.grid * self.grid + 1
+        self.data_axis = (
+            "data" if self.mesh.shape.get("data", 1) > 1 else None
+        )
+        self._fsdp_plan: dict = {}
         if self.fsdp:
-            build_fsdp_plan(self.mesh)
-        check_stage_only(self.mesh)
-        self.device = self.mesh.devices.flat[0]
+            self._fsdp_plan = build_fsdp_plan(
+                self.cfg, stack_specs(None, self.tp_axis, cfg=self.cfg),
+                self.mesh,
+            )
+        check_process_group(self.mesh)
+        self.device = self.mesh.local_device
+
+    @property
+    def split_axes(self) -> tuple:
+        """The mesh axes that split the batch (SpmdBert.split_axes)."""
+        return (self.data_axis,) if self.data_axis else ()
+
+    def stack_param_specs(self) -> dict:
+        """The stage-stacked stack's placement, FSDP's data axis
+        included."""
+        per_layer = stack_specs(None, self.tp_axis, cfg=self.cfg)
+        if self._fsdp_plan:
+            per_layer = fsdp_specs(per_layer, self._fsdp_plan, "data")
+        return staged_specs(per_layer, "stage")
 
     def init(self, generator: torch.Generator) -> dict:
-        """Random f32 parameters on the mesh's first device, drawn from
-        `generator` (which must live there)."""
+        """Random f32 parameters on this process's device, drawn from
+        `generator` (which must live there); over a process group, this
+        rank's slice of the whole tree every rank draws."""
         cfg, dev = self.cfg, self.device
         pp, d = self.patch_size, cfg.dim
-        return {
+        return self.shard_params({
             "patch_kernel": normal(
                 generator, (pp, pp, 3, d), (pp * pp * 3) ** -0.5, device=dev
             ),
@@ -211,7 +239,7 @@ class SpmdVit:
             "stack": stack_for_stages(
                 init_stack(generator, cfg, device=dev), self.num_stages
             ),
-        }
+        })
 
     def _embed(self, params: dict, images: torch.Tensor) -> torch.Tensor:
         """[M, B, H, W, 3] -> [M, B, tokens, D]: the VALID stride-p patch
@@ -244,10 +272,15 @@ class SpmdVit:
         """(params, images [M, B, H, W, 3]) -> logits [M, B, C]."""
         cfg = self.cfg
 
-        def stage_fn(stack_local, x):
-            return layers_apply(stack_local, x, cfg, tp_axis=self.tp_axis)
+        fsdp_axis = "data" if self._fsdp_plan else None
 
-        pipe = make_spmd_pipeline(self.mesh, stage_fn)
+        def stage_fn(stack_local, x):
+            return layers_apply(stack_local, x, cfg, tp_axis=self.tp_axis,
+                                fsdp_axis=fsdp_axis,
+                                fsdp_gather=self._fsdp_plan)
+
+        pipe = make_spmd_pipeline(self.mesh, stage_fn,
+                                  data_axis=self.data_axis)
 
         def step(params, images):
             return self._head(
@@ -257,7 +290,8 @@ class SpmdVit:
         return step
 
     def reference_apply(self, params: dict, images: torch.Tensor) -> torch.Tensor:
-        """Unpipelined reference, attention through the plain version."""
+        """Unpipelined reference, attention through the plain version, on
+        the whole tree."""
         emb = self._embed(params, images)
         flat = unstack_stages(params["stack"])
         ys = torch.stack([

@@ -70,22 +70,35 @@ def multi_head_attention(
     causal: bool = False,
     window: int | None = None,
     sp_axis: str | None = None,
+    sp_strategy: str = "ring",
 ) -> torch.Tensor:
     """Attention on (B, S, D) projections; returns (B, S, D).
 
     window: sliding-window (Mistral-style) masking, causal only; it
     takes the reference path, as in the JAX package.
 
-    sp_axis (sequence parallelism over a device mesh) belongs to the
-    multi-device work that the port has not reached yet.
+    sp_axis: mesh axis of sequence parallelism. S is then this rank's
+    shard of the sequence and attention runs ring or Ulysses
+    (sp_strategy) over that axis (`parallel/sequence.py`), inside a
+    distributed mesh's run.
     """
-    if sp_axis is not None:
-        raise NotImplementedError(
-            "sequence-parallel attention (sp_axis) is not ported yet: it "
-            "waits for the multi-device legs of the port (ROADMAP.md, "
-            "Queue 1, last item)"
-        )
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
+    if sp_axis is not None:
+        if bias is not None:
+            raise NotImplementedError(
+                "bias is not supported under sequence parallelism"
+            )
+        if window is not None:
+            raise NotImplementedError(
+                "sliding-window attention is not supported under "
+                "sequence parallelism yet"
+            )
+        from defer_tpu_torch.parallel.sequence import sequence_attention
+
+        return _merge_heads(sequence_attention(
+            qh, kh, vh, axis_name=sp_axis, strategy=sp_strategy,
+            causal=causal,
+        ))
     if bias is None and window is None:
         return _merge_heads(flash_attention(qh, kh, vh, causal=causal))
     return _merge_heads(

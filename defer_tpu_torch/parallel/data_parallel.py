@@ -10,8 +10,8 @@ BATCH. Two runtimes:
     list: a batch is split into len(devices) shards, shard i runs on
     devices[i], and the results are concatenated in order on
     devices[0]. On one card that is `[cuda:0]`. (The JAX package runs
-    one SPMD program over a mesh; the mesh form waits for the port's
-    multi-device leg, ROADMAP.md Queue 1 item 7.)
+    one SPMD program over a mesh's data axis; given a Mesh, the port
+    raises: that form is not ported yet, ROADMAP.md Queue 1 item 7.)
   * `ReplicatedPipeline` — R independent device-pinned pipeline
     replicas (parallel/pipeline.py `Pipeline`) fed round-robin;
     composes data parallelism with the stage chain when the model does
@@ -31,6 +31,7 @@ import torch
 from defer_tpu_torch.config import DeferConfig
 from defer_tpu_torch.graph.ir import Graph, GraphParams
 from defer_tpu_torch.graph.partition import StageGraph
+from defer_tpu_torch.parallel.mesh import Mesh
 from defer_tpu_torch.parallel.pipeline import (
     Pipeline,
     Stage,
@@ -136,9 +137,14 @@ class ShardedInference(StreamMeasure):
         self,
         graph: Graph,
         params: GraphParams,
-        devices: Sequence[torch.device],
+        devices: Sequence[torch.device] | Mesh,
         config: DeferConfig | None = None,
     ):
+        if isinstance(devices, Mesh):
+            raise NotImplementedError(
+                "ShardedInference over a mesh's data axis is not ported "
+                "yet (ROADMAP Queue 1 item 7): pass a list of devices"
+            )
         self.config = config or DeferConfig()
         self.devices = [resolve_device(d) for d in devices]
         if not self.devices:
@@ -199,7 +205,7 @@ class ReplicatedPipeline(StreamMeasure):
         self,
         stages: Sequence[Graph | StageGraph],
         params: GraphParams,
-        devices: Sequence[torch.device],
+        devices: Sequence[torch.device] | Mesh,
         config: DeferConfig | None = None,
         *,
         num_replicas: int | None = None,

@@ -15,7 +15,10 @@ Adapter factors live inside the stacked param tree (`{target}:a`
 
 `make_lora_train_step` fine-tunes a classifier on `SpmdBert` with the
 base tree frozen (requires_grad=False, so no base gradient is ever
-built) and an optimizer over the adapters and the head alone.
+built) and an optimizer over the adapters and the head alone, on any
+mesh SpmdBert takes (under tp the factors split like their base weights,
+`transformer_stack.stack_specs`; over "data" their gradients sum as
+every trainer's do, `train.MeshOptimizer`).
 """
 
 from __future__ import annotations
@@ -149,7 +152,7 @@ def make_lora_train_step(
         trainable.update(make_classifier_params(generator, sb, num_classes))
         for t in tree_leaves(base):
             t.requires_grad_(False)
-        return _new_state(trainable, optimizer), base
+        return _new_state(trainable, optimizer, sb), base
 
     def train_step(state, base: dict, ids, labels):
         loss = classifier_loss(forward, combine_lora(base, state.params),

@@ -3,12 +3,20 @@
 `make_mesh`).
 
 A port `Mesh` is the axis names, their sizes and the grid of devices,
-with no collectives behind it: in one process a mesh whose only axis
-larger than 1 is "stage" runs its stages in turn
-(`parallel/spmd_pipeline.py`). A device may repeat in the grid, so
-`make_mesh({"stage": 4}, [cuda0] * 4)` is four stages on one card, as
-`pipeline_devices` wraps a cut list round-robin. The collectives behind
-the other axes wait for ROADMAP Queue 1 item 7.
+in one of two forms:
+
+  * in one process (no process group, or one whose size is not the
+    mesh's): every position is this process, and only the "stage" axis
+    may be larger than 1; the stages run in turn
+    (`parallel/spmd_pipeline.py`). A device may repeat in the grid, so
+    `make_mesh({"stage": 4}, [cuda0] * 4)` is four stages on one card,
+    as `pipeline_devices` wraps a cut list round-robin;
+  * over the ranks of an initialised process group
+    (`parallel/multihost.py` `initialize`) whose size is the mesh's: one
+    process per position, rank r at position `np.unravel_index(r,
+    shape)` (the JAX package's device order) on its own device, with
+    one process group per line of every axis (`group`), which the
+    collectives (`parallel/collectives.py`) run over.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def cuda_devices() -> list[torch.device]:
@@ -62,14 +71,45 @@ def pipeline_devices(
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Named device grid: `devices` is an object array of
-    torch.devices shaped by the axis sizes, in `axis_names` order."""
+    torch.devices shaped by the axis sizes, in `axis_names` order.
+
+    Over a process group, `ranks` is the grid of ranks beside it, `rank`
+    this process's, and `groups` this rank's process group along each
+    axis; all three are None in one process."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    ranks: np.ndarray | None = None
+    rank: int | None = None
+    groups: dict | None = None
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def distributed(self) -> bool:
+        return self.ranks is not None
+
+    @property
+    def coords(self) -> dict[str, int]:
+        """This rank's index along every axis (0s in one process)."""
+        if not self.distributed:
+            return {a: 0 for a in self.axis_names}
+        where = np.unravel_index(self.rank, self.ranks.shape)
+        return {a: int(i) for a, i in zip(self.axis_names, where)}
+
+    @property
+    def local_device(self) -> torch.device:
+        """This process's device: its own position's over a process
+        group, the grid's first in one process."""
+        if not self.distributed:
+            return self.devices.flat[0]
+        return self.devices.flat[self.rank]
+
+    def group(self, axis: str):
+        """This rank's process group along `axis`."""
+        return self.groups[axis]
 
     def axis_devices(self, axis: str) -> list[torch.device]:
         """The devices along `axis` at index 0 of every other axis."""
@@ -85,16 +125,39 @@ def make_mesh(
     """Build a named mesh, e.g. make_mesh({"stage": 4}, [cuda0] * 4).
 
     Axis order follows dict order; the mesh takes the first
-    prod(sizes) devices (every CUDA device when None: raises without a
-    card) and raises when it is given fewer."""
-    devs = ([torch.device(d) for d in devices] if devices is not None
-            else cuda_devices())
+    prod(sizes) devices and raises when it is given fewer. Over an
+    initialised process group of prod(sizes) ranks, devices[r] is rank
+    r's device (None: cuda:(r mod the cards of a host), raising without
+    one), and every rank creates every axis line's group, in the same
+    order: every rank must call make_mesh with the same axes. Otherwise
+    the mesh is this process's (devices None: every CUDA device)."""
     shape = tuple(axes.values())
     n = math.prod(shape)
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else None)
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+    elif world == n:
+        cards = cuda_devices()
+        devs = [cards[r % len(cards)] for r in range(n)]
+    else:
+        devs = cuda_devices()
     if n > len(devs):
         raise ValueError(
             f"mesh {dict(axes)} needs {n} devices, have {len(devs)}"
         )
     grid = np.empty(n, dtype=object)
     grid[:] = devs[:n]
-    return Mesh(grid.reshape(shape), tuple(axes.keys()))
+    names = tuple(axes.keys())
+    if world != n:
+        return Mesh(grid.reshape(shape), names)
+    ranks = np.arange(n).reshape(shape)
+    rank = dist.get_rank()
+    groups = {}
+    for i, axis in enumerate(names):
+        lines = np.moveaxis(ranks, i, -1).reshape(-1, shape[i])
+        for line in lines:
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
+                groups[axis] = group
+    return Mesh(grid.reshape(shape), names, ranks, rank, groups)

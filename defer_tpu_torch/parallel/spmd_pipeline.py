@@ -1,21 +1,32 @@
 """The stage pipeline over a mesh's "stage" axis (counterpart of
 `defer_tpu/parallel/spmd_pipeline.py`: `make_spmd_pipeline`,
-`stack_for_stages`, and its inverse `unstack_stages`).
+`stack_for_stages`, `staged_specs`, and the inverse `unstack_stages`).
 
 The JAX package runs one shard_map program on every core: each step
 every stage applies its layers and `lax.ppermute` rotates the
 activations one hop, M microbatches draining in M + S - 1 steps, the
-bubble steps' results masked away. In one process the same function is
-a loop: each microbatch of [M, B, ...] runs stage 0 to S-1 in order,
-stage s on the mesh's stage-s device, the activation moving between
-stages with `.to(..., non_blocking=True)` (no copy when two stages
-share a card). No bubble step is computed. Autograd differentiates the
-loop as it stands, so the backward needs no schedule of its own.
+bubble steps' results masked away. The port runs that function in one
+of two forms, by the mesh (`parallel/mesh.py`):
+
+  * over a process group, one rank per mesh position: the JAX loop as
+    it is. Each rank holds its own stage's layers ([1, L/S, ...] leaves,
+    `transformer_stack.shard_tree`), computes all M + S - 1 steps (the
+    bubble steps too), hops the activation with `collectives.ppermute`,
+    and the last stage's emissions, masked on every other stage, are
+    psum-reduced over the stage axis. The microbatches' batch dim splits
+    over `data_axis` and their sequence dim over `seq_axis`, and the
+    result comes back whole on every rank (`collectives.unshard`).
+    Autograd differentiates the loop: ppermute's backward is the
+    inverse hop, so the backward needs no schedule of its own;
+  * in one process (every position this process's, only "stage" larger
+    than 1): each microbatch of [M, B, ...] runs stage 0 to S-1 in
+    order, stage s on the mesh's stage-s device, the activation moving
+    between stages with `.to(..., non_blocking=True)` (no copy when two
+    stages share a card). No bubble step is computed.
 
 Parameters stay stage-stacked, [S, L/S, ...] leaves, so a JAX tree
 crosses with `weights.params_from_jax` unchanged; stage s reads
-`leaf[s]` (on its own device). The PartitionSpecs (`staged_specs`)
-wait for the collectives of ROADMAP Queue 1 item 7.
+`leaf[s]`.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from typing import Any, Callable
 
 import torch
 
+from defer_tpu_torch.parallel import collectives
 from defer_tpu_torch.parallel.mesh import Mesh
 
 
@@ -38,12 +50,22 @@ def make_spmd_pipeline(
     stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     *,
     stage_axis: str = "stage",
+    data_axis: str | None = None,
+    seq_axis: str | None = None,
 ) -> Callable[[Any, torch.Tensor], torch.Tensor]:
     """Build the pipelined function.
 
     stage_fn(stage-local params, activation [B, ...]) -> activation of
-    the same shape. Returns run(stacked_params, xs): xs [M, B, ...] ->
-    ys [M, B, ...] on xs's device, exactly microbatch-sized."""
+    the same shape; over a process group it runs with `mesh` active, so
+    it may call the collectives over the mesh's other axes (the tp
+    psums, ring attention over "seq"). data_axis / seq_axis split the
+    microbatches' dims 1 and 2 (batch, sequence) over those axes;
+    stage_fn then sees the local shard. Returns run(stacked_params, xs):
+    xs [M, B, ...] -> ys [M, B, ...] on xs's device, exactly
+    microbatch-sized."""
+    if mesh.distributed:
+        return _rank_pipeline(mesh, stage_fn, stage_axis, data_axis,
+                              seq_axis)
     devices = mesh.axis_devices(stage_axis)
 
     def run(stacked: Any, xs: torch.Tensor) -> torch.Tensor:
@@ -63,17 +85,71 @@ def make_spmd_pipeline(
     return run
 
 
-def check_stage_only(mesh: Mesh, stage_axis: str = "stage") -> None:
-    """Refuse a mesh with any axis but `stage_axis` larger than 1: in one
-    process only the stages run; data, tensor, sequence and expert
-    parallelism need the collectives of ROADMAP Queue 1 item 7."""
+def _rank_pipeline(mesh, stage_fn, stage_axis, data_axis, seq_axis):
+    """The JAX loop over a process group (module docstring)."""
+    num_stages = mesh.shape[stage_axis]
+    st = stage_axis if num_stages > 1 else None
+    shift = [(i, (i + 1) % num_stages) for i in range(num_stages)]
+    splits = [(1, data_axis), (2, seq_axis)]
+
+    def run(stacked: Any, xs: torch.Tensor) -> torch.Tensor:
+        with collectives.active(mesh):
+            local = _tree_map(lambda a: a[0], stacked)
+            # Replicated over the stage axis, read by stage 0 alone: its
+            # cotangent is summed over the stages (the embedding's
+            # gradient reaches every rank).
+            xs = collectives.pvary(xs, st)
+            for dim, axis in splits:  # raises on every rank, before any
+                xs = collectives.shard(xs, axis, dim)  # collective runs
+            if st is None:
+                ys = torch.stack([stage_fn(local, x) for x in xs])
+            else:
+                ys = _stage_loop(local, xs, stage_fn, st, num_stages, shift)
+            for dim, axis in reversed(splits):
+                ys = collectives.unshard(ys, axis, dim)
+            return ys
+
+    return run
+
+
+def _stage_loop(local, xs, stage_fn, st, num_stages, shift):
+    """M + S - 1 steps: stage 0 injects microbatch t, every other stage
+    takes what its left neighbour pushed last step; the last stage's
+    steady-state tail is the output. Every rank runs the same ops (the
+    rank picks through torch.where), so the backward's collectives come
+    in the same order on every rank."""
+    stage = collectives.axis_index(st)
+    first = torch.tensor(stage == 0, device=xs.device)
+    last = torch.tensor(stage == num_stages - 1, device=xs.device)
+    num_mb = xs.shape[0]
+    steps = num_mb + num_stages - 1
+    carry = torch.zeros_like(xs[0])
+    emits = []
+    for t in range(steps):
+        out = stage_fn(local, torch.where(first, xs[min(t, num_mb - 1)],
+                                          carry))
+        emits.append(out)
+        if t < steps - 1:  # the last step's hop would carry nothing used
+            carry = collectives.ppermute(out, st, shift)
+    tail = torch.stack(emits[num_stages - 1:])
+    return collectives.psum(torch.where(last, tail, torch.zeros_like(tail)),
+                            st)
+
+
+def check_process_group(mesh: Mesh, stage_axis: str = "stage") -> None:
+    """Refuse a one-process mesh with any axis but `stage_axis` larger
+    than 1: data, tensor, sequence and expert parallelism run one
+    process per mesh position, over a process group."""
+    if mesh.distributed:
+        return
     for axis, size in mesh.shape.items():
         if axis != stage_axis and size > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} of size {size}: only the "
-                f"{stage_axis!r} axis may be larger than 1 here; the "
-                "collectives behind the other axes are not ported yet "
-                "(ROADMAP Queue 1 item 7)"
+            raise RuntimeError(
+                f"mesh axis {axis!r} of size {size} needs one process "
+                "per mesh position: call "
+                "defer_tpu_torch.parallel.multihost.initialize() in every "
+                "rank before make_mesh (in one process only the "
+                f"{stage_axis!r} axis may be larger than 1)"
             )
 
 
@@ -97,3 +173,9 @@ def unstack_stages(params: Any) -> Any:
     layout the KV-cache decoder (models/gpt.py) and the unpipelined
     references read."""
     return _tree_map(lambda a: a.reshape(-1, *a.shape[2:]), params)
+
+
+def staged_specs(specs: Any, stage_axis: str = "stage") -> Any:
+    """Prepend the stage axis to per-layer specs (for stack_for_stages
+    output): (a, b, ...) -> (stage, a, b, ...)."""
+    return _tree_map(lambda spec: (stage_axis, *spec), specs)

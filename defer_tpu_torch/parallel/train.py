@@ -20,10 +20,16 @@ through its plain version, as the JAX package's custom VJP does), and a
     place and returns it (the JAX step donates its state); the loss, or
     DPO's (loss, accuracy), stays a tensor on the device: the step makes
     no host sync.
-  * `zero1=True` shards optimizer moments over a "data" axis; no mesh
-    here has one larger than 1 (SpmdBert refuses it), so it is the JAX
-    package's no-op. ZeRO-1 and FSDP over a data axis wait for the
-    collectives (ROADMAP Queue 1 item 7).
+  * over a process group (one rank per mesh position) the optimizer is
+    a `MeshOptimizer`: after the backward it sums each stack parameter's
+    gradient over the axes that split the batch or the sequence ("data",
+    "seq"), where each rank holds its share, so the update is the JAX
+    package's on the global-batch loss (`reduce_gradients`).
+    `zero1=True` also splits each AdamW moment over "data" as
+    `zero1_shardings` does: each data rank steps its slice of every
+    parameter and all-gathers the result, numerically the replicated
+    update. On a mesh without a data axis larger than 1 it is the JAX
+    package's no-op.
 
 A `TrainState` checkpoints through `runtime/checkpoint.py`
 (`save_train_state` / `load_train_state`): params, the optimizer's
@@ -38,9 +44,11 @@ import torch
 import torch.nn.functional as F
 
 from defer_tpu_torch.models.bert import SpmdBert
+from defer_tpu_torch.parallel import collectives
 from defer_tpu_torch.parallel.transformer_stack import (
     _layer_norm,
     _rms_norm,
+    first_free_divisible_dim,
     normal,
 )
 
@@ -65,12 +73,95 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
-def _new_state(params: dict, optimizer: OptimizerFactory) -> TrainState:
-    """Mark every leaf trainable and build the optimizer over them."""
+@torch.no_grad()
+def reduce_gradients(leaves: list, specs: list, mesh, axes) -> None:
+    """Sum over the mesh axes in `axes` (those that split the batch or
+    the sequence) the gradient of each leaf the pipeline reads inside
+    the split region (a leaf placed on the "stage" axis: the stack) and
+    that is not itself split over the axis, leaf by leaf in order. Its
+    gradient on a rank is that rank's share of the global-batch loss's
+    (`collectives.shard`); a leaf read outside the region (embeddings,
+    heads) has a whole gradient on every rank already, and one split
+    over the axis (FSDP) had its shares summed by the all-gather's
+    reduce-scatter."""
+    for leaf, spec in zip(leaves, specs):
+        if leaf.grad is None or "stage" not in spec:
+            continue
+        for axis in axes:
+            if axis not in spec:
+                collectives.all_reduce_(leaf.grad, mesh.group(axis))
+
+
+class MeshOptimizer:
+    """The optimizer of a training state over a process group: the
+    gradient reduction of `reduce_gradients`, then the update; with
+    zero1 each leaf with a free dim that the data axis divides (the JAX
+    package's `zero1_shardings` rule, first_free_divisible_dim) is
+    stepped as this data rank's slice, whose moments alone the inner
+    optimizer holds, and all-gathered back. The state_dict is the inner
+    optimizer's."""
+
+    def __init__(self, leaves: list, specs: list, mesh, axes,
+                 optimizer: OptimizerFactory, zero1: bool):
+        self.leaves, self.specs, self.mesh, self.axes = (
+            leaves, specs, mesh, axes)
+        dp = mesh.shape.get("data", 1)
+        index = mesh.coords.get("data", 0)
+        self.slices = []  # (leaf, its slice that the optimizer steps, dim)
+        stepped = []
+        for leaf, spec in zip(leaves, specs):
+            dim = (first_free_divisible_dim(spec, leaf.shape, dp)
+                   if zero1 and dp > 1 and "data" not in spec else None)
+            if dim is None:
+                stepped.append(leaf)
+                continue
+            c = leaf.shape[dim] // dp
+            part = leaf.detach().narrow(dim, index * c, c).clone()
+            self.slices.append((leaf, part.requires_grad_(True), dim))
+            stepped.append(part)
+        self.inner = optimizer(stepped)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for leaf in self.leaves:
+            leaf.grad = None
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def step(self, closure=None):
+        reduce_gradients(self.leaves, self.specs, self.mesh, self.axes)
+        dp = self.mesh.shape.get("data", 1)
+        index = self.mesh.coords.get("data", 0)
+        for leaf, part, dim in self.slices:
+            c = part.shape[dim]
+            with torch.no_grad():  # the leaf may have been loaded since
+                part.copy_(leaf.narrow(dim, index * c, c))
+            part.grad = leaf.grad.narrow(dim, index * c, c).contiguous()
+        self.inner.step()
+        with torch.no_grad():
+            group = self.mesh.group("data") if self.slices else None
+            for leaf, part, dim in self.slices:
+                leaf.copy_(collectives.gather_dim(part, group, dp, dim))
+
+    def state_dict(self) -> dict:
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state)
+
+
+def _new_state(params: dict, optimizer: OptimizerFactory, sb,
+               zero1: bool = False) -> TrainState:
+    """Mark every leaf trainable and build the optimizer over them: a
+    MeshOptimizer when sb's mesh is over a process group."""
     leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    if sb.mesh.distributed:
+        specs = tree_leaves(sb.param_specs(params))
+        opt = MeshOptimizer(leaves, specs, sb.mesh, sb.split_axes,
+                            optimizer, zero1)
+    else:
+        opt = optimizer(leaves)
     return TrainState(
         params=params,
-        opt_state=optimizer(leaves),
+        opt_state=opt,
         step=torch.zeros((), dtype=torch.int64, device=leaves[0].device),
     )
 
@@ -120,9 +211,8 @@ def make_train_step(
     train_step(state, ids [M, B, S], labels [M, B]) -> (state, loss):
     the microbatches stream through the pipeline, their CLS losses
     average, and one optimizer update applies: M microbatches of
-    gradient accumulation in one step. zero1 is a no-op (module
-    docstring)."""
-    del zero1  # no data axis larger than 1: nothing to shard over
+    gradient accumulation in one step. zero1 splits the optimizer's
+    moments over "data" (module docstring)."""
     forward = sb.make_step()
 
     def init_state(generator: torch.Generator,
@@ -131,7 +221,7 @@ def make_train_step(
         params.update(make_classifier_params(generator, sb, num_classes))
         if extra_params:
             params.update(extra_params)
-        return _new_state(params, optimizer)
+        return _new_state(params, optimizer, sb, zero1)
 
     def train_step(state: TrainState, ids, labels):
         loss = classifier_loss(forward, state.params, state.params, ids,
@@ -213,12 +303,12 @@ def make_lm_train_step(
     over the first S-1 positions). The trained tree has GptDecoder's key
     set, so with the stage stack flattened (`unstack_stages`) it serves
     on the KV-cache decoder. Needs cfg.causal and norm_style "pre"."""
-    del zero1
     _check_lm(sb, "make_lm_train_step")
     hidden = sb.make_hidden_step()
 
     def init_state(generator: torch.Generator) -> TrainState:
-        return _new_state(_init_lm_params(sb, generator), optimizer)
+        return _new_state(_init_lm_params(sb, generator), optimizer, sb,
+                          zero1)
 
     def train_step(state: TrainState, ids):
         ids = ids.to(sb.device, torch.int64)
@@ -248,12 +338,12 @@ def make_dpo_train_step(
     torch.no_grad(). Chosen and rejected stack on the batch axis, so a
     step pays two pipeline passes (policy, reference), not four.
     `accuracy` is the share of pairs the policy orders correctly."""
-    del zero1
     _check_lm(sb, "make_dpo_train_step")
     hidden = sb.make_hidden_step()
 
     def init_state(generator: torch.Generator) -> TrainState:
-        return _new_state(_init_lm_params(sb, generator), optimizer)
+        return _new_state(_init_lm_params(sb, generator), optimizer, sb,
+                          zero1)
 
     def train_step(state: TrainState, ref_params, chosen, rejected,
                    mask_c, mask_r):

@@ -17,15 +17,20 @@ dicts of tensors with a leading [L] layer axis, keyed as the JAX
 package keys them, so `weights.params_from_jax` maps one tree onto the
 other.
 
-Every collective of the JAX stack goes through one call here: `psum`
-(the tp partial sums of wo / w2 and inside the experts, the ep sums of
-both dispatches), `all_to_all` (the a2a dispatch's two routes),
-`all_gather` (FSDP's just-in-time weights), `axis_size` /
-`axis_index`, and sequence-parallel attention (`multi_head_attention`'s
-sp_axis). Each is the identity at an axis of size 1 (passed as None),
-the only size the SPMD models accept off the "stage" axis; a named
-axis raises until the torch.distributed legs swap in at these calls
-(ROADMAP Queue 1 item 7). The partition specs wait with them.
+Every collective of the JAX stack goes through one call
+(`parallel/collectives.py`, on torch.distributed): `psum` (the tp
+partial sums of wo / w2 and inside the experts, the ep sums of both
+dispatches), `pvary` (the entry of a replicated value into a computation
+split over "model" or "expert": JAX's implicit pvary, whose transpose is
+the psum of its gradient), `all_to_all` (the a2a dispatch's two routes),
+`all_gather` (FSDP's just-in-time weights), `axis_size` / `axis_index`,
+and sequence-parallel attention (`multi_head_attention`'s sp_axis,
+`parallel/sequence.py`). Each is the identity at an axis the model does
+not shard over (passed as None). `stack_specs` gives the placement of
+every leaf as a tuple of mesh axis names a dim (the JAX package's
+PartitionSpecs), `fsdp_plan` / `fsdp_specs` FSDP's, and `shard_tree` /
+`gather_tree` take a full tree to this rank's slices and back (the JAX
+package's `device_put` on NamedShardings).
 """
 
 from __future__ import annotations
@@ -43,6 +48,15 @@ from defer_tpu_torch.ops.attention import (
     _split_heads,
     attention_reference,
     multi_head_attention,
+)
+from defer_tpu_torch.parallel import collectives
+from defer_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_to_all,
+    axis_index,
+    axis_size,
+    psum,
+    pvary,
 )
 
 
@@ -151,6 +165,10 @@ class TransformerConfig:
                 )
 
 
+# Adapter targets whose base weight is row-parallel under tp.
+_ROW_PARALLEL = frozenset({"wo", "w2"})
+
+
 def lora_target_dims(cfg: TransformerConfig) -> dict:
     """(in_dim, out_dim) for every projection an adapter can target."""
     D, F = cfg.dim, cfg.ffn_dim
@@ -250,10 +268,20 @@ def init_stack(
     return p
 
 
-def embed_lookup(table: Any, ids: torch.Tensor) -> torch.Tensor:
+def embed_lookup(
+    table: Any, ids: torch.Tensor, tp_axis: str | None = None
+) -> torch.Tensor:
     """Token-embedding gather. Plain [V, D] tables gather directly;
     int8 weight-only tables ({"q", "s"}, models/quant.py) gather the
-    int8 rows and widen only the gathered [B, T, D] slice to f32."""
+    int8 rows and widen only the gathered [B, T, D] slice to f32. The
+    vocab-row-sharded form (tp_axis set), which the tensor-parallel
+    decoder reads, is not ported yet (ROADMAP Queue 1 item 7)."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "embed_lookup over a vocab-sharded table (tp_axis) is not "
+            "ported yet: it comes with SpmdGptDecoder (ROADMAP Queue 1 "
+            "item 7)"
+        )
     quant = isinstance(table, dict) and "q" in table
     rows = table["q"] if quant else table
     emb = rows[ids]
@@ -333,53 +361,195 @@ def apply_rope(
     return rotate(x_flat, head_dim, *rope_tables(head_dim, positions, theta))
 
 
-# -- collective sites ---------------------------------------------------
+# -- placement -----------------------------------------------------------
 
 
-def _not_ported(what: str, axis: str):
-    raise NotImplementedError(
-        f"{what} over mesh axis {axis!r} is not ported yet: the "
-        "collectives wait for ROADMAP Queue 1 item 7"
-    )
+def stack_specs(
+    stage_axis: str | None = "stage",
+    tp_axis: str | None = None,
+    *,
+    ep_axis: str | None = None,
+    moe: bool = False,
+    cfg: TransformerConfig | None = None,
+) -> dict:
+    """Placement matching init_stack, a tuple of mesh axis names (None:
+    not split) a dim: layer axis -> stage axis; q/k/v/ffn-in
+    column-parallel, out/ffn-out row-parallel over tp; with moe=True the
+    expert axis of the FFN weights over ep_axis. `cfg` tailors the key
+    set to the config (dropped biases, rms norms, swiglu w3, LoRA
+    factors: a row-parallel target's a split like its base's rows, a
+    column-parallel target's b like its base's columns)."""
+    st, tp, ep = stage_axis, tp_axis, ep_axis
+    use_bias = cfg.use_bias if cfg is not None else True
+    layer_norm = cfg.norm_type == "layer" if cfg is not None else True
+    swiglu = cfg.ffn_style == "swiglu" if cfg is not None else False
+    p = {
+        "wq": (st, None, tp),
+        "wk": (st, None, tp),
+        "wv": (st, None, tp),
+        "wo": (st, tp, None),
+        "ln1_scale": (st, None),
+        "ln2_scale": (st, None),
+    }
+    if use_bias:
+        p.update(bq=(st, tp), bk=(st, tp), bv=(st, tp), bo=(st, None))
+    if layer_norm:
+        p.update(ln1_bias=(st, None), ln2_bias=(st, None))
+    if swiglu:
+        p["w3"] = (st, None, tp)
+    if moe:
+        p.update(
+            router=(st, None, None),
+            w1=(st, ep, None, tp),
+            b1=(st, ep, tp),
+            w2=(st, ep, tp, None),
+            b2=(st, ep, None),
+        )
+    else:
+        p.update(w1=(st, None, tp), w2=(st, tp, None))
+        if use_bias:
+            p.update(b1=(st, tp), b2=(st, None))
+    if cfg is not None and cfg.lora_rank:
+        for t in cfg.lora_targets:
+            if t in _ROW_PARALLEL:
+                p[f"{t}:a"] = (st, tp, None)
+                p[f"{t}:b"] = (st, None, None)
+            else:
+                p[f"{t}:a"] = (st, None, None)
+                p[f"{t}:b"] = (st, None, tp)
+    return p
 
 
-def axis_size(axis: str | None) -> int:
-    """Size of a mesh axis inside a stage (lax.axis_size)."""
-    return 1 if axis is None else _not_ported("axis_size", axis)
+def first_free_divisible_dim(
+    spec, dims, dp: int, *, offset: int = 0
+) -> int | None:
+    """Index (into `dims`) of the first dimension `spec` leaves unsplit
+    and the axis size `dp` divides: the placement rule shared by FSDP
+    weight sharding (fsdp_plan, offset=1 to skip the stacked layer axis)
+    and ZeRO-1 moment sharding (parallel/train.py). None if no dim
+    qualifies."""
+    spec = list(spec)
+    for i, dim in enumerate(dims):
+        ax = spec[i + offset] if i + offset < len(spec) else None
+        if ax is None and dim % dp == 0 and dim >= dp:
+            return i
+    return None
 
 
-def axis_index(axis: str | None) -> int:
-    """This device's index along a mesh axis (lax.axis_index)."""
-    return 0 if axis is None else _not_ported("axis_index", axis)
+def fsdp_plan(cfg: TransformerConfig, per_layer_specs: dict, dp: int) -> dict:
+    """FSDP placement: {param key -> per-layer dim index} to split over
+    the data axis (and to all-gather back on use): for each stack leaf
+    the first dim its per-layer spec leaves unsplit that dp divides.
+    Shapes come from init_stack on the meta device, so every key the
+    config makes is planned by the same rule; a leaf with no such dim
+    stays as it is."""
+    if dp <= 1:
+        return {}
+    shapes = init_stack(torch.Generator(), cfg, device="meta")
+    plan: dict = {}
+    for key, leaf in shapes.items():
+        axis = first_free_divisible_dim(
+            per_layer_specs[key], leaf.shape[1:], dp, offset=1
+        )
+        if axis is not None:
+            plan[key] = axis
+    return plan
 
 
-def psum(x: torch.Tensor, axis: str | None) -> torch.Tensor:
-    """Sum over a mesh axis (lax.psum): the tp partial sums, the ep sum."""
-    return x if axis is None else _not_ported("psum", axis)
-
-
-def all_to_all(
-    x: torch.Tensor, axis: str | None, *, split_axis: int, concat_axis: int
-) -> torch.Tensor:
-    """lax.all_to_all(tiled=True): the a2a dispatch's two routes."""
-    return x if axis is None else _not_ported("all_to_all", axis)
-
-
-def all_gather(x: torch.Tensor, axis: str | None, *, dim: int) -> torch.Tensor:
-    """lax.all_gather(tiled=True): FSDP's just-in-time weights."""
-    return x if axis is None else _not_ported("all_gather", axis)
-
-
-def build_fsdp_plan(mesh) -> dict:
+def build_fsdp_plan(cfg: TransformerConfig, per_layer_specs: dict, mesh) -> dict:
     """The SPMD models' fsdp=True setup: a mesh without a "data" axis
     larger than 1 has nothing to shard the weights over (the JAX
-    package's ValueError); with one, FSDP waits for the collectives."""
-    if mesh.shape.get("data", 1) <= 1:
+    package's ValueError); with one, plan each leaf's placement."""
+    dp = mesh.shape.get("data", 1)
+    if dp <= 1:
         raise ValueError(
             "fsdp=True needs a 'data' mesh axis of size > 1 "
             "(there is nothing to shard the weights over)"
         )
-    return _not_ported("FSDP", "data")
+    return fsdp_plan(cfg, per_layer_specs, dp)
+
+
+def fsdp_specs(per_layer_specs: dict, plan: dict, data_axis: str) -> dict:
+    """Apply an fsdp_plan to per-layer specs: entry plan[key]+1 (after
+    the layer axis) becomes the data axis."""
+    out = dict(per_layer_specs)
+    for key, axis in plan.items():
+        spec = list(out[key])
+        while len(spec) < axis + 2:
+            spec.append(None)
+        spec[axis + 1] = data_axis
+        out[key] = tuple(spec)
+    return out
+
+
+def tree_specs(tree: dict, stack: dict) -> dict:
+    """Specs for a model's param tree: the "stack" leaves from `stack`
+    (staged specs by key), every other leaf replicated (())."""
+    return {
+        k: ({kk: stack[kk] for kk in v} if k == "stack"
+            else tree_specs(v, stack) if isinstance(v, dict) else ())
+        for k, v in tree.items()
+    }
+
+
+def _split_dims(spec, mesh):
+    return [(i, ax) for i, ax in enumerate(spec)
+            if ax is not None and mesh.shape.get(ax, 1) > 1]
+
+
+def shard_tree(tree: dict, specs: dict, mesh) -> dict:
+    """This rank's slice of a full tree: each leaf's dims split over the
+    mesh axes its spec names (contiguous copies). The identity on a
+    one-process mesh."""
+    if not mesh.distributed:
+        return tree
+    coords = mesh.coords
+
+    def leaf(x, spec):
+        for i, ax in _split_dims(spec, mesh):
+            c = x.shape[i] // mesh.shape[ax]
+            x = x.narrow(i, coords[ax] * c, c)
+        return x.contiguous().clone()
+
+    return {k: shard_tree(v, specs[k], mesh) if isinstance(v, dict)
+            else leaf(v, specs[k]) for k, v in tree.items()}
+
+
+@torch.no_grad()
+def gather_tree(tree: dict, specs: dict, mesh) -> dict:
+    """The inverse of shard_tree: every leaf whole on every rank (for
+    comparisons and checkpoints). Every rank must call it on the same
+    tree: it all-gathers each split dim, leaf by leaf in key order."""
+    if not mesh.distributed:
+        return tree
+
+    def leaf(x, spec):
+        for i, ax in reversed(_split_dims(spec, mesh)):
+            x = collectives.gather_dim(x, mesh.group(ax), mesh.shape[ax], i)
+        return x.contiguous()
+
+    return {k: gather_tree(v, specs[k], mesh) if isinstance(v, dict)
+            else leaf(v, specs[k]) for k in sorted(tree) for v in [tree[k]]}
+
+
+class StackPlacement:
+    """The placement methods of an SPMD model (SpmdBert, SpmdVit) whose
+    `stack_param_specs()` places its stage-stacked stack on `self.mesh`:
+    every other leaf of its trees is replicated."""
+
+    def param_specs(self, tree: dict) -> dict:
+        """The placement of a param tree of this model (init's, or a
+        trainer's with its head)."""
+        return tree_specs(tree, self.stack_param_specs())
+
+    def shard_params(self, tree: dict) -> dict:
+        """This rank's slice of a whole tree (the identity in one
+        process)."""
+        return shard_tree(tree, self.param_specs(tree), self.mesh)
+
+    def gather_params(self, tree: dict) -> dict:
+        """Every leaf whole on every rank: the inverse of shard_params."""
+        return gather_tree(tree, self.param_specs(tree), self.mesh)
 
 
 # -- mixture of experts -------------------------------------------------
@@ -428,13 +598,16 @@ def moe_ffn(
     dt = x.dtype
     e_local = p["w1"].shape[0]
     ep = axis_size(ep_axis)
-    idx, wts = _route_topk(p["router"], x, top_k)  # (B, S, k)
+    # Each ep rank sees only its own experts' share of the cotangents of
+    # x and of the routing: the entry ops sum them over ep.
+    x = pvary(x, ep_axis)
+    idx, wts = _route_topk(pvary(p["router"], ep_axis), x, top_k)
     _, gate = _dispatch_weights(idx, wts, ep * e_local)  # (B, S, E)
     # This device's expert columns of the global gate matrix.
     e0 = axis_index(ep_axis) * e_local
     dispatch = gate[..., e0 : e0 + e_local]
     h = (
-        torch.einsum("bsd,edf->ebsf", x, p["w1"].to(dt))
+        torch.einsum("bsd,edf->ebsf", pvary(x, tp_axis), p["w1"].to(dt))
         + p["b1"].to(dt)[:, None, None, :]
     )
     h = F.gelu(h, approximate="tanh")
@@ -498,13 +671,16 @@ def moe_ffn_a2a(
     n_l = n // ep
     cap = moe_capacity(n_l, e_global, top_k, capacity_factor)
     t0 = axis_index(ep_axis) * n_l
-    x_own = x.reshape(n, d)[t0 : t0 + n_l]  # (n_l, D)
-    idx, wts = _route_topk(p["router"], x_own, top_k)
+    # Each rank routes its own tokens: the entry ops sum the cotangents
+    # of x and of the router over ep.
+    x_own = pvary(x, ep_axis).reshape(n, d)[t0 : t0 + n_l]  # (n_l, D)
+    idx, wts = _route_topk(pvary(p["router"], ep_axis), x_own, top_k)
     dispatch, combine, _ = a2a_slots(idx, wts, e_global, cap)
 
     xin = torch.einsum("nd,nec->ecd", x_own.float(), dispatch)
     xin = all_to_all(xin, ep_axis, split_axis=0, concat_axis=1)
-    h = torch.einsum("ecd,edf->ecf", xin.to(dt), p["w1"].to(dt))
+    h = torch.einsum("ecd,edf->ecf", pvary(xin.to(dt), tp_axis),
+                     p["w1"].to(dt))
     h = F.gelu(h + p["b1"].to(dt)[:, None, :], approximate="tanh")
     y = torch.einsum("ecf,efd->ecd", h, p["w2"].to(dt))
     y = psum(y, tp_axis)
@@ -538,6 +714,7 @@ def block_apply(
     *,
     tp_axis: str | None = None,
     sp_axis: str | None = None,
+    sp_strategy: str = "ring",
     ep_axis: str | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
@@ -547,7 +724,15 @@ def block_apply(
     masters. Attention goes through `multi_head_attention` (the flash
     kernel on a CUDA tensor without a window), or with plain=True
     through `attention_reference` on any device: the unpipelined
-    references' path, independent of the kernel under test."""
+    references' path, independent of the kernel under test.
+
+    With tp_axis set the projections arrive column-split (this rank's
+    head group of q, k, v; its slice of the FFN) and wo / w2 row-split:
+    the replicated input enters through `pvary`, and one psum closes
+    each row-parallel product (the Megatron pattern). With sp_axis set,
+    S is this rank's shard of the sequence and attention runs ring or
+    Ulysses over that axis (`parallel/sequence.py`); rope positions
+    start at its offset."""
     dt = x.dtype
     local_heads = cfg.num_heads // axis_size(tp_axis)
     dh = cfg.dim // cfg.num_heads
@@ -559,14 +744,23 @@ def block_apply(
         return h + p[name].to(dt) if name in p else h
 
     def proj(h, name):
-        """Base matmul plus the low-rank adapter path when present."""
+        """Base matmul plus the low-rank adapter path when present. Under
+        tp the factor that stays replicated (a of a column-parallel
+        target, b of a row-parallel one) meets a split operand, so it
+        enters through pvary: its gradient sums over tp."""
         y = h @ p[name].to(dt)
         a = p.get(f"{name}:a")
         if a is not None:
-            y = y + ((h @ a.to(dt)) @ p[f"{name}:b"].to(dt)) * lora_scale
+            b = p[f"{name}:b"]
+            if name in _ROW_PARALLEL:
+                b = pvary(b, tp_axis)
+            else:
+                a = pvary(a, tp_axis)
+            y = y + ((h @ a.to(dt)) @ b.to(dt)) * lora_scale
         return y
 
     a_in = norm_apply(cfg, x, p, "ln1") if pre else x
+    a_in = pvary(a_in, tp_axis)
     q = bias(proj(a_in, "wq"), "bq")
     k = bias(proj(a_in, "wk"), "bk")
     v = bias(proj(a_in, "wv"), "bv")
@@ -589,7 +783,7 @@ def block_apply(
     else:
         attn = multi_head_attention(
             q, k, v, num_heads=local_heads, causal=cfg.causal,
-            window=cfg.window, sp_axis=sp_axis,
+            window=cfg.window, sp_axis=sp_axis, sp_strategy=sp_strategy,
         )
     attn = bias(psum(proj(attn, "wo"), tp_axis), "bo")
     if pre:
@@ -610,9 +804,11 @@ def block_apply(
                         top_k=cfg.moe_top_k)
     elif cfg.ffn_style == "swiglu":
         # llama FFN: silu(gate) * up -> down (w1=gate, w3=up, w2=down).
+        f_in = pvary(f_in, tp_axis)
         gate = F.silu(proj(f_in, "w1"))
         h = psum(proj(gate * proj(f_in, "w3"), "w2"), tp_axis)
     else:
+        f_in = pvary(f_in, tp_axis)
         h = F.gelu(bias(proj(f_in, "w1"), "b1"), approximate="tanh")
         h = bias(psum(proj(h, "w2"), tp_axis), "b2")
     if pre:
@@ -627,6 +823,7 @@ def layers_apply(
     *,
     tp_axis: str | None = None,
     sp_axis: str | None = None,
+    sp_strategy: str = "ring",
     ep_axis: str | None = None,
     fsdp_axis: str | None = None,
     fsdp_gather: dict | None = None,
@@ -636,18 +833,25 @@ def layers_apply(
     cfg.remat each block runs under
     `torch.utils.checkpoint.checkpoint(use_reentrant=False)`: only its
     input is kept for the backward, which recomputes the block (its
-    flash_attention launches too). With fsdp_axis set, each leaf named
-    in fsdp_gather is all-gathered on its dim inside the block."""
+    flash_attention launches and its collectives too, with the mesh of
+    the forward active again). With fsdp_axis set, each leaf named in
+    fsdp_gather is all-gathered on its dim inside the block, just in
+    time: only the current block's weights are ever whole, the gather's
+    backward is the reduce-scatter the split gradients need, and under
+    remat the backward gathers again instead of keeping them."""
+    mesh = collectives.current_mesh()
 
     def block(p_one, h):
-        if fsdp_axis is not None and fsdp_gather:
-            p_one = {
-                k: all_gather(v, fsdp_axis, dim=fsdp_gather[k])
-                if k in fsdp_gather else v
-                for k, v in p_one.items()
-            }
-        return block_apply(p_one, h, cfg, tp_axis=tp_axis, sp_axis=sp_axis,
-                           ep_axis=ep_axis, plain=plain)
+        with collectives.active(mesh):
+            if fsdp_axis is not None and fsdp_gather:
+                p_one = {
+                    k: all_gather(v, fsdp_axis, dim=fsdp_gather[k])
+                    if k in fsdp_gather else v
+                    for k, v in p_one.items()
+                }
+            return block_apply(p_one, h, cfg, tp_axis=tp_axis,
+                               sp_axis=sp_axis, sp_strategy=sp_strategy,
+                               ep_axis=ep_axis, plain=plain)
 
     depth = next(iter(stacked.values())).shape[0]
     for layer in range(depth):

@@ -21,8 +21,9 @@ files: `save_train_state` writes params, the optimizer's `state_dict()`
 and the step; `load_train_state` restores them in place, so a resumed
 run continues bit for bit.
 
-The sharded (multi-host) checkpoints and the orbax bridge wait for the
-port's multi-device leg (ROADMAP.md Queue 1 item 7).
+The sharded (multi-host) checkpoints, `save_sharded` /
+`restore_sharded`, raise: they are not ported yet (ROADMAP.md Queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -230,3 +231,20 @@ def load_train_state(path: str, state: Any) -> Any:
         state.step.copy_(tree["step"])
     state.opt_state.load_state_dict(tree["opt_state"])
     return state
+
+
+def save_sharded(*args: Any, **kwargs: Any) -> None:
+    """The JAX package's per-process sharded checkpoint: not ported yet,
+    so it raises (ROADMAP Queue 1 item 7)."""
+    raise NotImplementedError(
+        "save_sharded (per-process sharded checkpoints) is not ported yet "
+        "(ROADMAP Queue 1 item 7)"
+    )
+
+
+def restore_sharded(*args: Any, **kwargs: Any) -> Any:
+    """The inverse of save_sharded: raises as it does."""
+    raise NotImplementedError(
+        "restore_sharded (per-process sharded checkpoints) is not ported "
+        "yet (ROADMAP Queue 1 item 7)"
+    )

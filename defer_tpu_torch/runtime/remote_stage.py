@@ -297,6 +297,16 @@ def serve_stage(
     return count
 
 
+def serve_pp_stage(*args: Any, **kwargs: Any) -> None:
+    """The JAX package's pipeline-parallel paged decode stage (a worker
+    serving layers [first, last) of a decoder behind a socket): not
+    ported yet, so it raises (ROADMAP Queue 1 item 7)."""
+    raise NotImplementedError(
+        "serve_pp_stage (a pipeline-parallel paged decode stage) is not "
+        "ported yet (ROADMAP Queue 1 item 7)"
+    )
+
+
 def main(argv: list[str] | None = None) -> None:
     import argparse
 

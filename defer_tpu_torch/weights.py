@@ -19,6 +19,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from defer_tpu_torch.parallel.mesh import cuda_devices
+
 
 def _to_tensor(leaf: Any, device, dtype) -> torch.Tensor:
     a = np.asarray(leaf)
@@ -33,12 +35,15 @@ def _to_tensor(leaf: Any, device, dtype) -> torch.Tensor:
 
 def params_from_jax(
     tree: Mapping[str, Any],
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
 ) -> dict:
     """Nested dict of arrays -> nested dict of tensors on `device`.
     Floating leaves are cast to `dtype` when it is given; others keep
-    their type."""
+    their type. `device` None is the first CUDA device, as the JAX
+    package's arrays sit on its default (accelerator) device; it raises
+    without a card: pass device="cpu" to load on the CPU."""
+    device = device if device is not None else cuda_devices()[0]
     return {
         k: params_from_jax(v, device, dtype)
         if isinstance(v, Mapping)

@@ -29,8 +29,8 @@ PORT = {"gpt": tiny_gpt, "llama": tiny_llama}
 def _make(family):
     jdec = JAX[family](64)
     jparams = jdec.init(jax.random.key(0))
-    return PORT[family](64, device=CPU), params_from_jax(jparams), jdec, \
-        jparams
+    return (PORT[family](64, device=CPU), params_from_jax(jparams, CPU),
+            jdec, jparams)
 
 
 @pytest.mark.parametrize("family,beam,penalty", [
@@ -77,7 +77,7 @@ def test_beam_on_rolling_cache_matches_jax():
     jparams = jdec.init(jax.random.key(0))
     dec = GptDecoder(mistral_config(**shape), compute_dtype=torch.float32,
                      rolling_cache=True, device=CPU)
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, CPU)
     prompt = np.random.default_rng(1).integers(0, 96, size=(1, 7))
     ids, scores = beam_search(dec, params, torch.from_numpy(prompt), 6,
                               beam_size=3)

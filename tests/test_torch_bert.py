@@ -61,7 +61,8 @@ def _run_stream(defer, model, cuts, params, inputs):
 def test_graph_matches_jax(bert):
     jmodel, jparams, model, ids = bert
     want = jmodel.graph.apply(jparams, jnp.asarray(ids[0], jnp.int32))
-    got = model.graph.apply(params_from_jax(jparams), torch.from_numpy(ids[0]))
+    got = model.graph.apply(params_from_jax(jparams, CPU),
+                            torch.from_numpy(ids[0]))
     assert got.shape == (2, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
@@ -69,7 +70,7 @@ def test_graph_matches_jax(bert):
 def test_shapes_and_cuts_match_jax(bert):
     jmodel, jparams, model, _ = bert
     want = jmodel.graph.infer_shapes(jparams, (2, 16), jnp.int32)
-    got = model.graph.infer_shapes(params_from_jax(jparams), (2, 16),
+    got = model.graph.infer_shapes(params_from_jax(jparams, CPU), (2, 16),
                                    torch.int64)
     assert {k: tuple(v.shape) for k, v in got.items()} == {
         k: tuple(v.shape) for k, v in want.items()
@@ -81,7 +82,7 @@ def test_shapes_and_cuts_match_jax(bert):
 
 def test_partitioned_equals_whole(bert):
     _, jparams, model, ids = bert
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, CPU)
     x = torch.from_numpy(ids[1])
     stages = partition(model.graph, CUTS)
     assert len(stages) == 3
@@ -106,7 +107,7 @@ def test_run_defer_matches_jax(bert):
         devices=[CPU], config=DeferConfig(compute_dtype=torch.float32)
     )
     got = _run_stream(
-        defer, model, CUTS, params_from_jax(jparams),
+        defer, model, CUTS, params_from_jax(jparams, CPU),
         [torch.from_numpy(x) for x in ids],
     )
     assert defer.last_pipeline.num_stages == 3
@@ -142,6 +143,19 @@ def test_params_from_jax_widens_bf16():
     )
 
 
+def test_params_from_jax_defaults_to_the_card():
+    """Without a device the tensors land on the first CUDA device, as
+    the JAX package's arrays sit on its accelerator; with no card the
+    call raises and names the CPU opt-in."""
+    tree = {"w": np.ones((2, 3), np.float32)}
+    if torch.cuda.is_available():
+        got = params_from_jax(tree)
+        assert got["w"].device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            params_from_jax(tree)
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: DEFER() uses it")
@@ -161,7 +175,7 @@ def test_unported_options_raise(bert, kwargs, layers):
     outputs, in stream order."""
     _, jparams, model, ids = bert
     config = DeferConfig(compute_dtype=torch.float32)
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, CPU)
     pipe, _ = DEFER(devices=[CPU] * 4, config=config).build_pipeline(
         model, layers, params=params, **kwargs
     )

@@ -10,7 +10,10 @@ them, and the aten ops it dispatches); and fleet serving on one card
 (prefix migration between two servers, two windowed replicas capturing
 at once, device= placement); training on the card (a BERT-base-width
 train step's flash_attention launches with and without remat, the
-kernel's gradient, the MoE dispatches).
+kernel's gradient, the MoE dispatches); the training collectives on the
+card (two gloo ranks sharing cuda:0 under tp, FSDP and the stage axis
+across ranks, against one process; every collective on a world-size-1
+NCCL group).
 
 Every test here is marked `cuda` and skips without a CUDA card. The
 file imports neither jax nor defer_tpu, so on the card it runs on its
@@ -1477,3 +1480,81 @@ def test_moe_dense_equals_a2a_on_the_card(card, k):
     dense = ts.moe_ffn(p, x, top_k=k)
     a2a = ts.moe_ffn_a2a(p, x, capacity_factor=8 / k, top_k=k)
     torch.testing.assert_close(a2a, dense, atol=1e-2, rtol=1e-2)
+
+
+# -- the training collectives: ranks sharing the card -----------------------
+
+DIST_CFG = dict(num_layers=12, dim=768, num_heads=12, ffn_dim=3072,
+                vocab_size=30522, max_len=512)
+
+
+def _one_process(card, cfg_kw, ids, labels):
+    """The {"stage": 1} run in this process: the worker's "card" run."""
+    import functools
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel import mesh, train
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+
+    sb = SpmdBert(mesh.make_mesh({"stage": 1}, [card]),
+                  TransformerConfig(**cfg_kw), compute_dtype=torch.bfloat16)
+    init, step = train.make_train_step(
+        sb, functools.partial(torch.optim.AdamW, lr=1e-5), num_classes=2)
+    state = init(torch.Generator(device=card).manual_seed(0))
+    ids, labels = (torch.from_numpy(a).to(card, torch.int64)
+                   for a in (ids, labels))
+    with torch.no_grad():
+        pooled = sb.make_step()(state.params, ids).float().cpu()
+    _, loss = step(state, ids, labels)
+    return pooled, float(loss)
+
+
+@pytest.mark.parametrize("axes,fsdp,launches", [
+    ({"stage": 1, "model": 2}, False, 12 * 2),   # 6 heads a rank
+    ({"data": 2, "stage": 1}, True, 12 * 2),
+    ({"stage": 2}, False, 6 * (2 + 2 - 1)),      # the bubble steps too
+], ids=["tp", "fsdp", "stage2"])
+def test_two_gloo_ranks_on_the_card_match_one_process(card, tmp_path, axes,
+                                                      fsdp, launches):
+    """Two ranks on cuda:0 over gloo at BERT-base widths, M 2 x B 2 x S
+    128: each rank's flash_attention launches a forward (every layer it
+    holds, once a microbatch step), the pooled output within 5% relative
+    L2 and step 1's loss within 1e-2 of one process on the same seeded
+    weights (bf16: the order of the sums differs)."""
+    import numpy as np
+
+    from test_torch_dist_worker import spawn
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, DIST_CFG["vocab_size"], (2, 2, 128))
+    labels = rng.integers(0, 2, (2, 2))
+    case = dict(name="card", run="card", axes=axes, cfg=DIST_CFG, fsdp=fsdp,
+                ids=ids, labels=labels)
+    ranks = spawn({"device": "cuda", "cases": [case]}, 2, str(tmp_path))
+    want, want_loss = _one_process(card, DIST_CFG, ids, labels)
+    for got in (r["card"] for r in ranks):
+        assert got["launches"] == launches
+        rel = float(np.linalg.norm(got["forward"] - want.numpy())
+                    / np.linalg.norm(want.numpy()))
+        assert rel <= 5e-2, rel
+        assert abs(got["loss"] - want_loss) <= 1e-2, (got["loss"], want_loss)
+
+
+def test_every_collective_on_a_world_size_1_nccl_group(card, tmp_path):
+    """NCCL at one rank: each op of parallel/collectives.py (psum, pvary,
+    all_gather, all_to_all, ppermute, shard, unshard) forward and
+    backward, each the identity."""
+    import numpy as np
+
+    from test_torch_dist_worker import spawn
+
+    x = np.arange(24, dtype=np.float32).reshape(4, 6)
+    cot = np.random.default_rng(3).standard_normal((4, 12)).astype(
+        np.float32)
+    case = dict(name="ops", run="ops", axes={"seq": 1}, x=x, cot=cot)
+    (ranks,) = spawn({"backend": "nccl", "device": "cuda",
+                      "cases": [case]}, 1, str(tmp_path))
+    assert len(ranks["ops"]) == 7
+    for op, (y, g) in ranks["ops"].items():
+        np.testing.assert_array_equal(y, x, err_msg=op)
+        np.testing.assert_array_equal(g, cot[:4, :6], err_msg=op)

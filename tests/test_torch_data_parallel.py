@@ -43,7 +43,8 @@ def bert():
     ids = [rng.integers(0, 128, (4, 16)).astype(np.int32) for _ in range(6)]
     want = [np.asarray(jmodel.graph.apply(jparams, x)) for x in ids]
     model = get_model("bert_tiny", seq_len=16)
-    return model, params_from_jax(jparams), [torch.from_numpy(x) for x in ids], want
+    return (model, params_from_jax(jparams, CPU),
+            [torch.from_numpy(x) for x in ids], want)
 
 
 def test_replicated_pipeline_matches_one_pipeline_in_order(bert):

@@ -35,7 +35,7 @@ PORT = {"gpt": tiny_gpt, "llama": tiny_llama}
 def _make(family, seq_len=64):
     """The port's decoder with the JAX package's weights for `family`."""
     jparams = JAX[family](seq_len).init(jax.random.key(0))
-    return PORT[family](seq_len, device=CPU), params_from_jax(jparams)
+    return PORT[family](seq_len, device=CPU), params_from_jax(jparams, CPU)
 
 
 @pytest.fixture(scope="module")

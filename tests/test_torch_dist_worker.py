@@ -1,0 +1,332 @@
+"""One rank of the distributed tests (tests/test_torch_dist*.py and the
+card's tests/test_torch_cuda.py). Holds no tests; imports torch and
+defer_tpu_torch only, never jax.
+
+    python tests/test_torch_dist_worker.py RANK WORLD PORT JOB OUT
+
+joins a process group of WORLD ranks on tcp://127.0.0.1:PORT (the job's
+backend: gloo unless it names nccl), reads the job (a pickle the test
+wrote: the backend, the device every rank runs on, and a list of cases,
+each a layout, a config, the whole weights and the batches as numpy),
+runs every case in order on every rank, and writes this rank's results
+to OUT.RANK as a pickle. A case's "run" names what it does:
+
+  * "train": the trainer's forward (pooled), then `steps` AdamW steps
+    (step 1's reduced gradients recorded, gathered whole); with "zero1"
+    the same steps again on a zero1 state from the same weights;
+  * "vit": SpmdVit's logits;
+  * "moe": one MoE FFN at the layout's expert axis, and the a2a drop
+    set of every rank's tokens;
+  * "attention": `make_sharded_attention` on whole q, k, v and the
+    gradients of a fixed projection of its output;
+  * "ops": each op of parallel/collectives.py over the "seq" axis, its
+    output and the gradient of a fixed cotangent;
+  * "card": SpmdBert in bf16 from a seeded init: the pooled forward, its
+    flash_attention launches, and one AdamW step's loss.
+
+`spawn(job, world, tmp)` is the tests' side: it starts the WORLD ranks,
+waits at most JOIN_TIMEOUT seconds for all of them, kills every rank
+still running then, raises unless every rank exited 0, and returns the
+ranks' results in rank order.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+
+import torch
+
+from defer_tpu_torch import params_from_jax, params_to_numpy
+from defer_tpu_torch.models.bert import SpmdBert
+from defer_tpu_torch.models.llama import llama_config
+from defer_tpu_torch.models.vit import SpmdVit
+from defer_tpu_torch.parallel import collectives, lora, multihost, train
+from defer_tpu_torch.parallel import transformer_stack as ts
+from defer_tpu_torch.parallel.mesh import make_mesh
+from defer_tpu_torch.parallel.sequence import make_sharded_attention
+
+CPU = torch.device("cpu")
+# Seconds a spawn may take, all its cases included; a hang fails the
+# test well inside the suite's own limit.
+JOIN_TIMEOUT = 120
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(job: dict, world: int, tmp) -> list:
+    """Run `job` ({"cases": [...]}, optionally "backend" and "device") on
+    `world` ranks; returns each rank's results, in rank order."""
+    path, out = os.path.join(tmp, "job.pkl"), os.path.join(tmp, "out.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(job, f)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    port = _free_port()
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(r), str(world),
+         str(port), path, out], cwd=root, env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + JOIN_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        tails.append(f"rank {r} exit {p.returncode}:\n{log.read()[-3000:]}")
+        log.close()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("a rank failed or hung:\n" + "\n".join(tails))
+    results = []
+    for r in range(world):
+        with open(f"{out}.{r}", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _config(case):
+    make = llama_config if case.get("llama") else ts.TransformerConfig
+    return make(**case["cfg"])
+
+
+class _Recording(torch.optim.AdamW):
+    """AdamW that keeps the gradients its first step is given."""
+
+    first: list
+
+    def step(self, closure=None):
+        if not self.first:
+            self.first.append([p.grad.clone() for g in self.param_groups
+                               for p in g["params"]])
+        return super().step(closure)
+
+
+def _adamw(case):
+    def factory(leaves):
+        opt = _Recording(leaves, lr=case["lr"], weight_decay=case["wd"])
+        opt.first = []
+        return opt
+
+    return factory
+
+
+def _load(state_params, full, sb):
+    """Copy the whole numpy tree's slices into a state's params."""
+    src = sb.shard_params(params_from_jax(full, device=CPU))
+
+    def copy(dst, s):
+        for k in dst:
+            if isinstance(dst[k], dict):
+                copy(dst[k], s[k])
+            else:
+                dst[k].copy_(s[k])
+
+    with torch.no_grad():
+        copy(state_params, src)
+
+
+def _unflatten(like, leaves):
+    it = iter(leaves)
+
+    def build(tree):
+        return {k: build(tree[k]) if isinstance(tree[k], dict) else next(it)
+                for k in sorted(tree)}
+
+    return build(like)
+
+
+def _train(case, mesh):
+    cfg = _config(case)
+    sb = SpmdBert(mesh, cfg, compute_dtype=torch.float32,
+                  sp_strategy=case.get("sp_strategy", "ring"),
+                  fsdp=case.get("fsdp", False))
+    ids = torch.from_numpy(case["ids"]).long()
+    labels = torch.from_numpy(case["labels"]).long()
+    out = {}
+    runs = [False] + ([True] if case.get("zero1") else [])
+    for zero1 in runs:
+        gen = torch.Generator().manual_seed(0)
+        if case.get("lora"):
+            init, step = lora.make_lora_train_step(
+                sb, _adamw(case), num_classes=case["classes"])
+            state, base = init(gen)
+            full_base, full_lora = lora.split_lora(case["params"])
+            full_lora.update({k: case["params"][k]
+                              for k in ("cls_w", "cls_b")})
+            full_base = {k: v for k, v in full_base.items()
+                         if k not in ("cls_w", "cls_b")}
+            _load(state.params, full_lora, sb)
+            _load(base, full_base, sb)
+            run = functools.partial(step, state, base)
+        else:
+            init, step = train.make_train_step(
+                sb, _adamw(case), num_classes=case["classes"], zero1=zero1)
+            state = init(gen)
+            _load(state.params, case["params"], sb)
+            base = None
+            run = functools.partial(step, state)
+        if not zero1:
+            params = (lora.combine_lora(base, state.params) if base
+                      else state.params)
+            with torch.no_grad():
+                out["forward"] = sb.make_step()(params, ids).numpy()
+                if sb.sp_axis:  # refused on every rank, before a collective
+                    try:
+                        sb.make_step()(params, ids[..., :7])
+                    except ValueError as e:
+                        out["indivisible"] = str(e)
+        losses = []
+        for _ in range(case["steps"]):
+            _, loss = run(ids, labels)
+            losses.append(float(loss))
+        key = "zero1" if zero1 else "plain"
+        out[f"{key}_losses"] = losses
+        out[f"{key}_params"] = params_to_numpy(
+            sb.gather_params(state.params))
+        opt = state.opt_state
+        inner = opt.inner if isinstance(opt, train.MeshOptimizer) else opt
+        if not zero1:
+            grads = _unflatten(state.params, inner.first[0])
+            out["grads"] = params_to_numpy(sb.gather_params(grads))
+    return out
+
+
+def _vit(case, mesh):
+    sv = SpmdVit(mesh, ts.TransformerConfig(**case["cfg"]),
+                 compute_dtype=torch.float32, fsdp=case.get("fsdp", False),
+                 **case["vit"])
+    params = sv.shard_params(params_from_jax(case["params"], device=CPU))
+    with torch.no_grad():
+        logits = sv.make_step()(params, torch.from_numpy(case["images"]))
+    return {"forward": logits.numpy()}
+
+
+def _moe(case, mesh):
+    p = params_from_jax(case["expert_params"], device=CPU)
+    ep = mesh.shape["expert"]
+    e_local = p["w1"].shape[0] // ep
+    index = mesh.coords["expert"]
+    local = {k: (v if k == "router"
+                 else v[index * e_local:(index + 1) * e_local])
+             for k, v in p.items()}
+    x = torch.from_numpy(case["x"])
+    fn = ts.moe_ffn_a2a if case["dispatch"] == "a2a" else ts.moe_ffn
+    kw = ({"capacity_factor": case["cf"]} if case["dispatch"] == "a2a"
+          else {})
+    with collectives.active(mesh):
+        y = fn(local, x, ep_axis="expert", top_k=case["k"], **kw)
+        n_l = x.shape[0] * x.shape[1] // ep
+        x_own = x.reshape(-1, x.shape[-1])[index * n_l:(index + 1) * n_l]
+        idx, w = ts._route_topk(p["router"], x_own, case["k"])
+        cap = ts.moe_capacity(n_l, ep * e_local, case["k"], case["cf"])
+        _, _, keep = ts.a2a_slots(idx, w, ep * e_local, cap)
+        keep = collectives.gather_dim(keep.to(torch.int64),
+                                      mesh.group("expert"), ep, 0)
+    return {"forward": y.numpy(), "keep": keep.numpy().astype(bool)}
+
+
+def _attention(case, mesh):
+    q, k, v = (torch.from_numpy(case[n]).requires_grad_(True)
+               for n in ("q", "k", "v"))
+    attn = make_sharded_attention(mesh, strategy=case["strategy"],
+                                  causal=case["causal"])
+    out = attn(q, k, v)
+    (out * torch.from_numpy(case["proj"])).sum().backward()
+    return {"forward": out.detach().numpy(),
+            "grads": [t.grad.numpy() for t in (q, k, v)]}
+
+
+def _ops(case, mesh):
+    """Each collective over "seq" on x = (rank + 1) x arange, and the
+    gradient its backward gives the cotangent (rank + 1) x cot."""
+    n, r = mesh.shape["seq"], mesh.coords["seq"]
+    base = torch.from_numpy(case["x"]).to(mesh.local_device)
+    cot = torch.from_numpy(case["cot"]).to(mesh.local_device)
+    shift = [(i, (i + 1) % n) for i in range(n)]
+    ops = {
+        "psum": lambda x: collectives.psum(x, "seq"),
+        "pvary": lambda x: collectives.pvary(x, "seq"),
+        "all_gather": lambda x: collectives.all_gather(x, "seq", dim=1),
+        "all_to_all": lambda x: collectives.all_to_all(
+            x, "seq", split_axis=0, concat_axis=1),
+        "ppermute": lambda x: collectives.ppermute(x, "seq", shift),
+        "shard": lambda x: collectives.shard(x, "seq", 0),
+        "unshard": lambda x: collectives.unshard(x, "seq", 1),
+    }
+    out = {}
+    with collectives.active(mesh):
+        for name, op in ops.items():
+            x = ((r + 1) * base).requires_grad_(True)
+            y = op(x)
+            c = (r + 1) * cot[tuple(slice(0, d) for d in y.shape)]
+            (y * c).sum().backward()
+            out[name] = (y.detach().cpu().numpy(), x.grad.cpu().numpy())
+    return out
+
+
+def _card(case, mesh):
+    """SpmdBert in bf16 from a seeded init on this rank's device: the
+    pooled forward, the flash_attention launches it made, and one AdamW
+    step's loss."""
+    from defer_tpu_torch.ops.flash_attention import flash_attention
+
+    dev = mesh.local_device
+    sb = SpmdBert(mesh, ts.TransformerConfig(**case["cfg"]),
+                  compute_dtype=torch.bfloat16, fsdp=case.get("fsdp", False))
+    init, step = train.make_train_step(
+        sb, functools.partial(torch.optim.AdamW, lr=1e-5), num_classes=2)
+    state = init(torch.Generator(device=dev).manual_seed(0))
+    ids = torch.from_numpy(case["ids"]).to(dev, torch.int64)
+    labels = torch.from_numpy(case["labels"]).to(dev, torch.int64)
+    flash_attention.launches = 0
+    with torch.no_grad():
+        pooled = sb.make_step()(state.params, ids)
+    launches = flash_attention.launches
+    _, loss = step(state, ids, labels)
+    return {"forward": pooled.float().cpu().numpy(), "launches": launches,
+            "loss": float(loss)}
+
+
+RUNS = {"train": _train, "vit": _vit, "moe": _moe, "attention": _attention,
+        "ops": _ops, "card": _card}
+
+
+def main(rank: int, world: int, port: int, job: str, out: str) -> None:
+    with open(job, "rb") as f:
+        job = pickle.load(f)
+    backend = job.get("backend", "gloo")
+    device = torch.device(job.get("device", "cpu"))
+    multihost.initialize(f"tcp://127.0.0.1:{port}", world, rank,
+                         backend=backend)
+    torch.manual_seed(0)
+    results = {}
+    for case in job["cases"]:
+        mesh = make_mesh(case["axes"], [device] * world)
+        results[case["name"]] = RUNS[case["run"]](case, mesh)
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(results, f)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+         sys.argv[5])

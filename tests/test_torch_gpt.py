@@ -53,7 +53,7 @@ def family(request):
     jdec = jmake(64)
     jparams = jdec.init(jax.random.key(0))
     return (request.param, jdec, jparams, make(64, device=CPU),
-            params_from_jax(jparams))
+            params_from_jax(jparams, CPU))
 
 
 def _ids(vocab, shape, seed=1):
@@ -134,7 +134,7 @@ def test_chunked_prefill_at_the_cache_end():
     the cache (dynamic_update_slice would clamp it over earlier rows)."""
     jdec = jgpt.tiny_gpt(16)
     jparams = jdec.init(jax.random.key(0))
-    dec, params = tiny_gpt(16, device=CPU), params_from_jax(jparams)
+    dec, params = tiny_gpt(16, device=CPU), params_from_jax(jparams, CPU)
     jids, ids = _both(_ids(128, (1, 14), seed=5))
     jlast, _ = jdec.prefill(jparams, jdec.init_cache(1), jids, chunk=4)
     last, cache = dec.prefill(params, dec.init_cache(1), ids, chunk=4)
@@ -183,8 +183,8 @@ def test_int8_params_match_jax_and_stay_close():
     jparams = jdec.init(jax.random.key(0))
     jq = jax_quantize(jparams)
     dec = tiny_llama(device=CPU)
-    full = params_from_jax(jparams)
-    carried = params_from_jax(jq)
+    full = params_from_jax(jparams, CPU)
+    carried = params_from_jax(jq, CPU)
     mine = quantize_decoder_params(full)
     assert carried["stack"]["wq"]["q"].dtype == torch.int8
     assert carried["stack"]["wq"]["s"].dtype == torch.float32

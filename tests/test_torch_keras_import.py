@@ -102,7 +102,7 @@ def test_same_nodes_and_logits_as_the_reference(doc):
     x = np.random.default_rng(0).standard_normal((2, *shape)).astype(
         np.float32
     )
-    got = graph.apply(params_from_jax(jparams), torch.from_numpy(x))
+    got = graph.apply(params_from_jax(jparams, CPU), torch.from_numpy(x))
     np.testing.assert_allclose(
         got.numpy(), np.asarray(jgraph.apply(jparams, x)), atol=ATOL
     )

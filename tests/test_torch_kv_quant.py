@@ -80,7 +80,7 @@ def _model(family="gpt"):
         jdec = JAX[family](64)
         jparams = jdec.init(jax.random.key(0))
         _models[family] = (PORT[family](64, device=CPU),
-                           params_from_jax(jparams), jdec, jparams)
+                           params_from_jax(jparams, CPU), jdec, jparams)
     return _models[family]
 
 

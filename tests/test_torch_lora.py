@@ -57,7 +57,7 @@ def setup():
     jbase = jdec.init(jax.random.key(0))
     dec = GptDecoder(ts.TransformerConfig(**BASE),
                      compute_dtype=torch.float32, device=CPU)
-    return (dec, params_from_jax(jbase), jdec, jbase, _trees([11, 22]),
+    return (dec, params_from_jax(jbase, CPU), jdec, jbase, _trees([11, 22]),
             ts.TransformerConfig(**BASE, **LORA),
             jts.TransformerConfig(**BASE, **LORA))
 
@@ -89,7 +89,7 @@ def test_lora_scale_and_dims_match_jax():
 
 def test_split_combine_merge_match_jax(setup):
     _, base, _, jbase, trees, cfg, jcfg = setup
-    full = lora.combine_lora(base, params_from_jax(trees[0]))
+    full = lora.combine_lora(base, params_from_jax(trees[0], CPU))
     jfull = jlora.combine_lora(jbase, trees[0])
     _assert_trees_equal(full, jfull)
     b, a = lora.split_lora(full)
@@ -103,7 +103,8 @@ def test_split_combine_merge_match_jax(setup):
 
 def test_stack_adapters_match_jax(setup):
     _, base, _, jbase, trees, cfg, jcfg = setup
-    banked = lora.stack_adapters(base, [params_from_jax(t) for t in trees],
+    banked = lora.stack_adapters(base, [params_from_jax(t, CPU)
+                                        for t in trees],
                                  cfg)
     jbanked = jlora.stack_adapters(jbase, trees, jcfg)
     _assert_trees_equal(banked, jbanked)
@@ -114,9 +115,9 @@ def test_stack_adapters_match_jax(setup):
     assert lora.adapter_bank_info(base) is None
     with pytest.raises(ValueError, match="unmerged"):
         lora.adapter_bank_info(lora.combine_lora(
-            base, params_from_jax(trees[0])))
+            base, params_from_jax(trees[0], CPU)))
     with pytest.raises(ValueError, match="disagree"):
-        lora.stack_adapters(base, [params_from_jax(trees[0]), {
+        lora.stack_adapters(base, [params_from_jax(trees[0], CPU), {
             "stack": {"wq:a": torch.zeros(2, 32, 4)}}], cfg)
 
 
@@ -125,7 +126,8 @@ def test_per_slot_adapters_match_jax_and_merged(setup):
     server equals the JAX package's, and each request equals a solo
     decode of its adapter merged into the base."""
     dec, base, jdec, jbase, trees, cfg, jcfg = setup
-    banked = lora.stack_adapters(base, [params_from_jax(t) for t in trees],
+    banked = lora.stack_adapters(base, [params_from_jax(t, CPU)
+                                        for t in trees],
                                  cfg)
     jbanked = jlora.stack_adapters(jbase, trees, jcfg)
     reqs = [([3, 9, 27], 6, 1), ([5, 1], 5, 2), ([11, 2, 8], 4, 0),
@@ -141,7 +143,7 @@ def test_per_slot_adapters_match_jax_and_merged(setup):
     for (p, s, a), r, jr in zip(reqs, rids, jrids):
         np.testing.assert_array_equal(done[r].numpy(), np.asarray(jdone[jr]))
         solo = base if a == 0 else lora.merge_lora(
-            lora.combine_lora(base, params_from_jax(trees[a - 1])), cfg)
+            lora.combine_lora(base, params_from_jax(trees[a - 1], CPU)), cfg)
         torch.testing.assert_close(
             done[r], dec.generate(solo, torch.tensor([p]), s),
             rtol=0, atol=0, msg=f"adapter {a}")
@@ -151,7 +153,8 @@ def test_adapter_zero_is_exact_base_and_windows(setup):
     """Every request on id 0 equals the plain server bit for bit, and a
     decode window over banked params equals decode_window=1."""
     dec, base, _, _, trees, cfg, _ = setup
-    banked = lora.stack_adapters(base, [params_from_jax(t) for t in trees],
+    banked = lora.stack_adapters(base, [params_from_jax(t, CPU)
+                                        for t in trees],
                                  cfg)
     reqs = [(torch.tensor([[3, 9, 27]]), 6), (torch.tensor([[5, 1]]), 5)]
 
@@ -170,7 +173,8 @@ def test_adapter_zero_is_exact_base_and_windows(setup):
 
 def test_adapter_validation(setup):
     dec, base, _, _, trees, cfg, _ = setup
-    banked = lora.stack_adapters(base, [params_from_jax(t) for t in trees],
+    banked = lora.stack_adapters(base, [params_from_jax(t, CPU)
+                                        for t in trees],
                                  cfg)
     srv = DecodeServer(dec, banked, max_batch=1)
     with pytest.raises(ValueError, match="out of range"):

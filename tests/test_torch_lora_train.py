@@ -55,8 +55,9 @@ def test_lora_train_freezes_the_base_and_matches_jax(devices):
         sb, functools.partial(torch.optim.Adam, lr=1e-2), num_classes=3)
     state, base = init(torch.Generator().manual_seed(0))
     _copy(state.params, params_from_jax(
-        jax.tree_util.tree_map(np.asarray, jstate.params)))
-    _copy(base, params_from_jax(jax.tree_util.tree_map(np.asarray, jbase)))
+        jax.tree_util.tree_map(np.asarray, jstate.params), CPU))
+    _copy(base, params_from_jax(jax.tree_util.tree_map(np.asarray, jbase),
+                                CPU))
     assert sorted(state.params["stack"]) == [
         "w2:a", "w2:b", "wq:a", "wq:b", "wv:a", "wv:b"]
     assert sorted(state.params) == ["cls_b", "cls_w", "stack"]

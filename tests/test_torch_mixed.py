@@ -43,7 +43,8 @@ _jax_runs: dict = {}
 def model():
     jdec = jax_tiny_gpt(64)
     jparams = jdec.init(jax.random.key(0))
-    return tiny_gpt(64, device=CPU), params_from_jax(jparams), jdec, jparams
+    return (tiny_gpt(64, device=CPU), params_from_jax(jparams, CPU), jdec,
+            jparams)
 
 
 def _requests():

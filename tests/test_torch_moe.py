@@ -65,11 +65,12 @@ def test_moe_ffn_matches_jax(dispatch, k):
     if dispatch == "dense":
         want = jts.moe_ffn(jax.tree_util.tree_map(jnp.asarray, p),
                            jnp.asarray(x), top_k=k)
-        got = ts.moe_ffn(params_from_jax(p), torch.from_numpy(x), top_k=k)
+        got = ts.moe_ffn(params_from_jax(p, CPU), torch.from_numpy(x),
+                         top_k=k)
     else:
         want = jts.moe_ffn_a2a(jax.tree_util.tree_map(jnp.asarray, p),
                                jnp.asarray(x), capacity_factor=1.25, top_k=k)
-        got = ts.moe_ffn_a2a(params_from_jax(p), torch.from_numpy(x),
+        got = ts.moe_ffn_a2a(params_from_jax(p, CPU), torch.from_numpy(x),
                              capacity_factor=1.25, top_k=k)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -77,7 +78,7 @@ def test_moe_ffn_matches_jax(dispatch, k):
 @pytest.mark.parametrize("k", [1, 2])
 def test_a2a_equals_dense_at_a_capacity_that_cannot_drop(k):
     """cf >= E / k gives every expert room for every token it could get."""
-    p, x = params_from_jax(_expert_params()), torch.from_numpy(_x())
+    p, x = params_from_jax(_expert_params(), CPU), torch.from_numpy(_x())
     dense = ts.moe_ffn(p, x, top_k=k)
     a2a = ts.moe_ffn_a2a(p, x, capacity_factor=E / k, top_k=k)
     torch.testing.assert_close(a2a, dense, **TOL)
@@ -127,7 +128,8 @@ def test_moe_gradients_match_jax():
             lambda q, xx: jnp.sum(jnp.sin(jfn(q, xx, top_k=2, **kw))),
             argnums=(0, 1))(jax.tree_util.tree_map(jnp.asarray, p),
                             jnp.asarray(x))
-        tp = {k: v.requires_grad_() for k, v in params_from_jax(p).items()}
+        tp = {k: v.requires_grad_() for k, v in params_from_jax(p,
+                                                                CPU).items()}
         tx = torch.from_numpy(x).requires_grad_()
         torch.sin(fn(tp, tx, top_k=2, **kw)).sum().backward()
         for name in ("w1", "b1", "w2", "b2", "router"):
@@ -151,7 +153,7 @@ def test_spmd_bert_with_experts_matches_jax(devices, dispatch, k):
     jparams = jsb.init(jax.random.key(0))
     ids = np.random.default_rng(1).integers(0, 64, (3, 2, 8)).astype(np.int32)
     want = np.asarray(jsb.make_step()(jparams, jnp.asarray(ids)))
-    got = sb.make_step()(params_from_jax(jparams), torch.from_numpy(ids))
+    got = sb.make_step()(params_from_jax(jparams, CPU), torch.from_numpy(ids))
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 

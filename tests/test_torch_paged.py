@@ -64,7 +64,7 @@ def _model(family, seq_len=64):
         jdec = JAX[family](seq_len)
         jparams = jdec.init(jax.random.key(0))
         _models[key] = (PORT[family](seq_len, device=CPU),
-                        params_from_jax(jparams), jdec, jparams)
+                        params_from_jax(jparams, CPU), jdec, jparams)
     return _models[key]
 
 

@@ -61,7 +61,8 @@ def detok(ids):
 def model():
     jdec = jax_tiny_gpt(64)
     jparams = jdec.init(jax.random.key(0))
-    return tiny_gpt(64, device=CPU), params_from_jax(jparams), jdec, jparams
+    return (tiny_gpt(64, device=CPU), params_from_jax(jparams, CPU), jdec,
+            jparams)
 
 
 @pytest.fixture(scope="module")
@@ -198,10 +199,11 @@ def banks():
     jbase = jdec.init(jax.random.key(0))
     dec = GptDecoder(ts.TransformerConfig(**BASE),
                      compute_dtype=torch.float32, device=CPU)
-    base = params_from_jax(jbase)
+    base = params_from_jax(jbase, CPU)
     trees = _trees([11, 22, 33])
     cfg = ts.TransformerConfig(**BASE, **LORA)
-    banked = lora.stack_adapters(base, [params_from_jax(t) for t in trees],
+    banked = lora.stack_adapters(base, [params_from_jax(t, CPU)
+                                        for t in trees],
                                  cfg)
     jbanked = jlora.stack_adapters(jbase, trees,
                                    jts.TransformerConfig(**BASE, **LORA))
@@ -228,7 +230,7 @@ def test_adapters_by_id_match_jax_and_merged(banks, attention, window,
     for (p, s, a), got, want in zip(LORA_REQS, outs, jouts):
         np.testing.assert_array_equal(got.numpy(), want)
         solo = base if a == 0 else lora.merge_lora(
-            lora.combine_lora(base, params_from_jax(trees[a - 1])), cfg)
+            lora.combine_lora(base, params_from_jax(trees[a - 1], CPU)), cfg)
         torch.testing.assert_close(
             got, dec.generate(solo, torch.tensor([p]), s), rtol=0, atol=0,
             msg=f"adapter {a}")

@@ -53,7 +53,7 @@ def _pair(layers=None, seed=0):
         dec = GptDecoder(dataclasses.replace(dec.cfg, num_layers=layers),
                          compute_dtype=torch.float32, device=CPU)
     jparams = jdec.init(jax.random.key(seed))
-    return dec, params_from_jax(jparams), jdec, jparams
+    return dec, params_from_jax(jparams, CPU), jdec, jparams
 
 
 @pytest.fixture(scope="module")

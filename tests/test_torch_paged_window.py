@@ -51,7 +51,7 @@ _jax_runs: dict = {}
 def _make(family):
     jdec = JAX[family](64)
     jparams = jdec.init(jax.random.key(0))
-    return (PORT[family](64, device=CPU), params_from_jax(jparams), jdec,
+    return (PORT[family](64, device=CPU), params_from_jax(jparams, CPU), jdec,
             jparams)
 
 

@@ -123,7 +123,7 @@ def test_port_dispatcher_drives_a_reference_worker(bert):
     st0, st1 = partition(
         get_model("bert_tiny", seq_len=16).graph, ["encoder_2_out"]
     )
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, device="cpu")
     results = ArrayReceiver(0, host=HOST, accept_timeout_s=TIMEOUT)
     ports, bound, res = [], threading.Event(), {}
 

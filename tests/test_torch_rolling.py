@@ -46,7 +46,7 @@ def model():
                       rolling_cache=True, device=CPU)
     flat = GptDecoder(mistral_config(**SHAPE), compute_dtype=torch.float32,
                       device=CPU)
-    return roll, flat, params_from_jax(jparams), jroll, jparams
+    return roll, flat, params_from_jax(jparams, CPU), jroll, jparams
 
 
 def _ids(shape, seed=1, vocab=96):

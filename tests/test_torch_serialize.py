@@ -83,7 +83,7 @@ def test_reference_document_runs_in_the_port():
     x = np.random.default_rng(0).standard_normal((2, 8)).astype(np.float32)
     g = graph_from_json(jser.graph_to_json(jg))
     assert graph_to_json(g) == jser.graph_to_json(jg)
-    got = g.apply(params_from_jax(jparams), torch.from_numpy(x))
+    got = g.apply(params_from_jax(jparams, device="cpu"), torch.from_numpy(x))
     np.testing.assert_allclose(
         got.numpy(), np.asarray(jg.apply(jparams, x)), atol=ATOL
     )
@@ -113,7 +113,7 @@ def test_round_trip_keeps_tuples_and_applies_identically():
 def test_param_frames_match_the_reference_and_round_trip():
     jg = residual_chain()
     jparams = jg.init(jax.random.key(0), (2, 8))
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, device="cpu")
     pairs = params_to_frames(params)
     assert [p for p, _ in pairs] == [p for p, _ in jser.params_to_frames(jparams)]
     back = frames_to_params(pairs)

@@ -52,7 +52,7 @@ def _pair(shape, seed, make_cfg=(TransformerConfig, JaxTransformerConfig)):
     jparams = jdec.init(jax.random.key(seed))
     dec = GptDecoder(make_cfg[0](**shape), compute_dtype=torch.float32,
                      device=CPU)
-    return dec, params_from_jax(jparams), jdec, jparams
+    return dec, params_from_jax(jparams, CPU), jdec, jparams
 
 
 @pytest.fixture(scope="module")

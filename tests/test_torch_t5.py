@@ -42,7 +42,8 @@ def _pair(**overrides):
     """(port model, port params, JAX model, JAX params) on one init."""
     jm = jt5.tiny_t5(**overrides)
     jparams = jm.init(jax.random.key(0))
-    return (tiny_t5(device=CPU, **overrides), params_from_jax(jparams), jm,
+    return (tiny_t5(device=CPU, **overrides), params_from_jax(jparams, CPU),
+            jm,
             jparams)
 
 

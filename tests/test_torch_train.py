@@ -62,7 +62,7 @@ def _np(tree):
 
 def _load(state, tree):
     """The JAX package's values into a port TrainState's params."""
-    src = params_from_jax(tree)
+    src = params_from_jax(tree, CPU)
 
     def copy(dst, s):
         for k in dst:
@@ -210,7 +210,7 @@ def test_lm_train_then_serve_on_the_decoder(devices):
 
     trained = _flatten(state.params)
     assert corpus_loss(trained) < 0.5 * corpus_loss(
-        _flatten(params_from_jax(fresh)))
+        _flatten(params_from_jax(fresh, CPU)))
     want_logits = dec.reference_logits(trained, flat_ids[:4])[:, -1]
     got_logits = train._lm_logits(sb, state.params,
                                   torch.from_numpy(ids))[0, :, -1]
@@ -252,7 +252,7 @@ def test_dpo_learns_preferences_as_jax(devices):
         sb, functools.partial(torch.optim.Adam, lr=5e-3), beta=0.5)
     state = _load(init(torch.Generator().manual_seed(0)),
                   _np(jstate.params))
-    ref = params_from_jax(_np(jstate.params))
+    ref = params_from_jax(_np(jstate.params), CPU)
     ref_before = params_to_numpy(ref)
     batch = _dpo_batch()
     tb = [torch.from_numpy(a) for a in batch]

@@ -38,7 +38,7 @@ PROMPTS = [([3, 9, 27], 7), ([5], 4), ([11, 2, 8, 1, 6], 9), ([4, 4], 2),
 def _make(family, seq_len=64):
     jdec = JAX[family](seq_len)
     jparams = jdec.init(jax.random.key(0))
-    return (PORT[family](seq_len, device=CPU), params_from_jax(jparams),
+    return (PORT[family](seq_len, device=CPU), params_from_jax(jparams, CPU),
             jdec, jparams)
 
 

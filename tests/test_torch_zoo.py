@@ -179,7 +179,8 @@ def test_logits_match_jax(entry, name):
     g = dataclasses.replace(model.graph, output_name=logits)
     want = np.asarray(jax.jit(jg.apply)(weights, jnp.asarray(x)))
     with torch.inference_mode():
-        got = g.apply(params_from_jax(weights), torch.from_numpy(x)).numpy()
+        got = g.apply(params_from_jax(weights, CPU),
+                      torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(
         got, want, rtol=0, atol=LOGIT_RTOL * np.abs(want).max()
@@ -216,7 +217,7 @@ def test_resnet50_run_defer_matches_the_whole_graph(resnet50, cuts):
     _, model, weights, shape = resnet50
     if cuts == "default_cuts(2)":
         cuts = model.default_cuts(2)
-    params = params_from_jax(weights)
+    params = params_from_jax(weights, CPU)
     rng = np.random.default_rng(2)
     xs = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
           for _ in range(3)]
@@ -249,7 +250,7 @@ def test_auto_cuts_match_jax(resnet50, n_dev):
                                      batch_size=shape[0])
     defer = DEFER(devices=[CPU] * n_dev,
                   config=DeferConfig(compute_dtype=torch.float32))
-    params = params_from_jax(weights)
+    params = params_from_jax(weights, CPU)
     pipe, example = defer.build_pipeline(
         model, "auto", params=params, batch_size=shape[0]
     )
@@ -270,7 +271,7 @@ def test_auto_cuts_on_a_raw_graph_raise_as_in_jax(resnet50):
         )
     with pytest.raises(ValueError) as err:
         DEFER(devices=[CPU] * 2).build_pipeline(
-            model.graph, "auto", params=params_from_jax(weights)
+            model.graph, "auto", params=params_from_jax(weights, CPU)
         )
     assert str(err.value) == str(jerr.value)
 
