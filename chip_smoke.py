@@ -177,6 +177,30 @@ printing one line per check and failing loudly:
                 every output token-identical to one paged server's,
                 whose tokens pass the split greedy check; the paged
                 kernels' card runs summed over the replicas;
+     serve_sharded — sharded decode serving at Mistral-7B's full width
+                and depth on phase 4's weights (the ranks and workers
+                build the same values from the same seed): phase 5's
+                server on a {"model": 1} mesh, token-identical to phase
+                5; then two gloo ranks sharing cuda:0 (this script with
+                --sharded-rank; rank 0 the controller): SpmdGptDecoder
+                on DecodeServer at K=1, and PagedDecodeServer(mesh=,
+                "pallas") at K=1, with the prefix cache and 64-token
+                chunks, at decode_window=4 (uncaptured sub-steps,
+                token-identical to K=1) and on an int8 pool, each under
+                the split greedy check on rank 0's rows (the int8 pool
+                under phase 6's contract), each rank's kernel runs on
+                the card equal to what the path implies, rank 1's
+                logits bit-equal to rank 0's (a hash), and one short
+                request's pool shards against the mesh=None pool's head
+                slices; tokens/s, model-axis bytes a tick, tp_psums and
+                the peak allocation per rank; then pp_stages=2 on
+                [cuda:0] x 2 (pp_inflight 2, window 4) under the split
+                check, its share of tokens identical to phase 5,
+                paged_flash_prefill's card runs equal to the stage
+                dispatches' layers and the bubble fraction; then the
+                same two stages in two serve_pp_stage worker processes
+                (this script with --pp-stage) over loopback,
+                token-identical, with the host ms a round trip;
      t5       — T5(t5_config("base")) in bf16 with random weights: a
                 batch of 8 x 512 tokens encoded, 64 greedy tokens through
                 the cached step (no flash_attention launch), every token
@@ -189,7 +213,8 @@ printing one line per check and failing loudly:
 Every kernel launch count is zeroed just before each path (3, cnn,
 socket, each sub-path of train, each layout of dist on each rank, 4,
 each sub-path of family, 5, 6, each sub-path of
-paged_family and of fleet, t5) and read just after it; a path that did not launch its
+paged_family, of fleet and of serve_sharded, on each rank, t5) and read
+just after it; a path that did not launch its
 kernels fails (a rolling one fails if it launched flash_decode). A
 captured window's replays run kernels the wrappers' host counts cannot
 see, so flash_decode and both paged kernels count their own runs on
@@ -198,11 +223,16 @@ count for their windows, and check it against the wrapper's on every
 path that replays no graph. Every worker process has a time limit and
 is stopped by the end of its phase.
 
+Each phase prints its seconds and the smoke's running total
+("timing:" lines).
+
 Exits non-zero, and prints no result, when CUDA is unavailable, when the
-package is not beside this file, or when any phase fails (a dist rank
-that fails, hangs past DIST_TIMEOUT or exits non-zero among them).
-Imports neither jax nor defer_tpu. `--dist-rank R PORT OUT` runs one of
-phase dist's ranks; the phase starts them itself.
+package is not beside this file, or when any phase fails (a dist or
+serve_sharded rank that fails, hangs past its timeout or exits non-zero
+among them). Imports neither jax nor defer_tpu. `--dist-rank R PORT
+OUT` runs one of phase dist's ranks, `--sharded-rank R PORT OUT` one of
+serve_sharded's, `--pp-stage S RESULT_PORT` one of its serve_pp_stage
+workers; the phases start them themselves.
 """
 
 from __future__ import annotations
@@ -2142,8 +2172,14 @@ class ServedRows:
     and gives only its first token's row, through `_first_token`) row j
     pos[i] + j + 1, and a later step
     overwrites only indices not yet committed, so the last row for an
-    index is the one its token was picked from. Wraps the server's own
-    methods on this instance only; `close` unwraps."""
+    index is the one its token was picked from. A window that runs
+    eagerly (a mesh's, its K sub-steps uncaptured) gives its rows at
+    each sub-step (`_decode`): row i predicts pos[i] + 1 for every row
+    not frozen (a frozen row's table is all trash). A pipelined window
+    (pp_stages > 1) gives them at each chain through the stages
+    (`_pp_chain` inside `_tick_pp`), each group row found by its table.
+    Wraps the server's own methods on this instance only; `close`
+    unwraps."""
 
     def __init__(self, srv):
         import collections
@@ -2154,6 +2190,11 @@ class ServedRows:
         self._first = {}
         names = ("_first_token", "_step", "_mt") if self.paged else (
             "_first_token", "step")
+        window = self.paged and srv.decode_window > 1 and not srv._captures
+        if window:
+            names += ("_decode",)
+        if self.paged and srv.pp > 1:
+            names += ("_tick_pp", "_pp_chain")
         # What close() puts back: an instance attribute, or None where
         # the wrapper shadows a method of the class.
         self._own = {name: vars(srv).get(name) for name in names}
@@ -2188,6 +2229,44 @@ class ServedRows:
                 return logits
 
             srv._step, srv._mt = tick, multi
+            if window:
+                decode = srv._decode
+
+                def sub_step(tables, pos, feed, nb_live):
+                    self._settle()
+                    logits = decode(tables, pos, feed, nb_live)
+                    live, at = tables.any(dim=1).tolist(), pos.tolist()
+                    for i, rid in self._live():
+                        if live[i]:
+                            self.rows[rid][at[i] + 1] = \
+                                logits[i, -1].float().clone()
+                    return logits
+
+                srv._decode = sub_step
+            if srv.pp > 1:
+                tick_pp, chain = srv._tick_pp, srv._pp_chain
+                self._in_window = False
+
+                def pp_window():
+                    self._settle()
+                    self._in_window = True
+                    try:
+                        return tick_pp()
+                    finally:
+                        self._in_window = False
+
+                def stages(tables, pos, xin, *args):
+                    logits = chain(tables, pos, xin, *args)
+                    if self._in_window:
+                        tabs, at = tables.cpu().numpy(), pos.tolist()
+                        for r, tab in enumerate(tabs):
+                            for i, rid in self._live():
+                                if tab.any() and (srv.tables[i] == tab).all():
+                                    self.rows[rid][at[r] + 1] = \
+                                        logits[r, -1].float().clone()
+                    return logits
+
+                srv._tick_pp, srv._pp_chain = pp_window, stages
         else:  # the flat server: its tick is `step` on the slot cache
             step = srv.step
 
@@ -3346,33 +3425,8 @@ def phase_dist(here: str) -> dict:
 
     t0 = time.perf_counter()
     nccl = dist_nccl_ops()
-    tmp = tempfile.mkdtemp(prefix="dist-")
-    out = os.path.join(tmp, "report.json")
-    port = _free_port()
-    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
-            for r in range(DIST_WORLD)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
-         str(port), out], cwd=here, stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(DIST_WORLD)]
-    deadline = time.monotonic() + DIST_TIMEOUT
-    try:
-        for p in procs:
-            p.wait(timeout=max(0.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    tails = []
-    for r, (p, f) in enumerate(zip(procs, logs)):
-        f.seek(0)
-        tails.append(f"rank {r} exit {p.returncode}: {f.read()[-4000:]}")
-        f.close()
-    check(all(p.returncode == 0 for p in procs),
-          "dist: a rank failed or hung:\n" + "\n".join(tails))
+    out = os.path.join(tempfile.mkdtemp(prefix="dist-"), "report.json")
+    _start_ranks(here, "--dist-rank", DIST_WORLD, out, DIST_TIMEOUT, "dist")
     with open(out) as f:
         res = json.load(f)
     for line in res["lines"]:
@@ -5051,6 +5105,699 @@ def phase_fleet(dec, params) -> dict:
     return res
 
 
+# -- phase serve_sharded: tensor- and pipeline-parallel decode serving ------
+
+# Two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card): the
+# "model" axis of SpmdGptDecoder and of PagedDecodeServer(mesh=).
+SHARD_TP, SHARD_TIMEOUT = 2, 600
+# The paged server on the model axis, on phase 5's geometry and the
+# pallas kernels: (label, knobs).
+SHARD_PAGED = [
+    ("k1", {}),
+    ("chunk64_prefix", dict(prefix_cache=True, prefill_chunk=PAGED_CHUNK)),
+    ("k4", dict(prefix_cache=True, prefill_chunk=PAGED_CHUNK,
+                decode_window=4)),
+    ("int8_k1", dict(prefix_cache=True, prefill_chunk=PAGED_CHUNK,
+                     kv_dtype="int8")),
+]
+# The short request (a prefill and two ticks) each rank's pool shard is
+# held on against the mesh=None pool's head slice (relative L2 within
+# ZOO_REL_L2, bf16: the projections are column slices and the psums add
+# in another order).
+SHARD_POOL_PROMPT, SHARD_POOL_STEPS, SHARD_POOL_BLOCKS = 40, 3, 9
+# pp: stages on [cuda:0] * PP_STAGES, in-flight microbatch groups, and
+# the window of the pipelined rounds.
+PP_STAGES, PP_INFLIGHT, PP_WINDOW = 2, 2, 4
+
+
+def mistral_bf16(dec):
+    """Phase decode's weights, dec.cast_params(dec.init(a CUDA generator
+    seeded 0)), with each drawn leaf cast as it is drawn: the same values
+    at a lower peak, for a process that builds them beside other copies
+    on the one card."""
+    import torch
+
+    from defer_tpu_torch.models import gpt
+    from defer_tpu_torch.parallel import transformer_stack as ts
+
+    draw = ts.normal
+
+    def narrow(gen, shape, scale, dtype=torch.float32, device=None):
+        return draw(gen, shape, scale, dtype, device).to(dec.compute_dtype)
+
+    gpt.normal = ts.normal = narrow
+    try:
+        return dec.cast_params(
+            dec.init(torch.Generator(device="cuda").manual_seed(0)))
+    finally:
+        gpt.normal = ts.normal = draw
+
+
+class LogitHash:
+    """A running sha256 of the logits every device program in `names` of
+    `srv` returns on this rank, as the card made them: one host copy and
+    one sha256 update a program, on the timed runs too (`cost_ms` times
+    that work alone)."""
+
+    def __init__(self, srv, names):
+        import hashlib
+
+        self.h = hashlib.sha256()
+        for name in names:
+            setattr(srv, name, self._wrap(getattr(srv, name)))
+
+    def _wrap(self, fn):
+        def hashed(*args, **kw):
+            out = fn(*args, **kw)
+            logits = out[0] if isinstance(out, tuple) else out
+            self.h.update(logits.float().cpu().numpy().tobytes())
+            self.last = logits
+            return out
+
+        return hashed
+
+    def cost_ms(self, reps: int = 20) -> float:
+        """The host ms one program's hashing takes, its copy off the card
+        included, on the last logits hashed, into a throwaway sha256."""
+        import hashlib
+
+        import torch
+
+        h = hashlib.sha256()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            h.update(self.last.float().cpu().numpy().tobytes())
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def digest(self) -> str:
+        return self.h.hexdigest()[:16]
+
+
+def release() -> None:
+    """Free a finished server's device memory now: its wrapped methods
+    (LogitHash, ServedRows) hold it in reference cycles, which only the
+    collector breaks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rank_runs(run: dict, dist) -> list:
+    """Every rank's `run` dict, in rank order (the model group's)."""
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, run)
+    return got
+
+
+def _shard_flat(dec, params, mesh, reqs, counter, dist) -> dict:
+    """SpmdGptDecoder on the flat DecodeServer at K=1, the same submits
+    on every rank: rank 0's rows held by the split check; each rank's
+    flash_decode runs L a tick, its logits hash rank 0's."""
+    import torch
+
+    from defer_tpu_torch import DecodeServer
+    from defer_tpu_torch.models.gpt import SpmdGptDecoder
+
+    sdec = SpmdGptDecoder(dec.cfg, compute_dtype=dec.compute_dtype,
+                          mesh=mesh)
+    srv = DecodeServer(sdec, sdec.shard_params(params),
+                       max_batch=DECODE_SLOTS)
+    hashed = LogitHash(srv, ["step"])
+    served = ServedRows(srv) if mesh.rank == 0 else None
+    rids = [srv.submit(p, s) for p, s in reqs]
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_launches()
+    counter.start(mesh)
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs = _rank_runs({"card": read_card_runs(), "hash": hashed.digest(),
+                       "ticks": srv.ticks}, dist)
+    L, ticks = dec.cfg.num_layers, srv.ticks
+    for r, run in enumerate(runs):
+        check(run["card"]["flash_decode"] == L * ticks,
+              f"serve_sharded flat: rank {r} ran flash_decode "
+              f"{run['card']['flash_decode']} times, expected {L} x {ticks}")
+        check(run["hash"] == runs[0]["hash"],
+              f"serve_sharded flat: rank {r}'s logits differ from rank 0's")
+    out = {"launches": runs[0]["card"]["flash_decode"], "wall_s": wall,
+           "ticks": ticks, "bytes_tick": counter.bytes.get("model", 0)
+           / ticks}
+    if served is not None:
+        outs = [done[r] for r in rids]
+        served_bound("serve_sharded flat tp2", dec, params, reqs, outs,
+                     [served.of(r) for r in rids])
+        generated = sum(n for _, n in reqs)
+        log(
+            f"serve_sharded: SpmdGptDecoder tp {SHARD_TP} on DecodeServer "
+            f"K=1: {generated} tokens in {ticks} ticks, {wall:.3f}s, "
+            f"{generated / wall:.1f} tokens/s with the rows recorded; "
+            f"flash_decode {L} a tick on each rank ({out['launches']}); "
+            f"logits bit-equal on both ranks (sha256 {runs[0]['hash']}); "
+            f"model-axis bytes a tick {out['bytes_tick']:.0f}")
+    return out
+
+
+SHARD_TICKS = 5
+
+
+def _sharded_tick(srv, vocab: int, mesh, counter, hashed) -> dict:
+    """Steady K=1 ticks of the controller's meshed server after its mix
+    (every slot seated at depth 150, as phase 5's split): the wall ms of
+    a tick (synchronized, each rank hashing its logits), the ms that
+    hashing takes alone (one program a tick), and the bytes one tick
+    hands the model axis's collectives and the seam."""
+    import torch
+
+    tick = paged_tick(srv, vocab, 150)
+    tick()
+    torch.cuda.synchronize()
+    counter.start(mesh)
+    seam = srv._link.bytes_sent
+    t0 = time.perf_counter()
+    for _ in range(SHARD_TICKS):
+        tick()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / SHARD_TICKS
+    return {"wall_ms": wall, "hash_ms": hashed.cost_ms(),
+            "collective_bytes": counter.bytes.get("model", 0) / SHARD_TICKS,
+            "seam_bytes": (srv._link.bytes_sent - seam) / SHARD_TICKS}
+
+
+def _shard_paged(label, knobs, dec, params, mesh, reqs, counter, dist,
+                 ref_outs) -> dict:
+    """One PagedDecodeServer(mesh=) configuration: rank 0 serves the mix
+    (its rows recorded for the split check; the int8 pool held to phase
+    6's contract), rank 1 follows its dispatches; each rank's paged
+    kernels run what the path implies, its logits hash rank 0's."""
+    import torch
+
+    from defer_tpu_torch import PagedDecodeServer
+    from defer_tpu_torch.runtime.paged import server_stats
+
+    srv = PagedDecodeServer(
+        dec, params, mesh=mesh, num_blocks=PAGED_BLOCKS,
+        block_size=PAGED_BS, max_batch=DECODE_SLOTS, attention="pallas",
+        **knobs)
+    hashed = LogitHash(srv, ["_decode", "_mt"])
+    int8 = knobs.get("kv_dtype") == "int8"
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_launches()
+    counter.start(mesh)
+    out = {}
+    if srv.controller:
+        served = None if int8 else ServedRows(srv)
+        rids = [srv.submit(p, s) for p, s in reqs]
+        t0 = time.perf_counter()
+        done = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = None
+        if served is not None:
+            rows = [served.of(r, p.shape[1], n)
+                    for r, (p, n) in zip(rids, reqs)]
+            served.close()
+        coll = counter.bytes.get("model", 0)
+        st = server_stats(srv)
+        out.update({"wall_s": wall, "mix_ticks": srv.ticks,
+                    "outs": [done[r] for r in rids],
+                    "tp_psums": st["tp_psums"],
+                    "mesh_shape": st["mesh_shape"],
+                    "seam_bytes": srv._link.bytes_sent})
+        if label == "k1":
+            out["tick"] = _sharded_tick(srv, dec.cfg.vocab_size, mesh,
+                                        counter, hashed)
+        srv.close()
+        # Every tick and chunk the card ran, the steady ticks' included.
+        out.update(ticks=srv.ticks, chunks=srv.prefill_chunks,
+                   replays=srv.graph_replays)
+    else:
+        srv.run()
+        torch.cuda.synchronize()
+    runs = _rank_runs({"card": read_card_runs(), "hash": hashed.digest(),
+                       **{k: out.get(k) for k in ("ticks", "chunks")}},
+                      dist)
+    L, K = dec.cfg.num_layers, knobs.get("decode_window", 1)
+    ticks, chunks = runs[0]["ticks"], runs[0]["chunks"]
+    for r, run in enumerate(runs):
+        want = {"paged_flash_decode": L * K * ticks,
+                "paged_flash_prefill": L * chunks}
+        got = {k: run["card"][k] for k in want}
+        check(got == want, f"serve_sharded {label}: rank {r} ran the paged "
+              f"kernels {got} times on the card, expected {want}")
+        check(run["hash"] == runs[0]["hash"],
+              f"serve_sharded {label}: rank {r}'s logits differ from rank "
+              "0's")
+    if not srv.controller:
+        return {}
+    check(out["mesh_shape"] == f"model={SHARD_TP}" and out["replays"] == 0,
+          f"serve_sharded {label}: mesh_shape {out['mesh_shape']}, "
+          f"{out['replays']} graph replays")
+    per_fwd = out["tp_psums"] / (2 * L + 2)
+    check(per_fwd == int(per_fwd) and per_fwd > 0,
+          f"serve_sharded {label}: {out['tp_psums']} psums are not a "
+          f"multiple of {2 * L + 2}")
+    outs = out.pop("outs")
+    if int8:
+        greedy_gaps(f"serve_sharded {label}", dec, params, reqs, outs,
+                    share=INT8_LOGIT_SHARE)
+    else:
+        served_bound(f"serve_sharded {label}", dec, params, reqs, outs, rows)
+    if ref_outs is not None:
+        check(all(a.equal(b) for a, b in zip(outs, ref_outs)),
+              f"serve_sharded {label}: the window's tokens differ from "
+              "K=1's")
+    generated = sum(n for _, n in reqs)
+    out.update(launches=runs[0]["card"], forwards=int(per_fwd),
+               outs=outs, bytes_tick=(coll + out["seam_bytes"])
+               / out["mix_ticks"])
+    if "tick" in out:
+        t = out["tick"]
+        log(
+            f"serve_sharded: {label}: a steady tick, {DECODE_SLOTS} slots at "
+            f"depth 150-{150 + SHARD_TICKS + 1}: {t['wall_ms']:.3f} ms wall "
+            f"(mean of {SHARD_TICKS}, synchronized); the model axis's "
+            f"collectives {t['collective_bytes']:.0f} B a tick, the seam's "
+            f"dispatch {t['seam_bytes']:.0f} B (both ranks hashing their "
+            f"logits, {t['hash_ms']:.3f} ms a tick on rank 0 timed alone)")
+    log(
+        f"serve_sharded: PagedDecodeServer(mesh=model {SHARD_TP}, "
+        f"pallas, {knobs}): {generated} tokens in {out['mix_ticks']} ticks "
+        f"and {out['chunks']} prefill chunks, {out['wall_s']:.3f}s, "
+        f"{generated / out['wall_s']:.1f} tokens/s with the rows recorded; "
+        f"card runs on each rank {runs[0]['card']} (= {L} x {K} x "
+        f"{out['ticks']} ticks, steady ones included, {L} x chunks); "
+        f"tp_psums {out['tp_psums']} = {2 * L + 2} x {int(per_fwd)} "
+        f"forwards; model-axis bytes a tick over the mix, its prefills "
+        f"included, {out['bytes_tick']:.0f} (collectives {coll}, the "
+        f"seam's dispatches {out['seam_bytes']}); 0 graph replays; logits "
+        f"bit-equal on both ranks (sha256 {runs[0]['hash']})")
+    return out
+
+
+def _pool_rows(srv, table, n: int) -> list:
+    """The K and V rows of positions 0..n-1 of one request's `table`
+    (its pool blocks), [n, L, heads, Dh] each, on the host."""
+    import torch
+
+    pos = torch.arange(n)
+    blocks = torch.as_tensor(table[: -(-n // srv.bs)]).long()[pos // srv.bs]
+    return [leaf[:, blocks.to(leaf.device), :, (pos % srv.bs).to(
+        leaf.device)].float().cpu() for leaf in srv._leaves()]
+
+
+def _shard_pool(dec, params, mesh, dist) -> dict:
+    """One short request (a prefill and two ticks) on a fresh meshed
+    server; each rank's pool shard at the request's written positions
+    against the head slice of a mesh=None server's pool after the same
+    request, on rank 0: every prompt row, and each generated token's row
+    while both servers drew the same tokens (bf16: a near tie may fall
+    either way)."""
+    import torch
+
+    from defer_tpu_torch import PagedDecodeServer
+
+    knobs = dict(num_blocks=SHARD_POOL_BLOCKS, block_size=PAGED_BS,
+                 max_batch=1, attention="pallas")
+    prompt = torch.randint(0, dec.cfg.vocab_size, (1, SHARD_POOL_PROMPT),
+                           generator=torch.Generator().manual_seed(9))
+    t_in = SHARD_POOL_PROMPT
+
+    def serve(srv):
+        rid = srv.submit(prompt, SHARD_POOL_STEPS)
+        srv.step()  # the admission and the first tick, the slot live
+        table = srv.tables[0].copy()
+        return srv.run()[rid], table
+
+    srv = PagedDecodeServer(dec, params, mesh=mesh, **knobs)
+    table = None
+    if srv.controller:
+        got, table = serve(srv)
+        srv.close()
+    else:
+        srv.run()
+    table = _rank_runs(table, dist)[0]
+    written = t_in + SHARD_POOL_STEPS - 1
+    mine = _pool_rows(srv, table, written)
+    shards = _rank_runs(mine, dist)
+    if not srv.controller:
+        return {}
+    whole = PagedDecodeServer(dec, params, **knobs)
+    want, wtable = serve(whole)
+    check((wtable == table).all(), "serve_sharded pool: the two servers "
+          "allocated different blocks")
+    same = (want[0, t_in:written] == got[0, t_in:written]).tolist() + [False]
+    n = t_in + same.index(False)
+    ref = _pool_rows(whole, table, n)
+    errs = []
+    for r, shard in enumerate(shards):
+        for part, whole_part in zip(shard, ref):
+            h = whole_part.shape[2] // SHARD_TP
+            want_part = whole_part[:, :, r * h:(r + 1) * h]
+            errs.append(float((part[:n] - want_part).norm()
+                              / want_part.norm()))
+    check(max(errs) <= ZOO_REL_L2,
+          f"serve_sharded pool: a rank's pool shard is {max(errs):.3e} "
+          f"(relative L2) from mesh=None's head slice, tol {ZOO_REL_L2}")
+    log(
+        f"serve_sharded: one request of {t_in} + {SHARD_POOL_STEPS} tokens "
+        f"on a {SHARD_POOL_BLOCKS}-block pool: each rank's K and V shard "
+        f"at its {n} written positions against mesh=None's head slice, "
+        f"relative L2 {', '.join(f'{e:.3e}' for e in errs)} (tol "
+        f"{ZOO_REL_L2}); tokens {'equal' if want.equal(got) else 'differ'}"
+        " (bf16 psum order)")
+    return {"pool_rel_l2": max(errs)}
+
+
+def sharded_rank(rank: int, port: int, out: str) -> int:
+    """One of phase serve_sharded's two ranks on cuda:0 over gloo: the
+    Mistral-7B weights built one rank at a time (phase decode's values),
+    then the flat tp decoder, each SHARD_PAGED configuration and the pool
+    check, rank 0 the controller; rank 0 logs its lines (the phase echoes
+    them) and writes its numbers to `out`. Any failure raises: the rank
+    exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from defer_tpu_torch import GptDecoder, mistral_config
+    from defer_tpu_torch.parallel import multihost
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.weights import tree_to
+
+    multihost.initialize(f"tcp://127.0.0.1:{port}", SHARD_TP, rank,
+                         backend="gloo")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh({"model": SHARD_TP}, [dev] * SHARD_TP)
+    dec = GptDecoder(mistral_config(), compute_dtype=torch.bfloat16,
+                     device=dev)
+    params = None
+    for r in range(SHARD_TP):  # one rank at a time: the init's transient
+        if r == rank:
+            params = mistral_bf16(dec)
+            if rank:
+                # Only rank 0 reads the whole tree on the card (the f32
+                # reference of the split check); the others shard it
+                # from host memory as each server is built.
+                params = tree_to(params, torch.device("cpu"))
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+        dist.barrier()
+    counter = _ByteCount()
+    res = {"flat": _shard_flat(dec, params, mesh,
+                               decode_requests(dec.cfg.vocab_size), counter,
+                               dist)}
+    reqs = paged_requests(dec.cfg.vocab_size)
+    for label, knobs in SHARD_PAGED:
+        release()
+        ref = res["chunk64_prefix"]["outs"] if label == "k4" and rank == 0 \
+            else None
+        res[label] = _shard_paged(label, knobs, dec, params, mesh, reqs,
+                                  counter, dist, ref)
+    release()
+    res["pool"] = _shard_pool(dec, params, mesh, dist)
+    peaks = _rank_runs(torch.cuda.max_memory_allocated(), dist)
+    for mod in ("jax", "defer_tpu"):
+        check(mod not in sys.modules, f"serve_sharded rank {rank} "
+              f"imported {mod}")
+    if rank == 0:
+        for run in res.values():
+            run.pop("outs", None)
+        log(f"serve_sharded: peak allocation by rank {peaks} B")
+        with open(out, "w") as f:
+            json.dump({"runs": res, "peaks": peaks}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _start_ranks(here: str, flag: str, world: int, out: str, timeout: float,
+                 label: str) -> list:
+    """Run `world` ranks of this script (`flag` RANK PORT OUT) on the
+    card and wait for them; a rank that fails, hangs past `timeout` or
+    exits non-zero fails the phase, and every rank is stopped by the
+    end. Returns each rank's output lines."""
+    tmp = os.path.dirname(out)
+    port = _free_port()
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), str(port),
+         out], cwd=here, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    check(all(p.returncode == 0 for p in procs),
+          f"{label}: a rank failed or hung:\n" + "\n".join(
+              f"rank {r} exit {p.returncode}: {text[-4000:]}"
+              for r, (p, text) in enumerate(zip(procs, texts))))
+    return [text.splitlines() for text in texts]
+
+
+def shard_tp1(dec, params, ref_outs) -> dict:
+    """The paged server on a one-process {"model": 1} mesh over cuda:0,
+    phase 5's knobs: every program through the seam, its collectives the
+    identity; tokens equal phase 5's (mesh=None), psums counted."""
+    import torch
+
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.runtime.paged import server_stats
+
+    srv = paged_server(dec, params, mesh=make_mesh({"model": 1},
+                                                   [torch.device(CARD)]))
+    reqs = paged_requests(dec.cfg.vocab_size)
+    outs, wall, host, card = serve_counted("serve_sharded tp1", srv, reqs)
+    st = server_stats(srv)
+    check(all(a.equal(b) for a, b in zip(outs, ref_outs)),
+          "serve_sharded tp1: the size-1 mesh's tokens differ from "
+          "mesh=None's (phase 5)")
+    L = dec.cfg.num_layers
+    check(st["mesh_shape"] == "model=1" and st["tp_psums"] > 0
+          and st["tp_psums"] % (2 * L + 2) == 0,
+          f"serve_sharded tp1: mesh_shape {st['mesh_shape']}, tp_psums "
+          f"{st['tp_psums']}")
+    check(card["paged_flash_decode"] == host["paged_flash_decode"]
+          == L * srv.ticks, f"serve_sharded tp1: paged_flash_decode card "
+          f"{card['paged_flash_decode']}, launched "
+          f"{host['paged_flash_decode']}, expected {L} x {srv.ticks}")
+    generated = sum(n for _, n in reqs)
+    log(f"serve_sharded: PagedDecodeServer(mesh={{'model': 1}}), phase 5's "
+        f"knobs: token-identical to phase 5 (mesh=None); {generated} tokens "
+        f"in {wall:.3f}s, {generated / wall:.1f} tokens/s; tp_psums "
+        f"{st['tp_psums']} = {2 * L + 2} x "
+        f"{st['tp_psums'] // (2 * L + 2)} forwards (each the identity); "
+        f"paged_flash_decode {card['paged_flash_decode']} (= {L} x "
+        f"{srv.ticks} ticks)")
+    return {"tokens_per_s": generated / wall, "tp_psums": st["tp_psums"]}
+
+
+def _pp_server(dec, params, **knobs):
+    """Phase 5's server split into PP_STAGES stages: PP_INFLIGHT groups,
+    windows of PP_WINDOW rounds."""
+    return paged_server(dec, params, pp_stages=PP_STAGES,
+                        pp_inflight=PP_INFLIGHT, decode_window=PP_WINDOW,
+                        **knobs)
+
+
+def shard_pp(dec, params, ref_outs) -> dict:
+    """pp_stages=2 on [cuda:0] * 2 in this process: the split check on
+    the rows the stage chain produced, the share of tokens identical to
+    pp_stages=1 (phase 5; the stages take the prefill kernel at T=1
+    where phase 5 takes the decode kernel, so the rounding differs:
+    reported, not gated), paged_flash_prefill's card runs equal to the
+    stage dispatches' layers, and the bubble fraction."""
+    import torch
+
+    srv = _pp_server(dec, params, pp_devices=[torch.device(CARD)] * 2)
+    served = ServedRows(srv)
+    reqs = paged_requests(dec.cfg.vocab_size)
+    outs, wall, host, card = serve_counted("serve_sharded pp", srv, reqs)
+    served_bound("serve_sharded pp", dec, params, reqs, outs,
+                 [served.of(r, p.shape[1], n)  # rids 0, 1, ...
+                  for r, (p, n) in enumerate(reqs)])
+    served.close()
+    layers = [b - a for a, b in zip(srv._pp_cut_starts,
+                                    srv._pp_cut_starts[1:]
+                                    + [dec.cfg.num_layers])]
+    want = sum(n * d for n, d in zip(layers, srv.pp_stage_dispatch_n))
+    check(card["paged_flash_prefill"] == want
+          and card["paged_flash_decode"] == 0,
+          f"serve_sharded pp: card runs {card}, expected paged_flash_prefill "
+          f"{want} (stage layers {layers} x dispatches "
+          f"{srv.pp_stage_dispatch_n}) and no paged_flash_decode")
+    same = sum(int((a[0, p.shape[1]:] == b[0, p.shape[1]:]).sum())
+               for a, b, (p, _) in zip(outs, ref_outs, reqs))
+    generated = sum(n for _, n in reqs)
+    log(f"serve_sharded: pp_stages={PP_STAGES} on [cuda:0] x {PP_STAGES} "
+        f"(cuts {srv._pp_cut_starts}, pp_inflight={PP_INFLIGHT}, "
+        f"decode_window={PP_WINDOW}, pallas): {generated} tokens in "
+        f"{wall:.3f}s, {generated / wall:.1f} tokens/s with the rows "
+        f"recorded; {same} of {generated} tokens identical to pp_stages=1 "
+        f"(phase 5); stage dispatches {srv.pp_stage_dispatch_n}, "
+        f"paged_flash_prefill run on the card {card['paged_flash_prefill']}"
+        f" (= {want}); bubble fraction of the last window "
+        f"{srv.pp_bubble_last:.4f}")
+    out = {"outs": outs, "launches": card["paged_flash_prefill"],
+           "bubble": srv.pp_bubble_last, "same": same,
+           "dispatches": list(srv.pp_stage_dispatch_n),
+           "cuts": list(srv._pp_cut_starts), "tokens_per_s": generated / wall}
+    return out
+
+
+class PPStageWorker(WorkerProcess):
+    """`python -m chip_smoke --pp-stage S RESULT_PORT`: one stage of the
+    pipeline behind serve_pp_stage, its results to this process's
+    receiver on RESULT_PORT."""
+
+    def __init__(self, here: str, stage: int, result_port: int):
+        super().__init__(here, 0, command=[
+            "chip_smoke", "--pp-stage", str(stage), str(result_port)])
+
+
+def pp_stage_worker(stage: int, result_port: int) -> int:
+    """A serve_pp_stage worker on cuda:0: phase decode's weights built
+    here (mistral_bf16), stage `stage` of PP_STAGES equal cuts; prints
+    LISTENING <port>, then DONE <microbatches> when the controller's STOP
+    frame arrives."""
+    import torch
+
+    from defer_tpu_torch import GptDecoder, mistral_config
+    from defer_tpu_torch.runtime.remote_stage import serve_pp_stage
+
+    dec = GptDecoder(mistral_config(), compute_dtype=torch.bfloat16,
+                     device=CARD)
+    params = mistral_bf16(dec)
+    per = dec.cfg.num_layers // PP_STAGES
+    n = serve_pp_stage(
+        dec, params, stage * per, (stage + 1) * per, num_blocks=PAGED_BLOCKS,
+        block_size=PAGED_BS, attention="pallas", listen_port=0,
+        listen_host="127.0.0.1", result_host="127.0.0.1",
+        result_port=result_port, accept_timeout_s=WORKER_TIMEOUT_S,
+        announce=lambda p: print(f"LISTENING {p}", flush=True))
+    print(f"DONE {n}", flush=True)
+    return 0
+
+
+def shard_pp_remote(dec, params, here: str, pp_res: dict) -> dict:
+    """The same stages served by two serve_pp_stage worker processes on
+    cuda:0 over loopback: tokens identical to the in-process stages (the
+    same programs and kernels; lossless frames), each worker's
+    microbatches equal to its stage's dispatches, the host ms a round
+    trip."""
+    from defer_tpu_torch.runtime.transport import ArrayReceiver
+
+    receivers = [ArrayReceiver(0, host="127.0.0.1",
+                               accept_timeout_s=WORKER_TIMEOUT_S)
+                 for _ in range(PP_STAGES)]
+    workers = []
+    try:
+        for s in range(PP_STAGES):
+            workers.append(PPStageWorker(here, s, receivers[s].port))
+        srv = _pp_server(dec, params, pp_remote={
+            s: ("127.0.0.1", w.port, receivers[s])
+            for s, w in enumerate(workers)})
+        reqs = paged_requests(dec.cfg.vocab_size)
+        outs, wall, _, _ = serve_counted("serve_sharded pp_remote", srv,
+                                         reqs)
+        srv.close_pp()
+        for w, n in zip(workers, srv.pp_stage_dispatch_n):
+            done = w._expect("DONE ")
+            check(done == f"DONE {n}", f"serve_sharded pp_remote: a worker "
+                  f"printed {done!r}, its stage took {n} dispatches")
+            check(w.proc.wait(timeout=60) == 0,
+                  f"serve_sharded pp_remote: a worker exited "
+                  f"{w.proc.returncode}")
+    finally:
+        for w in workers:
+            w.stop()
+        for r in receivers:
+            r.close()
+    check(all(a.equal(b) for a, b in zip(outs, pp_res["outs"])),
+          "serve_sharded pp_remote: tokens differ from the in-process "
+          "stages'")
+    check(srv.pp_stage_dispatch_n == pp_res["dispatches"],
+          f"serve_sharded pp_remote: dispatches {srv.pp_stage_dispatch_n}, "
+          f"in process {pp_res['dispatches']}")
+    stages = srv._pp_stage_objs
+    trips = sum(st.round_trips for st in stages)
+    host_ms = sum(st.host_s for st in stages) * 1e3 / trips
+    generated = sum(n for _, n in reqs)
+    log(f"serve_sharded: pp_remote, both stages in serve_pp_stage worker "
+        f"processes on cuda:0 over loopback: token-identical to the "
+        f"in-process stages; {generated} tokens in {wall:.3f}s, "
+        f"{generated / wall:.1f} tokens/s; {trips} round trips, "
+        f"{host_ms:.3f} host ms a round trip (six operands out, one array "
+        "back)")
+    return {"round_trip_ms": host_ms, "tokens_per_s": generated / wall}
+
+
+def phase_serve_sharded(dec, params, paged_res: dict, decode_res: dict,
+                        here: str) -> dict:
+    """Phase serve_sharded at Mistral-7B's width and depth on phase 4's
+    weights: the paged server on a {"model": 1} mesh; SpmdGptDecoder and
+    PagedDecodeServer(mesh=) on two gloo ranks sharing cuda:0
+    (SHARD_PAGED); pp_stages=2 in this process; the same stages in two
+    serve_pp_stage workers. Each part's seconds printed."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    release()
+    res = {"tp1": shard_tp1(dec, params, paged_res["outs"])}
+    log(f"serve_sharded: tp1 done in {time.perf_counter() - t0:.1f}s")
+    release()
+    t1 = time.perf_counter()
+    out = os.path.join(tempfile.mkdtemp(prefix="sharded-"), "report.json")
+    logs = _start_ranks(here, "--sharded-rank", SHARD_TP, out,
+                        SHARD_TIMEOUT, "serve_sharded")
+    for line in logs[0]:  # the controller's lines
+        if line.startswith("serve_sharded"):
+            log(line)
+    with open(out) as f:
+        ranks = json.load(f)
+    res.update(ranks["runs"])
+    res["peaks"] = ranks["peaks"]
+    log(f"serve_sharded: one process: DecodeServer "
+        f"{decode_res['tokens_per_s']:.1f} tokens/s (phase 4), "
+        f"PagedDecodeServer {paged_res['tokens_per_s']:.1f} (phase 5), its "
+        f"steady tick {paged_res['split']['wall_ms']:.3f} ms wall; gloo "
+        "ranks sharing one card stage every collective through the host: "
+        "these rates are not NCCL's")
+    log(f"serve_sharded: tp2 done in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    res["pp"] = shard_pp(dec, params, paged_res["outs"])
+    release()
+    log(f"serve_sharded: pp done in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    res["pp_remote"] = shard_pp_remote(dec, params, here, res["pp"])
+    res["pp"].pop("outs")
+    log(f"serve_sharded: pp_remote done in {time.perf_counter() - t1:.1f}s")
+    log(f"serve_sharded: phase done in {time.perf_counter() - t0:.1f}s")
+    return res
+
+
 # -- phase t5: T5-base on the card ----------------------------------------
 
 # T5-base's published widths (t5_config("base")): a batch of T5_BATCH
@@ -5174,29 +5921,47 @@ def main() -> int:
     sys.path.insert(0, here)
     log(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"timing: phase {name} {time.perf_counter() - t0:.1f} s "
+            f"(smoke at {time.perf_counter() - t_start:.1f} s)")
+        return out
+
     try:
         card = card_line()
-        phase_build()
-        kernels = phase_kernels()
-        main_res = phase_main()
-        cnn_res = phase_cnn()
-        phase_socket()
-        phase_replicas(cnn_res)
-        phase_keras()
-        phase_roofline_checkpoint(cnn_res)
-        train_res = phase_train()
-        dist_res = phase_dist(here)
-        decode_res = phase_decode()
+        timed("build", phase_build)
+        kernels = timed("kernels", phase_kernels)
+        main_res = timed("main", phase_main)
+        cnn_res = timed("cnn", phase_cnn)
+        timed("socket", phase_socket)
+        timed("replicas", phase_replicas, cnn_res)
+        timed("keras", phase_keras)
+        timed("roofline_checkpoint", phase_roofline_checkpoint, cnn_res)
+        train_res = timed("train", phase_train)
+        dist_res = timed("dist", phase_dist, here)
+        decode_res = timed("decode", phase_decode)
         dec, params = decode_res.pop("dec"), decode_res.pop("params")
-        family_res = phase_family(dec, params, decode_res)
-        paged_res = phase_paged(dec, params, decode_res["weight_bytes"])
-        int8_res = phase_int8(dec, params, decode_res["weight_bytes"],
-                              paged_res)
-        phase_spill(dec, params)
-        pfam_res = phase_paged_family(dec, params, paged_res, int8_res, here)
-        fleet_res = phase_fleet(dec, params)
+        family_res = timed("family", phase_family, dec, params, decode_res)
+        paged_res = timed("paged", phase_paged, dec, params,
+                          decode_res["weight_bytes"])
+        int8_res = timed("int8", phase_int8, dec, params,
+                         decode_res["weight_bytes"], paged_res)
+        timed("spill", phase_spill, dec, params)
+        pfam_res = timed("paged_family", phase_paged_family, dec, params,
+                         paged_res, int8_res, here)
+        # The steady-tick servers of phases 5 and 6 end here (their
+        # pools would sit beside the ranks' and workers' weights).
+        for res in (paged_res, int8_res):
+            res.pop("srv", None)
+            res.pop("tick", None)
+        fleet_res = timed("fleet", phase_fleet, dec, params)
+        sharded_res = timed("serve_sharded", phase_serve_sharded, dec,
+                            params, paged_res, decode_res, here)
         del dec, params
-        phase_t5()
+        timed("t5", phase_t5)
         for name in ("jax", "defer_tpu"):
             check(name not in sys.modules, f"{name} was imported")
     except Exception as e:  # every phase failure ends the run non-zero
@@ -5263,6 +6028,9 @@ def main() -> int:
             }
             # The trained GPT-2 small tree served at K=1 (phase train).
             report[-1]["train_serve"] = train_res["lm"]["serve_launches"]
+            # SpmdGptDecoder at tp 2, on each rank (phase serve_sharded).
+            report[-1]["serve_sharded"] = {
+                "flat_tp2_per_rank": sharded_res["flat"]["launches"]}
         if name in ("paged_flash_decode", "paged_flash_prefill"):
             # The paged family's paths, each its own run's kernel runs on
             # the card (float and int8 pools together; captured windows'
@@ -5283,6 +6051,15 @@ def main() -> int:
                          fleet_window4=fleet_res["window"])
             report[-1]["paged_family"] = {
                 path: run.get(key, 0) for path, run in paths.items()}
+            # Phase serve_sharded: the size-1 mesh, each tp 2 path on
+            # each rank (the paged server's card runs on one rank; both
+            # ranks checked equal), and pp's stages.
+            shard = {f"tp2_{label}_per_rank":
+                     sharded_res[label]["launches"][name]
+                     for label, _ in SHARD_PAGED}
+            if name == "paged_flash_prefill":
+                shard["pp2"] = sharded_res["pp"]["launches"]
+            report[-1]["serve_sharded"] = shard
     log(json.dumps({"kernels": report}))
     log(card)
     log(json.dumps({
@@ -5300,4 +6077,11 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:  # one of phase dist's ranks
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--sharded-rank"]:  # one of serve_sharded's ranks
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
+    if sys.argv[1:2] == ["--pp-stage"]:  # one of serve_sharded's workers
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(pp_stage_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -52,8 +52,11 @@ logits plus noise from one `torch.rand` of shape (B, V) per emitted
 token, so the distribution is JAX's and a per-slot generator seeded `s`
 reproduces a solo `generate` with a generator seeded `s`.
 
-Not ported yet (ROADMAP Queue 1 item 7): `SpmdGptDecoder`, whose
-construction raises.
+`SpmdGptDecoder` is the tensor-parallel decoder over a process group
+(its docstring); its hooks (`_embed_tokens`, `_attn_out`,
+`_final_logits`, each with `tp_axis`) are the paged server's too, which
+runs them on a plain decoder under `mesh=`. With tp_axis None every hook
+runs the single-device program.
 """
 
 from __future__ import annotations
@@ -67,7 +70,10 @@ import torch.nn.functional as F
 
 from defer_tpu_torch.models.quant import dequantize_leaf
 from defer_tpu_torch.ops.flash_decode import flash_decode
+from defer_tpu_torch.parallel import collectives
+from defer_tpu_torch.parallel.collectives import all_gather, psum
 from defer_tpu_torch.parallel.mesh import cuda_devices
+from defer_tpu_torch.parallel.spmd_pipeline import check_process_group
 from defer_tpu_torch.parallel.transformer_stack import (
     TransformerConfig,
     _layer_norm,
@@ -78,7 +84,10 @@ from defer_tpu_torch.parallel.transformer_stack import (
     normal,
     rope_tables,
     rotate,
+    shard_tree,
+    stack_specs,
 )
+from defer_tpu_torch.weights import tree_to
 
 
 def seen_tokens_mask(ids: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -606,18 +615,20 @@ class GptDecoder:
             self._split_heads(vf),
         )
 
-    def _attn_out(self, p: dict, x, attn, adapter_ids=None):
+    def _attn_out(self, p: dict, x, attn, adapter_ids=None, tp_axis=None):
         """wo projection, residual, ln2, FFN; `attn` is the merged
-        [B, T, Hq*Dh] attention output."""
+        [B, T, Hq*Dh] attention output. With `tp_axis` the wo and w2
+        products are this rank's row-parallel partial sums, psummed over
+        the axis before their biases (the Megatron split)."""
         cfg = self.cfg
         bias, proj = self._proj_fns(p, x.dtype, adapter_ids)
-        x = x + bias(proj(attn, "wo"), "bo")
+        x = x + bias(psum(proj(attn, "wo"), tp_axis), "bo")
         h2 = norm_apply(cfg, x, p, "ln2")
         if cfg.ffn_style == "swiglu":
             gate = F.silu(proj(h2, "w1"))
-            return x + proj(gate * proj(h2, "w3"), "w2")
+            return x + psum(proj(gate * proj(h2, "w3"), "w2"), tp_axis)
         ff = F.gelu(bias(proj(h2, "w1"), "b1"), approximate="tanh")
-        return bias(x + proj(ff, "w2"), "b2")
+        return bias(x + psum(proj(ff, "w2"), tp_axis), "b2")
 
     def _block(self, p: dict, x, k_cache, v_cache, pos, plan: dict):
         """One decoder block on [B, T, D]: writes its T new K/V rows into
@@ -664,7 +675,7 @@ class GptDecoder:
             attn = torch.einsum("bkgts,bksd->bkgtd", weights, v_att)
             attn = attn.reshape(b, h_q, t, dh).transpose(1, 2)
             attn = attn.reshape(b, t, h_q * dh)
-        return self._attn_out(p, x, attn, adapter_ids)
+        return self._attn_out(p, x, attn, adapter_ids, plan.get("tp"))
 
     def _rope(self, pos: torch.Tensor, t: int):
         """The rotary tables of a T-token step at write head `pos`
@@ -764,9 +775,11 @@ class GptDecoder:
         )  # (T, win + T)
         plan["concat"] = True
 
-    def _step_fn(self, donate: bool):
+    def _step_fn(self, donate: bool, tp_axis: str | None = None):
         """The one step body: embed -> blocks (writing the cache) ->
-        final norm -> head. `donate=False` writes into a copy."""
+        final norm -> head. `donate=False` writes into a copy. With
+        `tp_axis` (SpmdGptDecoder) the params and cache are this rank's
+        shards and the hooks run their collectives over the axis."""
 
         @torch.no_grad()
         def step(params, cache, ids):
@@ -780,14 +793,15 @@ class GptDecoder:
             # per-slot state and rides in the cache.
             adapter = cache.get("adapter")
             plan["adapter"] = None if adapter is None else adapter.long()
-            x = self._embed_tokens(params, ids, pos)
+            plan["tp"] = tp_axis
+            x = self._embed_tokens(params, ids, pos, tp_axis)
             stack = params["stack"]
             for layer in range(self.cfg.num_layers):
                 x = self._block(
                     _layer_view(stack, layer), x, k_all[layer],
                     v_all[layer], pos, plan,
                 )
-            logits = self._final_logits(params, x)
+            logits = self._final_logits(params, x, tp_axis)
             out = {"k": k_all, "v": v_all, "pos": pos + t}
             if adapter is not None:
                 out["adapter"] = adapter
@@ -795,13 +809,14 @@ class GptDecoder:
 
         return step
 
-    def _embed_tokens(self, params, ids, pos):
+    def _embed_tokens(self, params, ids, pos, tp_axis=None):
         """Token (+ learned position) embedding for a step at write head
-        `pos` (scalar, or (B,) per-slot depths)."""
+        `pos` (scalar, or (B,) per-slot depths); with `tp_axis` the table
+        is this rank's vocab rows (embed_lookup's masked lookup + psum)."""
         cfg = self.cfg
         cd = self.compute_dtype
         t = ids.shape[1]
-        emb = embed_lookup(params["token_embedding"], ids)
+        emb = embed_lookup(params["token_embedding"], ids, tp_axis)
         if cfg.pos_style == "rope":
             return emb.to(cd)
         steps = torch.arange(t, device=pos.device)
@@ -818,11 +833,14 @@ class GptDecoder:
             ]
         return (emb + posv).to(cd)
 
-    def _final_logits(self, params, x):
+    def _final_logits(self, params, x, tp_axis=None):
         """Final norm + output head, in f32: tied to the embedding unless
         the params carry a distinct lm_head. The head is widened to f32
         on each call (a bf16 [V, D] table read once and written once
-        more as f32); the decoder holds no f32 copy of it."""
+        more as f32); the decoder holds no f32 copy of it. With `tp_axis`
+        the head is this rank's vocab rows: the [B, T, Vpad/tp] slices
+        all-gather on the axis and the pad rows are sliced off, so every
+        rank holds the same whole logits."""
         cfg = self.cfg
         xf = x.float()
         if cfg.norm_type == "rms":
@@ -835,7 +853,10 @@ class GptDecoder:
                 cfg.layer_norm_eps,
             )
         head = params.get("lm_head", params["token_embedding"])
-        return xn @ dequantize_leaf(head, torch.float32).T
+        logits = xn @ dequantize_leaf(head, torch.float32).T
+        if tp_axis is None:
+            return logits
+        return all_gather(logits, tp_axis, dim=-1)[..., : cfg.vocab_size]
 
     def stage_params(self, params: dict, first: int, last: int) -> dict:
         """The param subtree a pipeline stage of layers [first, last)
@@ -1041,13 +1062,197 @@ def tiny_gpt(seq_len: int = 32, *, device=None) -> GptDecoder:
     )
 
 
+@dataclasses.dataclass
 class SpmdGptDecoder(GptDecoder):
     """Tensor-parallel KV-cache decoding over a "model" mesh axis (the
-    JAX package's SpmdGptDecoder): not ported yet, so construction
-    raises (ROADMAP Queue 1 item 7)."""
+    JAX package's SpmdGptDecoder), over a process group: one process a
+    mesh position, every rank calling the same step on the same operands
+    and holding its shards.
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "SpmdGptDecoder (tensor-parallel decoding over a 'model' mesh "
-            "axis) is not ported yet (ROADMAP Queue 1 item 7)"
+    Each rank holds its head group's column-split q/k/v (and w1/w3)
+    projections and a cache of ONLY its local heads ([L, B, Hkv/tp, S,
+    Dh]); attention needs no collective, the wo and w2 row-parallel
+    products psum over the axis, and the embedding / tied head is
+    vocab-row split (masked lookup + psum in, this rank's logits slice
+    all-gathered out), so every weight matrix is read 1/tp a rank. A
+    vocab that does not divide by tp is padded with zero rows, never
+    looked up and sliced off the logits. `dp_axis` splits the cache's
+    batch rows over a data axis too (dp x tp): each rank runs its rows
+    and the logits all-gather on the batch.
+
+    `shard_params` takes the WHOLE tree (the same tree on every rank)
+    and keeps this rank's slices; `init_cache` allocates this rank's
+    shard directly. `device` defaults to the mesh's device for this
+    rank. A one-process mesh serves only a model axis of size 1 (every
+    collective the identity); larger axes need
+    `parallel/multihost.py` `initialize` in every rank first."""
+
+    mesh: Any = None
+    tp_axis: str = "model"
+    # Optional batch sharding over a second mesh axis (dp x tp).
+    dp_axis: str | None = None
+
+    def __post_init__(self):
+        if self.mesh is None or self.tp_axis not in self.mesh.axis_names:
+            raise ValueError(
+                f"SpmdGptDecoder needs a mesh with a {self.tp_axis!r} axis"
+            )
+        if self.device is None:
+            self.device = self.mesh.local_device
+        super().__post_init__()
+        if self.dp_axis is not None:
+            if self.dp_axis not in self.mesh.axis_names:
+                raise ValueError(
+                    f"dp_axis {self.dp_axis!r} is not a mesh axis "
+                    f"({self.mesh.axis_names})"
+                )
+            if self.dp_axis == self.tp_axis:
+                raise ValueError(
+                    f"dp_axis and tp_axis must differ (both "
+                    f"{self.dp_axis!r})"
+                )
+        tp = self.mesh.shape[self.tp_axis]
+        cfg = self.cfg
+        if cfg.num_heads % tp or cfg.dim % tp or cfg.ffn_dim % tp:
+            raise ValueError(
+                f"heads={cfg.num_heads}, dim={cfg.dim}, "
+                f"ffn_dim={cfg.ffn_dim} must all divide by tp={tp}"
+            )
+        if cfg.kv_heads % tp:
+            raise ValueError(
+                f"num_kv_heads={cfg.kv_heads} must divide by tp={tp} "
+                "(each shard needs whole kv head groups)"
+            )
+        check_process_group(self.mesh)
+        self.tp = tp
+        self._vocab_padded = -(-cfg.vocab_size // tp) * tp
+        self._quantized_keys: frozenset = frozenset()
+        self._quantized_emb = False
+
+    def _specs(self) -> dict:
+        """The placement of a param tree (the JAX package's PartitionSpecs
+        as tuples of axis names): the stack's Megatron column / row split
+        from `stack_specs`, the embedding's vocab rows over tp, the norms
+        and positions replicated; an int8 leaf's scale splits its last
+        (channel) axis as its payload does."""
+        tp = self.tp_axis
+        stack = stack_specs(None, tp, cfg=self.cfg)
+        for k in self._quantized_keys:
+            spec = stack[k]
+            n = len(spec)
+            s_spec = ((spec[0], *([None] * (n - 2)), spec[-1]) if n >= 3
+                      else (None, spec[-1]))
+            stack[k] = {"q": spec, "s": s_spec}
+        emb_spec: Any = (tp, None)
+        if self._quantized_emb:
+            emb_spec = {"q": (tp, None), "s": (None, None)}
+        specs = {"token_embedding": emb_spec, "final_ln_scale": (),
+                 "stack": stack}
+        if self.cfg.pos_style == "learned":
+            specs["pos_embedding"] = ()
+        if self.cfg.norm_type == "layer":
+            specs["final_ln_bias"] = ()
+        return specs
+
+    def shard_params(self, params: dict) -> dict:
+        """This rank's slices of a WHOLE param tree, on this rank's
+        device: the column / row split stack, the vocab rows of the
+        embedding and tied head (padded to a tp multiple), the norms and
+        positions whole. int8 weight-only trees (models/quant.py) split
+        as their float counterparts."""
+        if "lm_head" in params:
+            raise NotImplementedError(
+                "untied output heads are not supported under tensor "
+                "parallelism yet — the single-device GptDecoder serves "
+                "untied checkpoints"
+            )
+        self._quantized_keys = frozenset(
+            k for k, v in params["stack"].items()
+            if isinstance(v, dict) and "q" in v
         )
+        emb = params["token_embedding"]
+        self._quantized_emb = isinstance(emb, dict) and "q" in emb
+        rows = emb["q"] if self._quantized_emb else emb
+        pad = self._vocab_padded - rows.shape[0]
+        if pad:
+            padded = F.pad(rows, (0, 0, 0, pad))
+            params = {
+                **params,
+                "token_embedding": ({"q": padded, "s": emb["s"]}
+                                    if self._quantized_emb else padded),
+            }
+        local = shard_tree(params, self._specs(), self.mesh)
+        return tree_to(local, self.device)
+
+    def _cache_spec(self) -> dict:
+        """The cache's placement: batch rows over dp (axis 1), heads over
+        tp (axis 2) of [L, B, Hkv, S, Dh]; the write head replicated."""
+        tp, dp = self.tp_axis, self.dp_axis
+        return {"k": (None, dp, tp, None, None),
+                "v": (None, dp, tp, None, None), "pos": ()}
+
+    def init_cache(self, batch: int) -> dict:
+        """This rank's shard of the zeroed cache, allocated as the shard
+        (never whole first: a whole cache would need tp x the memory):
+        [L, batch/dp, Hkv/tp, S, Dh] and a scalar write head."""
+        dp = self.mesh.shape[self.dp_axis] if self.dp_axis else 1
+        if batch % dp:
+            raise ValueError(
+                f"batch {batch} does not divide over dp_axis "
+                f"{self.dp_axis!r} of size {dp}"
+            )
+        cfg = self.cfg
+        dh = cfg.dim // cfg.num_heads
+        slots = cfg.window if self.rolling_cache else cfg.max_len
+        shape = (cfg.num_layers, batch // dp, cfg.kv_heads // self.tp,
+                 slots, dh)
+        return {
+            "k": torch.zeros(shape, dtype=self.compute_dtype,
+                             device=self.device),
+            "v": torch.zeros(shape, dtype=self.compute_dtype,
+                             device=self.device),
+            "pos": torch.zeros((), dtype=torch.int32, device=self.device),
+        }
+
+    def make_step(self, *, donate: bool = True):
+        """(params, cache, ids [B, T]) -> (logits [B, T, V] f32, cache):
+        the decoder's step on this rank's shards under the mesh, the
+        psums and the logits gather inside; the logits come back whole
+        (pad vocab rows dropped) and bitwise equal on every rank. With
+        dp_axis the rank runs its batch rows of `ids` (and of a per-slot
+        write head) and the logits gather on the batch."""
+        step = self._steps.get(donate)
+        if step is not None:
+            return step
+        inner = self._step_fn(donate, tp_axis=self.tp_axis)
+        dp, mesh = self.dp_axis, self.mesh
+
+        def step(params, cache, ids):
+            with collectives.active(mesh):
+                if dp is None:
+                    return inner(params, cache, ids)
+                local = dict(cache)
+                for key in ("pos", "adapter"):
+                    if key in local and local[key].ndim == 1:
+                        local[key] = collectives.shard(local[key], dp, 0)
+                logits, out = inner(params, local,
+                                    collectives.shard(ids, dp, 0))
+                out["pos"] = cache["pos"] + ids.shape[1]
+                if "adapter" in cache:
+                    out["adapter"] = cache["adapter"]
+                return collectives.unshard(logits, dp, 0), out
+
+        self._steps[donate] = step
+        return step
+
+    def decode_step_fn(self):
+        # A decode window would repeat the raw body without the mesh's
+        # collectives: the flat server asked for decode_window > 1 calls
+        # this at construction and fails fast.
+        raise NotImplementedError(
+            "decode_window > 1 is not supported under shard_map "
+            "tensor parallelism: the fused window step would bypass "
+            "SpmdGptDecoder's sharded make_step — serve with "
+            "decode_window=1"
+        )
+

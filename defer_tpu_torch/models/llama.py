@@ -4,8 +4,8 @@ Counterpart of `defer_tpu/models/llama.py`: RMSNorm, rotary position
 embeddings, grouped-query attention and a SwiGLU FFN, all biasless, as
 a `TransformerConfig` that `models/gpt.py`'s `GptDecoder` serves; the
 GQA cache holds [L, B, Hkv, S, Dh]. `from_hf_state_dict` maps a
-HuggingFace Llama state dict onto the decoder's params. `spmd_llama`
-is not ported yet (ROADMAP Queue 1 item 7, with SpmdGptDecoder).
+HuggingFace Llama state dict onto the decoder's params; `spmd_llama`
+serves it tensor-parallel on `SpmdGptDecoder`.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Any, Mapping
 
 import torch
 
-from defer_tpu_torch.models.gpt import GptDecoder
+from defer_tpu_torch.models.gpt import GptDecoder, SpmdGptDecoder
 from defer_tpu_torch.parallel.mesh import cuda_devices
 from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
 
@@ -76,6 +76,26 @@ def tiny_llama(seq_len: int = 32, *, device=None) -> GptDecoder:
         ),
         compute_dtype=torch.float32,
         device=device,
+    )
+
+
+def spmd_llama(
+    mesh: Any,
+    cfg: TransformerConfig,
+    *,
+    compute_dtype: Any = torch.bfloat16,
+    tp_axis: str = "model",
+    dp_axis: str | None = None,
+) -> SpmdGptDecoder:
+    """Tensor-parallel llama serving: head-group-split projections and
+    GQA caches, vocab-split tied head (SpmdGptDecoder), which needs
+    num_kv_heads % tp == 0."""
+    return SpmdGptDecoder(
+        cfg,
+        compute_dtype=compute_dtype,
+        mesh=mesh,
+        tp_axis=tp_axis,
+        dp_axis=dp_axis,
     )
 
 

@@ -10,9 +10,9 @@ report `defer_host_dispatches_total`, `defer_tokens_per_dispatch` and
 `defer_constrained_tokens_total`, `defer_constrain_masked_frac` and
 `defer_constrain_dead_ends_total`; speculative decoding
 (models/speculative.py, label "speculative") the `defer_spec_*`
-counters and the `defer_spec_acceptance` histogram. The instruments of
-servers not ported yet (pipeline stages) are registered all the same,
-so the exposition's shape does not depend on which server ran.
+counters and the `defer_spec_acceptance` histogram. The pipeline
+stages' instruments (`bind_pp`) bind once a pp_stages > 1 server knows
+its stage count.
 `DisaggMetrics` instruments the disaggregated prefill/decode split
 (defer_tpu_torch/disagg/); `FleetMetrics` the fleet front-end
 (defer_tpu_torch/fleet/), with the JAX package's names, labels and

@@ -70,8 +70,14 @@ def current_mesh():
 
 
 def _line(axis: str):
-    """(group, size, index) of this rank along `axis` of the active mesh."""
+    """(group, size, index) of this rank along `axis` of the active mesh.
+    An axis of size 1 of a one-process mesh is (None, 1, 0): every
+    collective over it is the identity, as lax's are over a size-1
+    axis."""
     mesh = _ACTIVE.get()
+    if (mesh is not None and not mesh.distributed
+            and mesh.shape.get(axis) == 1):
+        return None, 1, 0
     if mesh is None or not mesh.distributed:
         raise RuntimeError(
             f"a collective over mesh axis {axis!r} needs a mesh over a "
@@ -237,7 +243,7 @@ def psum(x: torch.Tensor, axis: str | None) -> torch.Tensor:
     if axis is None:
         return x
     group, _, _ = _line(axis)
-    return _Psum.apply(x, group)
+    return x if group is None else _Psum.apply(x, group)
 
 
 def pvary(x: torch.Tensor, axis: str | None) -> torch.Tensor:
@@ -246,7 +252,7 @@ def pvary(x: torch.Tensor, axis: str | None) -> torch.Tensor:
     if axis is None:
         return x
     group, _, _ = _line(axis)
-    return _Pvary.apply(x, group)
+    return x if group is None else _Pvary.apply(x, group)
 
 
 def all_gather(x: torch.Tensor, axis: str | None, *, dim: int) -> torch.Tensor:
@@ -254,7 +260,7 @@ def all_gather(x: torch.Tensor, axis: str | None, *, dim: int) -> torch.Tensor:
     if axis is None:
         return x
     group, n, _ = _line(axis)
-    return _AllGather.apply(x, group, n, dim)
+    return x if group is None else _AllGather.apply(x, group, n, dim)
 
 
 def all_to_all(
@@ -265,6 +271,8 @@ def all_to_all(
     if axis is None:
         return x
     group, n, _ = _line(axis)
+    if group is None:
+        return x
     return _AllToAll.apply(x, group, n, split_axis, concat_axis)
 
 
@@ -276,6 +284,8 @@ def ppermute(
     if axis is None:
         return x
     group, n, index = _line(axis)
+    if group is None:
+        return x
     return _Ppermute.apply(x, group, n, index, [tuple(p) for p in perm])
 
 
@@ -285,6 +295,8 @@ def shard(x: torch.Tensor, axis: str | None, dim: int) -> torch.Tensor:
     if axis is None:
         return x
     group, n, index = _line(axis)
+    if group is None:
+        return x
     if x.shape[dim] % n:
         raise ValueError(
             f"dim {dim} of shape {tuple(x.shape)} does not divide over "
@@ -299,4 +311,4 @@ def unshard(x: torch.Tensor, axis: str | None, dim: int) -> torch.Tensor:
     if axis is None:
         return x
     group, n, index = _line(axis)
-    return _Unshard.apply(x, group, n, index, dim)
+    return x if group is None else _Unshard.apply(x, group, n, index, dim)

@@ -160,7 +160,8 @@ def stage_submeshes(mesh: Mesh, stage_axis: str = "stage") -> list:
     stage over that stage's devices, the remaining axes in order (the
     JAX package's layout for pp around tp). The submeshes are device
     grids: the collectives of the stage's own axes belong to the
-    serving legs that use them (ROADMAP Queue 1 item 7)."""
+    serving leg that would use them, pp x tp, which is not ported yet
+    (ROADMAP Queue 1 item 7)."""
     if stage_axis not in mesh.axis_names:
         raise ValueError(
             f"mesh has no {stage_axis!r} axis (axes: {mesh.axis_names}); "

@@ -104,6 +104,45 @@ def probe_latency(fn: Any, *args: Any, iters: int = 10) -> dict[str, Any]:
     }
 
 
+def balance_stage_cuts(costs: Sequence[float], num_stages: int) -> list[int]:
+    """Contiguous min-max partition of per-layer costs into `num_stages`
+    stages: the stage START indices (cuts[0] == 0), chosen so that the
+    most expensive stage is as cheap as possible. Exact O(L^2 * S)
+    dynamic program; every stage is non-empty, so num_stages must not
+    exceed len(costs)."""
+    L = len(costs)
+    if num_stages < 1:
+        raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+    if num_stages > L:
+        raise ValueError(
+            f"cannot split {L} layers into {num_stages} non-empty "
+            "stages"
+        )
+    prefix = [0.0]
+    for c in costs:
+        prefix.append(prefix[-1] + float(c))
+    # best[s][j]: the least max-stage cost splitting costs[:j] into s
+    # stages; cut[s][j]: the start of the last stage in that optimum.
+    inf = float("inf")
+    best = [[inf] * (L + 1) for _ in range(num_stages + 1)]
+    cut = [[0] * (L + 1) for _ in range(num_stages + 1)]
+    best[0][0] = 0.0
+    for s in range(1, num_stages + 1):
+        for j in range(s, L + 1):
+            for i in range(s - 1, j):
+                cand = max(best[s - 1][i], prefix[j] - prefix[i])
+                if cand < best[s][j]:
+                    best[s][j] = cand
+                    cut[s][j] = i
+    starts: list[int] = []
+    j = L
+    for s in range(num_stages, 0, -1):
+        j = cut[s][j]
+        starts.append(j)
+    starts.reverse()
+    return starts
+
+
 class StreamMeasure:
     """Shared warmup/throughput for anything with __call__ + stream —
     one definition of the measurement protocol."""

@@ -273,21 +273,25 @@ def embed_lookup(
 ) -> torch.Tensor:
     """Token-embedding gather. Plain [V, D] tables gather directly;
     int8 weight-only tables ({"q", "s"}, models/quant.py) gather the
-    int8 rows and widen only the gathered [B, T, D] slice to f32. The
-    vocab-row-sharded form (tp_axis set), which the tensor-parallel
-    decoder reads, is not ported yet (ROADMAP Queue 1 item 7)."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "embed_lookup over a vocab-sharded table (tp_axis) is not "
-            "ported yet: it comes with SpmdGptDecoder (ROADMAP Queue 1 "
-            "item 7)"
-        )
+    int8 rows and widen only the gathered [B, T, D] slice to f32. With
+    `tp_axis` set (under the active mesh) the table is vocab-ROW sharded
+    (Megatron): this rank owns rows [v0, v0 + V_local), ids outside them
+    contribute zeros, and one psum assembles the full embeddings."""
     quant = isinstance(table, dict) and "q" in table
     rows = table["q"] if quant else table
-    emb = rows[ids]
+    if tp_axis is None:
+        emb = rows[ids]
+        if quant:
+            emb = emb.float() * table["s"]
+        return emb
+    v_local = rows.shape[0]
+    local = ids - axis_index(tp_axis) * v_local
+    in_range = (local >= 0) & (local < v_local)
+    emb = rows[local.clamp(0, v_local - 1)]
     if quant:
         emb = emb.float() * table["s"]
-    return emb
+    emb = torch.where(in_range[..., None], emb, torch.zeros_like(emb))
+    return psum(emb, tp_axis)
 
 
 def _layer_norm(x, scale, bias, eps):

@@ -230,3 +230,38 @@ def accept_lengths(props, preds):
     mismatch = props != preds
     first_bad = mismatch.argmax(axis=1)
     return np.where(mismatch.any(axis=1), first_bad, props.shape[1])
+
+
+def microbatch_groups(max_batch: int, num_groups: int) -> list[list[int]]:
+    """Partition the slot indices [0, max_batch) into `num_groups`
+    contiguous microbatch groups for pipelined decode (runtime/paged.py
+    pp_stages=). Groups tile the batch evenly: every group rides the
+    same stage programs, one shape for all of them."""
+    if num_groups < 1:
+        raise ValueError(f"num_groups must be >= 1, got {num_groups}")
+    if max_batch % num_groups:
+        raise ValueError(
+            f"max_batch {max_batch} must divide evenly into "
+            f"{num_groups} microbatch groups — pick max_batch a "
+            f"multiple of the in-flight count (pp_inflight)"
+        )
+    g = max_batch // num_groups
+    return [list(range(k * g, (k + 1) * g)) for k in range(num_groups)]
+
+
+def pp_schedule_occupancy(
+    busy_slots: list[int], total_slots: int
+) -> tuple[list[float], float]:
+    """Per-stage occupancy and bubble fraction of one realized pipelined
+    decode window, from dispatch-slot accounting: `busy_slots[s]` =
+    stage-step dispatches stage s issued, `total_slots` = schedule slots
+    spanned from the first stage-0 dispatch to the last final-stage
+    dispatch. In the full GPipe schedule (M groups x W rounds, no early
+    freezes) this is the closed-form bubble (S-1)/(S-1+M*W); groups that
+    are idle at the window boundary lower it. Schedule slots are logical
+    dispatch positions, so the numbers do not depend on placement."""
+    if total_slots <= 0:
+        return [0.0] * len(busy_slots), 0.0
+    occ = [min(b / total_slots, 1.0) for b in busy_slots]
+    mean = sum(occ) / len(occ) if occ else 0.0
+    return occ, 1.0 - mean

@@ -102,8 +102,47 @@ share one set of weights), `resident_digests` is the routing
 advertisement, and `export_prefix_blocks` / `import_prefix_blocks` move
 a parked prefix chain between pools, on the serving thread only.
 
-Not ported yet (each raises NotImplementedError, naming its ROADMAP
-Queue 1 item): `mesh=` and `pp_*` (item 7).
+Tensor-parallel serving, `mesh=` / `model_axis`: the weights split
+Megatron-style (the server's own `SpmdGptDecoder` view shards the whole
+tree it is given) and the pool on its KV-head axis, every rank of the
+model axis one process of a `torch.distributed` group (`parallel/
+multihost.py`). The JAX package drives its mesh from one controller,
+"host-side mechanics stay single-writer and unsharded"; here the rank at
+index 0 of the model axis is that controller: it alone holds the host
+state (admission, block tables, radix cache, sampling, obs), takes
+`submit` / `submit_prefilled` / `deliver_kv`, and samples from the
+logits every rank holds whole after the vocab all-gather. Every device
+program of the server (`_program`: the tick and window sub-step
+`_decode`, `_mt`, the flat prefills and their inserts, spill down and
+up, import, export, the seating of delivered KV) goes through one seam:
+the controller broadcasts the program's name and its replicated host-fed
+operands to the model group (`_ModelLink`), and every rank runs it on
+its own shards, the psums inside on the group; the other ranks run that
+loop in `run()` until the controller's `close()`. Full-head host K/V
+crosses ranks only there: split on its head axis as it lands (ingest,
+import, spill revival), gathered whole to the controller as it leaves
+(export, spill snapshots, which the controller's `HostKVSpill` holds
+whole). A gloo collective cannot be captured in a CUDA graph, and ranks
+sharing one card are gloo, so under a mesh a window runs its K
+sub-steps eagerly (the same sub-steps, the same tokens) and
+`graph_replays` stays 0. A one-process mesh serves a model axis of size
+1 (its collectives the identity). Counters: `tp_psums` (2L + 2 a
+sharded forward), KV rows per shard (1 / tp).
+
+Pipeline-parallel serving, `pp_stages=S`: the layers cut into S
+contiguous stages (`pp_cuts`, or balanced: equal counts, or
+`pp_balance="probe"` from each layer's measured step), each stage its
+params and its own slice of the pool (`_PPLocalStage` on `pp_devices`,
+round-robin, a device may repeat; or `_PPTransportStage`, a
+`runtime/remote_stage.py` `serve_pp_stage` worker over the framed
+transport, `pp_remote`). Admission prefills through the stage chain; a
+window runs `decode_window` rounds of `pp_inflight` microbatch groups
+round-major (the GPipe schedule, `_tick_pp`), the bubble fraction
+measured at the schedule level.
+
+Not ported yet (each raises NotImplementedError naming ROADMAP Queue 1
+item 7): pp x tp (`mesh=` with `pp_stages > 1`), and a mesh axis beside
+the model axis (data-parallel replicas).
 """
 
 from __future__ import annotations
@@ -112,6 +151,7 @@ import collections
 import dataclasses
 import functools
 import hashlib
+import pickle
 import queue
 import threading
 import time
@@ -119,10 +159,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from defer_tpu_torch.constrain import runtime as crt
 from defer_tpu_torch.models.gpt import (
+    SpmdGptDecoder,
     _layer_view,
     sample_token_batched_nosort_u,
     sample_token_batched_u,
@@ -142,8 +184,17 @@ from defer_tpu_torch.ops.paged_flash_prefill import (
     paged_flash_prefill,
     paged_flash_prefill_plain,
 )
+from defer_tpu_torch.parallel import collectives
 from defer_tpu_torch.parallel.lora import adapter_bank_info
-from defer_tpu_torch.runtime.batching import accept_lengths, window_drain_order
+from defer_tpu_torch.parallel.mesh import cuda_devices
+from defer_tpu_torch.parallel.pipeline import balance_stage_cuts, probe_latency
+from defer_tpu_torch.parallel.spmd_pipeline import check_process_group
+from defer_tpu_torch.runtime.batching import (
+    accept_lengths,
+    microbatch_groups,
+    pp_schedule_occupancy,
+    window_drain_order,
+)
 from defer_tpu_torch.runtime.decode_server import (
     _DEAD_END,
     DraftLanes,
@@ -152,12 +203,111 @@ from defer_tpu_torch.runtime.decode_server import (
 )
 from defer_tpu_torch.runtime.schedule import PrefillSeat, plan_mixed_tick
 from defer_tpu_torch.runtime.stopping import matcher_or_none, normalize_stops
+from defer_tpu_torch.runtime.transport import ArraySender
+from defer_tpu_torch.weights import tree_to
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
     )
+
+
+class _Wire:
+    """A tensor operand crossing to the model group's other ranks: a host
+    copy, placed on the receiving rank's device on arrival."""
+
+    __slots__ = ("t",)
+
+    def __init__(self, t: torch.Tensor):
+        t = t.detach().cpu()
+        # A view would pickle its whole storage.
+        self.t = t.clone() if t._base is not None or not t.is_contiguous() \
+            else t
+
+
+def _to_wire(x):
+    if isinstance(x, torch.Tensor):
+        return _Wire(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_wire(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_wire(v) for k, v in x.items()}
+    return x
+
+
+def _from_wire(x, device: torch.device):
+    if isinstance(x, _Wire):
+        return x.t.to(device)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_from_wire(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: _from_wire(v, device) for k, v in x.items()}
+    return x
+
+
+class _ModelLink:
+    """The seam between a tensor-parallel server's controller (the rank
+    at index 0 of the model axis) and the model group's other ranks:
+    the controller broadcasts each device program's name and operands
+    (`send`, one `broadcast_object_list` on the axis's process group),
+    the other ranks receive them in `PagedDecodeServer._follow` and run
+    the same program on their shards; `stop` ends their loop.
+    `bytes_sent` adds up the pickled messages the controller sent."""
+
+    def __init__(self, mesh, axis: str):
+        self.group = mesh.group(axis)
+        coords = dict(mesh.coords)
+        coords[axis] = 0
+        self.src = int(mesh.ranks[tuple(coords[a] for a in mesh.axis_names)])
+        self.controller = mesh.rank == self.src
+        self.depth = 0
+        self.stopped = False
+        self.bytes_sent = 0
+
+    def send(self, name: str, args: tuple, kw: dict) -> None:
+        msg = pickle.dumps((name, _to_wire(args), _to_wire(kw)))
+        self.bytes_sent += len(msg)
+        dist.broadcast_object_list([msg], src=self.src, group=self.group)
+
+    def recv(self):
+        msg = [None]
+        dist.broadcast_object_list(msg, src=self.src, group=self.group)
+        return None if msg[0] is None else pickle.loads(msg[0])
+
+    def stop(self) -> None:
+        if not self.stopped:
+            self.stopped = True
+            dist.broadcast_object_list([None], src=self.src,
+                                       group=self.group)
+
+
+def _program(fn):
+    """Mark a device program of the server: everything that touches the
+    sharded params or pool goes through here. Under `mesh=` it runs with
+    the mesh active (the tp collectives of its forward find their
+    group), and over a process group the controller first broadcasts the
+    program's name and its replicated host-fed operands to the model
+    group, whose ranks run the same program on their own shards. A
+    program called from inside another runs as part of it, unsent."""
+
+    @functools.wraps(fn)
+    def run(self, *args, **kw):
+        link = self._link
+        if self.mesh is None:
+            return fn(self, *args, **kw)
+        if link is not None and link.controller and link.depth == 0:
+            link.send(fn.__name__, args, kw)
+        if link is not None:
+            link.depth += 1
+        try:
+            with collectives.active(self.mesh), torch.no_grad():
+                return fn(self, *args, **kw)
+        finally:
+            if link is not None:
+                link.depth -= 1
+
+    return run
 
 
 def pinned_device(device) -> torch.device:
@@ -178,14 +328,6 @@ def pinned_device(device) -> torch.device:
             "device(s) here"
         )
     return torch.device("cuda", idx)
-
-
-def tree_to(tree, device: torch.device):
-    """A param tree on `device`; `.to` returns a leaf already there as
-    it is, so no copy is made."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def _pool_layer(pool, layer: int):
@@ -272,6 +414,94 @@ def _quantize_blocks(blocks: torch.Tensor):
     """[L, n, Hkv, bs, Dh] block stack -> (int8 payload, [L, n, Hkv] f32
     scales), the int8 pool's storage convention."""
     return quantize_symmetric(blocks.float(), axis=(-2, -1))
+
+
+def _gathered_view(pool_l, idx, dtype):
+    """A layer's contiguous [B, Hkv, MB * bs, Dh] view of the slots'
+    tables `idx` (a copy) in the compute dtype `dtype`: an int8 pool
+    dequantizes at the gather, the multiply in that dtype."""
+    if isinstance(pool_l, dict):
+        kc = dequantize_symmetric(pool_l["q"][idx],
+                                  pool_l["s"][idx][..., None, None], dtype)
+    else:
+        kc = pool_l[idx]  # [B, MB, Hkv, bs, Dh]
+    b, mb, hkv, bs, dh = kc.shape
+    return kc.transpose(1, 2).reshape(b, hkv, mb * bs, dh)
+
+
+def _mt_forward(dec, params, pool_k, pool_v, tables, pos, xin, n_keep,
+                keep_from, nb_live, attention, bs, *, first=0, last=None,
+                adapter=None, tp=None):
+    """The multi-token paged forward over layers [first, last) (all of
+    them by default) of `params` and of the pools, whose layer axes hold
+    exactly those layers: xin [B, T] ids when first == 0, else the
+    previous stage's [B, T, D] activations; row t of slot b at position
+    pos[b] + t, K/V read through the tables and the T new rows of every
+    layer scattered into its pool slice (a row the slot does not keep,
+    n_keep / keep_from, redirects to trash block 0). Returns the logits
+    [B, T, V] when last is the model's last layer, else the activations.
+    `attention`: "gathered", "blockwise" (the plain fold over nb_live
+    table columns) or "pallas" (the prefill kernel, T = 1 included).
+    The server's `_mt` is the whole stack; a pipeline stage
+    (`_PPLocalStage`) is its slice."""
+    L = dec.cfg.num_layers
+    last = L if last is None else last
+    window = dec.cfg.window
+    aid = adapter.long() if adapter is not None else None
+    b, t = xin.shape[:2]
+    mb = tables.shape[1]
+    dev = tables.device
+    steps = torch.arange(t, device=dev)
+    pvec = pos[:, None] + steps  # [B, T]
+    # The column clamp keeps headroom rows past the table (dead writes
+    # only) in range.
+    blk = tables.long().gather(1, (pvec // bs).clamp(max=mb - 1))
+    keep = (steps[None, :] < n_keep[:, None]) & (pvec >= keep_from[:, None])
+    dest = torch.where(keep, blk, 0)
+    rowi = pvec % bs
+    x = dec._embed_tokens(params, xin, pos, tp) if first == 0 else xin
+    stack = params["stack"]
+    if attention == "gathered":
+        plan = dec._plan(pos, t, mb * bs)
+        plan["adapter"] = aid
+        plan["tp"] = tp
+        idx = tables.long()
+        rows = torch.arange(b, device=dev)[:, None]
+        for layer in range(last - first):
+            pk_l = _pool_layer(pool_k, layer)
+            pv_l = _pool_layer(pool_v, layer)
+            kc = _gathered_view(pk_l, idx, dec.compute_dtype)
+            vc = _gathered_view(pv_l, idx, dec.compute_dtype)
+            x = dec._block(_layer_view(stack, layer), x, kc, vc, pos, plan)
+            # Multi-row scatter-back: T fresh rows per slot.
+            _pool_write_rows_mt(pk_l, dest, rowi, kc[rows, :, pvec])
+            _pool_write_rows_mt(pv_l, dest, rowi, vc[rows, :, pvec])
+    else:
+        # The multi-token sibling of `_decode`'s choice (the JAX package's
+        # `_blockwise_attend_mt` fold, or the prefill kernel).
+        attend = (
+            functools.partial(paged_flash_prefill_plain, num_blocks=nb_live)
+            if attention == "blockwise" else paged_flash_prefill
+        )
+        rope = dec._rope(pos, t)
+        for layer in range(last - first):
+            p = _layer_view(stack, layer)
+            pk_l = _pool_layer(pool_k, layer)
+            pv_l = _pool_layer(pool_v, layer)
+            q, k_new, v_new = dec._attn_qkv(p, x, rope, aid)
+            # Write-then-attend, on one stream.
+            _pool_write_rows_mt(pk_l, dest, rowi, k_new.transpose(1, 2))
+            _pool_write_rows_mt(pv_l, dest, rowi, v_new.transpose(1, 2))
+            _, hq, _, dh = q.shape
+            attn = attend(
+                q, _pool_arr(pk_l), _pool_arr(pv_l), tables, pos,
+                window=window, scale_k=_pool_scale(pk_l),
+                scale_v=_pool_scale(pv_l),
+            ).transpose(1, 2).reshape(b, t, hq * dh).to(x.dtype)
+            x = dec._attn_out(p, x, attn, aid, tp)
+    if last == L:
+        return dec._final_logits(params, x, tp)
+    return x
 
 
 class HostKVSpill:
@@ -549,6 +779,104 @@ class PrefixBlockCache:
         return len(self.by_key)
 
 
+# -- pipeline-parallel stages (PagedDecodeServer pp_stages=) ---------------
+
+
+class _PPLocalStage:
+    """One pipeline stage in this process: the stage's params
+    (GptDecoder.stage_params, views of the server's tree when the stage
+    sits on their device) and its [last - first, num_blocks, kv_heads,
+    block_size, Dh] slice of the paged pool, on one device; a device may
+    carry several stages (`[cuda:0] * 2` is two stages on one card).
+    `pp_dispatch` is the stage-boundary interface it shares with
+    `_PPTransportStage`: the six replicated operands in, the boundary
+    activation (or, on the last stage, the logits) out. Every stage
+    recomputes the write destinations from the tables and positions, so
+    each scatters its layers' K/V rows into its own pool slice; only the
+    [B, T, D] activation crosses a stage boundary. A decode round rides
+    it at T = 1 (n_keep 1, keep_from 0), a prefill chunk at T = chunk;
+    "pallas" takes the prefill kernel at T = 1 too, as the JAX package's
+    stage step does."""
+
+    def __init__(self, dec, params, first, last, *, num_blocks, block_size,
+                 attention, device):
+        device = torch.device(device)
+        if device != dec.device:
+            dec = dataclasses.replace(dec, device=device)
+        self.dec = dec
+        self.first = first
+        self.last = last
+        self.device = device
+        self.bs = block_size
+        self.attention = attention
+        cfg = dec.cfg
+        self.params = tree_to(dec.stage_params(params, first, last), device)
+        shape = (last - first, num_blocks, cfg.kv_heads, block_size,
+                 cfg.dim // cfg.num_heads)
+        self.pk = torch.zeros(shape, dtype=dec.compute_dtype, device=device)
+        self.pv = torch.zeros(shape, dtype=dec.compute_dtype, device=device)
+        self.pool_bytes = 2 * self.pk.numel() * self.pk.element_size()
+
+    def _put(self, a: torch.Tensor) -> torch.Tensor:
+        """An operand on this stage's device (the in-process activation
+        handoff; a no-op for a tensor already there)."""
+        return a.to(self.device, non_blocking=True)
+
+    @torch.no_grad()
+    def pp_dispatch(self, tables, pos, xin, n_keep, keep_from, adapter_ids):
+        tables = self._put(tables)
+        # The blockwise fold reads the table's whole span, as in a
+        # window: the positions stay on the device (the extra columns
+        # are fully masked and add nothing).
+        return _mt_forward(
+            self.dec, self.params, self.pk, self.pv, tables,
+            self._put(pos), self._put(xin), self._put(n_keep),
+            self._put(keep_from), tables.shape[1], self.attention, self.bs,
+            first=self.first, last=self.last,
+        )
+
+    def close(self) -> None:  # the interface _PPTransportStage shares
+        pass
+
+
+class _PPTransportStage:
+    """A pipeline stage served by ANOTHER process over the framed
+    transport (runtime/transport.py): `pp_dispatch` ships the six
+    operands through an ArraySender to the stage worker
+    (runtime/remote_stage.py serve_pp_stage, which wraps a
+    _PPLocalStage) and blocks on its one result array from the paired
+    ArrayReceiver. The round trip is synchronous a dispatch: this
+    placement is the cross-host tier, not an overlap win. `spec` is
+    (host, port, result_receiver): the worker's listen address and the
+    caller's ArrayReceiver its results arrive on. `host_s` adds up the
+    host seconds of the round trips."""
+
+    def __init__(self, spec, *, first, last, pool_bytes=0):
+        host, port, receiver = spec
+        self.first = first
+        self.last = last
+        self.pool_bytes = pool_bytes
+        self._send = ArraySender(host, port)
+        self._it = iter(receiver)
+        self.host_s = 0.0
+        self.round_trips = 0
+
+    def pp_dispatch(self, tables, pos, xin, n_keep, keep_from, adapter_ids):
+        t0 = time.perf_counter()
+        for a in (tables, pos, xin, n_keep, keep_from, adapter_ids):
+            # The stage boundary is a host transport here: framing an
+            # operand copies it to the host.
+            self._send.send(a)
+        out = next(self._it)
+        self.host_s += time.perf_counter() - t0
+        self.round_trips += 1
+        return out
+
+    def close(self) -> None:
+        """Send the STOP frame, so the worker's serve loop exits."""
+        self._send.close()
+
+
 class PagedDecodeServer:
     """Continuous batching over a paged KV pool; greedy by default,
     per-request sampling via `submit(..., sampling=)`.
@@ -626,8 +954,16 @@ class PagedDecodeServer:
 
         `device=`: the one device the server, its pool and its params
         live on (default: `dec.device`); a device this process does not
-        have raises. `mesh=` and `pp_*` raise NotImplementedError,
-        naming their ROADMAP Queue 1 item."""
+        have raises. `mesh=` / `model_axis`: tensor-parallel serving
+        over the mesh's model axis, every rank of it constructing the
+        server with the same arguments and the WHOLE params (the module
+        docstring); `run()` on any rank but the controller follows the
+        controller's dispatches. `pp_stages` / `pp_inflight` /
+        `pp_cuts` / `pp_devices` / `pp_remote` / `pp_balance`: pipeline-
+        parallel serving (the module docstring). The JAX package's
+        refusals come first, word for word; then pp x tp, and a mesh
+        axis beside the model axis, raise NotImplementedError naming
+        ROADMAP Queue 1 item 7."""
         if getattr(dec, "rolling_cache", False):
             raise ValueError("paged serving does not support rolling caches")
         # Multi-LoRA: adapter banks make the slot -> adapter assignment
@@ -735,6 +1071,7 @@ class PagedDecodeServer:
             )
         if pp_stages < 1:
             raise ValueError(f"pp_stages must be >= 1, got {pp_stages}")
+        self.pp = pp_stages
         if pp_stages == 1 and (
             pp_inflight is not None
             or pp_cuts is not None
@@ -745,16 +1082,38 @@ class PagedDecodeServer:
                 "pp_inflight/pp_cuts/pp_devices/pp_remote only apply "
                 "with pp_stages > 1"
             )
+        pp_m = 1
         if pp_stages > 1:
-            raise _not_ported(
-                "pipeline-parallel serving (pp_stages > 1)", "7"
+            pp_m = self._check_pp(
+                dec, pp_stages, pp_inflight, max_batch, spec_k=spec_k,
+                constraints=constraints, prefix_ids=prefix_ids,
+                spill_bytes=spill_bytes, kv_dtype=kv_dtype, device=device,
+                pp_balance=pp_balance,
             )
-        if pp_balance not in ("equal", "probe"):
-            raise ValueError(
-                f"pp_balance must be 'equal' or 'probe', got {pp_balance!r}"
-            )
+        self.mesh = mesh
+        self.model_axis = model_axis
+        self.tp = 1
+        self._sdec = None
+        # The seam exists once construction is done: construction runs
+        # the same programs on every rank by itself.
+        self._link = None
+        link = None
         if mesh is not None:
-            raise _not_ported("tensor-parallel serving (mesh=)", "7")
+            self.tp = self._check_mesh(dec, mesh, model_axis, pp_stages,
+                                       pp_stage_axis)
+            device = mesh.local_device
+            # The server's own sharded view of the decoder: the param
+            # placement, the vocab padding and the sharded flat prefill.
+            self._sdec = SpmdGptDecoder(
+                dec.cfg, compute_dtype=dec.compute_dtype, mesh=mesh,
+                tp_axis=model_axis, device=device,
+            )
+            params = self._sdec.shard_params(params)
+            if mesh.distributed and self.tp > 1:
+                link = _ModelLink(mesh, model_axis)
+        # The rank that holds the host state: every rank but the model
+        # group's followers.
+        self.controller = link is None or link.controller
         if device is not None:
             # Pin the server, its pool and its params to `device`: the
             # decoder (and a draft) is replaced by one placed there, so
@@ -776,8 +1135,15 @@ class PagedDecodeServer:
         self.dec = dec
         self.params = params
         self.device = dec.device
-        # The fleet's per-replica stats read it; a mesh is item 7.
-        self.mesh_label = None
+        # The fleet's per-replica stats read it.
+        self.mesh_label = f"{model_axis}={self.tp}" if mesh is not None \
+            else None
+        # Collectives one sharded forward issues: an attention and an FFN
+        # psum a layer, the embedding psum and the logits all_gather
+        # (the defer_tp_psum_total mirror; 0 without a mesh).
+        self._psums_per_fwd = (2 * dec.cfg.num_layers + 2
+                               if mesh is not None else 0)
+        self.tp_psums = 0
         self.B = max_batch
         self.bs = block_size
         self.eos_id = eos_id
@@ -786,13 +1152,19 @@ class PagedDecodeServer:
         self.MB = -(-cfg.max_len // block_size)
         self.num_blocks = num_blocks
         dh = cfg.dim // cfg.num_heads
-        pool_shape = (cfg.num_layers, num_blocks, cfg.kv_heads, block_size, dh)
+        # Under a mesh this rank's shard: its kv_heads / tp heads of every
+        # block, allocated as the shard.
+        pool_shape = (cfg.num_layers, num_blocks, cfg.kv_heads // self.tp,
+                      block_size, dh)
         # An int8 pool is a {"q", "s"} pair per K and V: int8 rows and one
         # f32 scale per (layer, block, KV head), at 1.0 so a never-written
         # block dequantizes to the zeros an fp pool holds.
         scale_shape = pool_shape[:3]
         pools = []
-        for _ in range(2):
+        # Pipeline-parallel: the pool never exists whole; each stage
+        # allocates its own layer slice (built below), and a path that
+        # would touch a whole pool fails on the None.
+        for _ in range(2 if self.pp == 1 else 0):
             if kv_dtype == "int8":
                 pools.append({
                     "q": torch.zeros(pool_shape, dtype=torch.int8,
@@ -803,8 +1175,9 @@ class PagedDecodeServer:
             else:
                 pools.append(torch.zeros(pool_shape, dtype=dec.compute_dtype,
                                          device=self.device))
-        self.pool_k, self.pool_v = pools
-        self.pool_bytes = sum(
+        self.pool_k, self.pool_v = pools or (None, None)
+        # The whole pool's bytes (every shard's under a mesh).
+        self.pool_bytes = self.tp * sum(
             t.numel() * t.element_size()
             for pool in pools
             for t in (pool.values() if isinstance(pool, dict) else [pool])
@@ -854,11 +1227,31 @@ class PagedDecodeServer:
         # constrained).
         self.graph_replays = 0
         self.graph_captures = 0
+        # Windows are captured CUDA graphs on a card, but never under a
+        # mesh: a gloo collective cannot be captured, so a mesh window
+        # runs its K sub-steps eagerly (the same sub-steps, the same
+        # tokens), one dispatch of each program to the model group.
+        self._captures = self.device.type == "cuda" and mesh is None
         self._graphs: dict[tuple, Any] = {}
         self._wbuf: dict | None = None
         # Prefill chunks run through the multi-token step (host count).
         self.prefill_chunks = 0
-        self.obs = ServingMetrics("paged")
+        self.obs = ServingMetrics("paged", mesh_shape=self.mesh_label)
+        # The stage chain (pp_stages > 1): resolve the cuts, build one
+        # stage per contiguous layer range, and account the pool as the
+        # sum of the stages' slices.
+        self._pp_stage_objs: list = []
+        self._pp_cut_starts: list[int] = [0]
+        self._pp_inflight = pp_m
+        self._pp_groups: list[list[int]] = []
+        self.pp_stage_pool_bytes: list[int] = []
+        self.pp_stage_dispatch_n: list[int] = []
+        self.pp_bubble_last = 0.0
+        self.pp_occupancy_last: list[float] = []
+        if self.pp > 1:
+            self._build_pp(pp_cuts, pp_balance, pp_remote, pp_devices)
+            self.obs.bind_pp(self.pp)
+            self.obs.pp_inflight.set(float(pp_m))
         self.obs.kv_pool_bytes.set(self.pool_bytes)
         self._submit_t: dict[int, float] = {}
         self._last_tick_t: float | None = None
@@ -898,10 +1291,11 @@ class PagedDecodeServer:
         self.mixed_prefill_tokens_n = 0
         self.mixed_ticks_n = 0
         self.decode_stall_fraction_last = 0.0
-        # The draft's flat lanes (runtime/decode_server.py DraftLanes).
+        # The draft's flat lanes (runtime/decode_server.py DraftLanes), a
+        # whole replicated model the controller alone runs under a mesh.
         self._draft = (
             DraftLanes(spec_draft, spec_params, max_batch, target=dec)
-            if spec_k
+            if spec_k and self.controller
             else None
         )
         self.spec_rounds_n = 0
@@ -927,7 +1321,8 @@ class PagedDecodeServer:
                     "prefix_cache + multi-LoRA is unsupported: cached "
                     "prefix K/V would be adapter-dependent"
                 )
-            if spill_bytes:
+            if spill_bytes and self.controller:
+                # The controller holds the store whole under a mesh.
                 self._spill = HostKVSpill(spill_bytes, obs=self.obs)
             self.radix = PrefixBlockCache(
                 obs=self.obs,
@@ -966,14 +1361,265 @@ class PagedDecodeServer:
             # the pool's single shared copy, and the contiguous lane stays
             # for suffix admissions (the suffix prefill attends it at
             # offset P).
-            pre = dec.init_cache(1)
-            _, pre = dec.make_step()(params, pre, prefix_ids.to(self.device))
             self.shared_blocks = [self.free.pop() for _ in range(n_shared)]
             shared_row = np.zeros((self.MB,), np.int32)
             shared_row[:n_shared] = self.shared_blocks
-            self._insert(pre["k"], pre["v"], shared_row, 0, n_shared)
-            self._prefix_cache = pre
+            self._prefill_prefix(prefix_ids.to(self.device), shared_row,
+                                 n_shared)
             self.prefix_len = P
+        self._link = link
+
+    def _build_pp(self, pp_cuts, pp_balance, pp_remote, pp_devices) -> None:
+        """The stage chain: cuts (explicit, probed or equal), then one
+        stage a range, local (`pp_devices`, round-robin; every CUDA
+        device by default) or behind the transport (`pp_remote`)."""
+        cfg = self.dec.cfg
+        L = cfg.num_layers
+        devs = (list(pp_devices) if pp_devices is not None
+                else cuda_devices())
+        if pp_cuts is not None:
+            starts = [int(c) for c in pp_cuts]
+            if (
+                len(starts) != self.pp
+                or starts[0] != 0
+                or any(b <= a for a, b in zip(starts, starts[1:]))
+                or starts[-1] >= L
+            ):
+                raise ValueError(
+                    f"pp_cuts={starts} must be {self.pp} strictly "
+                    f"increasing stage START layers beginning at 0 "
+                    f"and below num_layers={L} (e.g. [0, "
+                    f"{L // 2}] for 2 stages). Fix: pass valid "
+                    "cut starts, or drop pp_cuts for balanced "
+                    "ones."
+                )
+        elif pp_balance == "probe":
+            starts = balance_stage_cuts(
+                self._probe_pp_layer_costs(devs[0]), self.pp)
+        else:
+            # Equal layer counts: the min-max split of unit costs.
+            starts = balance_stage_cuts([1.0] * L, self.pp)
+        bounds = starts + [L]
+        remote = pp_remote or {}
+        if any(s not in range(self.pp) for s in remote):
+            raise ValueError(
+                f"pp_remote stage indices {sorted(remote)} must "
+                f"lie in [0, {self.pp})"
+            )
+        itemsize = torch.tensor([], dtype=self.dec.compute_dtype
+                                ).element_size()
+        for s in range(self.pp):
+            first, last = bounds[s], bounds[s + 1]
+            if s in remote:
+                # The worker owns the slice; its bytes are accounted
+                # here so that the per-stage pool stays inspectable.
+                stage = _PPTransportStage(
+                    remote[s], first=first, last=last,
+                    pool_bytes=2 * (last - first) * self.num_blocks
+                    * cfg.kv_heads * self.bs * (cfg.dim // cfg.num_heads)
+                    * itemsize,
+                )
+            else:
+                stage = _PPLocalStage(
+                    self.dec, self.params, first, last,
+                    num_blocks=self.num_blocks, block_size=self.bs,
+                    attention=self.attention, device=devs[s % len(devs)],
+                )
+            self._pp_stage_objs.append(stage)
+        self._pp_cut_starts = starts
+        self._pp_groups = microbatch_groups(self.B, self._pp_inflight)
+        self.pp_stage_pool_bytes = [st.pool_bytes
+                                    for st in self._pp_stage_objs]
+        self.pool_bytes = sum(self.pp_stage_pool_bytes)
+        self.pp_stage_dispatch_n = [0] * self.pp
+
+    def _probe_pp_layer_costs(self, device) -> list[float]:
+        """Per-layer step cost for pp_balance="probe"
+        (parallel/pipeline.py probe_latency): each layer in a throwaway
+        one-layer stage with a 2-block pool, timed on a [1, 1] decode
+        round; layer 0 carries the embedding and the last layer the
+        final norm and head, the work a stage holding them runs."""
+        cfg = self.dec.cfg
+        dev = torch.device(device)
+        i32 = dict(dtype=torch.int32, device=dev)
+        tab = torch.zeros((1, self.MB), **i32)
+        pos = torch.zeros((1,), **i32)
+        nk = torch.ones((1,), **i32)
+        kf = torch.zeros((1,), **i32)
+        ids = torch.zeros((1, 1), **i32)
+        act = torch.zeros((1, 1, cfg.dim), dtype=self.dec.compute_dtype,
+                          device=dev)
+        costs = []
+        for layer in range(cfg.num_layers):
+            stage = _PPLocalStage(
+                self.dec, self.params, layer, layer + 1, num_blocks=2,
+                block_size=self.bs, attention=self.attention, device=dev,
+            )
+            xin = ids if layer == 0 else act
+            sample = probe_latency(stage.pp_dispatch, tab, pos, xin, nk, kf,
+                                   kf, iters=3)
+            costs.append(sample["amortized_s"])
+        return costs
+
+    def _check_pp(self, dec, pp_stages, pp_inflight, max_batch, *, spec_k,
+                  constraints, prefix_ids, spill_bytes, kv_dtype, device,
+                  pp_balance) -> int:
+        """The JAX package's pp_stages > 1 refusals, in its order;
+        returns the in-flight microbatch count M."""
+        if pp_stages > dec.cfg.num_layers:
+            raise ValueError(
+                f"pp_stages={pp_stages} exceeds num_layers="
+                f"{dec.cfg.num_layers}: every stage needs at least "
+                "one layer. Fix: lower pp_stages (or serve a "
+                "deeper model)."
+            )
+        if spec_k:
+            raise ValueError(
+                "spec_k > 0 does not compose with pp_stages > 1 "
+                "yet: the draft lane proposes against a monolithic "
+                "pool and the verify forward would have to thread "
+                "k+1 candidate rows through every stage boundary. "
+                "Fix: serve speculation on a pp_stages=1 server, "
+                "or set spec_k=0 here."
+            )
+        if constraints is not None:
+            raise ValueError(
+                "constraints= does not compose with pp_stages > 1 "
+                "yet: the DFA advance is fused into the monolithic "
+                "window program. Fix: serve constrained requests "
+                "on a pp_stages=1 server."
+            )
+        if self.multi_lora:
+            raise ValueError(
+                "multi-LoRA does not compose with pp_stages > 1: "
+                "adapter banks are not stage-sliced. Fix: merge "
+                "the adapter (parallel/lora.py) or serve adapters "
+                "on pp_stages=1."
+            )
+        if prefix_ids is not None:
+            raise ValueError(
+                "constructor prefix_ids does not compose with "
+                "pp_stages > 1: the one-shot prefix insert runs "
+                "through the monolithic flat path. Fix: use "
+                "prefix_cache=True (shares prefixes per request, "
+                "pool-native) instead."
+            )
+        if spill_bytes:
+            raise ValueError(
+                "spill_bytes > 0 does not compose with "
+                "pp_stages > 1 yet: spill snapshots slice a "
+                "monolithic pool. Fix: set spill_bytes=0 (evicted "
+                "prefix blocks are then re-prefilled)."
+            )
+        if kv_dtype != "fp":
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} does not compose with "
+                "pp_stages > 1 yet: the per-stage pool slices are "
+                "compute-dtype only. Fix: use kv_dtype='fp' with "
+                "pp, or int8 on a pp_stages=1 server."
+            )
+        if device is not None:
+            raise ValueError(
+                "device= pins ONE device but pp_stages > 1 places "
+                "each stage on its own. Fix: pass the stage "
+                "placement as pp_devices=[dev0, dev1, ...] "
+                "instead."
+            )
+        if pp_balance not in ("equal", "probe"):
+            raise ValueError(
+                f"pp_balance must be 'equal' or 'probe', got "
+                f"{pp_balance!r}"
+            )
+        pp_m = (pp_inflight if pp_inflight is not None
+                else min(pp_stages, max_batch))
+        if pp_m < 1:
+            raise ValueError(f"pp_inflight must be >= 1, got {pp_m}")
+        if max_batch % pp_m:
+            raise ValueError(
+                f"max_batch={max_batch} does not divide into "
+                f"pp_inflight={pp_m} equal microbatch slot "
+                "groups. Fix: pick max_batch a multiple of "
+                "pp_inflight (or pass pp_inflight= a divisor of "
+                "max_batch)."
+            )
+        return pp_m
+
+    def _check_mesh(self, dec, mesh, model_axis, pp_stages,
+                    pp_stage_axis) -> int:
+        """The JAX package's mesh= refusals, in its order, then what the
+        port does not serve yet; returns the model axis size."""
+        if getattr(dec, "mesh", None) is not None:
+            raise ValueError(
+                "pass the plain single-device decoder together "
+                "with mesh= — the server builds its own sharded "
+                "step (an SpmdGptDecoder here would double-wrap "
+                "shard_map)"
+            )
+        if model_axis not in mesh.axis_names:
+            raise ValueError(
+                f"model_axis {model_axis!r} is not an axis of the "
+                f"mesh (axes: {mesh.axis_names}); build the mesh "
+                f"with parallel.mesh.make_mesh({{{model_axis!r}: "
+                "N})"
+            )
+        tp = int(mesh.shape[model_axis])
+        kvh = dec.cfg.kv_heads
+        if kvh < tp:
+            raise ValueError(
+                f"GQA num_kv_heads={kvh} is smaller than the "
+                f"{model_axis!r} axis size {tp}: the paged pool "
+                "shards whole KV heads, so some devices would own "
+                "none. Fix: serve on a mesh whose model axis has "
+                f"at most {kvh} devices (put the rest on a data "
+                "axis), or replicate KV heads in the checkpoint."
+            )
+        if kvh % tp:
+            fit = max(d for d in range(1, kvh + 1)
+                      if kvh % d == 0 and d <= tp)
+            raise ValueError(
+                f"num_kv_heads={kvh} does not divide by the "
+                f"{model_axis!r} axis size {tp}: each device must "
+                "own an equal whole-head slice of the paged pool. "
+                f"Fix: use a model axis size that divides {kvh} "
+                f"(largest that fits: {fit}), or pad kv_heads to "
+                f"a multiple of {tp} in the checkpoint."
+            )
+        if self.multi_lora:
+            raise ValueError(
+                "mesh= with multi-LoRA is unsupported: the adapter "
+                "banks are not sharded — serve adapters on "
+                "mesh=None"
+            )
+        if pp_stages > 1:
+            if pp_stage_axis not in mesh.axis_names:
+                raise ValueError(
+                    f"pp_stages={pp_stages} with mesh= needs a "
+                    f"{pp_stage_axis!r} mesh axis for the stage "
+                    f"dimension (axes: {mesh.axis_names}). Fix: "
+                    "build the mesh with parallel.multihost."
+                    f"make_multihost_mesh({{{pp_stage_axis!r}: "
+                    f"{pp_stages}, {model_axis!r}: tp}})."
+                )
+            if int(mesh.shape[pp_stage_axis]) != pp_stages:
+                raise ValueError(
+                    f"mesh {pp_stage_axis!r} axis has size "
+                    f"{int(mesh.shape[pp_stage_axis])} but "
+                    f"pp_stages={pp_stages}; the two must match"
+                )
+            raise _not_ported(
+                "pipeline x tensor parallel serving (pp_stages > 1 with "
+                "mesh=, stage_submeshes)", "7"
+            )
+        others = [a for a, n in mesh.shape.items()
+                  if a != model_axis and n > 1]
+        if others:
+            raise _not_ported(
+                f"mesh= with a {others[0]!r} axis beside the model axis "
+                "(replicas on a data axis, the fleet's model_axis_size)",
+                "7",
+            )
+        check_process_group(mesh)
+        return tp
 
     # -- public API -------------------------------------------------------
 
@@ -994,6 +1640,7 @@ class PagedDecodeServer:
         generator. `stop`: optional multi-token stop sequences; the
         request finishes the moment its generated tail equals one,
         freeing its blocks mid-budget."""
+        self._controller_only("submit")
         if prompt_ids.ndim != 2 or prompt_ids.shape[0] != 1:
             raise ValueError("submit one request at a time ([1, T])")
         cid = 0
@@ -1080,6 +1727,16 @@ class PagedDecodeServer:
         full prompt blocks register in the radix cache; spec_k > 0
         composes: the draft lane re-prefills locally from the prompt
         ids)."""
+        self._controller_only("submit_prefilled")
+        if self.pp > 1:
+            raise ValueError(
+                "disagg ingest (submit_prefilled/deliver_kv) does not "
+                "compose with pp_stages > 1 yet: delivered KV blocks "
+                "target a monolithic pool, not per-stage slices. Fix: "
+                "point the prefill worker at a pp_stages=1 decode "
+                "server, or submit() so prefill runs through the "
+                "stage chain."
+            )
         if self.shared_blocks or self.prefix_len:
             raise ValueError(
                 "externally prefilled admission does not compose with "
@@ -1144,6 +1801,7 @@ class PagedDecodeServer:
         token is drawn from it). Thread-safe against the serving loop:
         this only assigns the entry's "kv" field; the pool is touched by
         `_admit` on the serving thread alone."""
+        self._controller_only("deliver_kv")
         entry = self.pending_prefilled.get(rid)
         if entry is None:
             raise KeyError(f"no pending prefilled request {rid}")
@@ -1185,6 +1843,7 @@ class PagedDecodeServer:
         thread could copy rows mid-write. Fleet replicas run this as an
         ops-queue command between ticks. The copy is self-contained:
         once returned, eviction here cannot hurt the importer."""
+        self._controller_only("export_prefix_blocks")
         if self.radix is None:
             raise ValueError("export needs prefix_cache=True")
         blks: list[int] = []
@@ -1195,6 +1854,14 @@ class PagedDecodeServer:
                 return None  # evicted since the advert; stale route
             blks.append(blk)
             toks.append(self.radix.tok_of[blk])
+        k, v = self._export_blocks(blks)
+        return toks, k, v
+
+    @_program
+    def _export_blocks(self, blks: list[int]) -> list:
+        """K and V [L, n, Hkv, bs, Dh] stacks of pool blocks `blks` as CPU
+        tensors in the compute dtype, every head (gathered under a mesh);
+        an int8 pool dequantizes first."""
         idx = self._upload(blks).long()
         out = []
         for pool in (self.pool_k, self.pool_v):
@@ -1209,8 +1876,8 @@ class PagedDecodeServer:
                 blocks = pool[:, idx]
             # The copy to host memory IS the operation: a migration ships
             # the payload over a host wire.
-            out.append(blocks.cpu())
-        return toks, out[0], out[1]
+            out.append(self._all_heads(blocks).cpu())
+        return out
 
     def import_prefix_blocks(self, toks: list[bytes], k_blocks,
                              v_blocks) -> int:
@@ -1229,6 +1896,7 @@ class PagedDecodeServer:
         SERVING-THREAD ONLY, as export. The JAX package pads the span to
         a power of two for its compile shapes; eager writes need no pad,
         and the count and the radix state are the same."""
+        self._controller_only("import_prefix_blocks")
         if self.radix is None:
             raise ValueError("import needs prefix_cache=True")
         n = len(toks)
@@ -1261,17 +1929,8 @@ class PagedDecodeServer:
         if take == 0:
             return 0
         own = [self.free.pop() for _ in range(take)]
-        dest = self._upload(own).long()
-        for pool, arr in ((self.pool_k, k_blocks), (self.pool_v, v_blocks)):
-            blocks = torch.as_tensor(arr)[:, m : m + take].to(
-                self.device, self.dec.compute_dtype
-            )
-            if isinstance(pool, dict):
-                q, sc = _quantize_blocks(blocks)
-                pool["q"][:, dest] = q
-                pool["s"][:, dest] = sc
-            else:
-                pool[:, dest] = blocks
+        self._import_blocks(own, k_blocks[:, m : m + take],
+                            v_blocks[:, m : m + take])
         for j, blk in enumerate(own):
             displaced = self.radix.register(keys[m + j], toks[m + j], blk)
             if displaced is not None:
@@ -1283,10 +1942,33 @@ class PagedDecodeServer:
         self._update_pool_gauges()
         return take
 
+    @_program
+    def _import_blocks(self, own: list[int], k_blocks, v_blocks) -> None:
+        """Write full migrated K/V block stacks [L, n, Hkv, bs, Dh] into
+        pool blocks `own` with one indexed write a pool, this rank's
+        heads under a mesh; an int8 pool quantizes them per (layer,
+        block, head) as they land."""
+        dest = self._upload(own).long()
+        for pool, arr in ((self.pool_k, k_blocks), (self.pool_v, v_blocks)):
+            blocks = self._heads(torch.as_tensor(arr)).to(
+                self.device, self.dec.compute_dtype
+            )
+            if isinstance(pool, dict):
+                q, sc = _quantize_blocks(blocks)
+                pool["q"][:, dest] = q
+                pool["s"][:, dest] = sc
+            else:
+                pool[:, dest] = blocks
+
     def run(self) -> dict[int, torch.Tensor]:
         """Serve until every submitted request completes; returns
         {request_id: ids [1, T0 + num_steps]} (shorter when eos or a
-        stop sequence ended a request early)."""
+        stop sequence ended a request early). On a follower rank of a
+        mesh, run the controller's dispatches until it closes, and
+        return an empty dict."""
+        if not self.controller:
+            self._follow()
+            return {}
         while self.step():
             pass
         return self.done
@@ -1300,6 +1982,7 @@ class PagedDecodeServer:
         can drive and time steady ticks through it. A round with nothing
         seated while externally prefilled requests wait for their KV
         yields for a millisecond instead of spinning."""
+        self._controller_only("step")
         if not (self.pending or self.pending_prefilled or any(self.slots)):
             return False
         self._admit()
@@ -1335,6 +2018,73 @@ class PagedDecodeServer:
         without spill_bytes."""
         if self._spill is not None:
             self._spill.flush()
+
+    # -- the mesh ---------------------------------------------------------
+
+    def _tp_axis(self):
+        """The tp axis the bodies thread through the decoder's hooks: the
+        mesh's model axis when serving sharded, None otherwise (with None
+        every body runs exactly the single-device program)."""
+        return self.model_axis if self.mesh is not None else None
+
+    def _flat_dec(self):
+        """The decoder of the flat (contiguous-lane) prefill programs:
+        under a mesh the server's SpmdGptDecoder view, whose lanes hold
+        this rank's heads; otherwise the server's decoder."""
+        return self._sdec if self._sdec is not None else self.dec
+
+    def _account_psums(self, n_forwards: int) -> None:
+        """Count the collectives `n_forwards` sharded forwards issue (2L
+        + 2 each: the host mirror of defer_tp_psum_total); a no-op
+        without a mesh."""
+        if self._psums_per_fwd:
+            n = self._psums_per_fwd * n_forwards
+            self.tp_psums += n
+            self.obs.tp_psums.inc(n)
+
+    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's heads (axis 2, shared by the [L, n, Hkv, bs, Dh]
+        block stacks, the [L, 1, Hkv, S, Dh] lanes and the [L, n, Hkv]
+        int8 scales) of a whole-head tensor; the tensor itself without a
+        mesh. Full-head K/V from the host lands sharded this way."""
+        if self.tp == 1:
+            return t
+        h = t.shape[2] // self.tp
+        return t.narrow(2, collectives.axis_index(self.model_axis) * h, h)
+
+    def _all_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """The inverse of `_heads`: every rank's heads, gathered on axis
+        2 (on every rank of the model group)."""
+        if self.tp == 1:
+            return t
+        return collectives.all_gather(t.contiguous(), self.model_axis, dim=2)
+
+    def _follow(self) -> None:
+        """A follower rank's serving loop: run each program the
+        controller dispatches, on this rank's shards, until it closes."""
+        link = self._link
+        while True:
+            msg = link.recv()
+            if msg is None:
+                return
+            name, args, kw = msg
+            getattr(self, name)(*_from_wire(args, self.device),
+                                **_from_wire(kw, self.device))
+
+    def close(self) -> None:
+        """Release the model group: the controller's STOP ends the
+        followers' loops (their `run` returns). Idempotent; a no-op
+        without a process group."""
+        if self._link is not None and self.controller:
+            self._link.stop()
+
+    def _controller_only(self, what: str) -> None:
+        if not self.controller:
+            raise RuntimeError(
+                f"{what} runs on the controller (the rank at index 0 of "
+                f"the {self.model_axis!r} axis); this rank follows its "
+                "dispatches in run()"
+            )
 
     # -- pool programs ----------------------------------------------------
 
@@ -1408,20 +2158,6 @@ class PagedDecodeServer:
             )
         return out
 
-    def _gathered_view(self, pool_l, idx):
-        """A layer's contiguous [B, Hkv, MB * bs, Dh] view of the
-        slots' tables (a copy) in the compute dtype: an int8 pool
-        dequantizes at the gather, the multiply in that dtype."""
-        if isinstance(pool_l, dict):
-            kc = dequantize_symmetric(
-                pool_l["q"][idx], pool_l["s"][idx][..., None, None],
-                self.dec.compute_dtype,
-            )
-        else:
-            kc = pool_l[idx]  # [B, MB, Hkv, bs, Dh]
-        b, mb, hkv, bs, dh = kc.shape
-        return kc.transpose(1, 2).reshape(b, hkv, mb * bs, dh)
-
     @torch.no_grad()
     def _step(self, nb_live: int) -> torch.Tensor:
         """One decode tick over every slot: the feed [B, 1] at the
@@ -1431,6 +2167,7 @@ class PagedDecodeServer:
         return self._decode(self._tables_dev, self._pos_dev, self._feed,
                             nb_live)
 
+    @_program
     @torch.no_grad()
     def _decode(self, tables, pos, feed, nb_live: int) -> torch.Tensor:
         """The T=1 paged step on explicit device inputs: the K=1 tick
@@ -1444,25 +2181,28 @@ class PagedDecodeServer:
         params = self.params
         window = dec.cfg.window
         aid = self._adapters()
-        x = dec._embed_tokens(params, feed, pos)
+        tp = self._tp_axis()
+        self._account_psums(1)
+        x = dec._embed_tokens(params, feed, pos, tp)
         blk_w = tables.gather(1, (pos // bs).long()[:, None])[:, 0].long()
         row_w = (pos % bs).long()
         stack = params["stack"]
         if self.attention == "gathered":
             plan = dec._plan(pos, 1, self.MB * bs)
             plan["adapter"] = aid
+            plan["tp"] = tp
             idx = tables.long()
             posl = pos.long()
             for layer in range(dec.cfg.num_layers):
                 pk_l = _pool_layer(self.pool_k, layer)
                 pv_l = _pool_layer(self.pool_v, layer)
-                kc = self._gathered_view(pk_l, idx)
-                vc = self._gathered_view(pv_l, idx)
+                kc = _gathered_view(pk_l, idx, dec.compute_dtype)
+                vc = _gathered_view(pv_l, idx, dec.compute_dtype)
                 x = dec._block(_layer_view(stack, layer), x, kc, vc, pos, plan)
                 # Scatter ONLY the new row back to its page.
                 _pool_write_rows(pk_l, blk_w, row_w, kc[self._rows, :, posl])
                 _pool_write_rows(pv_l, blk_w, row_w, vc[self._rows, :, posl])
-            return dec._final_logits(params, x)
+            return dec._final_logits(params, x, tp)
         # "blockwise" folds table columns 0..nb_live-1 in plain PyTorch
         # (the JAX package's `_blockwise_attend`); "pallas" launches the
         # kernel, each slot reading its own live blocks.
@@ -1486,9 +2226,10 @@ class PagedDecodeServer:
                 window=window, scale_k=_pool_scale(pk_l),
                 scale_v=_pool_scale(pv_l),
             ).to(x.dtype).reshape(b, 1, hq * dh)
-            x = dec._attn_out(p, x, attn, aid)
-        return dec._final_logits(params, x)
+            x = dec._attn_out(p, x, attn, aid, tp)
+        return dec._final_logits(params, x, tp)
 
+    @_program
     @torch.no_grad()
     def _mt(self, tables, pos, ids, n_keep, keep_from, nb_live,
             adapter=None):
@@ -1502,61 +2243,12 @@ class PagedDecodeServer:
         rows' LoRA adapter ids (None without banks). Serves chunked
         prefill, mixed ticks and the speculative verify. Returns logits
         [B, T, V]."""
-        dec, bs, mb = self.dec, self.bs, self.MB
-        params = self.params
-        window = dec.cfg.window
-        aid = adapter.long() if adapter is not None else None
-        b, t = ids.shape
-        steps = torch.arange(t, device=self.device)
-        pvec = pos[:, None] + steps  # [B, T]
-        # The column clamp keeps headroom rows past the table (dead
-        # writes only) in range.
-        blk = tables.long().gather(1, (pvec // bs).clamp(max=mb - 1))
-        keep = (steps[None, :] < n_keep[:, None]) & (
-            pvec >= keep_from[:, None]
+        self._account_psums(1)
+        return _mt_forward(
+            self.dec, self.params, self.pool_k, self.pool_v, tables, pos,
+            ids, n_keep, keep_from, nb_live, self.attention, self.bs,
+            adapter=adapter, tp=self._tp_axis(),
         )
-        dest = torch.where(keep, blk, 0)
-        rowi = pvec % bs
-        x = dec._embed_tokens(params, ids, pos)
-        stack = params["stack"]
-        if self.attention == "gathered":
-            plan = dec._plan(pos, t, mb * bs)
-            plan["adapter"] = aid
-            idx = tables.long()
-            rows = torch.arange(b, device=self.device)[:, None]
-            for layer in range(dec.cfg.num_layers):
-                pk_l = _pool_layer(self.pool_k, layer)
-                pv_l = _pool_layer(self.pool_v, layer)
-                kc = self._gathered_view(pk_l, idx)
-                vc = self._gathered_view(pv_l, idx)
-                x = dec._block(_layer_view(stack, layer), x, kc, vc, pos, plan)
-                # Multi-row scatter-back: T fresh rows per slot.
-                _pool_write_rows_mt(pk_l, dest, rowi, kc[rows, :, pvec])
-                _pool_write_rows_mt(pv_l, dest, rowi, vc[rows, :, pvec])
-            return dec._final_logits(params, x)
-        # The multi-token sibling of `_decode`'s choice (the JAX package's
-        # `_blockwise_attend_mt` fold, or the prefill kernel).
-        attend = (
-            functools.partial(paged_flash_prefill_plain, num_blocks=nb_live)
-            if self.attention == "blockwise" else paged_flash_prefill
-        )
-        rope = dec._rope(pos, t)
-        for layer in range(dec.cfg.num_layers):
-            p = _layer_view(stack, layer)
-            pk_l = _pool_layer(self.pool_k, layer)
-            pv_l = _pool_layer(self.pool_v, layer)
-            q, k_new, v_new = dec._attn_qkv(p, x, rope, aid)
-            # Write-then-attend, on one stream.
-            _pool_write_rows_mt(pk_l, dest, rowi, k_new.transpose(1, 2))
-            _pool_write_rows_mt(pv_l, dest, rowi, v_new.transpose(1, 2))
-            _, hq, _, dh = q.shape
-            attn = attend(
-                q, _pool_arr(pk_l), _pool_arr(pv_l), tables, pos,
-                window=window, scale_k=_pool_scale(pk_l),
-                scale_v=_pool_scale(pv_l),
-            ).transpose(1, 2).reshape(b, t, hq * dh).to(x.dtype)
-            x = dec._attn_out(p, x, attn, aid)
-        return dec._final_logits(params, x)
 
     def _prefill_paged(self, prompt, table_row, *, base, keep_from,
                        adapter_id=0):
@@ -1568,8 +2260,14 @@ class PagedDecodeServer:
         chunks pad to a power of two, as the JAX package's do (so the
         chunk boundaries and shapes match), capped so the deepest write
         stays inside the table span. Returns the [1, V] logits row of
-        the last real prompt position."""
-        C = self.prefill_chunk
+        the last real prompt position.
+
+        A pipeline-parallel server always admits this way: each chunk
+        flows through the stage chain, every stage writing its layers'
+        rows into its pool slice, and without prefill_chunk the whole
+        prompt rides one chunk (capped by the table span)."""
+        C = (self.prefill_chunk if self.prefill_chunk is not None
+             else self.MB * self.bs)
         t0 = prompt.shape[1]
         dev = self.device
         tab = self._upload(table_row[None, :])
@@ -1590,15 +2288,15 @@ class PagedDecodeServer:
                     [chunk, chunk.new_zeros((1, pad_t - real))], dim=1
                 )
             nb_live = min((pos0 + pad_t - 1) // self.bs + 1, self.MB)
-            logits = self._mt(
-                tab,
-                torch.full((1,), pos0, dtype=torch.int32, device=dev),
-                chunk,
-                torch.full((1,), real, dtype=torch.int32, device=dev),
-                kf,
-                nb_live,
-                adapter,
-            )
+            pos_a = torch.full((1,), pos0, dtype=torch.int32, device=dev)
+            nk = torch.full((1,), real, dtype=torch.int32, device=dev)
+            if self.pp > 1:
+                logits = self._pp_chain(tab, pos_a, chunk.to(torch.int32),
+                                        nk, kf, torch.zeros_like(kf))
+                logits = logits.to(dev)
+            else:
+                logits = self._mt(tab, pos_a, chunk, nk, kf, nb_live,
+                                  adapter)
             self.prefill_chunks += 1
             self._account_kv_rows_prefill(pos0, pad_t)
             self._note_prefill_stall(1)
@@ -1610,10 +2308,13 @@ class PagedDecodeServer:
 
     def _account_kv_rows(self, rows_read: int, baseline: int) -> None:
         """Publish one dispatch's KV-row traffic (obs/serving.py units:
-        one K+V row pair of one slot, layer-agnostic)."""
-        self.obs.kv_rows_read.inc(rows_read)
-        self.obs.kv_rows_gathered.inc(baseline)
-        self.obs.kv_rows_last.set(rows_read)
+        one K+V row pair of one slot, layer-agnostic). Under a mesh both
+        counters are PER SHARD: a rank reads its kv_heads / tp heads, so
+        rows scale by 1 / tp while dispatch counts do not."""
+        tp = self.tp
+        self.obs.kv_rows_read.inc(rows_read // tp)
+        self.obs.kv_rows_gathered.inc(baseline // tp)
+        self.obs.kv_rows_last.set(rows_read // tp)
 
     def _account_kv_rows_prefill(self, pos0: int, t: int) -> None:
         """Pool rows one prefill chunk's attention read: a B=1
@@ -1726,12 +2427,27 @@ class PagedDecodeServer:
         reused, so a view would read its next tenant's rows; the clone
         is ordered before any later write on the stream. Nothing here
         waits for the card."""
-        arrays = tuple(t[:, blk : blk + 1].clone() for t in self._leaves())
+        arrays = self._block_rows(blk)
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
         self._spill.offer(key, tok, arrays, ready)
+
+    @_program
+    def _block_rows(self, blk: int) -> tuple:
+        """Copies of pool block `blk`'s stored bytes, [L, 1, ...] a leaf,
+        with every head (gathered to the controller's whole-head store
+        under a mesh)."""
+        return tuple(self._all_heads(t[:, blk : blk + 1].clone())
+                     for t in self._leaves())
+
+    @_program
+    def _write_block(self, blk: int, arrays) -> None:
+        """Upload stored block bytes (whole-head [L, 1, ...] leaves)
+        VERBATIM into pool block `blk`, this rank's heads of them."""
+        for dst, src in zip(self._leaves(), arrays):
+            dst[:, blk].copy_(self._heads(src)[:, 0], non_blocking=True)
 
     def _leaves(self) -> tuple:
         """The pool's tensors, [L, NB, ...] each: K's int8 payload and
@@ -1763,8 +2479,7 @@ class PagedDecodeServer:
                 if not self.free:
                     break
             blk = self.free.pop()
-            for dst, src in zip(self._leaves(), got):
-                dst[:, blk].copy_(src[:, 0], non_blocking=True)
+            self._write_block(blk, got)
             displaced = self.radix.register(keys[j], toks[j], blk)
             if displaced is not None:
                 self.free.append(displaced)
@@ -1788,11 +2503,71 @@ class PagedDecodeServer:
         if self.multi_lora:
             small = {**small, "adapter": torch.full(
                 (1,), adapter_id, dtype=torch.int32, device=self.device)}
-        logits, small = self.dec.make_step(
+        logits, small = self._flat_dec().make_step(
             donate=self._prefix_cache is None
         )(self.params, small, padded)
+        self._account_psums(1)
         self._note_prefill_stall(1)
         return logits[:, ts - 1, :], small
+
+    @_program
+    def _prefill_prefix(self, prefix_ids, shared_row, n_shared) -> None:
+        """The constructor's `prefix_ids`: one flat prefill whose rows
+        become the pool's single shared copy; the lane stays for suffix
+        admissions (the suffix prefill attends it at offset P)."""
+        fdec = self._flat_dec()
+        _, pre = fdec.make_step()(self.params, fdec.init_cache(1),
+                                  prefix_ids)
+        self._account_psums(1)
+        self._insert(pre["k"], pre["v"], shared_row, 0, n_shared)
+        self._prefix_cache = pre
+
+    @_program
+    def _prefill_flat(self, prompt_dev, table_row, n_shared, n_end,
+                      adapter_id):
+        """A non-radix admission's contiguous prefill through the flat
+        decoder, its rows then paged into table_row[n_shared:n_end]; with
+        a shared prefix the prompt prefills at offset P on a copy of the
+        prefix lane. Returns the last real logits row."""
+        small = (self._flat_dec().init_cache(1)
+                 if self._prefix_cache is None else self._prefix_cache)
+        logits_row, small = self._flat_prefill(small, prompt_dev,
+                                               self.prefix_len, adapter_id)
+        self._insert(small["k"], small["v"], table_row, n_shared, n_end)
+        return logits_row
+
+    @_program
+    def _prefill_radix_flat(self, table_row, n_hits, suffix, suffix_pos,
+                            adapter_id, total, t0):
+        """A radix admission's flat prefill of the suffix on a lane
+        gathered from its hit blocks, its fresh rows then paged into
+        table_row[n_hits:total]. Hit blocks are never rewritten: their
+        recomputed rows are equivalent, not guaranteed identical, and
+        they belong to every holder of the chain."""
+        if n_hits:
+            gk, gv = self._gather(self._upload(table_row))
+            small = {
+                "k": gk,
+                "v": gv,
+                "pos": torch.full((), suffix_pos, dtype=torch.int32,
+                                  device=self.device),
+            }
+        else:
+            small = self._flat_dec().init_cache(1)
+        logits_row, small = self._flat_prefill(small, suffix, suffix_pos,
+                                               adapter_id)
+        self._insert(small["k"], small["v"], table_row, n_hits, total,
+                     valid=t0)
+        return logits_row
+
+    @_program
+    def _seat_kv(self, k_blocks, v_blocks, table_row, skip, total,
+                 valid) -> None:
+        """Page delivered full-head K/V block stacks (disagg) into
+        table_row[skip:total], this rank's heads of them under a mesh."""
+        self._insert(self._blocks_to_lane(k_blocks),
+                     self._blocks_to_lane(v_blocks), table_row, skip, total,
+                     valid=valid)
 
     def _walk(self, tokens: np.ndarray, n_full: int, total: int):
         """A radix admission's block plan: the walk's leading hits
@@ -1855,7 +2630,7 @@ class PagedDecodeServer:
         suffix_pos = min(len(hits) * bs, t0 - 1)
         suffix = prompt_dev[:, suffix_pos:]
         self.obs.prefill_tokens.inc(suffix.shape[1])
-        if self.prefill_chunk is not None:
+        if self.prefill_chunk is not None or self.pp > 1:
             # Pool-native: hit blocks are read through the table, fresh
             # rows scatter into this request's blocks chunk by chunk,
             # and rows below keep_from (hit rows) redirect to trash.
@@ -1864,23 +2639,9 @@ class PagedDecodeServer:
                 adapter_id=adapter_id,
             )
         else:
-            if hits:
-                gk, gv = self._gather(self._upload(table_row))
-                small = {
-                    "k": gk,
-                    "v": gv,
-                    "pos": torch.full((), suffix_pos, dtype=torch.int32,
-                                      device=self.device),
-                }
-            else:
-                small = self.dec.init_cache(1)
-            logits_row, small = self._flat_prefill(small, suffix, suffix_pos,
-                                                   adapter_id)
-            # Hit blocks are never rewritten: their recomputed rows are
-            # equivalent, not guaranteed identical, and they belong to
-            # every holder of the chain.
-            self._insert(small["k"], small["v"], table_row, len(hits), total,
-                         valid=t0)
+            logits_row = self._prefill_radix_flat(
+                table_row, len(hits), suffix, suffix_pos, adapter_id, total,
+                t0)
         shared = hits + self._register(table_row, keys, toks, len(hits),
                                        n_full)
         owned = [int(table_row[j]) for j in range(n_full, total)]
@@ -1895,8 +2656,8 @@ class PagedDecodeServer:
         """[L, n, Hkv, bs, Dh] host block stack (a tensor or a numpy
         array) -> the flat [L, 1, Hkv, n * bs, Dh] lane `_insert` takes,
         on the device in the compute dtype."""
-        t = torch.as_tensor(np.asarray(blocks) if not isinstance(
-            blocks, torch.Tensor) else blocks)
+        t = self._heads(torch.as_tensor(np.asarray(blocks) if not isinstance(
+            blocks, torch.Tensor) else blocks))
         L, n, hkv, bs, dh = t.shape
         lane = t.transpose(1, 2).reshape(L, hkv, n * bs, dh)[:, None]
         lane = lane.to(self.dec.compute_dtype)
@@ -1937,9 +2698,7 @@ class PagedDecodeServer:
         )
         table_row = np.zeros((self.MB,), np.int32)
         table_row[:total] = hits + own
-        self._insert(self._blocks_to_lane(k_blocks),
-                     self._blocks_to_lane(v_blocks), table_row, len(hits),
-                     total, valid=t0)
+        self._seat_kv(k_blocks, v_blocks, table_row, len(hits), total, t0)
         if self.radix is not None:
             shared = hits + self._register(table_row, keys, toks, len(hits),
                                            n_full)
@@ -2018,7 +2777,7 @@ class PagedDecodeServer:
             table_row = np.zeros((self.MB,), np.int32)
             table_row[:n_shared] = self.shared_blocks
             table_row[n_shared : n_shared + need] = blocks
-            if self.prefill_chunk is not None:
+            if self.prefill_chunk is not None or self.pp > 1:
                 # A global shared prefix (base=P) is read from its pool
                 # blocks by the block-table attention.
                 logits_row = self._prefill_paged(
@@ -2030,15 +2789,9 @@ class PagedDecodeServer:
                 # the rows in; with a shared prefix the suffix prefills
                 # at offset P on a copy of the prefix lane, and only the
                 # rows past the shared blocks are paged.
-                small = (
-                    self.dec.init_cache(1)
-                    if self._prefix_cache is None
-                    else self._prefix_cache
-                )
-                logits_row, small = self._flat_prefill(small, prompt_dev, P,
-                                                       adapter_id)
-                self._insert(small["k"], small["v"], table_row, n_shared,
-                             n_shared + need)
+                logits_row = self._prefill_flat(
+                    prompt_dev, table_row, n_shared, n_shared + need,
+                    adapter_id)
             self._seat(i, rid, prompt_dev, steps, samp, stop_seqs, table_row,
                        P + t0, logits_row, blocks, None,
                        adapter_id=adapter_id, cid=cid)
@@ -2391,6 +3144,8 @@ class PagedDecodeServer:
     # -- the tick ---------------------------------------------------------
 
     def _tick(self) -> None:
+        if self.pp > 1:
+            return self._tick_pp()
         if self.spec_k:
             if self.decode_window > 1:
                 return self._tick_spec_window()
@@ -2551,17 +3306,21 @@ class PagedDecodeServer:
 
         return body
 
-    def _pick(self, mode: str, ll, u):
+    def _pick(self, mode: str, ll, u, rows=None):
         """One batched token choice in a window's mode: the argmax, or
         the sampler's draw (with or without the sorting filters) from the
-        uniforms `u` [B, V] drawn before the replay."""
+        uniforms `u` [B, V] drawn before the replay. `rows` (a pipelined
+        window's microbatch group) selects the sampler rows of `ll`'s."""
         sm = self._sampler
         if mode == "argmax":
             return torch.argmax(ll, dim=-1)
+        pol = [sm.temp, sm.topk, sm.topp, sm.minp]
+        if rows is not None:
+            pol = [v[rows] for v in pol]
+        temp, topk, topp, minp = pol
         if mode == "nosort":
-            return sample_token_batched_nosort_u(ll, u, sm.temp, sm.minp)
-        return sample_token_batched_u(ll, u, sm.temp, sm.topk, sm.topp,
-                                      sm.minp)
+            return sample_token_batched_nosort_u(ll, u, temp, minp)
+        return sample_token_batched_u(ll, u, temp, topk, topp, minp)
 
     def _window_program(self, kind: str, mode: str, constrained: bool):
         """A window of `kind` ("decode" or "spec") for (mode,
@@ -2572,7 +3331,7 @@ class PagedDecodeServer:
         be reused under the graph). A capture that fails raises."""
         build = (self._window_body if kind == "decode"
                  else self._spec_window_body)
-        if self.device.type != "cuda":
+        if not self._captures:
             return build(mode, constrained)
         key = (kind, mode, constrained)
         if key not in self._graphs:
@@ -2637,7 +3396,7 @@ class PagedDecodeServer:
         if mode != "argmax":
             sm.fill_uniforms(w["u"])
         program()
-        if self.device.type == "cuda":
+        if self._captures:
             self.graph_replays += 1
         toks = w["toks"].clone()  # the next window overwrites the buffer
         self._note_dispatch(sum(live))
@@ -2662,6 +3421,138 @@ class PagedDecodeServer:
         self._account_kv_rows_window(posm, emitted)
         self._drain_window(toks, toks_host, emitted, alive_host, budget,
                            died_host, fracs_host)
+
+    # -- pipeline-parallel windows (pp_stages > 1) ----------------------------
+
+    def _pp_chain(self, tables, pos, xin, n_keep, keep_from, adapter):
+        """One microbatch through every stage in turn, each stage
+        dispatch counted; returns the last stage's logits."""
+        x = xin
+        for s, stage in enumerate(self._pp_stage_objs):
+            x = stage.pp_dispatch(tables, pos, x, n_keep, keep_from, adapter)
+            self.pp_stage_dispatch_n[s] += 1
+            self.obs.pp_stage_dispatches[s].inc()
+        return x
+
+    def _tick_pp(self) -> None:
+        """One PIPELINED decode window: decode_window rounds for each of
+        the M in-flight microbatch slot groups, chained through the S
+        stages round-major (the GPipe schedule). Each (round, group)
+        chain is the window sub-step of `_window_body` with the paged
+        step split over the stages: frozen rows at position 0 with an
+        all-trash table, the same pick, the same budget and eos freeze,
+        so greedy output is token-identical to pp_stages=1. Local stages'
+        dispatches queue on their devices without a host sync, so the
+        chains of different groups overlap where the stages sit on
+        different cards.
+
+        Occupancy is measured at the schedule level, independent of
+        placement: dispatch (round k, group g) enters stage s at slot
+        k * M_live + g + s, each stage is busy for `chains` of the span's
+        `chains + S - 1` slots, and the bubble fraction published a
+        window is 1 - the mean occupancy, (S-1)/(K*M_live + S-1), with
+        groups that have no live slot at the window boundary skipped."""
+        live = [s is not None for s in self.slots]
+        if not any(live):
+            return
+        K, S, dev = self.decode_window, self.pp, self.device
+        sm = self._sampler
+        mode = sm.window_mode(any(s is not None and s["sampling"]
+                                  for s in self.slots))
+        budget = [s["remaining"] if s is not None else 0
+                  for s in self.slots]
+        posm = np.where(live, self.pos, 0).astype(np.int32)
+        u = None
+        if mode != "argmax":
+            u = torch.full((K, self.B, self.dec.cfg.vocab_size), 0.5,
+                           device=dev)
+            sm.fill_uniforms(u)
+        bg = len(self._pp_groups[0])
+        i32 = dict(dtype=torch.int32, device=dev)
+        nk1 = torch.ones((bg,), **i32)
+        kf0 = torch.zeros((bg,), **i32)
+        st: list[dict | None] = []
+        for idx in self._pp_groups:
+            if not any(live[i] for i in idx):
+                st.append(None)
+                continue
+            ia = torch.tensor(idx, device=dev)
+            active = self._upload([live[i] for i in idx]).bool()
+            tables = self._tables_dev[ia]
+            pos = self._upload(posm[idx])
+            st.append({
+                "idx": idx, "ia": ia, "tables": tables, "pos": pos,
+                "active": active, "n": torch.zeros((bg,), **i32),
+                "budget": self._upload([budget[i] for i in idx]),
+                "feed": self._feed[ia],
+                "tab_eff": torch.where(active[:, None], tables, 0),
+                "pos_eff": torch.where(active, pos, 0), "toks": [],
+            })
+        chains = 0
+        for k in range(K):
+            for state in st:
+                if state is None:
+                    continue
+                ll = self._pp_chain(state["tab_eff"], state["pos_eff"],
+                                    state["feed"], nk1, kf0, kf0)
+                chains += 1
+                nxt = self._pick(mode, ll[:, -1, :].to(dev),
+                                 None if u is None else u[k][state["ia"]],
+                                 state["ia"])
+                adv = state["active"].to(torch.int32)
+                pos = state["pos"] + adv
+                n = state["n"] + adv
+                alive = state["active"] & (n < state["budget"])
+                if self.eos_id is not None:
+                    alive &= nxt != self.eos_id
+                state.update(
+                    pos=pos, n=n, active=alive,
+                    feed=nxt[:, None].to(torch.int32),
+                    pos_eff=torch.where(alive, pos, 0),
+                    tab_eff=torch.where(alive[:, None], state["tables"], 0),
+                )
+                state["toks"].append(nxt)
+        toks = torch.zeros((self.B, K), dtype=torch.int64, device=dev)
+        for state in st:
+            if state is not None:
+                ia = state["ia"]
+                self._feed[ia] = state["feed"]
+                self._pos_dev[ia] = state["pos"]
+                toks[ia] = torch.stack(state["toks"], dim=1).long()
+        self._note_dispatch(sum(live))
+        # Every chain is one whole forward spread over the stages.
+        self._account_psums(chains)
+        occ, bubble = pp_schedule_occupancy([chains] * S, chains + S - 1)
+        self.pp_occupancy_last = occ
+        self.pp_bubble_last = bubble
+        self.obs.pp_bubble_fraction.set(bubble)
+        for s, o in enumerate(occ):
+            self.obs.pp_stage_occupancy[s].set(o)
+        if self.eos_id is not None:
+            # One batched per-window transfer a group, as _tick_window's.
+            emitted, alive_host = [0] * self.B, [False] * self.B
+            for state in st:
+                if state is None:
+                    continue
+                for i, e, a in zip(state["idx"], state["n"].tolist(),
+                                   state["active"].tolist()):
+                    emitted[i], alive_host[i] = e, a
+        else:
+            emitted = [min(b, K) for b in budget]
+            alive_host = [b > K for b in budget]
+        need_toks = self.on_token is not None or any(
+            s is not None and s["stop"] is not None for s in self.slots
+        )
+        toks_host = toks.tolist() if need_toks else None
+        self._account_kv_rows_window(posm, emitted)
+        self._drain_window(toks, toks_host, emitted, alive_host, budget)
+
+    def close_pp(self) -> None:
+        """Release the stage chain: transport stages send their STOP
+        frame, so remote workers' serve loops exit (local stages hold
+        nothing to release)."""
+        for stage in self._pp_stage_objs:
+            stage.close()
 
     def _drain_window(self, toks, toks_host, emitted, alive_host, budget,
                       died_host=None, fracs_host=None) -> None:
@@ -3159,7 +4050,7 @@ class PagedDecodeServer:
         if mode != "argmax":
             sm.fill_uniforms(w["u"])
         program()
-        if self.device.type == "cuda":
+        if self._captures:
             self.graph_replays += 1
         self._note_dispatch(sum(live), stall=False)
         # The ONE batched sync of the window.
@@ -3368,7 +4259,15 @@ def serve_paged(
     `host_dispatches`, `tokens_per_dispatch`, `graph_replays`), the
     speculation's (`spec_*`), the mixed ticks' (`prefill_budget`,
     `prefill_stall_ticks`, `mixed_ticks`, `mixed_prefill_tokens`,
-    `decode_stall_fraction`) and the constraints' totals."""
+    `decode_stall_fraction`), the constraints' totals, the mesh's
+    (`mesh_shape`, `tp_psums`) and the pipeline's (`pp_stages`,
+    `pp_inflight`, `pp_bubble_fraction`, `pp_stage_occupancy`,
+    `pp_stage_dispatches`, `pp_stage_pool_bytes`, `pp_cut_starts`).
+
+    Under `mesh=` over a process group every rank of the model group
+    calls serve_paged with the same arguments: the controller serves
+    and returns the outputs; the other ranks run its dispatches and
+    return an empty list (with their stats)."""
     srv = PagedDecodeServer(
         dec,
         params,
@@ -3398,6 +4297,17 @@ def serve_paged(
         pp_remote=pp_remote,
         pp_balance=pp_balance,
     )
+    try:
+        return _serve_paged(srv, requests, adapter_ids, sampling)
+    finally:
+        srv.close()
+        srv.close_pp()
+
+
+def _serve_paged(srv, requests, adapter_ids, sampling):
+    if not srv.controller:
+        srv.run()
+        return [], server_stats(srv)
     aids = adapter_ids or [0] * len(requests)
     if len(aids) != len(requests):
         raise ValueError(
@@ -3471,5 +4381,14 @@ def server_stats(srv: PagedDecodeServer, **extra) -> ServerStats:
         decode_stall_fraction=srv.decode_stall_fraction_last,
         constrained_tokens=srv.constrained_tokens_n,
         constraint_dead_ends=srv.constraint_dead_ends_n,
+        mesh_shape=srv.mesh_label,
+        tp_psums=srv.tp_psums,
+        pp_stages=srv.pp,
+        pp_inflight=srv._pp_inflight if srv.pp > 1 else 0,
+        pp_bubble_fraction=srv.pp_bubble_last,
+        pp_stage_occupancy=list(srv.pp_occupancy_last),
+        pp_stage_dispatches=list(srv.pp_stage_dispatch_n),
+        pp_stage_pool_bytes=list(srv.pp_stage_pool_bytes),
+        pp_cut_starts=list(srv._pp_cut_starts),
         **extra,
     )

@@ -36,6 +36,11 @@ the reference's nextNode message, src/dispatcher.py:54-58):
 Dispatcher side: `dispatch_stage(sender, stage, params)` then
 `send_activation(sender, x)` per microbatch.
 
+`serve_pp_stage` serves one stage of a pipeline-parallel paged decode
+server (`PagedDecodeServer(pp_remote=...)`) the same way: six operands
+in a microbatch, one array out, until the STOP frame; the worker is
+handed its decoder and weights rather than receiving them.
+
 CHAIN ORDERING CONTRACT: a worker identifies the FIRST accepted
 connection as its dispatch stream, so chains must be dispatched
 tail-first (last stage's worker first) — each worker only connects to
@@ -297,14 +302,68 @@ def serve_stage(
     return count
 
 
-def serve_pp_stage(*args: Any, **kwargs: Any) -> None:
-    """The JAX package's pipeline-parallel paged decode stage (a worker
-    serving layers [first, last) of a decoder behind a socket): not
-    ported yet, so it raises (ROADMAP Queue 1 item 7)."""
-    raise NotImplementedError(
-        "serve_pp_stage (a pipeline-parallel paged decode stage) is not "
-        "ported yet (ROADMAP Queue 1 item 7)"
+def serve_pp_stage(
+    dec: Any,
+    params: Any,
+    first: int,
+    last: int,
+    *,
+    num_blocks: int,
+    block_size: int,
+    attention: str = "gathered",
+    listen_port: int = 0,
+    result_host: str = "127.0.0.1",
+    result_port: int = 5000,
+    listen_host: str = "0.0.0.0",
+    accept_timeout_s: float = 120.0,
+    announce=None,
+) -> int:
+    """Serve ONE pipeline stage of a paged decode server
+    (PagedDecodeServer(pp_remote=...)) to a remote controller: the
+    decode-time sibling of `serve_stage`, one stream in, one out. Each
+    microbatch is the SIX stage-boundary operands (tables, pos, xin,
+    n_keep, keep_from, adapter_ids) and the reply is one array, the
+    boundary activation (or, on the last stage, the logits), sent to
+    result_host:result_port.
+
+    The worker wraps the same `_PPLocalStage` the in-process stages are:
+    its layer slice of the params and its own slice of the KV pool live
+    here. The decoder is not shipped over the wire (it is not a graph):
+    the worker is handed `(dec, params)`, made from the same checkpoint
+    or seed as the controller's. It runs on the decoder's device until
+    the controller's STOP frame, and returns the microbatches served."""
+    from defer_tpu_torch.runtime.paged import _PPLocalStage
+
+    stage = _PPLocalStage(
+        dec, params, first, last, num_blocks=num_blocks,
+        block_size=block_size, attention=attention,
+        device=dec.device,
     )
+    recv = ArrayReceiver(
+        listen_port, host=listen_host, accept_timeout_s=accept_timeout_s
+    )
+    if announce is not None:
+        announce(recv.port)
+    it = iter(recv)
+    log.info(
+        "pp stage worker ready (layers [%d, %d), pool %d bytes); "
+        "results to %s:%d",
+        first, last, stage.pool_bytes, result_host, result_port,
+    )
+    sender = ArraySender(result_host, result_port)
+    count = 0
+    try:
+        while True:
+            bundle = _read_bundle(it, 6)
+            if bundle is None:
+                return count
+            # The framing of the result is the stage boundary here.
+            sender.send(stage.pp_dispatch(*bundle))
+            count += 1
+    finally:
+        sender.close()
+        recv.close()
+        stage.close()
 
 
 def main(argv: list[str] | None = None) -> None:

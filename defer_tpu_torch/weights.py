@@ -9,7 +9,8 @@ draft's sliced tree (models/transplant.py::make_draft) and int8 leaves
 (`{"q", "s"}`) are nested dicts of arrays like any other.
 `params_to_numpy` is the way back: the port's tensors as numpy arrays,
 which the JAX package takes as they are. Neither imports jax or
-defer_tpu: arrays cross as numpy.
+defer_tpu: arrays cross as numpy. `tree_to` moves a tree of the port's
+tensors to a device.
 """
 
 from __future__ import annotations
@@ -65,3 +66,11 @@ def params_to_numpy(tree: Mapping[str, Any]) -> dict:
             t = t.float()
         out[k] = t.numpy()
     return out
+
+
+def tree_to(tree, device: torch.device):
+    """A param tree on `device`; `.to` returns a leaf already there as
+    it is, so no copy is made."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

@@ -1558,3 +1558,76 @@ def test_every_collective_on_a_world_size_1_nccl_group(card, tmp_path):
     for op, (y, g) in ranks["ops"].items():
         np.testing.assert_array_equal(y, x, err_msg=op)
         np.testing.assert_array_equal(g, cot[:4, :6], err_msg=op)
+
+
+# -- sharded decode serving on the card -------------------------------------
+
+# Dh 32: the paged kernels take Dh 32, 64 or 128.
+SHARD_CFG = dict(num_layers=4, dim=128, num_heads=4, ffn_dim=256,
+                 vocab_size=128, max_len=64, norm_style="pre")
+
+
+def _shard_case(card):
+    """A tiny f32 decoder's weights as numpy and three requests."""
+    import numpy as np
+
+    from defer_tpu_torch import params_to_numpy
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+
+    dec = GptDecoder(TransformerConfig(**SHARD_CFG),
+                     compute_dtype=torch.float32, device=card)
+    params = dec.init(torch.Generator(device=card).manual_seed(0))
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(1, 128, (1, n)).astype(np.int32), s)
+            for n, s in ((6, 7), (10, 5), (11, 6))]
+    return dec, params, params_to_numpy(params), reqs
+
+
+def test_paged_mesh_on_two_gloo_ranks_on_the_card(card, tmp_path):
+    """PagedDecodeServer(mesh={"model": 2}) on two gloo ranks sharing
+    cuda:0, "pallas" at K=1: each rank runs paged_flash_decode on its
+    two KV heads L times a tick (its own card count), and the tokens are
+    the mesh=None server's on the card (f32)."""
+    import numpy as np
+
+    from test_torch_dist_worker import _paged, spawn
+
+    _, _, np_params, reqs = _shard_case(card)
+    case = dict(name="paged", run="paged", axes={"model": 2},
+                cfg=SHARD_CFG, params=np_params, phases=[reqs],
+                knobs=dict(num_blocks=16, block_size=4, max_batch=2,
+                           attention="pallas"))
+    ranks = spawn({"device": "cuda", "cases": [case]}, 2, str(tmp_path))
+    ctl = ranks[0]["paged"]
+    for got in (r["paged"] for r in ranks):
+        assert got["card_runs"] == {
+            "paged_flash_decode": SHARD_CFG["num_layers"] * ctl["ticks"],
+            "paged_flash_prefill": 0}
+    want = _paged(dict(case, device="cuda"), None)
+    for a, b in zip(ctl["tokens"], want["tokens"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pp_two_stages_on_one_card(card):
+    """pp_stages=2 on [cuda:0] * 2, "pallas": every stage dispatch (a
+    decode round at T=1 or a prefill chunk) runs paged_flash_prefill on
+    each of its layers, the card's count equal to the dispatches', and
+    the tokens are pp_stages=1's (f32)."""
+    from defer_tpu_torch.ops import paged_flash_decode as pfd
+    from defer_tpu_torch.ops import paged_flash_prefill as pfp
+
+    dec, params, _, reqs = _shard_case(card)
+    reqs = [(torch.from_numpy(p).long(), s) for p, s in reqs]
+    kw = dict(num_blocks=16, block_size=4, max_batch=2, attention="pallas",
+              decode_window=4)
+    want, _ = serve_paged(dec, params, reqs, **kw)
+    pfd.reset_card_runs()
+    pfp.reset_card_runs()
+    got, st = serve_paged(dec, params, reqs, pp_stages=2, pp_inflight=2,
+                          pp_devices=[card] * 2, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    layers = SHARD_CFG["num_layers"] // 2
+    assert pfp.card_runs() == layers * sum(st["pp_stage_dispatches"]) > 0
+    assert pfd.card_runs() == 0

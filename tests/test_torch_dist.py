@@ -48,7 +48,7 @@ from defer_tpu_torch.models import gpt, t5
 from defer_tpu_torch.models.llama import llama_config
 from defer_tpu_torch.parallel import data_parallel, mesh, multihost
 from defer_tpu_torch.parallel import transformer_stack as ts
-from defer_tpu_torch.runtime import checkpoint, remote_stage
+from defer_tpu_torch.runtime import checkpoint, paged
 from test_torch_dist_worker import spawn
 
 FWD = dict(rtol=2e-5, atol=2e-5)
@@ -199,17 +199,29 @@ def test_layout_trains_as_jax(world4, name):
     check_train(results[name], jax_side, case)
 
 
+def _paged_server(**kw):
+    dec = gpt.tiny_gpt(16, device="cpu")
+    return paged.PagedDecodeServer(
+        dec, dec.init(torch.Generator().manual_seed(0)), num_blocks=8,
+        block_size=4, max_batch=2, **kw)
+
+
 UNPORTED = {
-    "SpmdGptDecoder": lambda: gpt.SpmdGptDecoder(ts.TransformerConfig()),
     "SpmdT5": lambda: t5.SpmdT5(t5.t5_config("small")),
     "spmd_t5": lambda: t5.spmd_t5(None, t5.t5_config("small")),
-    "embed_lookup_tp": lambda: ts.embed_lookup(
-        torch.zeros(4, 2), torch.zeros(1, dtype=torch.int64), "model"),
-    "serve_pp_stage": lambda: remote_stage.serve_pp_stage(None, None, 0, 1),
     "save_sharded": lambda: checkpoint.save_sharded("unused", {}),
     "restore_sharded": lambda: checkpoint.restore_sharded("unused", {}),
     "ShardedInference_mesh": lambda: data_parallel.ShardedInference(
         None, {}, mesh.make_mesh({"data": 1}, [torch.device("cpu")])),
+    # pp x tp, after the JAX package's stage-axis checks have passed.
+    "paged_pp_x_tp": lambda: _paged_server(
+        pp_stages=2, mesh=mesh.make_mesh({"stage": 2, "model": 1},
+                                         [torch.device("cpu")] * 2)),
+    # A data axis beside the model axis (replicas: the fleet's
+    # model_axis_size), after the JAX package's mesh checks.
+    "paged_mesh_data_axis": lambda: _paged_server(
+        mesh=mesh.make_mesh({"data": 2, "model": 1},
+                            [torch.device("cpu")] * 2)),
 }
 
 

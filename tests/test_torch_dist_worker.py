@@ -22,7 +22,20 @@ to OUT.RANK as a pickle. A case's "run" names what it does:
   * "ops": each op of parallel/collectives.py over the "seq" axis, its
     output and the gradient of a fixed cotangent;
   * "card": SpmdBert in bf16 from a seeded init: the pooled forward, its
-    flash_attention launches, and one AdamW step's loss.
+    flash_attention launches, and one AdamW step's loss;
+  * "decode": SpmdGptDecoder on the whole weights: a prefill step's and
+    each decode step's logits, this rank's cache shard, `generate`, and
+    (with "requests") serve_greedy's tokens on the flat DecodeServer,
+    every rank submitting the same requests;
+  * "paged": PagedDecodeServer(mesh=) over the model axis. The controller
+    (model index 0) serves the case's phases of requests (the first
+    phase's with the case's "sampling", SamplingParams keywords, and its
+    delivered disagg blocks), flushing the spill tier after each, and
+    with "migrate" exports a prefix chain, closes, and imports it into
+    a second server that serves one more request; the other ranks follow
+    each server's dispatches in run(). Every rank returns its pool shard
+    and the sharded forwards it ran (the `_final_logits` calls with a tp
+    axis); the controller also its tokens and counters.
 
 `spawn(job, world, tmp)` is the tests' side: it starts the WORLD ranks,
 waits at most JOIN_TIMEOUT seconds for all of them, kills every rank
@@ -40,10 +53,12 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from defer_tpu_torch import params_from_jax, params_to_numpy
 from defer_tpu_torch.models.bert import SpmdBert
+from defer_tpu_torch.models.gpt import SpmdGptDecoder
 from defer_tpu_torch.models.llama import llama_config
 from defer_tpu_torch.models.vit import SpmdVit
 from defer_tpu_torch.parallel import collectives, lora, multihost, train
@@ -306,8 +321,146 @@ def _card(case, mesh):
             "loss": float(loss)}
 
 
+def _decode(case, mesh):
+    dec = SpmdGptDecoder(_config(case), compute_dtype=torch.float32,
+                         mesh=mesh, dp_axis=case.get("dp_axis"))
+    params = dec.shard_params(params_from_jax(case["params"], device=CPU))
+    ids = torch.from_numpy(case["ids"]).long()
+    t0 = case["t0"]
+    step = dec.make_step(donate=False)
+    out = {}
+    with torch.no_grad():
+        logits, cache = step(params, dec.init_cache(ids.shape[0]),
+                             ids[:, :t0])
+        out["prefill"] = logits.numpy()
+        steps = []
+        for t in range(t0, ids.shape[1]):
+            logits, cache = step(params, cache, ids[:, t:t + 1])
+            steps.append(logits[:, 0].numpy())
+    out["steps"] = np.stack(steps, axis=1)
+    out["k"], out["v"] = cache["k"].numpy(), cache["v"].numpy()
+    g0, gsteps = case["generate"]
+    out["generate"] = dec.generate(params, ids[:, :g0], gsteps).numpy()
+    if case.get("requests"):
+        from defer_tpu_torch.runtime.decode_server import serve_greedy
+
+        reqs = [(torch.from_numpy(p).long(), n) for p, n in case["requests"]]
+        outs, _ = serve_greedy(dec, params, reqs, max_batch=2)
+        out["served"] = [o.numpy() for o in outs]
+    return out
+
+
+def _chain_keys(prompt, n_blocks, bs):
+    from defer_tpu_torch.runtime.paged import PrefixBlockCache
+
+    flat = np.asarray(prompt)[0, : n_blocks * bs].astype(np.int64)
+    keys, prev = [], b""
+    for j in range(n_blocks):
+        prev = PrefixBlockCache._hash(prev, flat[j * bs:(j + 1) * bs]
+                                      .tobytes())
+        keys.append(prev)
+    return keys
+
+
+def _paged(case, mesh):
+    from defer_tpu_torch.models.gpt import GptDecoder
+    from defer_tpu_torch.runtime.paged import PagedDecodeServer
+
+    from defer_tpu_torch.ops import paged_flash_decode as pfd
+    from defer_tpu_torch.ops import paged_flash_prefill as pfp
+
+    dev = (mesh.local_device if mesh is not None
+           else torch.device(case.get("device", "cpu")))
+    cfg = _config(case)
+    dec = GptDecoder(cfg, compute_dtype=torch.float32, device=dev)
+    params = params_from_jax(case["params"], device=dev)
+    knobs = dict(case["knobs"])
+    if case.get("draft") is not None:
+        knobs.update(spec_draft=dec, spec_params=params_from_jax(
+            case["draft"], device=dev))
+    forwards = [0]
+    final = GptDecoder._final_logits
+
+    def counted(self, params, x, tp_axis=None):
+        forwards[0] += tp_axis is not None
+        return final(self, params, x, tp_axis)
+
+    GptDecoder._final_logits = counted
+    if dev.type == "cuda":
+        pfd.reset_card_runs()
+        pfp.reset_card_runs()
+    out = {}
+    try:
+        srv = PagedDecodeServer(dec, params, mesh=mesh, **knobs)
+        if not srv.controller:
+            srv.run()
+            if case.get("migrate"):
+                srv = PagedDecodeServer(dec, params, mesh=mesh, **knobs)
+                srv.run()
+        else:
+            srv = _control(case, srv, dec, params, mesh, knobs, out)
+    finally:
+        GptDecoder._final_logits = final
+    out["forwards"] = forwards[0]
+    out["pool"] = [t.cpu().numpy().copy() for t in srv._leaves()]
+    if dev.type == "cuda":
+        out["card_runs"] = {"paged_flash_decode": pfd.card_runs(),
+                            "paged_flash_prefill": pfp.card_runs()}
+    return out
+
+
+def _control(case, srv, dec, params, mesh, knobs, out):
+    """The controller's side of a "paged" case, into `out`; returns the
+    last server it served on."""
+    from defer_tpu_torch.runtime.paged import PagedDecodeServer, server_stats
+
+    out["tokens"] = []
+    # The registry is the process's: count this server's rows only.
+    kv_rows0 = srv.obs.kv_rows_read.value
+    from defer_tpu_torch.models.gpt import SamplingParams
+
+    samps = [SamplingParams(**kw) if kw else None
+             for kw in case.get("sampling") or []]
+    for phase, delivered in zip(case["phases"],
+                                case.get("delivered", [[]] * 9)):
+        rids = [srv.submit(torch.from_numpy(np.asarray(p)).long(), n,
+                           sampling=samps[i] if i < len(samps) else None)
+                for i, (p, n) in enumerate(phase)]
+        for prompt, steps, k, v, lg in delivered:
+            rid = srv.submit_prefilled(prompt, steps)
+            srv.deliver_kv(rid, k, v, lg)
+            rids.append(rid)
+        done = srv.run()
+        srv.flush_spill()
+        out["tokens"] += [done[r].cpu().numpy() for r in rids]
+    stats = server_stats(srv)
+    out.update(
+        mesh_shape=stats["mesh_shape"], tp_psums=stats["tp_psums"],
+        dispatches=srv.dispatches, graph_replays=srv.graph_replays,
+        kv_rows=srv.obs.kv_rows_read.value - kv_rows0,
+        spill_hits=srv.spill_hits_n,
+        saved=srv.prefill_tokens_saved, pool_bytes=srv.pool_bytes,
+        ticks=srv.ticks, chunks=srv.prefill_chunks,
+    )
+    mig = case.get("migrate")
+    if mig:
+        keys = _chain_keys(mig["prompt"], mig["blocks"], knobs["block_size"])
+        toks, k, v = srv.export_prefix_blocks(keys)
+        out["export"] = (toks, k.cpu().numpy(), v.cpu().numpy())
+        srv.close()
+        srv2 = PagedDecodeServer(dec, params, mesh=mesh, **knobs)
+        out["imported"] = srv2.import_prefix_blocks(toks, k, v)
+        rid = srv2.submit(torch.from_numpy(mig["request"][0]).long(),
+                          mig["request"][1])
+        out["migrated"] = srv2.run()[rid].cpu().numpy()
+        out["migrated_saved"] = srv2.prefill_tokens_saved
+        srv = srv2
+    srv.close()
+    return srv
+
+
 RUNS = {"train": _train, "vit": _vit, "moe": _moe, "attention": _attention,
-        "ops": _ops, "card": _card}
+        "ops": _ops, "card": _card, "decode": _decode, "paged": _paged}
 
 
 def main(rank: int, world: int, port: int, job: str, out: str) -> None:

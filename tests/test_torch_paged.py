@@ -35,6 +35,7 @@ from defer_tpu.runtime.paged import serve_paged as jax_serve_paged
 from defer_tpu_torch import obs, params_from_jax
 from defer_tpu_torch.models.gpt import SamplingParams, tiny_gpt
 from defer_tpu_torch.models.llama import tiny_llama
+from defer_tpu_torch.parallel.mesh import make_mesh
 from defer_tpu_torch.runtime.paged import (
     PagedDecodeServer,
     PrefixBlockCache,
@@ -375,13 +376,19 @@ def test_device_tables_and_positions_follow_the_host():
 
 def test_knobs_not_ported_raise():
     """The knobs that wait for a later slice raise NotImplementedError
-    naming their ROADMAP item (mesh=, pp_*); the ones ported since check
-    the JAX package's validation errors: device= (ported with the fleet)
-    pins the server where it is asked to, and the fleet seams refuse a
-    server without the radix cache."""
+    naming their ROADMAP item (pp_stages > 1 with mesh=, and a mesh axis
+    beside the model axis; mesh= and pp_stages are held in
+    tests/test_torch_paged_tp.py and test_torch_paged_pp.py); the ones
+    ported since check the JAX package's validation errors: device=
+    (ported with the fleet) pins the server where it is asked to, and
+    the fleet seams refuse a server without the radix cache."""
     dec, params, _, _ = _model("gpt", 32)
     base = dict(num_blocks=8, block_size=4)
-    for kw in (dict(mesh=object()), dict(pp_stages=2)):
+    two = [CPU] * 2
+    for kw in (
+        dict(pp_stages=2, mesh=make_mesh({"stage": 2, "model": 1}, two)),
+        dict(mesh=make_mesh({"data": 2, "model": 1}, two)),
+    ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PagedDecodeServer(dec, params, **base, **kw)
     assert PagedDecodeServer(dec, params, **base, device=CPU).device == CPU
