@@ -97,6 +97,17 @@ printing one line per check and failing loudly:
                 bit for bit against plain dp); each layout's step ms
                 beside one process's, the bytes its collectives move a
                 step by axis, flash_attention launches a step per rank;
+                then on the same two ranks the rest of the sharded legs:
+                SpmdT5 at T5-base tp 2 (phase t5's batch and steps, both
+                ranks' tokens equal, rank 0's rows under T5's split
+                check, the encode's and a step's ms, the collectives a
+                step and their bytes), a ZeRO-1 BERT-base state through
+                save_sharded_train_state / restore_sharded_train_state
+                (a restored step bit for bit the uninterrupted one's;
+                bytes and ms each way), and ShardedInference of
+                BERT-base over {"data": 2} (batch 32, each rank the
+                whole output within 1e-2 of the unpartitioned graph,
+                flash_attention launches by rank);
   4. decode   — DecodeServer(max_batch=4) over GptDecoder at
                 mistral_config()'s full width and depth (32 layers, dim
                 4096, 32 heads, 8 KV heads, FFN 14336, vocab 32000,
@@ -160,7 +171,8 @@ printing one line per check and failing loudly:
                 digits regex and the JSON schema at K=1 and 8; three
                 rank-16 LoRA adapters by id; serve_disagg over loopback
                 with a prefill worker in a thread, then as a `python -m
-                defer_tpu_torch.disagg.prefill_worker` process; every
+                defer_tpu_torch.disagg.prefill_worker` process, on the
+                decoder's first 4 layers at full width; every
                 token held by the split greedy check, but the
                 speculative window's (its verify rows stay inside the
                 graph), which must equal the K=1 speculative run's;
@@ -200,7 +212,17 @@ printing one line per check and failing loudly:
                 dispatches' layers and the bubble fraction; then the
                 same two stages in two serve_pp_stage worker processes
                 (this script with --pp-stage) over loopback,
-                token-identical, with the host ms a round trip;
+                token-identical, with the host ms a round trip; on the
+                two ranks also serve_fleet's front end with two
+                model_axis_size=2 replicas (8 requests of phase fleet's
+                mix, rank 0's rows on each replica under the split
+                check, mesh_shape model=2 on both ranks, the paged
+                kernels' card runs and the allocation by rank); and pp
+                2 x tp 2 on four gloo ranks (--sharded-rank R PORT OUT
+                pptp; Mistral-7B width, 16 layers) under the split
+                check, each rank's paged_flash_prefill runs its stage's
+                layers x dispatches, the bubble fraction, tp_psums and
+                each axis's bytes;
      t5       — T5(t5_config("base")) in bf16 with random weights: a
                 batch of 8 x 512 tokens encoded, 64 greedy tokens through
                 the cached step (no flash_attention launch), every token
@@ -3191,11 +3213,11 @@ def _dist_launches(axes: dict) -> int:
 
 
 class _ByteCount:
-    """The bytes each mesh axis's collectives are handed in a step: the
-    torch.distributed calls of parallel/collectives.py, wrapped in this
-    rank process only (the tensor an all_reduce reduces, the output an
-    all_gather fills, the input a reduce_scatter or an all_to_all
-    sends)."""
+    """The bytes each mesh axis's collectives are handed in a step, and
+    how many calls: the torch.distributed calls of
+    parallel/collectives.py, wrapped in this rank process only (the
+    tensor an all_reduce reduces, the output an all_gather fills, the
+    input a reduce_scatter or an all_to_all sends)."""
 
     CALLS = {"all_reduce": 0, "all_gather_into_tensor": 0,
              "reduce_scatter_tensor": 1, "all_to_all_single": 1}
@@ -3205,6 +3227,7 @@ class _ByteCount:
 
         self.axis_of: dict = {}
         self.bytes: dict = {}
+        self.calls: dict = {}
         for name, arg in self.CALLS.items():
             setattr(dist, name, self._wrap(getattr(dist, name), arg))
 
@@ -3212,6 +3235,7 @@ class _ByteCount:
         def counted(*args, group=None, **kw):
             axis = self.axis_of.get(id(group), "other")
             self.bytes[axis] = self.bytes.get(axis, 0) + args[arg].nbytes
+            self.calls[axis] = self.calls.get(axis, 0) + 1
             return fn(*args, group=group, **kw)
 
         return counted
@@ -3220,6 +3244,7 @@ class _ByteCount:
         self.axis_of = ({id(g): a for a, g in mesh.groups.items()}
                         if mesh.distributed else {})
         self.bytes = {}
+        self.calls = {}
 
 
 def _dist_run(over, sb_kw, opts, mesh, dev, batch, counter):
@@ -3268,6 +3293,211 @@ def _dist_run(over, sb_kw, opts, mesh, dev, batch, counter):
     return {"pooled": pooled, "loss1": float(loss1), "loss2": float(loss2),
             "ms": ms, "launches": launches, "bytes": moved,
             "params": _clone_tree(state.params)}
+
+
+# The sharded legs of the dist ranks: ShardedInference's batch (BERT-base
+# at seq SEQ) and its tolerance against the one-process graph (relative
+# L2; the same kernels on the same rows, the shard's matrix products of
+# another row count); host timing repetitions.
+INFER_BATCH, INFER_REL_L2, DIST_TIMED_REPS = 32, 1e-2, 3
+
+
+def _host_ms(fn, reps: int = DIST_TIMED_REPS) -> float:
+    """The host ms of `fn` to its end on the card (synchronized), a
+    mean of `reps` runs after one untimed: every rank runs the same
+    number, so that their collectives pair up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def dist_t5(rank: int, dev, counter, dist) -> dict:
+    """SpmdT5 at T5-base (phase t5's weights, seed 7) at tp 2 over the
+    two ranks: encode T5_BATCH x T5_ENC, T5_STEPS greedy steps; both
+    ranks' tokens equal, rank 0's rows under the split check against an
+    f32 forward of the whole model (T5_LOGIT_BOUND); the encode's and a
+    step's host ms over the ranks, the collectives a step and their
+    bytes on the model axis; no flash_attention launch."""
+    import torch
+
+    from defer_tpu_torch.models.t5 import T5, spmd_t5, t5_config
+    from defer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = t5_config("base")
+    mesh = make_mesh({"model": DIST_WORLD}, [dev] * DIST_WORLD)
+    whole = T5(cfg, compute_dtype=torch.bfloat16, device=dev)
+    params = whole.cast_params(
+        whole.init(torch.Generator(device=dev).manual_seed(7)))
+    m = spmd_t5(mesh, cfg, compute_dtype=torch.bfloat16)
+    sp = m.shard_params(params)
+    if rank:
+        del params
+        torch.cuda.empty_cache()
+    enc = torch.randint(0, cfg.vocab_size, (T5_BATCH, T5_ENC),
+                        generator=torch.Generator().manual_seed(8))
+    step = m.make_step()
+    rows = []
+
+    def recorded(p, cache, ids):
+        logits, out = step(p, cache, ids)
+        rows.append(logits[:, -1].float().clone())
+        return logits, out
+
+    m._steps[True] = recorded
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = m.generate(sp, enc, T5_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()["flash_attention"]
+    m._steps[True] = step
+    toks = _rank_runs(out.cpu().tolist(), dist)
+    check(all(t == toks[0] for t in toks),
+          "dist t5: the ranks generated different tokens")
+    check(launches == 0, f"dist t5: rank {rank} launched flash_attention "
+          f"{launches} times")
+    with torch.no_grad():
+        encode_ms = _host_ms(lambda: m.encode(sp, enc))
+        _, cache = m.make_encode()(sp, enc, torch.ones(enc.shape,
+                                                       dtype=torch.int32))
+        _, cache = m.prefill(sp, cache, out[:, :T5_STEPS // 2])
+        ids = out[:, T5_STEPS // 2:T5_STEPS // 2 + 1]
+        counter.start(mesh)
+        step(sp, cache, ids)
+        torch.cuda.synchronize()
+        calls, moved = dict(counter.calls), dict(counter.bytes)
+        step_ms = _host_ms(lambda: step(sp, cache, ids))
+    want = 3 * cfg.dec_layers + 2
+    check(calls.get("model", 0) == want,
+          f"dist t5: a step made {calls} collectives, expected {want} on "
+          "the model axis")
+    res = {"encode_ms": encode_ms, "step_ms": step_ms, "wall_s": wall,
+           "collectives_step": calls.get("model", 0),
+           "bytes_step": moved.get("model", 0), "launches": launches}
+    if rank == 0:
+        served = torch.stack(rows, dim=1)
+        check(len(rows) == T5_STEPS and torch.equal(
+            served.argmax(-1), out[:, 1:].long()),
+              "dist t5: a token is not the argmax of the row the step "
+              "picked it from")
+        m32 = T5(cfg, compute_dtype=torch.float32, device=dev)
+        p32 = m32.cast_params(params)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.no_grad():
+                ref = m32.forward(p32, enc, out[:, :-1])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del p32
+        res["max_err"] = float((served - ref).abs().max())
+        check(res["max_err"] <= T5_LOGIT_BOUND,
+              f"dist t5: a served row is {res['max_err']:.4g} from the f32 "
+              f"forward, beyond the bound {T5_LOGIT_BOUND}")
+    return res
+
+
+def dist_checkpoint(rank: int, dev, batch, here: str, dist) -> dict:
+    """A ZeRO-1 MeshOptimizer state of the BERT-base classifier on
+    {"stage": 1, "data": 2}: one AdamW step, save_sharded_train_state,
+    one more step (the uninterrupted run); a state from another seed
+    stepped once, restore_sharded_train_state, one step: its params bit
+    for bit the uninterrupted run's. Each rank's file bytes and host ms
+    each way."""
+    import functools
+
+    import torch
+
+    from defer_tpu_torch.models.bert import SpmdBert
+    from defer_tpu_torch.parallel import train
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.parallel.transformer_stack import TransformerConfig
+    from defer_tpu_torch.runtime import checkpoint
+
+    mesh = make_mesh({"stage": 1, "data": DIST_WORLD}, [dev] * DIST_WORLD)
+    sb = SpmdBert(mesh, TransformerConfig(**BERT_BASE),
+                  compute_dtype=torch.bfloat16)
+    init, step = train.make_train_step(
+        sb, functools.partial(torch.optim.AdamW, lr=DIST_LR,
+                              weight_decay=1e-4),
+        num_classes=DIST_CLASSES, zero1=True)
+    path = os.path.join(here, "ckpt")
+    state = init(torch.Generator(device=dev).manual_seed(5))
+    step(state, *batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_sharded_train_state(path, state, sb, save_id=1)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    dist.barrier()
+    step(state, *batch)
+    straight = _clone_tree(state.params)
+    sliced = len(state.opt_state.slices)
+    del state
+    other = init(torch.Generator(device=dev).manual_seed(6))
+    step(other, *batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore_sharded_train_state(path, other, sb)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    step(other, *batch)
+    check(sliced > 0 and _tree_equal(straight, other.params),
+          f"dist checkpoint: rank {rank}'s params after the restored step "
+          "are not bit for bit the uninterrupted run's")
+    nbytes = os.path.getsize(os.path.join(
+        path, f"shards-{rank:05d}-of-{DIST_WORLD:05d}.defer"))
+    return {"bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_ms,
+            "sliced": sliced}
+
+
+def dist_inference(rank: int, dev) -> dict:
+    """ShardedInference of BERT-base (phase main's graph and weights,
+    seq SEQ) over {"data": 2}: INFER_BATCH rows, each rank its half,
+    every rank the whole output, within INFER_REL_L2 (relative L2) of
+    the unpartitioned graph on the whole batch in this process; its
+    flash_attention launches a call on each rank and its host ms."""
+    import torch
+
+    from defer_tpu_torch import DeferConfig
+    from defer_tpu_torch.models import get_model
+    from defer_tpu_torch.parallel.data_parallel import ShardedInference
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.parallel.pipeline import cast_params_to_storage
+
+    model = get_model("bert_base", seq_len=SEQ)
+    config = DeferConfig(compute_dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        batch_size=INFER_BATCH)
+    vocab = model.graph.node_map["token_embedding"].attrs["vocab_size"]
+    ids = torch.randint(0, vocab, (INFER_BATCH, SEQ),
+                        generator=torch.Generator().manual_seed(1))
+    mesh = make_mesh({"data": DIST_WORLD}, [dev] * DIST_WORLD)
+    dp = ShardedInference(model.graph, params, mesh, config)
+    torch.cuda.synchronize()
+    zero_launches()
+    got = dp(ids).float()
+    torch.cuda.synchronize()
+    launches = read_launches()["flash_attention"]
+    with torch.inference_mode():
+        want = model.graph.apply(cast_params_to_storage(params, config),
+                                 ids.to(dev)).float()
+    rel = float((got - want).norm() / want.norm())
+    layers = sum(1 for n in model.graph.nodes if n.op == "mha")
+    check(tuple(got.shape) == tuple(want.shape) and rel <= INFER_REL_L2
+          and launches == layers,
+          f"dist inference: rank {rank}: output {tuple(got.shape)}, "
+          f"{rel:.3e} (relative L2, tol {INFER_REL_L2}) from the "
+          f"unpartitioned graph; flash_attention {launches} launches, "
+          f"expected {layers}")
+    return {"rel_l2": rel, "launches": launches,
+            "ms": _host_ms(lambda: dp(ids))}
 
 
 def dist_rank(rank: int, port: int, out: str) -> int:
@@ -3342,9 +3572,50 @@ def dist_rank(rank: int, port: int, out: str) -> int:
                 f"each rank; bytes a step by axis {got['bytes']}")
         del got
         torch.cuda.empty_cache()
+    # The sharded legs: SpmdT5, sharded checkpoints, ShardedInference.
+    legs = {"t5": dist_t5(rank, dev, counter, dist)}
+    torch.cuda.empty_cache()
+    legs["checkpoint"] = dist_checkpoint(rank, dev, batch,
+                                         os.path.dirname(out), dist)
+    torch.cuda.empty_cache()
+    legs["inference"] = dist_inference(rank, dev)
+    legs = _rank_runs(legs, dist)
     for mod in ("jax", "defer_tpu"):
         check(mod not in sys.modules, f"dist rank {rank} imported {mod}")
     if rank == 0:
+        t5, ck, inf = (legs[0][k] for k in ("t5", "checkpoint", "inference"))
+        lines.append(
+            f"dist: SpmdT5 T5-base tp {DIST_WORLD} (bf16, seed 7 as phase "
+            f"t5): generate {T5_BATCH} x {T5_ENC} tokens, {T5_STEPS} greedy "
+            f"steps, in {t5['wall_s']:.3f}s, tokens equal on both ranks; "
+            f"each token the exact argmax of rank 0's row, those rows within "
+            f"{t5['max_err']:.4g} of the whole model's f32 forward (bound "
+            f"{T5_LOGIT_BOUND}); encode {t5['encode_ms']:.3f} ms, a cached "
+            f"step at depth {T5_STEPS // 2} {t5['step_ms']:.3f} ms (host, "
+            f"synchronized, over the ranks); {t5['collectives_step']} "
+            f"collectives a step (an embedding psum, 3 psums a layer, the "
+            f"logits all-gather), {t5['bytes_step']} B a step on the model "
+            f"axis; "
+            f"flash_attention launches {[r['t5']['launches'] for r in legs]}"
+            " by rank")
+        lines.append(
+            f"dist: sharded checkpoint of a ZeRO-1 BERT-base state on "
+            f"{{'stage': 1, 'data': {DIST_WORLD}}} ({ck['sliced']} leaves' "
+            f"moments sliced on data): a restored step bit for bit the "
+            f"uninterrupted run's on both ranks; bytes by rank "
+            f"{[r['checkpoint']['bytes'] for r in legs]}; save ms "
+            f"{[round(r['checkpoint']['save_ms'], 3) for r in legs]}, "
+            f"restore ms "
+            f"{[round(r['checkpoint']['restore_ms'], 3) for r in legs]}")
+        lines.append(
+            f"dist: ShardedInference BERT-base over {{'data': {DIST_WORLD}}}"
+            f", batch {INFER_BATCH} x seq {SEQ}: the whole output on both "
+            f"ranks, relative L2 "
+            f"{[round(r['inference']['rel_l2'], 6) for r in legs]} from the "
+            f"unpartitioned graph (tol {INFER_REL_L2}); flash_attention "
+            f"{[r['inference']['launches'] for r in legs]} launches by rank"
+            f"; {inf['ms']:.3f} ms a call (host, synchronized)")
+        report["sharded_legs"] = legs
         with open(out, "w") as f:
             json.dump({"layouts": report, "lines": lines}, f)
     dist.barrier()
@@ -4641,17 +4912,28 @@ class PrefillWorker(WorkerProcess):
             "--read-timeout", str(PREFILL_WORKER_TIMEOUT_S)])
 
 
+# serve_disagg's model: the decoder's first DISAGG_LAYERS layers at full
+# width (make_draft: views of phase 4's weights), so that a session's
+# weight dispatch takes seconds, not the 56.762-59.745 s a session of
+# the whole model's 14.5 GB on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md; speeding that dispatch up is open work in ROADMAP.md).
+DISAGG_LAYERS = 4
+
+
 def paged_disagg(dec, params, reqs, here: str) -> dict:
     """serve_disagg over loopback, the prefill worker first in a thread
     of this process, then `python -m defer_tpu_torch.disagg.
-    prefill_worker` as a process with a time limit: the weights cross
-    once a session (raw frames: zstd over 14.5 GB would take longer than
-    the serving), each request's KV comes back as pool blocks. Every
-    token held by the split greedy check (the delivered first row, then
-    the decode host's ticks); the KV bytes on the wire and the ms the
-    decode host took to seat them."""
+    prefill_worker` as a process with a time limit, on DISAGG_LAYERS of
+    the decoder's layers: the weights cross once a session (raw frames),
+    each request's KV comes back as pool blocks. Every token held by the
+    split greedy check (the delivered first row, then the decode host's
+    ticks; the f32 reference of the same layers); the KV bytes on the
+    wire and the ms the decode host took to seat them."""
     from defer_tpu_torch import PagedDecodeServer
     from defer_tpu_torch.disagg import serve_disagg
+    from defer_tpu_torch.models.transplant import make_draft
+
+    dec, params = make_draft(dec, params, layers=DISAGG_LAYERS)
 
     res = {}
     geometry = dict(num_blocks=PAGED_BLOCKS, block_size=PAGED_BS,
@@ -4661,7 +4943,8 @@ def paged_disagg(dec, params, reqs, here: str) -> dict:
                  accept_timeout_s=PREFILL_WORKER_TIMEOUT_S,
                  read_timeout_s=PREFILL_WORKER_TIMEOUT_S)
     for where in ("thread", "process"):
-        label = f"paged_family: disagg ({where} worker)"
+        label = (f"paged_family: disagg ({where} worker, {DISAGG_LAYERS} "
+                 "layers)")
         worker = None
         spawn = None
         if where == "process":
@@ -5476,6 +5759,242 @@ def _shard_pool(dec, params, mesh, dist) -> dict:
     return {"pool_rel_l2": max(errs)}
 
 
+# The fleet's tensor-parallel replicas (phase serve_sharded): the first
+# SHARD_FLEET_REQUESTS requests of phase fleet's mix (Zipf reuse of its
+# system prompts) through FLEET_REPLICAS replicas, each on a
+# {"model": SHARD_TP} mesh over the two ranks.
+SHARD_FLEET_REQUESTS = 8
+
+
+def _shard_fleet(dec, params, rank: int, dist) -> dict:
+    """serve_fleet's front end with model_axis_size=SHARD_TP over the two
+    ranks (phase 5's knobs): rank 0 routes and serves, rank 1 follows
+    both replicas in threads; rank 0's rows, recorded on each replica,
+    under the split check; both replicas read mesh_shape "model=2" on
+    both ranks; each rank's paged kernels ran on its head shards (card
+    runs, equal on both ranks); the allocation each rank's fleet grew by
+    (its pools: the replicas share the rank's one shard of the tree)."""
+    import gc
+
+    import torch
+
+    from defer_tpu_torch.fleet import FleetFrontend
+
+    reqs = fleet_requests(dec.cfg.vocab_size)[0][:SHARD_FLEET_REQUESTS]
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    dist.barrier()
+    zero_launches()
+    fe = FleetFrontend(
+        dec, params, n_replicas=FLEET_REPLICAS, model_axis_size=SHARD_TP,
+        devices=[torch.device(CARD)], num_blocks=PAGED_BLOCKS,
+        block_size=PAGED_BS, max_batch=DECODE_SLOTS, attention="pallas",
+        prefix_cache=True, prefill_chunk=PAGED_CHUNK)
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before
+    shards = sum(1 for k in dec._steps
+                 if isinstance(k, tuple) and k[0] == "paged_shard")
+    out = {}
+    if not fe.follower:
+        served = [ServedRows(r.srv) for r in fe.replicas]
+        where = {}
+        for i, rep_ in enumerate(fe.replicas):
+            def take(req, rep_=rep_, own=rep_._take, i=i):
+                own(req)
+                for rid, gid in rep_._gid_of.items():
+                    if gid == req.gid:
+                        where[gid] = (i, rid)
+
+            rep_._take = take
+        t0 = time.perf_counter()
+        gids = [fe.submit(p, n) for p, n in reqs]
+        outs = [fe.result(g, timeout=FLEET_TIMEOUT_S) for g in gids]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = [served[where[g][0]].of(where[g][1], p.shape[1], n)
+                for g, (p, n) in zip(gids, reqs)]
+        for sv in served:
+            sv.close()
+        out.update(wall_s=wall, outs=outs, rows=rows,
+                   per_replica=[where[g][0] for g in gids].count(0))
+    fe.close()
+    torch.cuda.synchronize()
+    stats = fe.stats()
+    runs = _rank_runs({
+        "card": read_card_runs(), "grew": grew, "shards": shards,
+        "mesh": [r["mesh_shape"] for r in stats["replicas"]],
+        "psums": [r["tp_psums"] for r in stats["replicas"]],
+        "dead": [r["dead"] for r in stats["replicas"]]}, dist)
+    for r, run in enumerate(runs):
+        check(run["mesh"] == [f"model={SHARD_TP}"] * FLEET_REPLICAS
+              and run["dead"] == [None] * FLEET_REPLICAS
+              and run["shards"] == 1,
+              f"serve_sharded fleet: rank {r}: replicas' mesh shapes "
+              f"{run['mesh']}, dead {run['dead']}, {run['shards']} shards")
+        check(run["card"] == runs[0]["card"]
+              and run["card"]["paged_flash_decode"] > 0
+              and run["card"]["paged_flash_prefill"] > 0,
+              f"serve_sharded fleet: rank {r} ran the paged kernels "
+              f"{run['card']} times on the card, rank 0 {runs[0]['card']}")
+    del fe
+    release()
+    if rank:
+        return {}
+    served_bound(f"serve_sharded fleet model_axis_size={SHARD_TP}", dec,
+                 params, reqs, out.pop("outs"), out.pop("rows"))
+    generated = sum(n for _, n in reqs)
+    log(f"serve_sharded: serve_fleet front end, {FLEET_REPLICAS} replicas "
+        f"with model_axis_size={SHARD_TP} over the two ranks (phase 5's "
+        f"knobs; {out['per_replica']} of {len(reqs)} requests on replica "
+        f"0): {generated} tokens in {out['wall_s']:.3f}s, "
+        f"{generated / out['wall_s']:.1f} tokens/s with the rows recorded; "
+        f"every replica reads mesh_shape model={SHARD_TP} on both ranks; "
+        f"tp_psums by replica {runs[0]['psums']}; paged kernels run on the "
+        f"card on each rank {runs[0]['card']}; the fleet grew each rank's "
+        f"allocation by {[run['grew'] for run in runs]} B (its replicas' "
+        f"pools: both replicas of a rank read one shard of the tree, "
+        "shared with this phase's other meshed servers)")
+    return {"launches": runs[0]["card"], "grew": [run["grew"] for run in runs],
+            "tokens_per_s": generated / out["wall_s"],
+            "tp_psums": runs[0]["psums"]}
+
+
+# pp x tp (phase serve_sharded): four gloo ranks sharing cuda:0 on a
+# {"stage": PP_STAGES, "model": SHARD_TP} mesh at Mistral-7B's width and
+# PPTP_LAYERS of its 32 layers (four whole bf16 trees, one a rank, would
+# hold 57 GB of host memory beside this process's), the first
+# PPTP_REQUESTS requests of phase 5's mix, PP_INFLIGHT groups, windows
+# of PP_WINDOW rounds.
+PPTP_WORLD, PPTP_LAYERS, PPTP_REQUESTS = PP_STAGES * SHARD_TP, 16, 4
+
+
+def pptp_rank(rank: int, port: int, out: str) -> int:
+    """One of pp x tp's four ranks on cuda:0 over gloo: the weights built
+    one rank at a time (phase decode's seed, PPTP_LAYERS layers), then
+    PagedDecodeServer(mesh={"stage", "model"}, pp_stages=PP_STAGES) with
+    phase 5's knobs, rank 0 the controller (its rows under the split
+    check), the others following the chains; each rank's
+    paged_flash_prefill runs equal to its stage's layers x dispatches;
+    the bubble fraction, stage dispatches, tp_psums and each axis's
+    bytes. Rank 0 writes its numbers to `out`."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from defer_tpu_torch import GptDecoder, PagedDecodeServer, mistral_config
+    from defer_tpu_torch.parallel import multihost
+    from defer_tpu_torch.parallel.mesh import make_mesh
+    from defer_tpu_torch.runtime.paged import server_stats
+    from defer_tpu_torch.weights import tree_to
+
+    multihost.initialize(f"tcp://127.0.0.1:{port}", PPTP_WORLD, rank,
+                         backend="gloo")
+    dev = torch.device(CARD)
+    torch.cuda.set_device(dev)
+    dec = GptDecoder(mistral_config(num_layers=PPTP_LAYERS),
+                     compute_dtype=torch.bfloat16, device=dev)
+    params = None
+    for r in range(PPTP_WORLD):
+        if r == rank:
+            params = mistral_bf16(dec)
+            if rank:  # only rank 0 keeps the tree on the card (its f32
+                # reference); the others shard their stage from the host
+                params = tree_to(params, torch.device("cpu"))
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+        dist.barrier()
+    mesh = make_mesh({"stage": PP_STAGES, "model": SHARD_TP},
+                     [dev] * PPTP_WORLD)
+    srv = PagedDecodeServer(
+        dec, params, mesh=mesh, num_blocks=PAGED_BLOCKS, block_size=PAGED_BS,
+        max_batch=DECODE_SLOTS, attention="pallas", prefix_cache=True,
+        prefill_chunk=PAGED_CHUNK, pp_stages=PP_STAGES,
+        pp_inflight=PP_INFLIGHT, decode_window=PP_WINDOW)
+    if rank:
+        del params
+        gc.collect()
+    reqs = paged_requests(dec.cfg.vocab_size)[:PPTP_REQUESTS]
+    counter = _ByteCount()
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_launches()
+    counter.start(mesh)
+    res = {}
+    if srv.controller:
+        served = ServedRows(srv)
+        rids = [srv.submit(p, n) for p, n in reqs]
+        t0 = time.perf_counter()
+        done = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs = [done[r] for r in rids]
+        rows = [served.of(r, p.shape[1], n) for r, (p, n) in zip(rids, reqs)]
+        served.close()
+        st = server_stats(srv)
+        res.update(wall_s=wall, tp_psums=st["tp_psums"],
+                   bubble=srv.pp_bubble_last, pp_stages=st["pp_stages"],
+                   mesh_shape=st["mesh_shape"],
+                   pool_bytes=st["pp_stage_pool_bytes"],
+                   cuts=list(srv._pp_cut_starts))
+        srv.close()
+    else:
+        srv.run()
+    torch.cuda.synchronize()
+    stage = mesh.coords["stage"]
+    bounds = srv._pp_cut_starts + [dec.cfg.num_layers]
+    runs = _rank_runs({
+        "card": read_card_runs(), "dispatches": list(srv.pp_stage_dispatch_n),
+        "layers": bounds[stage + 1] - bounds[stage],
+        "bytes": dict(counter.bytes), "calls": dict(counter.calls),
+        "peak": torch.cuda.max_memory_allocated()}, dist)
+    for r, run in enumerate(runs):
+        s = r // SHARD_TP
+        want = {"flash_decode": 0, "paged_flash_decode": 0,
+                "paged_flash_prefill": run["layers"]
+                * run["dispatches"][s]}
+        check(run["card"] == want and run["dispatches"]
+              == runs[0]["dispatches"],
+              f"serve_sharded pp x tp: rank {r} (stage {s}) ran "
+              f"{run['card']} on the card, expected {want}; dispatches "
+              f"{run['dispatches']}")
+    for mod in ("jax", "defer_tpu"):
+        check(mod not in sys.modules, f"pp x tp rank {rank} imported {mod}")
+    if rank == 0:
+        L = dec.cfg.num_layers
+        check(res["pp_stages"] == PP_STAGES and res["tp_psums"] > 0
+              and res["tp_psums"] % (2 * L + 2) == 0
+              and res["mesh_shape"] == f"model={SHARD_TP}",
+              f"serve_sharded pp x tp: pp_stages {res['pp_stages']}, "
+              f"tp_psums {res['tp_psums']}, mesh_shape {res['mesh_shape']}")
+        served_bound(f"serve_sharded pp {PP_STAGES} x tp {SHARD_TP}", dec,
+                     params, reqs, outs, rows)
+        generated = sum(n for _, n in reqs)
+        res.update(runs=runs, tokens_per_s=generated / res["wall_s"])
+        log(f"serve_sharded: pp {PP_STAGES} x tp {SHARD_TP} on "
+            f"{PPTP_WORLD} gloo ranks sharing {CARD} (Mistral-7B width, "
+            f"{L} of its 32 layers; cuts {res['cuts']}, pp_inflight "
+            f"{PP_INFLIGHT}, decode_window {PP_WINDOW}, pallas, phase 5's "
+            f"pool and knobs, {len(reqs)} requests): {generated} tokens in "
+            f"{res['wall_s']:.3f}s, {res['tokens_per_s']:.1f} tokens/s with "
+            f"the rows recorded; bubble fraction of the last window "
+            f"{res['bubble']:.4f}; stage dispatches {runs[0]['dispatches']};"
+            f" tp_psums {res['tp_psums']} = {2 * L + 2} x "
+            f"{res['tp_psums'] // (2 * L + 2)} chains; paged_flash_prefill "
+            f"run on the card by rank "
+            f"{[run['card']['paged_flash_prefill'] for run in runs]} (each "
+            f"= its stage's layers x dispatches, on its head shard); bytes "
+            f"by axis by rank {[run['bytes'] for run in runs]}; stage pool "
+            f"bytes {res['pool_bytes']}; peak allocation by rank "
+            f"{[run['peak'] for run in runs]} B")
+        with open(out, "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def sharded_rank(rank: int, port: int, out: str) -> int:
     """One of phase serve_sharded's two ranks on cuda:0 over gloo: the
     Mistral-7B weights built one rank at a time (phase decode's values),
@@ -5523,6 +6042,8 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
                                   counter, dist, ref)
     release()
     res["pool"] = _shard_pool(dec, params, mesh, dist)
+    release()
+    res["fleet"] = _shard_fleet(dec, params, rank, dist)
     peaks = _rank_runs(torch.cuda.max_memory_allocated(), dist)
     for mod in ("jax", "defer_tpu"):
         check(mod not in sys.modules, f"serve_sharded rank {rank} "
@@ -5539,18 +6060,18 @@ def sharded_rank(rank: int, port: int, out: str) -> int:
 
 
 def _start_ranks(here: str, flag: str, world: int, out: str, timeout: float,
-                 label: str) -> list:
-    """Run `world` ranks of this script (`flag` RANK PORT OUT) on the
-    card and wait for them; a rank that fails, hangs past `timeout` or
-    exits non-zero fails the phase, and every rank is stopped by the
-    end. Returns each rank's output lines."""
+                 label: str, *extra: str) -> list:
+    """Run `world` ranks of this script (`flag` RANK PORT OUT, then
+    `extra`) on the card and wait for them; a rank that fails, hangs past
+    `timeout` or exits non-zero fails the phase, and every rank is
+    stopped by the end. Returns each rank's output lines."""
     tmp = os.path.dirname(out)
     port = _free_port()
     logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
             for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r), str(port),
-         out], cwd=here, stdout=logs[r], stderr=subprocess.STDOUT)
+         out, *extra], cwd=here, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
     deadline = time.monotonic() + timeout
     try:
@@ -5755,10 +6276,12 @@ def shard_pp_remote(dec, params, here: str, pp_res: dict) -> dict:
 def phase_serve_sharded(dec, params, paged_res: dict, decode_res: dict,
                         here: str) -> dict:
     """Phase serve_sharded at Mistral-7B's width and depth on phase 4's
-    weights: the paged server on a {"model": 1} mesh; SpmdGptDecoder and
-    PagedDecodeServer(mesh=) on two gloo ranks sharing cuda:0
-    (SHARD_PAGED); pp_stages=2 in this process; the same stages in two
-    serve_pp_stage workers. Each part's seconds printed."""
+    weights: the paged server on a {"model": 1} mesh; SpmdGptDecoder,
+    PagedDecodeServer(mesh=) (SHARD_PAGED) and the fleet's
+    model_axis_size=2 replicas on two gloo ranks sharing cuda:0; pp 2 x
+    tp 2 on four gloo ranks (PPTP_LAYERS layers); pp_stages=2 in this
+    process; the same stages in two serve_pp_stage workers. Each part's
+    seconds printed."""
     import tempfile
 
     import torch
@@ -5786,6 +6309,16 @@ def phase_serve_sharded(dec, params, paged_res: dict, decode_res: dict,
         "ranks sharing one card stage every collective through the host: "
         "these rates are not NCCL's")
     log(f"serve_sharded: tp2 done in {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    out = os.path.join(tempfile.mkdtemp(prefix="pptp-"), "report.json")
+    logs = _start_ranks(here, "--sharded-rank", PPTP_WORLD, out,
+                        SHARD_TIMEOUT, "serve_sharded pp x tp", "pptp")
+    for line in logs[0]:
+        if line.startswith("serve_sharded"):
+            log(line)
+    with open(out) as f:
+        res["pptp"] = json.load(f)
+    log(f"serve_sharded: pp x tp done in {time.perf_counter() - t1:.1f}s")
     t1 = time.perf_counter()
     res["pp"] = shard_pp(dec, params, paged_res["outs"])
     release()
@@ -6031,6 +6564,12 @@ def main() -> int:
             # SpmdGptDecoder at tp 2, on each rank (phase serve_sharded).
             report[-1]["serve_sharded"] = {
                 "flat_tp2_per_rank": sharded_res["flat"]["launches"]}
+        if name == "flash_attention":
+            # ShardedInference of BERT-base over {"data": 2}, a call, by
+            # rank (phase dist); SpmdT5 launches none.
+            report[-1]["sharded_inference_by_rank"] = [
+                leg["inference"]["launches"]
+                for leg in dist_res["sharded_legs"]]
         if name in ("paged_flash_decode", "paged_flash_prefill"):
             # The paged family's paths, each its own run's kernel runs on
             # the card (float and int8 pools together; captured windows'
@@ -6059,6 +6598,12 @@ def main() -> int:
                      for label, _ in SHARD_PAGED}
             if name == "paged_flash_prefill":
                 shard["pp2"] = sharded_res["pp"]["launches"]
+            # The fleet's two model_axis_size=2 replicas on each rank, and
+            # pp 2 x tp 2 by rank (each its stage's layers).
+            shard["fleet_tp2_per_rank"] = (
+                sharded_res["fleet"]["launches"][name])
+            shard["pp2_tp2_by_rank"] = [
+                run["card"][name] for run in sharded_res["pptp"]["runs"]]
             report[-1]["serve_sharded"] = shard
     log(json.dumps({"kernels": report}))
     log(card)
@@ -6079,8 +6624,8 @@ if __name__ == "__main__":
         sys.exit(dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--sharded-rank"]:  # one of serve_sharded's ranks
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]),
-                              sys.argv[4]))
+        rank_main = pptp_rank if sys.argv[5:6] == ["pptp"] else sharded_rank
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--pp-stage"]:  # one of serve_sharded's workers
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(pp_stage_worker(int(sys.argv[2]), int(sys.argv[3])))

@@ -26,9 +26,19 @@ The in-process default places replica i on `devs[i % len(devs)]`, where
 raises: pass CPU devices to run on the CPU), so replicas that outnumber
 the cards share them: on one card every replica is a `device=` server
 on it, each with its own pool and all reading one set of weights
-(`.to` moves nothing that is already there). Tensor-parallel replicas
-(`model_axis_size=`) wait for the multi-device leg (ROADMAP Queue 1
-item 7).
+(`.to` moves nothing that is already there).
+
+Tensor-parallel replicas, `model_axis_size=m`: replica i takes the
+device chunk `devs[(i * m + j) % len(devs)]` for j < m, wrapping around
+(the JAX package's placement), and serves on its own `{"model": m}`
+mesh over the ranks of a `torch.distributed` group of m ranks
+(`parallel/multihost.py` `initialize`), each mesh with its own process
+groups, so two replicas' seams never share one. Every rank calls
+`serve_fleet` (or builds the `FleetFrontend`) with the same arguments
+and the whole params; the controller (rank 0) routes and serves, and
+every other rank runs each replica's follower loop in a thread of its
+own (`FollowerReplica`) until the controller closes the fleet. The
+replicas of a rank share one shard of the tree (runtime/paged.py).
 
 Failure semantics: a dead replica fails its in-flight requests with
 `ReplicaDeadError` (their KV died with the pool — silently re-running
@@ -48,10 +58,14 @@ import torch
 
 from defer_tpu_torch.disagg.wire import PrefixPayload
 from defer_tpu_torch.fleet.admission import AdmissionController, ShedError
-from defer_tpu_torch.fleet.replica import ReplicaDeadError, ThreadReplica
+from defer_tpu_torch.fleet.replica import (
+    FollowerReplica,
+    ReplicaDeadError,
+    ThreadReplica,
+)
 from defer_tpu_torch.fleet.router import AdvertisementBoard, PrefixRouter
 from defer_tpu_torch.obs.serving import FleetMetrics, FleetStats, ServerStats
-from defer_tpu_torch.parallel.mesh import cuda_devices
+from defer_tpu_torch.parallel.mesh import cuda_devices, make_mesh
 from defer_tpu_torch.runtime.paged import PagedDecodeServer
 from defer_tpu_torch.utils.logging import get_logger
 
@@ -69,7 +83,10 @@ class _FleetRequest:
 
 class FleetFrontend:
     """Construct replicas, route, admit, await. One instance per
-    serving session; `close()` stops the replica threads."""
+    serving session; `close()` stops the replica threads. With
+    `model_axis_size=` over a process group, `follower` is True on every
+    rank but the controller: its replicas follow the controller's
+    dispatches, and `close()` waits for the controller to close them."""
 
     def __init__(
         self,
@@ -132,20 +149,27 @@ class FleetFrontend:
         )
         self.alive = [True] * n_replicas
 
-        # Device placement (module docstring): replica i's device comes
-        # from its index, wrapping around when replicas outnumber them.
-        if model_axis_size is not None:
-            if model_axis_size < 1:
-                raise ValueError(
-                    f"model_axis_size must be >= 1, got {model_axis_size}"
-                )
-            raise NotImplementedError(
-                "tensor-parallel fleet replicas (model_axis_size=) are not "
-                "ported yet (ROADMAP Queue 1 item 7)"
+        # Device placement (module docstring): replica i's device, or its
+        # model_axis_size-device mesh, comes from its index, wrapping
+        # around when replicas outnumber the devices.
+        if model_axis_size is not None and model_axis_size < 1:
+            raise ValueError(
+                f"model_axis_size must be >= 1, got {model_axis_size}"
             )
         devs = list(devices) if devices is not None else cuda_devices()
         if not devs:
             raise ValueError("devices= is empty")
+
+        def placement(i: int) -> dict:
+            if model_axis_size is None:
+                return {"device": devs[i % len(devs)]}
+            m = model_axis_size
+            chunk = [devs[(i * m + j) % len(devs)] for j in range(m)]
+            return {"mesh": make_mesh({"model": m}, chunk)}
+
+        # Built here, in replica order, on every rank: a mesh over the
+        # ranks makes its process groups collectively.
+        places = [placement(i) for i in range(n_replicas)]
 
         def make_server(i: int) -> PagedDecodeServer:
             return PagedDecodeServer(
@@ -165,10 +189,15 @@ class FleetFrontend:
                 spec_draft=spec_draft,
                 spec_params=spec_params,
                 constraints=constraints,
-                device=devs[i % len(devs)],
+                **places[i],
             )
 
+        mesh0 = places[0].get("mesh")
+        self.follower = (mesh0 is not None and mesh0.distributed
+                         and mesh0.rank != mesh0.origin)
         spawn = spawn_replica or ThreadReplica
+        if self.follower:
+            spawn = FollowerReplica
         self.replicas = [
             spawn(
                 i,
@@ -287,6 +316,11 @@ class FleetFrontend:
         `result()`. Raises ShedError synchronously when admission
         rejects it (the future is cleaned up — a shed request can
         never be waited on into a hang)."""
+        if self.follower:
+            raise RuntimeError(
+                "submit runs on the fleet's controller (rank 0 of its "
+                "meshes); this rank's replicas follow its dispatches"
+            )
         if prompt_ids.ndim != 2 or prompt_ids.shape[0] != 1:
             raise ValueError("submit one request at a time ([1, T])")
         with self._lock:
@@ -350,6 +384,7 @@ class FleetFrontend:
                         srv.decode_stall_fraction_last
                     ),
                     mesh_shape=srv.mesh_label,
+                    tp_psums=srv.tp_psums,
                     kv_dtype=srv.kv_dtype,
                     pool_bytes=srv.pool_bytes,
                     spec_k=srv.spec_k,
@@ -425,9 +460,12 @@ def serve_fleet(
     migrated block totals, and per-replica ServerStats.
 
     Placement: replica i serves on `devices[i % len(devices)]` (default:
-    every CUDA device of the process; module docstring);
-    `model_axis_size=` raises NotImplementedError (ROADMAP Queue 1
-    item 7).
+    every CUDA device of the process); `model_axis_size=m` gives each
+    replica its own m-device "model" mesh over a process group of m
+    ranks and serves it tensor-parallel (module docstring). Then every
+    rank calls serve_fleet with the same arguments: the controller
+    serves and returns the outputs; every other rank follows its
+    replicas' dispatches and returns an empty list (with its stats).
 
     `prefill_chunk` (a knob the JAX package's fleet does not pass on)
     runs every replica's admission prefill pool-native in chunks of that
@@ -486,6 +524,9 @@ def serve_fleet(
         devices=devices,
         constraints=constraints,
     )
+    if fe.follower:
+        fe.close()  # returns once the controller has closed the fleet
+        return [], fe.stats()
     samps = sampling or [None] * len(requests)
     stops = stop or [None] * len(requests)
     if len(samps) != len(requests) or len(stops) != len(requests):

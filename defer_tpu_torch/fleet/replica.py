@@ -102,6 +102,8 @@ class ThreadReplica:
         self._stop.set()
         if self._thread.is_alive():
             self._thread.join(timeout=timeout)
+        # A meshed server's followers (other ranks) end with it.
+        self.srv.close()
         if self.srv._spill is not None:
             # Settle the host spill tier's drain thread so its gauges
             # (and any caller reading stored_bytes) see a final value.
@@ -262,3 +264,34 @@ class ThreadReplica:
             self.obs.inflight[self.idx].set(0)
             self.obs.pool_free[self.idx].set(0)
             self.on_dead(self.idx, e)
+
+
+class FollowerReplica:
+    """A replica on a rank other than its mesh's controller (fleet
+    `model_axis_size=` over a process group): its server, built in the
+    same order as the controller's, runs the controller's dispatches in
+    a thread of its own (`PagedDecodeServer.run`) until the controller's
+    replica closes it. Takes ThreadReplica's arguments; routes nothing,
+    so the callbacks stay unused."""
+
+    def __init__(self, idx: int, make_server, controller, board, obs, *,
+                 on_done, on_fail, on_dead):
+        self.idx = idx
+        self.srv = make_server(idx)
+        self.dead: BaseException | None = None
+        self._thread = threading.Thread(
+            target=self._follow, name=f"fleet-follower-{idx}", daemon=True
+        )
+
+    def _follow(self) -> None:
+        try:
+            self.srv.run()
+        except Exception as e:  # the thread's boundary: the fleet's stats
+            self.dead = e      # report it as the replica's death
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def close(self, timeout: float | None = None) -> None:
+        """Wait until the controller has closed this replica."""
+        self._thread.join(timeout=timeout)

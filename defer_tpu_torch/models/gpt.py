@@ -1160,6 +1160,15 @@ class SpmdGptDecoder(GptDecoder):
         embedding and tied head (padded to a tp multiple), the norms and
         positions whole. int8 weight-only trees (models/quant.py) split
         as their float counterparts."""
+        local = shard_tree(self.prepare_params(params), self._specs(),
+                           self.mesh)
+        return tree_to(local, self.device)
+
+    def prepare_params(self, params: dict) -> dict:
+        """A WHOLE tree as `_specs` places it: the int8 leaves noted (their
+        scales split as their payloads) and the embedding's vocab rows
+        padded to a tp multiple. A pipeline stage shards its slice of it
+        (runtime/paged.py `_pp_stage_specs`)."""
         if "lm_head" in params:
             raise NotImplementedError(
                 "untied output heads are not supported under tensor "
@@ -1181,8 +1190,7 @@ class SpmdGptDecoder(GptDecoder):
                 "token_embedding": ({"q": padded, "s": emb["s"]}
                                     if self._quantized_emb else padded),
             }
-        local = shard_tree(params, self._specs(), self.mesh)
-        return tree_to(local, self.device)
+        return params
 
     def _cache_spec(self) -> dict:
         """The cache's placement: batch rows over dp (axis 1), heads over

@@ -28,8 +28,14 @@ too (no Pallas kernel computes it there). `from_hf_state_dict` maps a
 HuggingFace `T5ForConditionalGeneration.state_dict()` onto the params,
 held against transformers' own forward in tests/test_torch_t5.py.
 
-Not ported yet (ROADMAP Queue 1 item 7): `SpmdT5` / `spmd_t5`
-(tensor-parallel T5), which raise.
+`SpmdT5` / `spmd_t5` serve T5 tensor-parallel over a "model" mesh axis
+of a process group (one rank a mesh position, as `SpmdGptDecoder`):
+every body above takes the JAX package's `tp_axis` hooks, so one head
+group a rank in both stacks (local-width splits, the rel-bias tables
+sliced on their head axis, caches of local heads), column / row split
+FFNs and attention outputs closed by a psum, and a vocab-row split
+embedding and head (padded to a tp multiple) whose logits slices
+all-gather on the way out.
 """
 
 from __future__ import annotations
@@ -43,12 +49,17 @@ import torch.nn.functional as F
 
 from defer_tpu_torch.models.gpt import _layer_view, _resolve_device
 from defer_tpu_torch.models.gpt import sampled_decode_loop
+from defer_tpu_torch.parallel import collectives
+from defer_tpu_torch.parallel.collectives import all_gather, psum
 from defer_tpu_torch.parallel.mesh import cuda_devices
+from defer_tpu_torch.parallel.spmd_pipeline import check_process_group
 from defer_tpu_torch.parallel.transformer_stack import (
     _rms_norm,
     embed_lookup,
     normal,
+    shard_tree,
 )
+from defer_tpu_torch.weights import tree_to
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +259,8 @@ class T5:
 
     # -- shared pieces ----------------------------------------------------
 
-    def _ffn(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, p: dict, x: torch.Tensor,
+             tp_axis: str | None = None) -> torch.Tensor:
         dt = x.dtype
         if self.cfg.ffn_style == "gated-gelu":
             # T5 v1.1: gelu(wi_0) * wi_1 -> wo; HF's "gated-gelu" is
@@ -258,7 +270,8 @@ class T5:
             )
         else:
             h = torch.relu(x @ p["w1"].to(dt))
-        return h @ p["w2"].to(dt)
+        # Under tp, w1/w3 are column- and w2 row-split: partial sums.
+        return psum(h @ p["w2"].to(dt), tp_axis)
 
     def _rms(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         return _rms_norm(x, scale, self.cfg.layer_norm_eps)
@@ -274,10 +287,18 @@ class T5:
         b, h, t, dh = x.shape
         return x.transpose(1, 2).reshape(b, t, h * dh)
 
-    def _embed(self, params: dict, ids: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: dict, ids: torch.Tensor,
+               tp_axis: str | None = None) -> torch.Tensor:
+        """Token embedding in the compute dtype; under tp the table is
+        this rank's vocab rows (embed_lookup's masked lookup + psum)."""
         ids = ids.to(self.device)
-        return embed_lookup(params["token_embedding"], ids).to(
+        return embed_lookup(params["token_embedding"], ids, tp_axis).to(
             self.compute_dtype)
+
+    def _local_heads(self, params: dict) -> int:
+        """Heads this rank computes: all of them, or its head group
+        under tp (read from the projections' width)."""
+        return params["dec_stack"]["wk"].shape[-1] // self.cfg.head_dim
 
     @staticmethod
     def _key_mask_bias(mask) -> torch.Tensor | None:
@@ -300,13 +321,16 @@ class T5:
 
     # -- encoder ----------------------------------------------------------
 
-    def encode(self, params: dict, ids: torch.Tensor, *,
-               mask=None) -> torch.Tensor:
+    def encode(self, params: dict, ids: torch.Tensor,
+               tp_axis: str | None = None, *, mask=None) -> torch.Tensor:
         """[B, S] token ids -> [B, S, D] encoder output (final-LN'd).
         `mask` [B, S] (1 = real token) excludes pad KEY positions from
         every self-attention (pad rows of the output are garbage; the
-        decoder paths mask them when given the same mask)."""
-        x = self._embed(params, ids)
+        decoder paths mask them when given the same mask). With tp_axis
+        (under the active mesh) the projections are this rank's head
+        group, the rel-bias table's local width picks the matching
+        heads, and wo / w2 are row-split with a psum."""
+        x = self._embed(params, ids, tp_axis)
         s = ids.shape[1]
         bias = self._bias(params["enc_rel_bias"], s, s, bidirectional=True)
         kb = self._key_mask_bias(mask)
@@ -319,19 +343,20 @@ class T5:
             attn = _attend(self._split(h @ p["wq"].to(dt)),
                            self._split(h @ p["wk"].to(dt)),
                            self._split(h @ p["wv"].to(dt)), bias)
-            x = x + self._merge(attn) @ p["wo"].to(dt)
-            x = x + self._ffn(p, self._rms(x, p["ln2_scale"]))
+            x = x + psum(self._merge(attn) @ p["wo"].to(dt), tp_axis)
+            x = x + self._ffn(p, self._rms(x, p["ln2_scale"]), tp_axis)
         return self._rms(x, params["enc_final_ln"])
 
     # -- decoder (full sequence: the oracle) --------------------------------
 
     def decode_logits(self, params: dict, enc_out: torch.Tensor,
-                      dec_ids: torch.Tensor, *, enc_mask=None
-                      ) -> torch.Tensor:
+                      dec_ids: torch.Tensor, tp_axis: str | None = None, *,
+                      enc_mask=None) -> torch.Tensor:
         """Teacher-forced decoder: [B, Senc, D] x [B, Tdec] -> [B, Tdec, V]
-        f32 logits. `enc_mask` [B, Senc] excludes pad encoder positions
-        from every cross-attention (pass the mask given to encode)."""
-        x = self._embed(params, dec_ids)
+        f32 logits (this rank's vocab slice under tp). `enc_mask`
+        [B, Senc] excludes pad encoder positions from every
+        cross-attention (pass the mask given to encode)."""
+        x = self._embed(params, dec_ids, tp_axis)
         enc_out = enc_out.to(self.device, self.compute_dtype)
         cross_bias = self._key_mask_bias(enc_mask)
         if cross_bias is not None:
@@ -349,19 +374,20 @@ class T5:
             attn = _attend(self._split(h @ p["wq"].to(dt)),
                            self._split(h @ p["wk"].to(dt)),
                            self._split(h @ p["wv"].to(dt)), self_bias)
-            x = x + self._merge(attn) @ p["wo"].to(dt)
+            x = x + psum(self._merge(attn) @ p["wo"].to(dt), tp_axis)
             h = self._rms(x, p["lnx_scale"])
             cross = _attend(self._split(h @ p["cq"].to(dt)),
                             self._split(enc_out @ p["ck"].to(dt)),
                             self._split(enc_out @ p["cv"].to(dt)),
                             cross_bias)
-            x = x + self._merge(cross) @ p["co"].to(dt)
-            x = x + self._ffn(p, self._rms(x, p["ln2_scale"]))
+            x = x + psum(self._merge(cross) @ p["co"].to(dt), tp_axis)
+            x = x + self._ffn(p, self._rms(x, p["ln2_scale"]), tp_axis)
         return self._head(params, self._rms(x, params["dec_final_ln"]))
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """The LM head in f32 (tied: the decoder output scaled by
-        dim**-0.5 first)."""
+        dim**-0.5 first). Under tp the head rows are this rank's vocab
+        slice, so this is the local logits slice."""
         xf = x.float()
         if self.cfg.tie_word_embeddings:
             xf = xf * self.cfg.dim**-0.5
@@ -392,8 +418,9 @@ class T5:
         cross_bias = self._key_mask_bias(enc_mask)
         if cross_bias is None:
             cross_bias = torch.zeros((b, 1, 1, s_enc))
-        dh = cfg.head_dim
-        shape = (cfg.dec_layers, b, cfg.num_heads, cfg.max_len, dh)
+        # Local heads: under tp a rank caches only its head group.
+        shape = (cfg.dec_layers, b, self._local_heads(params), cfg.max_len,
+                 cfg.head_dim)
         cross_k, cross_v = self._project_cross(params, enc_out)
         return {
             "k": torch.zeros(shape, dtype=cd, device=self.device),
@@ -406,17 +433,31 @@ class T5:
 
     def _project_cross(self, params: dict, enc_out: torch.Tensor):
         """[L, B, H, Senc, Dh] cross K/V for all decoder layers, one
-        batched einsum a projection."""
+        batched einsum a projection (H the local heads under tp)."""
         cfg = self.cfg
         cd = enc_out.dtype
         b, s_enc, _ = enc_out.shape
-        shape = (cfg.dec_layers, b, s_enc, cfg.num_heads, cfg.head_dim)
+        shape = (cfg.dec_layers, b, s_enc, self._local_heads(params),
+                 cfg.head_dim)
         out = []
         for name in ("ck", "cv"):
             proj = torch.einsum("bsd,ldi->lbsi", enc_out,
                                 params["dec_stack"][name].to(cd))
             out.append(proj.reshape(shape).transpose(2, 3).contiguous())
         return out[0], out[1]
+
+    def make_encode(self):
+        """(params, enc_ids, enc_mask) -> (enc_out, fresh serving cache):
+        the encoder and the per-layer cross-K/V projection in one call
+        (the JAX package's jitted encode program). `enc_mask` is a
+        concrete [B, Senc] validity mask (all ones when nothing is
+        padded)."""
+
+        def fn(params, ids, mask):
+            enc_out = self.encode(params, ids, mask=mask)
+            return enc_out, self.start_cache(params, enc_out, mask)
+
+        return fn
 
     def prefill(self, params: dict, cache: dict, ids: torch.Tensor
                 ) -> tuple[torch.Tensor, dict]:
@@ -434,7 +475,12 @@ class T5:
         logits, cache = self.make_step()(params, cache, ids)
         return logits[:, -1, :], cache
 
-    def _step_fn(self, donate: bool):
+    def _step_fn(self, donate: bool, tp_axis: str | None = None):
+        """The ONE incremental-step body of the single-device and the
+        tensor-parallel paths: under tp each rank holds one head group
+        (local-width splits, the head-sliced rel-bias table, head-group
+        caches), psums close the wo / co / w2 row-parallel products and
+        the embedding is vocab-row split."""
         cfg = self.cfg
 
         def step(params, cache, ids):
@@ -444,7 +490,7 @@ class T5:
             kc_all, vc_all = cache["k"], cache["v"]
             if not donate:
                 kc_all, vc_all = kc_all.clone(), vc_all.clone()
-            x = self._embed(params, ids)
+            x = self._embed(params, ids, tp_axis)
             qpos = pos + torch.arange(t, device=self.device)
             kpos = torch.arange(cfg.max_len, device=self.device)
             self_bias = _rel_bias(
@@ -466,7 +512,7 @@ class T5:
                 kc.index_copy_(2, rows, self._split(h @ p["wk"].to(dt)))
                 vc.index_copy_(2, rows, self._split(h @ p["wv"].to(dt)))
                 attn = _attend(q, kc, vc, self_bias)
-                x = x + self._merge(attn) @ p["wo"].to(dt)
+                x = x + psum(self._merge(attn) @ p["wo"].to(dt), tp_axis)
                 # Cross-attention against the precomputed encoder K/V;
                 # cross_bias (baked at cache start) excludes pad keys.
                 h = self._rms(x, p["lnx_scale"])
@@ -474,8 +520,8 @@ class T5:
                                 cache["cross_k"][layer],
                                 cache["cross_v"][layer],
                                 cache["cross_bias"])
-                x = x + self._merge(cross) @ p["co"].to(dt)
-                x = x + self._ffn(p, self._rms(x, p["ln2_scale"]))
+                x = x + psum(self._merge(cross) @ p["co"].to(dt), tp_axis)
+                x = x + self._ffn(p, self._rms(x, p["ln2_scale"]), tp_axis)
             x = self._rms(x, params["dec_final_ln"])
             out = {**cache, "k": kc_all, "v": vc_all, "pos": pos + t}
             return self._head(params, x), out
@@ -522,8 +568,7 @@ class T5:
         b = enc_ids.shape[0]
         if enc_mask is None:
             enc_mask = torch.ones(enc_ids.shape, dtype=torch.int32)
-        enc_out = self.encode(params, enc_ids, mask=enc_mask)
-        cache = self.start_cache(params, enc_out, enc_mask)
+        _, cache = self.make_encode()(params, enc_ids, enc_mask)
         ids = torch.full((b, 1), cfg.decoder_start_token_id,
                          dtype=torch.int32, device=self.device)
         last, cache = self.prefill(params, cache, ids)
@@ -640,18 +685,156 @@ def from_hf_state_dict(cfg: T5Config, state_dict: Mapping[str, Any],
     return params
 
 
+@dataclasses.dataclass
 class SpmdT5(T5):
     """Tensor-parallel T5 over a "model" mesh axis (the JAX package's
-    SpmdT5): not ported yet, so construction raises (ROADMAP Queue 1
-    item 7)."""
+    SpmdT5), over a process group: one process a mesh position, every
+    rank calling the same programs on the same operands and holding its
+    shards. One head group a rank in BOTH stacks (self- and
+    cross-attention caches of local heads only, the rel-bias tables
+    split on their head axis so each group reads just its own biases),
+    column / row split FFNs with a psum, and a Megatron vocab-row split
+    embedding / head, padded to a tp multiple: every weight matrix is
+    read 1/tp a rank, as under SpmdGptDecoder.
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "SpmdT5 (tensor-parallel T5 over a 'model' mesh axis) is not "
-            "ported yet (ROADMAP Queue 1 item 7)"
-        )
+    `shard_params` takes the WHOLE tree (the same on every rank) and
+    keeps this rank's slices. The programs (`make_encode`,
+    `make_forward`, `make_step`, and `encode` / `decode_logits` /
+    `forward` / `generate` called directly) run with the mesh active
+    and return whole values, bitwise equal on every rank: the encoder
+    output after its psums, the logits all-gathered with the pad vocab
+    rows sliced off; `make_encode`'s cache holds this rank's heads.
+    `device` defaults to the mesh's device for this rank. A one-process
+    mesh serves only a model axis of size 1 (every collective the
+    identity)."""
+
+    mesh: Any = None
+    tp_axis: str = "model"
+
+    def __post_init__(self):
+        if self.mesh is None or self.tp_axis not in self.mesh.axis_names:
+            raise ValueError(
+                f"SpmdT5 needs a mesh with a {self.tp_axis!r} axis"
+            )
+        cfg = self.cfg
+        tp = self.mesh.shape[self.tp_axis]
+        if cfg.num_heads % tp or cfg.ffn_dim % tp:
+            raise ValueError(
+                f"num_heads={cfg.num_heads} and ffn_dim={cfg.ffn_dim} "
+                f"must divide by tp={tp}"
+            )
+        if self.device is None:
+            self.device = self.mesh.local_device
+        super().__post_init__()
+        check_process_group(self.mesh)
+        self._vocab_padded = -(-cfg.vocab_size // tp) * tp
+
+    def _specs(self) -> dict:
+        """The placement of a param tree (the JAX package's
+        PartitionSpecs as tuples of axis names)."""
+        tp = self.tp_axis
+        col, row, rep = (None, None, tp), (None, tp, None), (None, None)
+
+        def stack(cross: bool) -> dict:
+            p = {"wq": col, "wk": col, "wv": col, "wo": row,
+                 "ln1_scale": rep, "ln2_scale": rep, "w1": col, "w2": row}
+            if self.cfg.ffn_style == "gated-gelu":
+                p["w3"] = col
+            if cross:
+                p.update(cq=col, ck=col, cv=col, co=row, lnx_scale=rep)
+            return p
+
+        specs = {
+            "token_embedding": (tp, None),
+            "enc_stack": stack(False),
+            "dec_stack": stack(True),
+            # Head axis split: each group reads only its own biases.
+            "enc_rel_bias": (None, tp),
+            "dec_rel_bias": (None, tp),
+            "enc_final_ln": (None,),
+            "dec_final_ln": (None,),
+        }
+        if not self.cfg.tie_word_embeddings:
+            specs["lm_head"] = (tp, None)
+        return specs
+
+    def shard_params(self, params: dict) -> dict:
+        """This rank's slices of a WHOLE param tree, on this rank's
+        device; the vocab rows of the embedding (and an untied head)
+        padded to a tp multiple with zero rows, which no lookup reaches
+        and the logits drop."""
+        pad = self._vocab_padded - params["token_embedding"].shape[0]
+        if pad:
+            params = dict(params)
+            for key in ("token_embedding", "lm_head"):
+                if key in params:
+                    params[key] = F.pad(params[key], (0, 0, 0, pad))
+        return tree_to(shard_tree(params, self._specs(), self.mesh),
+                       self.device)
+
+    def _cache_spec(self) -> dict:
+        """The serving cache's placement: self and cross K/V at heads /
+        tp of [L, B, H, S, Dh]; the cross bias and write head whole."""
+        kv = (None, None, self.tp_axis, None, None)
+        return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv,
+                "cross_bias": (None, None, None, None), "pos": ()}
+
+    def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's [..., Vpad/tp] logits slice -> the whole [..., V]
+        logits on every rank (the shard_map's out_specs concatenation,
+        then the pad rows sliced off: zeros could win an argmax)."""
+        return all_gather(logits, self.tp_axis, dim=-1)[
+            ..., : self.cfg.vocab_size]
+
+    def encode(self, params: dict, ids: torch.Tensor,
+               tp_axis: str | None = None, *, mask=None) -> torch.Tensor:
+        """The encoder on this rank's shards under the mesh; the output
+        is whole (every block ends in a psum)."""
+        with collectives.active(self.mesh):
+            return super().encode(params, ids, self.tp_axis, mask=mask)
+
+    def decode_logits(self, params: dict, enc_out: torch.Tensor,
+                      dec_ids: torch.Tensor, tp_axis: str | None = None, *,
+                      enc_mask=None) -> torch.Tensor:
+        """Teacher-forced logits on this rank's shards under the mesh,
+        whole [B, T, V] (gathered, pad vocab rows dropped)."""
+        with collectives.active(self.mesh):
+            out = super().decode_logits(params, enc_out, dec_ids,
+                                        self.tp_axis, enc_mask=enc_mask)
+            return self._whole_logits(out)
+
+    def make_forward(self):
+        """(params, enc_ids, dec_ids, enc_mask) -> [B, T, V] f32 logits:
+        the tensor-parallel teacher-forced forward (encode +
+        decode_logits under the mesh, the vocab slices gathered and the
+        pad rows dropped)."""
+        return lambda params, enc_ids, dec_ids, mask: self.forward(
+            params, enc_ids, dec_ids, enc_mask=mask)
+
+    def make_step(self, *, donate: bool = True):
+        """The incremental step on this rank's shards and cache under
+        the mesh; the logits come back whole on every rank."""
+        step = self._steps.get(donate)
+        if step is not None:
+            return step
+        inner = self._step_fn(donate, tp_axis=self.tp_axis)
+
+        def step(params, cache, ids):
+            with collectives.active(self.mesh):
+                logits, cache = inner(params, cache, ids)
+                return self._whole_logits(logits), cache
+
+        self._steps[donate] = step
+        return step
 
 
-def spmd_t5(*args: Any, **kwargs: Any) -> SpmdT5:
-    """The JAX package's SpmdT5 factory: raises as SpmdT5 does."""
-    return SpmdT5(*args, **kwargs)
+def spmd_t5(
+    mesh: Any,
+    cfg: T5Config,
+    *,
+    compute_dtype: Any = torch.bfloat16,
+    tp_axis: str = "model",
+) -> SpmdT5:
+    """Tensor-parallel T5 serving (mirrors models/llama.spmd_llama)."""
+    return SpmdT5(cfg, compute_dtype=compute_dtype, mesh=mesh,
+                  tp_axis=tp_axis)

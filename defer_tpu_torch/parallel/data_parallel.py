@@ -7,11 +7,15 @@ When the whole model fits one device, the other way is to split the
 BATCH. Two runtimes:
 
   * `ShardedInference` — the whole graph on each device of an explicit
-    list: a batch is split into len(devices) shards, shard i runs on
-    devices[i], and the results are concatenated in order on
-    devices[0]. On one card that is `[cuda:0]`. (The JAX package runs
-    one SPMD program over a mesh's data axis; given a Mesh, the port
-    raises: that form is not ported yet, ROADMAP.md Queue 1 item 7.)
+    list (every CUDA device by default): a batch is split into
+    len(devices) shards, shard i runs on devices[i], and the results
+    are concatenated in order on devices[0]. On one card that is
+    `[cuda:0]`. Given a `Mesh` (the JAX package runs one SPMD program
+    over its data axis), a one-process mesh takes its data axis's
+    devices as the list; over a process group every rank takes the
+    whole batch, runs its data index's shard on its own device, and
+    all-gathers the results on its data-axis line, so every rank holds
+    the whole output, as JAX's global array is whole.
   * `ReplicatedPipeline` — R independent device-pinned pipeline
     replicas (parallel/pipeline.py `Pipeline`) fed round-robin;
     composes data parallelism with the stage chain when the model does
@@ -31,7 +35,8 @@ import torch
 from defer_tpu_torch.config import DeferConfig
 from defer_tpu_torch.graph.ir import Graph, GraphParams
 from defer_tpu_torch.graph.partition import StageGraph
-from defer_tpu_torch.parallel.mesh import Mesh
+from defer_tpu_torch.parallel import collectives
+from defer_tpu_torch.parallel.mesh import Mesh, cuda_devices
 from defer_tpu_torch.parallel.pipeline import (
     Pipeline,
     Stage,
@@ -131,21 +136,30 @@ class ReplicaRetirer:
 class ShardedInference(StreamMeasure):
     """The whole graph on each device of an explicit list, the batch
     split into one shard per listed device (a device listed twice takes
-    two shards through one placed copy of the params)."""
+    two shards through one placed copy of the params); or over a mesh's
+    `data_axis` (module docstring). `devices=None` is every CUDA device,
+    and raises without one."""
 
     def __init__(
         self,
         graph: Graph,
         params: GraphParams,
-        devices: Sequence[torch.device] | Mesh,
+        devices: Sequence[torch.device] | Mesh | None = None,
         config: DeferConfig | None = None,
+        *,
+        data_axis: str = "data",
     ):
-        if isinstance(devices, Mesh):
-            raise NotImplementedError(
-                "ShardedInference over a mesh's data axis is not ported "
-                "yet (ROADMAP Queue 1 item 7): pass a list of devices"
-            )
         self.config = config or DeferConfig()
+        self.mesh = None
+        self.data_axis = data_axis
+        if isinstance(devices, Mesh):
+            if devices.distributed:
+                self.mesh = devices
+                devices = [devices.local_device]
+            else:
+                devices = devices.axis_devices(data_axis)
+        elif devices is None:
+            devices = cuda_devices()
         self.devices = [resolve_device(d) for d in devices]
         if not self.devices:
             raise ValueError("ShardedInference needs at least one device")
@@ -159,12 +173,16 @@ class ShardedInference(StreamMeasure):
 
     @property
     def num_shards(self) -> int:
+        if self.mesh is not None:
+            return self.mesh.shape[self.data_axis]
         return len(self.devices)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Apply to one batch (async on CUDA). The leading dim must
         divide by the number of shards — pad at the driver if it
         doesn't."""
+        if self.mesh is not None:
+            return self._over_ranks(x)
         if x.shape[0] % self.num_shards:
             raise ValueError(
                 f"batch {x.shape[0]} not divisible by {self.num_shards} "
@@ -177,6 +195,23 @@ class ShardedInference(StreamMeasure):
                 y = self._stages[d](shard.to(d, non_blocking=True))
                 outs.append(y.to(home, non_blocking=True))
         return torch.cat(outs)
+
+    def _over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's call on the whole batch: this data index's shard
+        on this rank's device, the shards all-gathered in order on the
+        data-axis line."""
+        n = self.num_shards
+        if x.shape[0] % n:
+            raise ValueError(
+                f"batch {x.shape[0]} not divisible by {n} data shards — "
+                "pad the batch or resize the mesh"
+            )
+        dev = self.devices[0]
+        shard = x.chunk(n)[self.mesh.coords[self.data_axis]]
+        with torch.inference_mode():
+            y = self._stages[dev](shard.to(dev, non_blocking=True))
+            return collectives.gather_dim(
+                y.contiguous(), self.mesh.group(self.data_axis), n, 0)
 
     def submit(self, x: torch.Tensor) -> Pending:
         return Pending(self(x))

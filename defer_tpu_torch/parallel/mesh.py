@@ -16,7 +16,9 @@ in one of two forms:
     process per position, rank r at position `np.unravel_index(r,
     shape)` (the JAX package's device order) on its own device, with
     one process group per line of every axis (`group`), which the
-    collectives (`parallel/collectives.py`) run over.
+    collectives (`parallel/collectives.py`) run over, and one over every
+    rank of the mesh (`everyone`), its own on each mesh: two meshes over
+    the same ranks never share a group.
 """
 
 from __future__ import annotations
@@ -74,14 +76,18 @@ class Mesh:
     torch.devices shaped by the axis sizes, in `axis_names` order.
 
     Over a process group, `ranks` is the grid of ranks beside it, `rank`
-    this process's, and `groups` this rank's process group along each
-    axis; all three are None in one process."""
+    this process's, `groups` this rank's process group along each axis
+    and `everyone` the group of all the mesh's ranks; all four are None
+    in one process. A stage's submesh that this rank is not in
+    (`parallel/multihost.py` `stage_submeshes`) carries its ranks but
+    no rank and no groups."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
     ranks: np.ndarray | None = None
     rank: int | None = None
     groups: dict | None = None
+    everyone: object = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -96,7 +102,7 @@ class Mesh:
         """This rank's index along every axis (0s in one process)."""
         if not self.distributed:
             return {a: 0 for a in self.axis_names}
-        where = np.unravel_index(self.rank, self.ranks.shape)
+        where = np.argwhere(self.ranks == self.rank)[0]
         return {a: int(i) for a, i in zip(self.axis_names, where)}
 
     @property
@@ -105,11 +111,16 @@ class Mesh:
         group, the grid's first in one process."""
         if not self.distributed:
             return self.devices.flat[0]
-        return self.devices.flat[self.rank]
+        return self.devices[tuple(self.coords.values())]
 
     def group(self, axis: str):
         """This rank's process group along `axis`."""
         return self.groups[axis]
+
+    @property
+    def origin(self) -> int | None:
+        """The rank at position 0 of every axis (None in one process)."""
+        return None if self.ranks is None else int(self.ranks.flat[0])
 
     def axis_devices(self, axis: str) -> list[torch.device]:
         """The devices along `axis` at index 0 of every other axis."""
@@ -160,4 +171,7 @@ def make_mesh(
             group = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[axis] = group
-    return Mesh(grid.reshape(shape), names, ranks, rank, groups)
+    # A one-axis mesh's line is every rank already.
+    everyone = (groups[names[0]] if len(names) == 1
+                else dist.new_group(list(range(n))))
+    return Mesh(grid.reshape(shape), names, ranks, rank, groups, everyone)

@@ -158,10 +158,11 @@ def make_multihost_mesh(
 def stage_submeshes(mesh: Mesh, stage_axis: str = "stage") -> list:
     """Split a mesh with an outermost `stage_axis` into one mesh per
     stage over that stage's devices, the remaining axes in order (the
-    JAX package's layout for pp around tp). The submeshes are device
-    grids: the collectives of the stage's own axes belong to the
-    serving leg that would use them, pp x tp, which is not ported yet
-    (ROADMAP Queue 1 item 7)."""
+    JAX package's layout for pp around tp). Over a process group the
+    submesh of this rank's stage keeps its rank and its groups along the
+    remaining axes (the lines of the whole mesh that lie inside the
+    stage), so a stage's collectives stay among its own ranks; another
+    stage's submesh carries its ranks but no rank and no groups."""
     if stage_axis not in mesh.axis_names:
         raise ValueError(
             f"mesh has no {stage_axis!r} axis (axes: {mesh.axis_names}); "
@@ -175,5 +176,19 @@ def stage_submeshes(mesh: Mesh, stage_axis: str = "stage") -> list:
             f"there); got axis order {mesh.axis_names}"
         )
     rest = tuple(n for n in mesh.axis_names if n != stage_axis)
-    return [Mesh(mesh.devices[s], rest)
-            for s in range(mesh.devices.shape[0])]
+    if not mesh.distributed:
+        return [Mesh(mesh.devices[s], rest)
+                for s in range(mesh.devices.shape[0])]
+    mine = mesh.coords[stage_axis]
+    out = []
+    for s in range(mesh.devices.shape[0]):
+        if s != mine:
+            out.append(Mesh(mesh.devices[s], rest, mesh.ranks[s]))
+            continue
+        groups = {a: mesh.groups[a] for a in rest}
+        # The stage's own ranks as one group: its only axis's line, or
+        # (with more axes) no group of its own: nothing here runs one.
+        everyone = groups[rest[0]] if len(rest) == 1 else None
+        out.append(Mesh(mesh.devices[s], rest, mesh.ranks[s], mesh.rank,
+                        groups, everyone))
+    return out

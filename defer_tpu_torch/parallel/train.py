@@ -33,7 +33,9 @@ through its plain version, as the JAX package's custom VJP does), and a
 
 A `TrainState` checkpoints through `runtime/checkpoint.py`
 (`save_train_state` / `load_train_state`): params, the optimizer's
-`state_dict()` and the step.
+`state_dict()` and the step; over a process group, sharded a rank
+(`save_sharded_train_state` / `restore_sharded_train_state`, reading
+`MeshOptimizer.state_specs`).
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ class MeshOptimizer:
                  optimizer: OptimizerFactory, zero1: bool):
         self.leaves, self.specs, self.mesh, self.axes = (
             leaves, specs, mesh, axes)
+        self._index = {id(leaf): i for i, leaf in enumerate(leaves)}
         dp = mesh.shape.get("data", 1)
         index = mesh.coords.get("data", 0)
         self.slices = []  # (leaf, its slice that the optimizer steps, dim)
@@ -143,6 +146,25 @@ class MeshOptimizer:
 
     def state_dict(self) -> dict:
         return self.inner.state_dict()
+
+    def state_specs(self) -> list:
+        """The placement of each parameter the inner optimizer steps, in
+        its order, so its moments checkpoint sharded
+        (runtime/checkpoint.py `save_sharded_train_state`): a leaf's own
+        spec, and a ZeRO-1 slice's with "data" on the dim it was cut
+        along."""
+        cut = {id(part): (leaf, dim) for leaf, part, dim in self.slices}
+        out = []
+        for p in (q for g in self.inner.param_groups for q in g["params"]):
+            if id(p) in cut:
+                leaf, dim = cut[id(p)]
+                spec = list(self.specs[self._index[id(leaf)]])
+                spec += [None] * (leaf.ndim - len(spec))
+                spec[dim] = "data"
+                out.append(tuple(spec))
+            else:
+                out.append(tuple(self.specs[self._index[id(p)]]))
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         self.inner.load_state_dict(state)

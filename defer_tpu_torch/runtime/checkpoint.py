@@ -1,5 +1,5 @@
-"""Checkpoint save/resume over the codec (counterpart of the flat half
-of `defer_tpu/runtime/checkpoint.py`; the files are the same bytes, so
+"""Checkpoint save/resume over the codec (counterpart of
+`defer_tpu/runtime/checkpoint.py`; the files are the same bytes, so
 either package loads what the other saved).
 
 The reference has no checkpointing at all — weights flow dispatcher ->
@@ -21,21 +21,39 @@ files: `save_train_state` writes params, the optimizer's `state_dict()`
 and the step; `load_train_state` restores them in place, so a resumed
 run continues bit for bit.
 
-The sharded (multi-host) checkpoints, `save_sharded` /
-`restore_sharded`, raise: they are not ported yet (ROADMAP.md Queue 1
-item 7).
+Sharded checkpoints, `save_sharded` / `restore_sharded`: every rank
+of a `torch.distributed` group writes one file holding only the shards
+it owns, in the JAX package's format (one
+`shards-{rank:05d}-of-{world:05d}.defer` a process, a manifest of
+`process`, `save_id` and `entries` of `key`, `dtype`, `global_shape`,
+`spans`, `frame_len`), so either package restores the other's
+directory. A torch tensor carries no sharding: the caller names each
+leaf's placement as the port's specs do (a tuple of mesh axis names, or
+None, a dim; a dim may split over several axes, the first major) with
+`specs=` and `mesh=`, the leaves being this rank's shards; a leaf
+without a spec is whole. `save_sharded_train_state` /
+`restore_sharded_train_state` checkpoint a `parallel/train.py`
+`TrainState` over a process group this way, a `MeshOptimizer`'s ZeRO-1
+moments as the data-axis slices they are.
+
+`save_dcp` / `load_dcp` write and read a tree through
+`torch.distributed.checkpoint`, the torch ecosystem's own format (the
+port's counterpart of the JAX package's orbax interop, `save_orbax` /
+`load_orbax`).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import struct
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from defer_tpu_torch.parallel.mesh import cuda_devices
 from defer_tpu_torch.parallel.pipeline import resolve_device
@@ -208,6 +226,15 @@ def save_train_state(path: str, state: Any, *, level: int = 3) -> None:
                        "step": state.step}, level=level)
 
 
+def _copy_into(dst: Any, src: Any) -> None:
+    """Copy a tree of tensors into one of the same structure, in place."""
+    if isinstance(dst, Mapping):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
 def load_train_state(path: str, state: Any) -> Any:
     """Restore a save_train_state file into `state` in place (params and
     step copied into their tensors, the optimizer through
@@ -218,33 +245,360 @@ def load_train_state(path: str, state: Any) -> Any:
                 "opt_state": _optimizer_template(state.opt_state),
                 "step": state.step}
     tree = load_pytree(path, template, device="cpu")
-
-    def copy_into(dst, src):
-        if isinstance(dst, Mapping):
-            for k in dst:
-                copy_into(dst[k], src[k])
-        else:
-            dst.copy_(src)
-
     with torch.no_grad():
-        copy_into(state.params, tree["params"])
+        _copy_into(state.params, tree["params"])
         state.step.copy_(tree["step"])
     state.opt_state.load_state_dict(tree["opt_state"])
     return state
 
 
-def save_sharded(*args: Any, **kwargs: Any) -> None:
-    """The JAX package's per-process sharded checkpoint: not ported yet,
-    so it raises (ROADMAP Queue 1 item 7)."""
-    raise NotImplementedError(
-        "save_sharded (per-process sharded checkpoints) is not ported yet "
-        "(ROADMAP Queue 1 item 7)"
-    )
+# -- sharded checkpoints (one file a rank) ---------------------------------
 
 
-def restore_sharded(*args: Any, **kwargs: Any) -> Any:
-    """The inverse of save_sharded: raises as it does."""
-    raise NotImplementedError(
-        "restore_sharded (per-process sharded checkpoints) is not ported "
-        "yet (ROADMAP Queue 1 item 7)"
+def _flatten_pytree_keys(tree: Any) -> list[tuple[str, Any]]:
+    """("a/b/0", leaf) pairs in the JAX package's key-path order: dict
+    keys sorted, NamedTuple fields by name, lists and tuples by index,
+    None an empty subtree; a bare leaf is "__root__"."""
+    out: list[tuple[str, Any]] = []
+
+    def walk(node, segs):
+        if node is None:
+            return
+        if isinstance(node, Mapping):
+            items = [(str(k), node[k]) for k in sorted(node)]
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            items = list(zip(node._fields, node))
+        elif isinstance(node, (list, tuple)):
+            items = [(str(i), v) for i, v in enumerate(node)]
+        else:
+            out.append((_SEP.join(segs) or "__root__", node))
+            return
+        for seg, value in items:
+            if _SEP in seg:
+                raise ValueError(
+                    f"checkpoint keys may not contain {_SEP!r}: {seg!r}"
+                )
+            walk(value, segs + [seg])
+
+    walk(tree, [])
+    return out
+
+
+def _flatten_specs(specs: Any) -> dict[str, Any]:
+    """{key path: spec} of a spec tree mirroring a checkpoint tree's
+    dicts; a spec is a tuple (one entry a dim) or None."""
+    out: dict[str, Any] = {}
+
+    def walk(node, segs):
+        if isinstance(node, Mapping):
+            for k in node:
+                walk(node[k], segs + [str(k)])
+        else:
+            out[_SEP.join(segs) or "__root__"] = node
+
+    if specs is not None:
+        walk(specs, [])
+    return out
+
+
+def _dim_axes(entry) -> tuple:
+    """The mesh axes one spec entry splits its dim over, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _layout(spec, local_shape, mesh) -> tuple[tuple, tuple, bool]:
+    """(global shape, this rank's spans, whether this rank stores the
+    leaf) of a leaf this rank holds as `local_shape` under `spec`: each
+    split dim grows by its axes' sizes and this rank's span is its
+    mixed-radix index along them; the stored copy of data replicated
+    over an axis is the one at coordinate 0 there (the JAX package's
+    replica_id == 0)."""
+    spec = tuple(spec or ())
+    shape = tuple(int(d) for d in local_shape)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more dims than shape {shape}")
+    coords = mesh.coords if mesh is not None else {}
+    sizes = mesh.shape if mesh is not None else {}
+    gshape, spans, split = [], [], set()
+    for i, dim in enumerate(shape):
+        axes = _dim_axes(spec[i]) if i < len(spec) else ()
+        index, n = 0, 1
+        for ax in axes:
+            index = index * sizes[ax] + coords[ax]
+            n *= sizes[ax]
+        split.update(axes)
+        gshape.append(dim * n)
+        spans.append((index * dim, (index + 1) * dim))
+    owner = all(coords[a] == 0 for a in coords if a not in split)
+    return tuple(gshape), tuple(spans), owner
+
+
+def _joined() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _process() -> tuple[int, int]:
+    """(rank, world size) of this process's group; (0, 1) alone."""
+    return (dist.get_rank(), dist.get_world_size()) if _joined() else (0, 1)
+
+
+def _host_leaf(value) -> tuple[np.ndarray, str]:
+    """A leaf as a host numpy array and its logical dtype name (bf16 as
+    its uint16 bit view, the JAX package's layout)."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu()
+    elif isinstance(value, bool):
+        t = torch.tensor(value)
+    elif isinstance(value, (int, float)):
+        # jnp.asarray's types for a Python scalar.
+        t = torch.tensor(value, dtype=torch.int32 if isinstance(value, int)
+                         else torch.float32)
+    else:
+        t = torch.as_tensor(np.asarray(value))
+    logical = str(t.dtype).removeprefix("torch.")
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), logical
+    return t.numpy(), logical
+
+
+def save_sharded(dirpath: str, tree: Any, *, level: int = 3,
+                 save_id: Any = None, specs: Any = None,
+                 mesh: Any = None) -> None:
+    """Checkpoint a tree of this rank's shards without gathering: each
+    rank of the process group (or the one process) writes one file
+    holding only the shards it owns, each leaf's replicated copies
+    stored once across the job (the rank at coordinate 0 on every mesh
+    axis that its spec does not split writes it). The JAX package's
+    `save_sharded`, file for file: `specs=` (a tree of the port's specs
+    mirroring `tree`'s dicts) and `mesh=` say how each leaf is split,
+    since a torch tensor carries no sharding; a leaf without a spec is
+    whole, and the origin rank writes it. Assumes a filesystem every
+    rank can read at restore.
+
+    `save_id` (e.g. the training step, a value every rank already
+    agrees on) is stamped into each file's manifest; restore_sharded
+    rejects shard sets with mismatched ids, catching a save that died
+    after only some ranks replaced their files."""
+    os.makedirs(dirpath, exist_ok=True)
+    spec_of = _flatten_specs(specs)
+    entries = []
+    frames = []
+    for key, value in _flatten_pytree_keys(tree):
+        arr, logical = _host_leaf(value)
+        gshape, spans, owner = _layout(spec_of.get(key), arr.shape, mesh)
+        if not owner:
+            continue
+        frame = codec.encode(np.ascontiguousarray(arr), level=level)
+        entries.append({
+            "key": key,
+            "dtype": logical,
+            "global_shape": gshape,
+            "spans": spans,
+            "frame_len": len(frame),
+        })
+        frames.append(frame)
+    rank, world = _process()
+    manifest = json.dumps(
+        {"process": rank, "save_id": save_id, "entries": entries}
+    ).encode()
+    # The process count rides in the filename so a restore can detect
+    # stale shard files from an earlier save with a different job size.
+    path = os.path.join(dirpath, f"shards-{rank:05d}-of-{world:05d}.defer")
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<q", len(manifest)))
+        f.write(manifest)
+        for frame in frames:
+            f.write(frame)
+    os.replace(tmp, path)
+
+
+def restore_sharded(dirpath: str, like: Any, *, specs: Any = None,
+                    mesh: Any = None) -> Any:
+    """Rebuild this rank's shards of a tree from a save_sharded
+    directory (either package's). `like` carries the structure and this
+    rank's shards' shapes and devices (e.g. a freshly built state);
+    `specs=` / `mesh=` as for save_sharded give each leaf's placement,
+    and a leaf without a spec is restored whole. Each rank reads every
+    file's manifest and decodes only the spans it places; the stored
+    dtypes win. Refuses a directory with no shard files, a mixed or
+    incomplete set, mixed save ids, a missing leaf, and a span no
+    stored shard covers, in the JAX package's words."""
+    names = sorted(
+        n for n in os.listdir(dirpath)
+        if n.startswith("shards-") and n.endswith(".defer")
     )
+    if not names:
+        raise FileNotFoundError(f"no shard files under {dirpath!r}")
+    counts = {n.rsplit("-of-", 1)[-1] for n in names}
+    if len(counts) != 1 or len(names) != int(counts.pop().split(".")[0]):
+        raise ValueError(
+            f"{dirpath!r} holds a mixed or incomplete shard set "
+            f"({names}); remove stale files from a previous save"
+        )
+    spec_of = _flatten_specs(specs)
+    flat_like = _flatten_pytree_keys(like)
+    # key -> (the span this rank places, or None when whole; its shape)
+    placed: dict[str, tuple] = {}
+    needed: dict[str, set] = {}
+    for key, leaf in flat_like:
+        local = tuple(int(d) for d in leaf.shape)
+        spec = spec_of.get(key)
+        gshape, spans, _ = _layout(spec, local, mesh)
+        full = tuple((0, d) for d in gshape)
+        sharded = any(_dim_axes(e) for e in (spec or ()))
+        placed[key] = (spans if sharded else None, gshape)
+        needed[key] = {full, spans}
+
+    pieces: dict[str, dict[tuple, torch.Tensor]] = {}
+    save_ids: set = set()
+    for name in names:
+        with open(os.path.join(dirpath, name), "rb") as f:
+            if f.read(len(_MAGIC)) != _MAGIC:
+                raise ValueError(f"{name!r} is not a defer_tpu checkpoint")
+            (mlen,) = struct.unpack("<q", f.read(8))
+            header = json.loads(f.read(mlen).decode())
+            save_ids.add(json.dumps(header.get("save_id")))
+            if len(save_ids) > 1:
+                raise ValueError(
+                    f"{dirpath!r} mixes shards from different saves "
+                    f"(save_ids {sorted(save_ids)}); a previous save "
+                    "likely died after replacing only some files"
+                )
+            for e in header["entries"]:
+                span = tuple(tuple(sp) for sp in e["spans"])
+                if span not in needed.get(e["key"], ()):
+                    f.seek(e["frame_len"], os.SEEK_CUR)
+                    continue
+                t = codec.decode(f.read(e["frame_len"]))
+                if e["dtype"] == "bfloat16":
+                    t = t.view(torch.bfloat16)
+                pieces.setdefault(e["key"], {})[span] = t
+    leaves = []
+    for key, leaf in flat_like:
+        by_span = pieces.get(key)
+        if by_span is None:
+            raise KeyError(f"checkpoint has no shards for leaf {key!r}")
+        span, gshape = placed[key]
+        if span is None:
+            piece = by_span.get(tuple((0, d) for d in gshape))
+            if piece is None:
+                raise ValueError(
+                    f"leaf {key!r} has no full-array shard and no "
+                    "target sharding to assemble against"
+                )
+        else:
+            piece = by_span.get(span)
+            if piece is None:
+                raise ValueError(
+                    f"leaf {key!r}: no stored shard covers span {span} "
+                    f"(stored: {sorted(by_span)[:4]}...)"
+                )
+        # The codec round-trips data, not rank (0-d arrays come back
+        # 1-element); restore the span's exact shape.
+        shape = tuple(b - a for a, b in (span or tuple(
+            (0, d) for d in gshape)))
+        device = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
+        leaves.append(piece.reshape(shape).to(device))
+    # _flatten_pytree_keys walks in _leaves's order.
+    return _rebuild(like, iter(leaves))
+
+
+def _sharded_state(state: Any, model: Any) -> tuple[dict, dict, dict]:
+    """(tree, specs, the optimizer's state_dict template) of a TrainState
+    over `model`'s mesh (SpmdBert and its kin): params, the step and the
+    optimizer's per-parameter state by index, each moment placed as its
+    parameter (a ZeRO-1 slice's on the data axis too,
+    `MeshOptimizer.state_specs`)."""
+    opt = state.opt_state
+    inner = getattr(opt, "inner", opt)
+    full = _optimizer_template(inner)
+    # Fresh per-parameter dicts: a stepped optimizer's state_dict shares
+    # its live ones.
+    template = {"state": {i: dict(e) for i, e in full["state"].items()},
+                "param_groups": full["param_groups"]}
+    if hasattr(opt, "state_specs"):
+        leaf_specs = opt.state_specs()
+    else:
+        leaf_specs = [None] * len(template["state"])
+    moments = {}
+    moment_specs = {}
+    for i, entry in template["state"].items():
+        moments[str(i)] = {k: v for k, v in entry.items()
+                           if isinstance(v, torch.Tensor)}
+        moment_specs[str(i)] = {
+            k: (leaf_specs[i] if v.ndim else ())
+            for k, v in moments[str(i)].items()
+        }
+    tree = {"params": state.params, "step": state.step, "opt": moments}
+    specs = {"params": model.param_specs(state.params), "step": (),
+             "opt": moment_specs}
+    return tree, specs, template
+
+
+def save_sharded_train_state(dirpath: str, state: Any, model: Any, *,
+                             level: int = 3, save_id: Any = None) -> None:
+    """save_sharded of a TrainState over `model`'s mesh, every rank
+    calling it: each rank writes the shards of the params, the step and
+    the optimizer's moments it owns (a ZeRO-1 MeshOptimizer's moments
+    are this data rank's slices, stored as such). The optimizer must
+    have stepped (its state exists)."""
+    tree, specs, _ = _sharded_state(state, model)
+    save_sharded(dirpath, tree, level=level, save_id=save_id, specs=specs,
+                 mesh=model.mesh)
+
+
+def restore_sharded_train_state(dirpath: str, state: Any, model: Any) -> Any:
+    """Restore a save_sharded_train_state directory into `state` in
+    place (params and step copied into their tensors, the optimizer
+    through load_state_dict) and return it; `state` is built the way
+    the saved one was, over the same layout. A resumed run continues
+    bit for bit."""
+    tree, specs, template = _sharded_state(state, model)
+    got = restore_sharded(dirpath, tree, specs=specs, mesh=model.mesh)
+    with torch.no_grad():
+        _copy_into(state.params, got["params"])
+        state.step.copy_(got["step"])
+    for i, entry in template["state"].items():
+        entry.update(got["opt"][str(i)])
+    inner = getattr(state.opt_state, "inner", state.opt_state)
+    inner.load_state_dict(template)
+    return state
+
+
+# -- torch.distributed.checkpoint interop -----------------------------------
+
+
+def save_dcp(path: str, tree: Mapping[str, Any]) -> None:
+    """Write a tree of tensors (nested dicts) as a
+    `torch.distributed.checkpoint` directory, the torch ecosystem's own
+    format, so training stacks standardized on it can read the port's
+    states (the counterpart of the JAX package's `save_orbax`, which
+    writes orbax's). Over a process group every rank calls it (plain
+    tensors are saved as replicated: one copy); in one process it needs
+    no group. The native formats (save_pytree, save_sharded) stay the
+    default."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(dict(tree), checkpoint_id=os.path.abspath(path),
+             no_dist=not _joined())
+
+
+def load_dcp(path: str, template: Mapping[str, Any]) -> dict:
+    """The inverse of save_dcp (the JAX package's `load_orbax`):
+    `template` supplies the structure, shapes and dtypes, and its
+    placement wins: each leaf comes back on its template leaf's device,
+    whatever the file recorded."""
+    import torch.distributed.checkpoint as dcp
+
+    def fresh(node):
+        if isinstance(node, Mapping):
+            return {k: fresh(v) for k, v in node.items()}
+        return torch.empty_like(node)
+
+    out = fresh(template)
+    dcp.load(out, checkpoint_id=os.path.abspath(path), no_dist=not _joined())
+    return out

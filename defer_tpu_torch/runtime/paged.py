@@ -104,21 +104,30 @@ a parked prefix chain between pools, on the serving thread only.
 
 Tensor-parallel serving, `mesh=` / `model_axis`: the weights split
 Megatron-style (the server's own `SpmdGptDecoder` view shards the whole
-tree it is given) and the pool on its KV-head axis, every rank of the
-model axis one process of a `torch.distributed` group (`parallel/
-multihost.py`). The JAX package drives its mesh from one controller,
-"host-side mechanics stay single-writer and unsharded"; here the rank at
-index 0 of the model axis is that controller: it alone holds the host
-state (admission, block tables, radix cache, sampling, obs), takes
-`submit` / `submit_prefilled` / `deliver_kv`, and samples from the
-logits every rank holds whole after the vocab all-gather. Every device
-program of the server (`_program`: the tick and window sub-step
-`_decode`, `_mt`, the flat prefills and their inserts, spill down and
-up, import, export, the seating of delivered KV) goes through one seam:
-the controller broadcasts the program's name and its replicated host-fed
-operands to the model group (`_ModelLink`), and every rank runs it on
-its own shards, the psums inside on the group; the other ranks run that
-loop in `run()` until the controller's `close()`. Full-head host K/V
+tree it is given) and the pool on its KV-head axis, every mesh position
+one process of a `torch.distributed` group (`parallel/multihost.py`).
+A mesh axis other than the model axis is replicated, as the JAX
+package's shard_map replicates what its specs do not name: the ranks
+along it hold the same shards and run the same programs, their psums
+over their own model-axis line (no batch splits over a data axis; the
+JAX package has none). The JAX package drives its mesh from one
+controller, "host-side mechanics stay single-writer and unsharded";
+here the rank at position 0 of every axis is that controller: it alone
+holds the host state (admission, block tables, radix cache, sampling,
+obs), takes `submit` / `submit_prefilled` / `deliver_kv`, and samples
+from the logits every rank holds whole after the vocab all-gather.
+Every device program of the server (`_program`: the tick and window
+sub-step `_decode`, `_mt`, the flat prefills and their inserts, spill
+down and up, import, export, the seating of delivered KV, a pipeline
+chain) goes through one seam: the controller broadcasts the program's
+name and its replicated host-fed operands to every rank of the mesh
+(`_ModelLink`, over the mesh's own group), and every rank runs it on
+its own shards, the psums inside on its model-axis line; the other
+ranks run that loop in `run()` until the controller's `close()`.
+Replicas of one decoder and one tree on one rank (the fleet's
+`model_axis_size=` replicas over the same ranks) share one shard of the
+tree, memoized on the decoder as the JAX package memoizes its sharded
+view there. Full-head host K/V
 crosses ranks only there: split on its head axis as it lands (ingest,
 import, spill revival), gathered whole to the controller as it leaves
 (export, spill snapshots, which the controller's `HostKVSpill` holds
@@ -140,9 +149,19 @@ window runs `decode_window` rounds of `pp_inflight` microbatch groups
 round-major (the GPipe schedule, `_tick_pp`), the bubble fraction
 measured at the schedule level.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP Queue 1
-item 7): pp x tp (`mesh=` with `pp_stages > 1`), and a mesh axis beside
-the model axis (data-parallel replicas).
+pp x tp, `mesh=` with `pp_stages=S`: a mesh with a stage axis OUTERMOST
+(`make_multihost_mesh({"stage": S, "model": tp})`) splits into one
+submesh a stage (`stage_submeshes`); each stage's ranks hold its layer
+slice sharded over their model-axis line (the port of
+`_pp_stage_specs`) and its slice of the pool on the KV-head axis. A
+chain is one program: every rank receives the operands, the ranks of a
+stage run it when the activation reaches them, and the [B, T, D]
+boundary activation (the [B, T, V] logits after the last stage) hops
+along each rank's stage-axis line to the next stage (to stage 0 from
+the last) in one `all_to_all_single` with empty splits toward every
+other rank, as `collectives.ppermute` does, so gloo on CUDA tensors
+carries it. The controller at (0, 0) reads the logits there; the GPipe
+schedule and its bubble accounting are the one-process server's.
 """
 
 from __future__ import annotations
@@ -151,6 +170,7 @@ import collections
 import dataclasses
 import functools
 import hashlib
+import math
 import pickle
 import queue
 import threading
@@ -187,8 +207,10 @@ from defer_tpu_torch.ops.paged_flash_prefill import (
 from defer_tpu_torch.parallel import collectives
 from defer_tpu_torch.parallel.lora import adapter_bank_info
 from defer_tpu_torch.parallel.mesh import cuda_devices
+from defer_tpu_torch.parallel.multihost import stage_submeshes
 from defer_tpu_torch.parallel.pipeline import balance_stage_cuts, probe_latency
 from defer_tpu_torch.parallel.spmd_pipeline import check_process_group
+from defer_tpu_torch.parallel.transformer_stack import shard_tree
 from defer_tpu_torch.runtime.batching import (
     accept_lengths,
     microbatch_groups,
@@ -205,12 +227,6 @@ from defer_tpu_torch.runtime.schedule import PrefillSeat, plan_mixed_tick
 from defer_tpu_torch.runtime.stopping import matcher_or_none, normalize_stops
 from defer_tpu_torch.runtime.transport import ArraySender
 from defer_tpu_torch.weights import tree_to
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
 
 
 class _Wire:
@@ -247,19 +263,18 @@ def _from_wire(x, device: torch.device):
 
 
 class _ModelLink:
-    """The seam between a tensor-parallel server's controller (the rank
-    at index 0 of the model axis) and the model group's other ranks:
-    the controller broadcasts each device program's name and operands
-    (`send`, one `broadcast_object_list` on the axis's process group),
-    the other ranks receive them in `PagedDecodeServer._follow` and run
-    the same program on their shards; `stop` ends their loop.
-    `bytes_sent` adds up the pickled messages the controller sent."""
+    """The seam between a sharded server's controller (the rank at
+    position 0 of every mesh axis) and the mesh's other ranks: the
+    controller broadcasts each device program's name and operands
+    (`send`, one `broadcast_object_list` on the mesh's own group of all
+    its ranks), the other ranks receive them in
+    `PagedDecodeServer._follow` and run the same program on their
+    shards; `stop` ends their loop. `bytes_sent` adds up the pickled
+    messages the controller sent."""
 
-    def __init__(self, mesh, axis: str):
-        self.group = mesh.group(axis)
-        coords = dict(mesh.coords)
-        coords[axis] = 0
-        self.src = int(mesh.ranks[tuple(coords[a] for a in mesh.axis_names)])
+    def __init__(self, mesh):
+        self.group = mesh.everyone
+        self.src = mesh.origin
         self.controller = mesh.rank == self.src
         self.depth = 0
         self.stopped = False
@@ -287,9 +302,9 @@ def _program(fn):
     sharded params or pool goes through here. Under `mesh=` it runs with
     the mesh active (the tp collectives of its forward find their
     group), and over a process group the controller first broadcasts the
-    program's name and its replicated host-fed operands to the model
-    group, whose ranks run the same program on their own shards. A
-    program called from inside another runs as part of it, unsent."""
+    program's name and its replicated host-fed operands to the mesh's
+    ranks, which run the same program on their own shards. A program
+    called from inside another runs as part of it, unsent."""
 
     @functools.wraps(fn)
     def run(self, *args, **kw):
@@ -308,6 +323,26 @@ def _program(fn):
                 link.depth -= 1
 
     return run
+
+
+def _shared_shard(dec, sdec, params: dict) -> dict:
+    """This rank's shard of `params` under `sdec`'s mesh, made once a
+    (decoder, tree, model-axis position, device): servers of one decoder
+    and one tree at the same place (the fleet's replicas on a rank)
+    share it. Memoized on the decoder, which keeps the tree alive beside
+    its shard, so the tree's id is never reused while it is cached."""
+    mesh = sdec.mesh
+    if not mesh.distributed:
+        return sdec.shard_params(params)
+    key = ("paged_shard", id(params), sdec.tp_axis,
+           mesh.shape[sdec.tp_axis], mesh.coords[sdec.tp_axis], sdec.device)
+    hit = dec._steps.get(key)
+    if hit is None:
+        hit = dec._steps[key] = (params, sdec.shard_params(params))
+    else:
+        # The view's bookkeeping (int8 leaves) as shard_params sets it.
+        sdec.prepare_params(params)
+    return hit[1]
 
 
 def pinned_device(device) -> torch.device:
@@ -782,24 +817,52 @@ class PrefixBlockCache:
 # -- pipeline-parallel stages (PagedDecodeServer pp_stages=) ---------------
 
 
+def _pp_stage_specs(full_specs: dict, first: int, last: int, cfg) -> dict:
+    """The placement subtree matching GptDecoder.stage_params(params,
+    first, last) (the JAX package's shard_map in_specs for a stage):
+    stack leaf specs are layer-leading (slicing the layer axis never
+    changes them), the boundary stages add the embedding / final-norm /
+    tied-head specs their extra params carry."""
+    out = {"stack": full_specs["stack"]}
+    if first == 0:
+        out["token_embedding"] = full_specs["token_embedding"]
+        if "pos_embedding" in full_specs:
+            out["pos_embedding"] = full_specs["pos_embedding"]
+    if last == cfg.num_layers:
+        out["final_ln_scale"] = full_specs["final_ln_scale"]
+        if "final_ln_bias" in full_specs:
+            out["final_ln_bias"] = full_specs["final_ln_bias"]
+        if "token_embedding" not in out:
+            out["token_embedding"] = full_specs["token_embedding"]
+    return out
+
+
 class _PPLocalStage:
     """One pipeline stage in this process: the stage's params
     (GptDecoder.stage_params, views of the server's tree when the stage
     sits on their device) and its [last - first, num_blocks, kv_heads,
     block_size, Dh] slice of the paged pool, on one device; a device may
-    carry several stages (`[cuda:0] * 2` is two stages on one card).
-    `pp_dispatch` is the stage-boundary interface it shares with
-    `_PPTransportStage`: the six replicated operands in, the boundary
-    activation (or, on the last stage, the logits) out. Every stage
-    recomputes the write destinations from the tables and positions, so
-    each scatters its layers' K/V rows into its own pool slice; only the
-    [B, T, D] activation crosses a stage boundary. A decode round rides
-    it at T = 1 (n_keep 1, keep_from 0), a prefill chunk at T = chunk;
-    "pallas" takes the prefill kernel at T = 1 too, as the JAX package's
-    stage step does."""
+    carry several stages (`[cuda:0] * 2` is two stages on one card). On
+    a tensor-parallel `submesh` (pp x tp: this rank's stage of a joint
+    {stage, model} mesh) the stage holds this rank's shard of its slice,
+    placed by `_pp_stage_specs`, and its kv_heads / tp heads of the
+    pool, and runs with the submesh active, so its psums stay on the
+    stage's own model-axis line. `pp_dispatch` is the stage-boundary
+    interface it shares with `_PPTransportStage`: the six replicated
+    operands in, the boundary activation (or, on the last stage, the
+    logits) out. Every stage recomputes the write destinations from the
+    tables and positions, so each scatters its layers' K/V rows into its
+    own pool slice; only the [B, T, D] activation crosses a stage
+    boundary. A decode round rides it at T = 1 (n_keep 1, keep_from 0),
+    a prefill chunk at T = chunk; "pallas" takes the prefill kernel at
+    T = 1 too, as the JAX package's stage step does."""
 
     def __init__(self, dec, params, first, last, *, num_blocks, block_size,
-                 attention, device):
+                 attention, device=None, submesh=None, model_axis="model"):
+        tp = 1
+        if submesh is not None:
+            device = submesh.local_device
+            tp = submesh.shape[model_axis]
         device = torch.device(device)
         if device != dec.device:
             dec = dataclasses.replace(dec, device=device)
@@ -809,13 +872,29 @@ class _PPLocalStage:
         self.device = device
         self.bs = block_size
         self.attention = attention
+        self.submesh = submesh
+        self.tp_axis = model_axis if submesh is not None else None
         cfg = dec.cfg
-        self.params = tree_to(dec.stage_params(params, first, last), device)
-        shape = (last - first, num_blocks, cfg.kv_heads, block_size,
+        if submesh is None:
+            sp = dec.stage_params(params, first, last)
+        else:
+            sdec = SpmdGptDecoder(cfg, compute_dtype=dec.compute_dtype,
+                                  mesh=submesh, tp_axis=model_axis,
+                                  device=device)
+            # Slice the whole tree first (views), then keep this rank's
+            # shard of the slice: no shard of another stage's layers is
+            # ever made.
+            whole = sdec.prepare_params(params)
+            sp = shard_tree(dec.stage_params(whole, first, last),
+                            _pp_stage_specs(sdec._specs(), first, last, cfg),
+                            submesh)
+        self.params = tree_to(sp, device)
+        shape = (last - first, num_blocks, cfg.kv_heads // tp, block_size,
                  cfg.dim // cfg.num_heads)
         self.pk = torch.zeros(shape, dtype=dec.compute_dtype, device=device)
         self.pv = torch.zeros(shape, dtype=dec.compute_dtype, device=device)
-        self.pool_bytes = 2 * self.pk.numel() * self.pk.element_size()
+        # The stage's whole pool slice (every shard's under a submesh).
+        self.pool_bytes = 2 * tp * self.pk.numel() * self.pk.element_size()
 
     def _put(self, a: torch.Tensor) -> torch.Tensor:
         """An operand on this stage's device (the in-process activation
@@ -825,18 +904,56 @@ class _PPLocalStage:
     @torch.no_grad()
     def pp_dispatch(self, tables, pos, xin, n_keep, keep_from, adapter_ids):
         tables = self._put(tables)
-        # The blockwise fold reads the table's whole span, as in a
-        # window: the positions stay on the device (the extra columns
-        # are fully masked and add nothing).
-        return _mt_forward(
-            self.dec, self.params, self.pk, self.pv, tables,
-            self._put(pos), self._put(xin), self._put(n_keep),
-            self._put(keep_from), tables.shape[1], self.attention, self.bs,
-            first=self.first, last=self.last,
-        )
+        with collectives.active(self.submesh):
+            # The blockwise fold reads the table's whole span, as in a
+            # window: the positions stay on the device (the extra
+            # columns are fully masked and add nothing).
+            return _mt_forward(
+                self.dec, self.params, self.pk, self.pv, tables,
+                self._put(pos), self._put(xin), self._put(n_keep),
+                self._put(keep_from), tables.shape[1], self.attention,
+                self.bs, first=self.first, last=self.last, tp=self.tp_axis,
+            )
 
     def close(self) -> None:  # the interface _PPTransportStage shares
         pass
+
+
+class _PPRankStage:
+    """A stage of a pp x tp mesh held by OTHER ranks (the stages of this
+    rank's chain it does not run): its layer range and the bytes of its
+    pool slice, for the accounting; the chain hands it the activation
+    over the stage axis instead of dispatching."""
+
+    def __init__(self, *, first, last, pool_bytes):
+        self.first = first
+        self.last = last
+        self.pool_bytes = pool_bytes
+
+    def close(self) -> None:
+        pass
+
+
+def _stage_hop(x, shape, dtype, group, n: int, index: int, src: int,
+               dst: int, device) -> torch.Tensor:
+    """The pp x tp boundary: the activation `x` of the ranks at stage
+    `src` (this rank's stage-axis line, `index` its position on it) to
+    the rank at stage `dst`, as raw bytes in one all_to_all_single whose
+    splits are empty toward every other rank (`collectives.ppermute`'s
+    call, which gloo carries on CUDA tensors too). Returns the [shape]
+    `dtype` tensor on the receiving rank, `x` on every other."""
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    sends, recvs = [0] * n, [0] * n
+    if index == src:
+        send = x.contiguous().view(-1).view(torch.uint8)
+        sends[dst] = nbytes
+    else:
+        send = torch.empty((0,), dtype=torch.uint8, device=device)
+    if index == dst:
+        recvs[src] = nbytes
+    out = torch.empty((recvs[src],), dtype=torch.uint8, device=device)
+    dist.all_to_all_single(out, send, recvs, sends, group=group)
+    return out.view(dtype).reshape(shape) if index == dst else x
 
 
 class _PPTransportStage:
@@ -960,10 +1077,9 @@ class PagedDecodeServer:
         docstring); `run()` on any rank but the controller follows the
         controller's dispatches. `pp_stages` / `pp_inflight` /
         `pp_cuts` / `pp_devices` / `pp_remote` / `pp_balance`: pipeline-
-        parallel serving (the module docstring). The JAX package's
-        refusals come first, word for word; then pp x tp, and a mesh
-        axis beside the model axis, raise NotImplementedError naming
-        ROADMAP Queue 1 item 7."""
+        parallel serving (the module docstring); with `mesh=`, pp x tp
+        over the mesh's `pp_stage_axis`. The JAX package's refusals,
+        word for word and in its order."""
         if getattr(dec, "rolling_cache", False):
             raise ValueError("paged serving does not support rolling caches")
         # Multi-LoRA: adapter banks make the slot -> adapter assignment
@@ -1092,8 +1208,10 @@ class PagedDecodeServer:
             )
         self.mesh = mesh
         self.model_axis = model_axis
+        self.pp_stage_axis = pp_stage_axis
         self.tp = 1
         self._sdec = None
+        self._pp_submeshes: list = []
         # The seam exists once construction is done: construction runs
         # the same programs on every rank by itself.
         self._link = None
@@ -1102,15 +1220,20 @@ class PagedDecodeServer:
             self.tp = self._check_mesh(dec, mesh, model_axis, pp_stages,
                                        pp_stage_axis)
             device = mesh.local_device
-            # The server's own sharded view of the decoder: the param
-            # placement, the vocab padding and the sharded flat prefill.
-            self._sdec = SpmdGptDecoder(
-                dec.cfg, compute_dtype=dec.compute_dtype, mesh=mesh,
-                tp_axis=model_axis, device=device,
-            )
-            params = self._sdec.shard_params(params)
-            if mesh.distributed and self.tp > 1:
-                link = _ModelLink(mesh, model_axis)
+            if pp_stages > 1:
+                # pp x tp: each stage shards its own slice (_build_pp).
+                self._pp_submeshes = stage_submeshes(mesh, pp_stage_axis)
+            else:
+                # The server's own sharded view of the decoder: the param
+                # placement, the vocab padding and the sharded flat
+                # prefill.
+                self._sdec = SpmdGptDecoder(
+                    dec.cfg, compute_dtype=dec.compute_dtype, mesh=mesh,
+                    tp_axis=model_axis, device=device,
+                )
+                params = _shared_shard(dec, self._sdec, params)
+            if mesh.distributed and mesh.devices.size > 1:
+                link = _ModelLink(mesh)
         # The rank that holds the host state: every rank but the model
         # group's followers.
         self.controller = link is None or link.controller
@@ -1123,7 +1246,8 @@ class PagedDecodeServer:
             device = pinned_device(device)
             if device != dec.device:
                 dec = dataclasses.replace(dec, device=device)
-            params = tree_to(params, device)
+            if pp_stages == 1:  # pp x tp stages place their own slices
+                params = tree_to(params, device)
             if spec_k and device != spec_draft.device:
                 spec_draft = dataclasses.replace(spec_draft, device=device)
             if spec_k:
@@ -1375,8 +1499,11 @@ class PagedDecodeServer:
         device by default) or behind the transport (`pp_remote`)."""
         cfg = self.dec.cfg
         L = cfg.num_layers
-        devs = (list(pp_devices) if pp_devices is not None
-                else cuda_devices())
+        if self.mesh is not None:
+            devs = [self.device]
+        else:
+            devs = (list(pp_devices) if pp_devices is not None
+                    else cuda_devices())
         if pp_cuts is not None:
             starts = [int(c) for c in pp_cuts]
             if (
@@ -1399,6 +1526,13 @@ class PagedDecodeServer:
         else:
             # Equal layer counts: the min-max split of unit costs.
             starts = balance_stage_cuts([1.0] * L, self.pp)
+        if self._pp_submeshes and self.mesh.distributed:
+            # One set of cuts for every rank: the controller's (a probe
+            # times each rank's layers apart).
+            box = [starts]
+            dist.broadcast_object_list(box, src=self.mesh.origin,
+                                       group=self.mesh.everyone)
+            starts = box[0]
         bounds = starts + [L]
         remote = pp_remote or {}
         if any(s not in range(self.pp) for s in remote):
@@ -1410,14 +1544,24 @@ class PagedDecodeServer:
                                 ).element_size()
         for s in range(self.pp):
             first, last = bounds[s], bounds[s + 1]
+            # The bytes of a slice another process holds, accounted here
+            # so that the per-stage pool stays inspectable.
+            pool_bytes = (2 * (last - first) * self.num_blocks * cfg.kv_heads
+                          * self.bs * (cfg.dim // cfg.num_heads) * itemsize)
+            sub = self._pp_submeshes[s] if self._pp_submeshes else None
             if s in remote:
-                # The worker owns the slice; its bytes are accounted
-                # here so that the per-stage pool stays inspectable.
                 stage = _PPTransportStage(
-                    remote[s], first=first, last=last,
-                    pool_bytes=2 * (last - first) * self.num_blocks
-                    * cfg.kv_heads * self.bs * (cfg.dim // cfg.num_heads)
-                    * itemsize,
+                    remote[s], first=first, last=last, pool_bytes=pool_bytes,
+                )
+            elif sub is not None and sub.distributed and sub.rank is None:
+                stage = _PPRankStage(first=first, last=last,
+                                     pool_bytes=pool_bytes)
+            elif sub is not None:
+                stage = _PPLocalStage(
+                    self.dec, self.params, first, last,
+                    num_blocks=self.num_blocks, block_size=self.bs,
+                    attention=self.attention, submesh=sub,
+                    model_axis=self.model_axis,
                 )
             else:
                 stage = _PPLocalStage(
@@ -1546,8 +1690,9 @@ class PagedDecodeServer:
 
     def _check_mesh(self, dec, mesh, model_axis, pp_stages,
                     pp_stage_axis) -> int:
-        """The JAX package's mesh= refusals, in its order, then what the
-        port does not serve yet; returns the model axis size."""
+        """The JAX package's mesh= refusals, in its order, then the one
+        of a one-process mesh (only the stage axis may be larger than 1
+        there); returns the model axis size."""
         if getattr(dec, "mesh", None) is not None:
             raise ValueError(
                 "pass the plain single-device decoder together "
@@ -1606,19 +1751,7 @@ class PagedDecodeServer:
                     f"{int(mesh.shape[pp_stage_axis])} but "
                     f"pp_stages={pp_stages}; the two must match"
                 )
-            raise _not_ported(
-                "pipeline x tensor parallel serving (pp_stages > 1 with "
-                "mesh=, stage_submeshes)", "7"
-            )
-        others = [a for a, n in mesh.shape.items()
-                  if a != model_axis and n > 1]
-        if others:
-            raise _not_ported(
-                f"mesh= with a {others[0]!r} axis beside the model axis "
-                "(replicas on a data axis, the fleet's model_axis_size)",
-                "7",
-            )
-        check_process_group(mesh)
+        check_process_group(mesh, pp_stage_axis)
         return tp
 
     # -- public API -------------------------------------------------------
@@ -3424,12 +3557,32 @@ class PagedDecodeServer:
 
     # -- pipeline-parallel windows (pp_stages > 1) ----------------------------
 
+    @_program
     def _pp_chain(self, tables, pos, xin, n_keep, keep_from, adapter):
         """One microbatch through every stage in turn, each stage
-        dispatch counted; returns the last stage's logits."""
+        dispatch counted; returns the last stage's logits. Over a pp x
+        tp process group every rank runs it: the ranks of a stage run
+        their shard of it, and each boundary hops along the stage axis
+        (`_stage_hop`), the logits from the last stage back to stage 0,
+        where the controller reads them."""
+        ranks = bool(self._pp_submeshes) and self.mesh.distributed
+        if ranks:
+            axis = self.pp_stage_axis
+            line = (self.mesh.group(axis), self.pp, self.mesh.coords[axis])
+            b, t = xin.shape[:2]
+            cfg = self.dec.cfg
         x = xin
         for s, stage in enumerate(self._pp_stage_objs):
-            x = stage.pp_dispatch(tables, pos, x, n_keep, keep_from, adapter)
+            if not isinstance(stage, _PPRankStage):
+                x = stage.pp_dispatch(tables, pos, x, n_keep, keep_from,
+                                      adapter)
+            if ranks:
+                last = s == self.pp - 1
+                shape, dtype = (((b, t, cfg.vocab_size), torch.float32)
+                                if last else
+                                ((b, t, cfg.dim), self.dec.compute_dtype))
+                x = _stage_hop(x, shape, dtype, *line, s,
+                               0 if last else s + 1, self.device)
             self.pp_stage_dispatch_n[s] += 1
             self.obs.pp_stage_dispatches[s].inc()
         return x

@@ -1631,3 +1631,153 @@ def test_pp_two_stages_on_one_card(card):
     layers = SHARD_CFG["num_layers"] // 2
     assert pfp.card_runs() == layers * sum(st["pp_stage_dispatches"]) > 0
     assert pfd.card_runs() == 0
+
+
+# -- the rest of the sharded legs on the card --------------------------------
+
+
+def test_fleet_tp_replicas_on_two_gloo_ranks_on_the_card(card, tmp_path):
+    """serve_fleet(model_axis_size=2) on two gloo ranks sharing cuda:0,
+    "pallas": both replicas read mesh_shape "model=2" on both ranks, each
+    rank's paged kernels ran on its head shard (its own card counts, the
+    same on both ranks), one shard of the tree a rank, and the tokens
+    are the mesh=None server's on the card (f32)."""
+    import numpy as np
+
+    from test_torch_dist_worker import _paged, spawn
+
+    _, _, np_params, reqs = _shard_case(card)
+    knobs = dict(num_blocks=16, block_size=4, max_batch=2,
+                 attention="pallas")
+    case = dict(name="fleet", run="fleet", axes={"model": 2}, cfg=SHARD_CFG,
+                params=np_params, requests=reqs,
+                knobs=dict(knobs, n_replicas=2, model_axis_size=2,
+                           policy="round_robin"))
+    ranks = spawn({"device": "cuda", "cases": [case]}, 2, str(tmp_path))
+    ctl, follower = (r["fleet"] for r in ranks)
+    for res in (ctl, follower):
+        assert res["mesh_shapes"] == ["model=2", "model=2"]
+        assert res["shards"] == 1
+        assert res["card_runs"]["paged_flash_decode"] > 0
+    assert ctl["card_runs"] == follower["card_runs"]
+    want = _paged(dict(name="ref", cfg=SHARD_CFG, params=np_params,
+                       knobs=knobs, phases=[reqs], device="cuda"), None)
+    for a, b in zip(ctl["tokens"], want["tokens"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_data_axis_and_pp_x_tp_on_four_gloo_ranks_on_the_card(card,
+                                                             tmp_path):
+    """Four gloo ranks sharing cuda:0, "pallas": a {"data": 2, "model":
+    2} server (every rank runs paged_flash_decode L times a tick on its
+    head shard) and pp 2 x tp 2 (each rank runs paged_flash_prefill on
+    its stage's layers at every chain); the tokens are the mesh=None
+    server's on the card (f32)."""
+    import numpy as np
+
+    from test_torch_dist_worker import _paged, spawn
+
+    _, _, np_params, reqs = _shard_case(card)
+    knobs = dict(num_blocks=16, block_size=4, max_batch=2,
+                 attention="pallas")
+    cases = [
+        dict(name="dp", run="paged", axes={"data": 2, "model": 2},
+             cfg=SHARD_CFG, params=np_params, phases=[reqs], knobs=knobs),
+        dict(name="pp", run="paged", axes={"stage": 2, "model": 2},
+             cfg=SHARD_CFG, params=np_params, phases=[reqs],
+             knobs=dict(knobs, pp_stages=2, pp_inflight=2, decode_window=4)),
+    ]
+    ranks = spawn({"device": "cuda", "cases": cases}, 4, str(tmp_path))
+    want = _paged(dict(cases[0], device="cuda"), None)
+    L = SHARD_CFG["num_layers"]
+    dp = [r["dp"] for r in ranks]
+    for res in dp:
+        assert res["card_runs"]["paged_flash_decode"] == L * dp[0]["ticks"]
+    pp = [r["pp"] for r in ranks]
+    for res in pp:
+        chains = res["pp_dispatches"][0]
+        assert res["card_runs"] == {"paged_flash_decode": 0,
+                                    "paged_flash_prefill": L // 2 * chains}
+    for name in ("dp", "pp"):
+        for a, b in zip(ranks[0][name]["tokens"], want["tokens"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_spmd_t5_on_two_gloo_ranks_on_the_card(card, tmp_path):
+    """SpmdT5 at tp 2 on two gloo ranks sharing cuda:0 (f32): the greedy
+    tokens and the step's logits of one T5 on the card (atol / rtol
+    1e-4: the psums add the head groups in another order)."""
+    import numpy as np
+
+    from defer_tpu_torch import params_to_numpy
+    from defer_tpu_torch.models.t5 import tiny_t5
+    from test_torch_dist_worker import spawn
+
+    single = tiny_t5(device=card, vocab_size=97)
+    params = single.init(torch.Generator(device=card).manual_seed(0))
+    rng = np.random.default_rng(1)
+    enc = rng.integers(1, 97, (2, 6)).astype(np.int32)
+    dec = rng.integers(0, 97, (2, 4)).astype(np.int32)
+    mask = np.ones((2, 6), np.int32)
+    case = dict(name="t5", run="t5", axes={"model": 2},
+                cfg=dataclasses.asdict(single.cfg),
+                params=params_to_numpy(params), enc=enc, dec=dec, mask=mask,
+                steps=5)
+    ranks = spawn({"device": "cuda", "cases": [case]}, 2, str(tmp_path))
+    enc_t, dec_t = (torch.from_numpy(a).long() for a in (enc, dec))
+    want = single.generate(params, enc_t, 5).cpu().numpy()
+    _, cache = single.make_encode()(params, enc_t,
+                                    torch.from_numpy(mask))
+    logits, _ = single.make_step(donate=False)(params, cache, dec_t)
+    for res in (r["t5"] for r in ranks):
+        np.testing.assert_array_equal(res["generate"], want)
+        np.testing.assert_allclose(res["step"], logits.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_checkpoint_and_inference_on_the_card(card, tmp_path):
+    """Two gloo ranks sharing cuda:0: a ZeRO-1 SpmdBert state on
+    {"data": 2} saved after 2 of 4 steps and restored into another
+    seed's state ends bit for bit where the uninterrupted run ends; and
+    ShardedInference over {"data": 2} gives the unsharded graph's output
+    on the card on both ranks (f32, atol / rtol 1e-5)."""
+    import numpy as np
+
+    from defer_tpu_torch import Pipeline, params_to_numpy
+    from defer_tpu_torch.graph.ir import GraphBuilder
+    from test_torch_dist_worker import spawn
+
+    b = GraphBuilder("chain")
+    h = b.add("dense", b.input(), name="stem", features=8)
+    for i in (1, 2):
+        br = b.add("dense", h, name=f"blk{i}_dense", features=8)
+        br = b.add("relu", br, name=f"blk{i}_relu")
+        h = b.add("add", h, br, name=f"add_{i}")
+    graph = b.build(b.add("dense", h, name="head", features=4))
+    params = graph.init(torch.Generator().manual_seed(0), (4, 8))
+    rng = np.random.default_rng(4)
+    xs = [rng.standard_normal((4, 8)).astype(np.float32) for _ in range(2)]
+    cases = [
+        dict(name="resume", run="resume", axes={"stage": 1, "data": 2},
+             dir=str(tmp_path / "ckpt"), steps=4, at=2,
+             cfg=dict(num_layers=2, dim=64, num_heads=4, ffn_dim=128,
+                      vocab_size=64, max_len=16),
+             ids=rng.integers(0, 64, (2, 4, 8)).astype(np.int32),
+             labels=rng.integers(0, 2, (2, 4)).astype(np.int32)),
+        dict(name="infer", run="infer", axes={"data": 2},
+             params=params_to_numpy(params), xs=xs),
+    ]
+    (tmp_path / "ranks").mkdir()
+    ranks = spawn({"device": "cuda", "cases": cases}, 2,
+                  str(tmp_path / "ranks"))
+    whole = Pipeline([graph], params, [card],
+                     DeferConfig(compute_dtype=torch.float32))
+    for r in ranks:
+        res = r["resume"]
+        assert res["sliced"] > 0 and res["restored_step"] == 2
+        for a, b_ in zip(tree_leaves(res["straight"]),
+                         tree_leaves(res["resumed"])):
+            np.testing.assert_array_equal(a, b_)
+        for got, x in zip(r["infer"]["outs"], xs):
+            want = whole(torch.from_numpy(x).to(card)).cpu().numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -4,8 +4,7 @@ its 8 virtual CPU devices: SpmdBert's forward, gradients and AdamW steps
 at world size 4 (tp, dp x tp with ZeRO-1, the stage axis across ranks
 under tp, pp x sp, the llama knobs and LoRA under dp x tp); the
 placements (stack_specs, the FSDP plans), the layout helpers of
-multihost.py, its backend rule, and the refusals of what stays
-unported.
+multihost.py and its backend rule.
 
 The JAX side runs each layout (its own mesh of the same axes) in this
 process; the port's ranks (tests/test_torch_dist_worker.py, which never
@@ -44,11 +43,9 @@ from defer_tpu.parallel import mesh as jmesh
 from defer_tpu.parallel import multihost as jmultihost
 from defer_tpu.parallel import train as jtrain
 from defer_tpu.parallel import transformer_stack as jts
-from defer_tpu_torch.models import gpt, t5
 from defer_tpu_torch.models.llama import llama_config
-from defer_tpu_torch.parallel import data_parallel, mesh, multihost
+from defer_tpu_torch.parallel import mesh, multihost
 from defer_tpu_torch.parallel import transformer_stack as ts
-from defer_tpu_torch.runtime import checkpoint, paged
 from test_torch_dist_worker import spawn
 
 FWD = dict(rtol=2e-5, atol=2e-5)
@@ -197,38 +194,6 @@ def test_layout_trains_as_jax(world4, name):
     results, jax_sides = world4
     case, jax_side = jax_sides[name]
     check_train(results[name], jax_side, case)
-
-
-def _paged_server(**kw):
-    dec = gpt.tiny_gpt(16, device="cpu")
-    return paged.PagedDecodeServer(
-        dec, dec.init(torch.Generator().manual_seed(0)), num_blocks=8,
-        block_size=4, max_batch=2, **kw)
-
-
-UNPORTED = {
-    "SpmdT5": lambda: t5.SpmdT5(t5.t5_config("small")),
-    "spmd_t5": lambda: t5.spmd_t5(None, t5.t5_config("small")),
-    "save_sharded": lambda: checkpoint.save_sharded("unused", {}),
-    "restore_sharded": lambda: checkpoint.restore_sharded("unused", {}),
-    "ShardedInference_mesh": lambda: data_parallel.ShardedInference(
-        None, {}, mesh.make_mesh({"data": 1}, [torch.device("cpu")])),
-    # pp x tp, after the JAX package's stage-axis checks have passed.
-    "paged_pp_x_tp": lambda: _paged_server(
-        pp_stages=2, mesh=mesh.make_mesh({"stage": 2, "model": 1},
-                                         [torch.device("cpu")] * 2)),
-    # A data axis beside the model axis (replicas: the fleet's
-    # model_axis_size), after the JAX package's mesh checks.
-    "paged_mesh_data_axis": lambda: _paged_server(
-        mesh=mesh.make_mesh({"data": 2, "model": 1},
-                            [torch.device("cpu")] * 2)),
-}
-
-
-@pytest.mark.parametrize("site", list(UNPORTED))
-def test_the_unported_sites_raise_naming_item_7(site):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        UNPORTED[site]()
 
 
 def test_initialize_is_explicit_about_its_backend(monkeypatch):

@@ -27,15 +27,33 @@ to OUT.RANK as a pickle. A case's "run" names what it does:
     each decode step's logits, this rank's cache shard, `generate`, and
     (with "requests") serve_greedy's tokens on the flat DecodeServer,
     every rank submitting the same requests;
-  * "paged": PagedDecodeServer(mesh=) over the model axis. The controller
-    (model index 0) serves the case's phases of requests (the first
+  * "paged": PagedDecodeServer(mesh=) over the case's mesh (a model
+    axis, a data axis beside it, or a stage axis around it with
+    pp_stages). The controller (position 0 of every axis) serves the
+    case's phases of requests (the first
     phase's with the case's "sampling", SamplingParams keywords, and its
     delivered disagg blocks), flushing the spill tier after each, and
     with "migrate" exports a prefix chain, closes, and imports it into
     a second server that serves one more request; the other ranks follow
     each server's dispatches in run(). Every rank returns its pool shard
-    and the sharded forwards it ran (the `_final_logits` calls with a tp
-    axis); the controller also its tokens and counters.
+    (its stage's, under pp) and the sharded forwards it ran (the
+    `_final_logits` calls with a tp axis); the controller also its
+    tokens and counters;
+  * "fleet": serve_fleet with `model_axis_size` on every rank (the
+    controller's outputs, every rank's per-replica mesh shapes and psum
+    counts, and how many shards of the tree its replicas made);
+  * "restore": restore_sharded of the case's directory into this rank's
+    shards of the case's specs; "save": save_sharded of this rank's
+    shards of the case's whole tree into the case's directory;
+  * "resume": a ZeRO-1 SpmdBert state stepped `steps` times without a
+    break, and again from a save_sharded_train_state after `at` steps
+    restored into a state from another seed; both final param trees;
+  * "infer": ShardedInference of the residual chain over the mesh's
+    data axis on the case's batches.
+  * "t5": SpmdT5 on the whole weights: `generate`'s tokens, the
+    incremental step's logits from `make_encode`'s cache, the
+    teacher-forced `make_forward` and direct `forward`, and this rank's
+    embedding shard and cache shard shapes.
 
 `spawn(job, world, tmp)` is the tests' side: it starts the WORLD ranks,
 waits at most JOIN_TIMEOUT seconds for all of them, kills every rank
@@ -402,7 +420,12 @@ def _paged(case, mesh):
     finally:
         GptDecoder._final_logits = final
     out["forwards"] = forwards[0]
-    out["pool"] = [t.cpu().numpy().copy() for t in srv._leaves()]
+    if srv.pp == 1:
+        out["pool"] = [t.cpu().numpy().copy() for t in srv._leaves()]
+    else:
+        out["pool"] = [[st.pk.cpu().numpy(), st.pv.cpu().numpy()]
+                       for st in srv._pp_stage_objs if hasattr(st, "pk")]
+        out["pp_dispatches"] = list(srv.pp_stage_dispatch_n)
     if dev.type == "cuda":
         out["card_runs"] = {"paged_flash_decode": pfd.card_runs(),
                             "paged_flash_prefill": pfp.card_runs()}
@@ -441,6 +464,8 @@ def _control(case, srv, dec, params, mesh, knobs, out):
         spill_hits=srv.spill_hits_n,
         saved=srv.prefill_tokens_saved, pool_bytes=srv.pool_bytes,
         ticks=srv.ticks, chunks=srv.prefill_chunks,
+        pp_stages=stats["pp_stages"], bubble=stats["pp_bubble_fraction"],
+        pp_stage_pool_bytes=stats["pp_stage_pool_bytes"],
     )
     mig = case.get("migrate")
     if mig:
@@ -459,8 +484,157 @@ def _control(case, srv, dec, params, mesh, knobs, out):
     return srv
 
 
+def _t5(case, mesh):
+    from defer_tpu_torch.models.t5 import T5Config, spmd_t5
+
+    m = spmd_t5(mesh, T5Config(**case["cfg"]), compute_dtype=torch.float32)
+    params = m.shard_params(params_from_jax(case["params"], device=CPU))
+    enc, dec = (torch.from_numpy(case[k]).long() for k in ("enc", "dec"))
+    mask = torch.from_numpy(case["mask"])
+    ones = torch.ones(enc.shape, dtype=torch.int32)
+    with torch.no_grad():
+        _, cache = m.make_encode()(params, enc, ones)
+        step, _ = m.make_step(donate=False)(params, cache, dec)
+        out = {
+            "generate": m.generate(params, enc, case["steps"]).cpu().numpy(),
+            "step": step.cpu().numpy(),
+            "forward": m.make_forward()(params, enc, dec, mask).cpu().numpy(),
+            "direct": m.forward(params, enc, dec).cpu().numpy(),
+            "embedding": params["token_embedding"].cpu().numpy(),
+            "cache": {k: tuple(cache[k].shape)
+                      for k in ("k", "cross_k", "cross_bias")},
+        }
+    return out
+
+
+def _local(x, spec, mesh):
+    """This rank's shard of a whole numpy leaf under `spec` (bf16 through
+    its bit view)."""
+    x = np.array(x, order="C")  # ascontiguousarray would make 0-d 1-d
+    if x.dtype.name == "bfloat16":
+        t = torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(x)
+    for i, entry in enumerate(spec or ()):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        index, n = 0, 1
+        for ax in axes:
+            index = index * mesh.shape[ax] + mesh.coords[ax]
+            n *= mesh.shape[ax]
+        c = t.shape[i] // n
+        t = t.narrow(i, index * c, c)
+    return t.contiguous()
+
+
+def _restore(case, mesh):
+    from defer_tpu_torch.runtime import checkpoint
+
+    like = {k: torch.zeros_like(_local(v, case["specs"].get(k), mesh))
+            for k, v in case["tree"].items()}
+    got = checkpoint.restore_sharded(case["dir"], like, specs=case["specs"],
+                                     mesh=mesh)
+    return {k: (v.view(torch.int16).numpy().view(np.uint16)
+                if v.dtype == torch.bfloat16 else v.numpy())
+            for k, v in got.items()}
+
+
+def _save(case, mesh):
+    from defer_tpu_torch.runtime import checkpoint
+
+    tree = {k: _local(v, case["specs"].get(k), mesh)
+            for k, v in case["tree"].items()}
+    checkpoint.save_sharded(case["dir"], tree, specs=case["specs"],
+                            mesh=mesh, save_id=case["save_id"])
+    return {}
+
+
+def _resume(case, mesh):
+    from defer_tpu_torch.runtime import checkpoint
+
+    sb = SpmdBert(mesh, ts.TransformerConfig(**case["cfg"]),
+                  compute_dtype=torch.float32)
+    ids = torch.from_numpy(case["ids"]).long()
+    labels = torch.from_numpy(case["labels"]).long()
+    init, step = train.make_train_step(
+        sb, functools.partial(torch.optim.AdamW, lr=1e-3), num_classes=2,
+        zero1=True)
+    dev = mesh.local_device
+    ids, labels = ids.to(dev), labels.to(dev)
+    state = init(torch.Generator(device=dev).manual_seed(0))
+    out = {}
+    for i in range(case["steps"]):
+        if i == case["at"]:
+            checkpoint.save_sharded_train_state(case["dir"], state, sb,
+                                                save_id=i)
+        step(state, ids, labels)
+    out["straight"] = params_to_numpy(sb.gather_params(state.params))
+    state = init(torch.Generator(device=dev).manual_seed(1))
+    step(state, ids, labels)  # its moments exist, and are wrong
+    checkpoint.restore_sharded_train_state(case["dir"], state, sb)
+    out["restored_step"] = int(state.step)
+    for _ in range(case["steps"] - case["at"]):
+        step(state, ids, labels)
+    out["resumed"] = params_to_numpy(sb.gather_params(state.params))
+    out["sliced"] = len(state.opt_state.slices)
+    return out
+
+
+def _infer(case, mesh):
+    from defer_tpu_torch import DeferConfig
+    from defer_tpu_torch.graph.ir import GraphBuilder
+    from defer_tpu_torch.parallel.data_parallel import ShardedInference
+
+    b = GraphBuilder("chain")
+    h = b.add("dense", b.input(), name="stem", features=8)
+    for i in (1, 2):
+        br = b.add("dense", h, name=f"blk{i}_dense", features=8)
+        br = b.add("relu", br, name=f"blk{i}_relu")
+        h = b.add("add", h, br, name=f"add_{i}")
+    graph = b.build(b.add("dense", h, name="head", features=4))
+    dp = ShardedInference(graph, params_from_jax(case["params"], device=CPU),
+                          mesh, DeferConfig(compute_dtype=torch.float32))
+    xs = [torch.from_numpy(x) for x in case["xs"]]
+    out = {"outs": [y.cpu().numpy() for y in dp.stream(iter(xs))],
+           "shards": dp.num_shards}
+    try:
+        dp(xs[0][:3])
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out
+
+
+def _fleet(case, mesh):
+    from defer_tpu_torch.fleet.api import serve_fleet
+    from defer_tpu_torch.models.gpt import GptDecoder
+
+    from defer_tpu_torch.ops import paged_flash_decode as pfd
+    from defer_tpu_torch.ops import paged_flash_prefill as pfp
+
+    dev = mesh.local_device
+    dec = GptDecoder(_config(case), compute_dtype=torch.float32, device=dev)
+    params = params_from_jax(case["params"], device=dev)
+    reqs = [(torch.from_numpy(p).long(), n) for p, n in case["requests"]]
+    if dev.type == "cuda":
+        pfd.reset_card_runs()
+        pfp.reset_card_runs()
+    outs, stats = serve_fleet(dec, params, reqs, devices=[dev],
+                              **case["knobs"])
+    runs = ({"paged_flash_decode": pfd.card_runs(),
+             "paged_flash_prefill": pfp.card_runs()}
+            if dev.type == "cuda" else None)
+    return {"tokens": [o.cpu().numpy() for o in outs], "card_runs": runs,
+            "mesh_shapes": [r["mesh_shape"] for r in stats["replicas"]],
+            "dead": [r["dead"] for r in stats["replicas"]],
+            "tp_psums": [r["tp_psums"] for r in stats["replicas"]],
+            "shards": sum(1 for k in dec._steps
+                          if isinstance(k, tuple) and k[0] == "paged_shard")}
+
+
 RUNS = {"train": _train, "vit": _vit, "moe": _moe, "attention": _attention,
-        "ops": _ops, "card": _card, "decode": _decode, "paged": _paged}
+        "ops": _ops, "card": _card, "decode": _decode, "paged": _paged,
+        "t5": _t5, "fleet": _fleet, "restore": _restore, "save": _save,
+        "resume": _resume, "infer": _infer}
 
 
 def main(rank: int, world: int, port: int, job: str, out: str) -> None:

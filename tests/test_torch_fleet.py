@@ -241,12 +241,9 @@ def test_device_pins_the_server_and_shares_params(model):
 
 
 def test_fleet_placement_knobs(model):
-    """model_axis_size= waits for the multi-device leg; without a card
-    and without devices= the front end raises instead of picking the
-    CPU."""
+    """model_axis_size= below 1 is refused; without a card and without
+    devices= the front end raises instead of picking the CPU."""
     dec, params, _, _ = model
-    with pytest.raises(NotImplementedError, match="item 7"):
-        FleetFrontend(dec, params, devices=DEVS, model_axis_size=2, **KNOBS)
     with pytest.raises(ValueError, match="model_axis_size"):
         FleetFrontend(dec, params, devices=DEVS, model_axis_size=0, **KNOBS)
     if not torch.cuda.is_available():

@@ -375,22 +375,26 @@ def test_device_tables_and_positions_follow_the_host():
 
 
 def test_knobs_not_ported_raise():
-    """The knobs that wait for a later slice raise NotImplementedError
-    naming their ROADMAP item (pp_stages > 1 with mesh=, and a mesh axis
-    beside the model axis; mesh= and pp_stages are held in
-    tests/test_torch_paged_tp.py and test_torch_paged_pp.py); the ones
-    ported since check the JAX package's validation errors: device=
-    (ported with the fleet) pins the server where it is asked to, and
-    the fleet seams refuse a server without the radix cache."""
+    """Every knob is ported now (mesh= and pp_stages, pp x tp and a data
+    axis beside the model axis are held over ranks in
+    tests/test_torch_paged_{tp,pp,mesh}.py): in one process a
+    {"stage": 2, "model": 1} mesh builds a pp x tp server on its stage
+    submeshes, and a data axis of 2 needs one process a mesh position;
+    the rest check the JAX package's validation errors: device= pins the
+    server where it is asked to, and the fleet seams refuse a server
+    without the radix cache."""
     dec, params, _, _ = _model("gpt", 32)
     base = dict(num_blocks=8, block_size=4)
     two = [CPU] * 2
-    for kw in (
-        dict(pp_stages=2, mesh=make_mesh({"stage": 2, "model": 1}, two)),
-        dict(mesh=make_mesh({"data": 2, "model": 1}, two)),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PagedDecodeServer(dec, params, **base, **kw)
+    pptp = PagedDecodeServer(dec, params, **base, pp_stages=2,
+                             mesh=make_mesh({"stage": 2, "model": 1}, two))
+    assert pptp.pp == 2 and pptp.mesh_label == "model=1"
+    half = dec.cfg.num_layers // 2
+    assert [len(s.params["stack"]["wq"]) for s in pptp._pp_stage_objs] \
+        == [half, half]
+    with pytest.raises(RuntimeError, match="multihost.initialize"):
+        PagedDecodeServer(dec, params, **base,
+                          mesh=make_mesh({"data": 2, "model": 1}, two))
     assert PagedDecodeServer(dec, params, **base, device=CPU).device == CPU
     for kw, match in (
         (dict(decode_window=0), "decode_window"),

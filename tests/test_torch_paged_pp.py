@@ -16,7 +16,8 @@ f32, stages on `pp_devices=[cpu]` (every stage on the one CPU device, as
   * a stage behind the framed transport (serve_pp_stage in a thread)
     gives the same tokens and exits on the STOP frame;
   * the constructor's refusals are the JAX package's, word for word;
-    pp x tp raises naming its ROADMAP item;
+    pp x tp on a one-process {"stage": 2, "model": 1} mesh serves the
+    pp_stages=1 tokens;
   * sampled requests and the prefill kernel's plain version ("pallas")
     through the stages equal pp_stages=1.
 """
@@ -256,16 +257,24 @@ def test_pp_ctor_validation(model):
     assert str(err.value) == str(jerr.value)
 
 
-def test_pp_x_tp_raises_naming_its_item(model):
-    """pp x tp (mesh= with pp_stages > 1) waits for a later slice: after
-    the JAX package's stage-axis checks it raises naming item 7."""
+def test_pp_x_tp_raises_naming_its_item(model, solo):
+    """pp x tp (mesh= with pp_stages > 1): a mesh without the stage axis
+    is refused as the JAX package refuses it; a one-process
+    {"stage": 2, "model": 1} mesh splits into one submesh a stage
+    (stage_submeshes) and serves the pp_stages=1 server's tokens (the
+    JAX test's point; tp > 1 runs over ranks, tests/test_torch_paged_mesh.py)."""
     _, _, dec, params = model
     with pytest.raises(ValueError, match="needs a 'stage' mesh axis"):
         PagedDecodeServer(dec, params, pp_stages=2, mesh=mesh.make_mesh(
             {"model": 1}, [CPU]), **KW)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        PagedDecodeServer(dec, params, pp_stages=2, mesh=mesh.make_mesh(
-            {"stage": 2, "model": 1}, [CPU] * 2), **KW)
+    reqs, want = solo
+    outs, st = serve_paged(dec, params, _port(reqs), pp_stages=2,
+                           mesh=mesh.make_mesh({"stage": 2, "model": 1},
+                                               [CPU] * 2), **KW)
+    for got, ref in zip(outs, want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert st["pp_stages"] == 2 and st["tp_psums"] > 0
+    assert st["mesh_shape"] == "model=1"
 
 
 @pytest.mark.parametrize("attention", ["pallas", "blockwise"])

@@ -12,8 +12,8 @@ overflow guard, the cached step against teacher forcing, eos pinning,
 cross K/V computed once, pad masks. `from_hf_state_dict` is held against
 transformers' `T5ForConditionalGeneration` forward (2e-4 abs + 2e-3
 rel, as in the JAX file) and skips without transformers. The
-tensor-parallel tests of the JAX file (`SpmdT5`) wait for the
-multi-device leg (ROADMAP Queue 1 item 7).
+tensor-parallel tests of the JAX file (`SpmdT5`) run over ranks in
+tests/test_torch_spmd_t5.py.
 """
 
 import jax
