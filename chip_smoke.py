@@ -193,7 +193,17 @@ printing one line per check and failing loudly:
                 and depth on phase 4's weights (the ranks and workers
                 build the same values from the same seed): phase 5's
                 server on a {"model": 1} mesh, token-identical to phase
-                5; then two gloo ranks sharing cuda:0 (this script with
+                5; captured mesh windows at K=4 on a one-process
+                {"model": 1} mesh and on a world-size-1 NCCL group (this
+                script with --nccl-rank 0 PORT OUT): after a warm-up
+                request, the mix under capture_sanitizer (no capture),
+                replays counted, tokens equal to the eager window's and
+                phase 5's, paged_flash_decode's card runs replays x K x
+                layers, a steady window's host and device ms and idle
+                share beside the gloo tp 2 K=4 rate; sync_sanitizer
+                around one steady greedy window of phase 5's server
+                (DRAIN_SYNCS allowed, the count printed); then two gloo
+                ranks sharing cuda:0 (this script with
                 --sharded-rank; rank 0 the controller): SpmdGptDecoder
                 on DecodeServer at K=1, and PagedDecodeServer(mesh=,
                 "pallas") at K=1, with the prefix cache and 64-token
@@ -209,7 +219,13 @@ printing one line per check and failing loudly:
                 [cuda:0] x 2 (pp_inflight 2, window 4) under the split
                 check, its share of tokens identical to phase 5,
                 paged_flash_prefill's card runs equal to the stage
-                dispatches' layers and the bubble fraction; then the
+                dispatches' layers and the bubble fraction; the pp
+                question: the mix's first requests through pp 1 and pp
+                2 at pp_inflight 1 and 2, their served rows compared up
+                to each first parting token, and one pp 1 step
+                decomposed (the decode kernel against the prefill
+                kernel at T=1, two stages against one, half the slots'
+                GEMM M; the boundary must be exact); then the
                 same two stages in two serve_pp_stage worker processes
                 (this script with --pp-stage) over loopback,
                 token-identical, with the host ms a round trip; on the
@@ -253,8 +269,9 @@ package is not beside this file, or when any phase fails (a dist or
 serve_sharded rank that fails, hangs past its timeout or exits non-zero
 among them). Imports neither jax nor defer_tpu. `--dist-rank R PORT
 OUT` runs one of phase dist's ranks, `--sharded-rank R PORT OUT` one of
-serve_sharded's, `--pp-stage S RESULT_PORT` one of its serve_pp_stage
-workers; the phases start them themselves.
+serve_sharded's, `--nccl-rank 0 PORT OUT` its world-size-1 NCCL rank,
+`--pp-stage S RESULT_PORT` one of its serve_pp_stage workers; the
+phases start them themselves.
 """
 
 from __future__ import annotations
@@ -5391,7 +5408,8 @@ def phase_fleet(dec, params) -> dict:
 # -- phase serve_sharded: tensor- and pipeline-parallel decode serving ------
 
 # Two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card): the
-# "model" axis of SpmdGptDecoder and of PagedDecodeServer(mesh=).
+# "model" axis of SpmdGptDecoder and of PagedDecodeServer(mesh=), at
+# Mistral-7B's width and depth.
 SHARD_TP, SHARD_TIMEOUT = 2, 600
 # The paged server on the model axis, on phase 5's geometry and the
 # pallas kernels: (label, knobs).
@@ -6273,6 +6291,279 @@ def shard_pp_remote(dec, params, here: str, pp_res: dict) -> dict:
     return {"round_trip_ms": host_ms, "tokens_per_s": generated / wall}
 
 
+# The pp 2 vs pp 1 question: the first requests of phase 5's mix (one
+# slot each), served by pp_stages=1 at K=1 and by pp_stages=2 at
+# pp_inflight 1 and 2, their served rows compared up to each request's
+# first parting token.
+PP_QUESTION_REQS = DECODE_SLOTS
+# Captured mesh windows: the window of the {"model": 1} and the
+# world-size-1 NCCL servers, the sync sanitizer's allowance (a steady
+# window's one batched drain, which carries the valid lengths and alive
+# flags when eos is set and the tokens when they stream or stop-match;
+# phase 5's server has none of these) and the NCCL rank's time limit.
+MESH_WINDOW, DRAIN_SYNCS, NCCL1_TIMEOUT = 4, 1, 600
+
+
+def _pp_step_parts(srv) -> dict:
+    """One decode step of a seated pp_stages=1 server ("pallas", an fp
+    pool) four ways, each on the same tables, positions and feed: its
+    own tick (paged_flash_decode); the whole stack at T=1 through the
+    prefill kernel, as a pipeline stage runs it; the same cut in two
+    stages at the middle layer (the boundary activation handed over as a
+    stage hands it); and the whole stack over each half of the slots (a
+    pp_inflight=2 group's GEMM M). The max abs differences of the
+    [B, V] logits rows, and the boundary activation's dtype."""
+    import torch
+
+    from defer_tpu_torch.runtime.paged import _mt_forward
+
+    dec, L, B = srv.dec, srv.dec.cfg.num_layers, srv.B
+    tables, pos, feed = srv._tables_dev, srv._pos_dev, srv._feed
+    keep = torch.ones((B,), dtype=torch.int32, device=srv.device)
+    start = torch.zeros_like(keep)
+
+    def stack(rows, first=0, last=L, x=None):
+        return _mt_forward(
+            dec, dec.stage_params(srv.params, first, last),
+            srv.pool_k[first:last], srv.pool_v[first:last], tables[rows],
+            pos[rows], feed[rows] if x is None else x, keep[rows],
+            start[rows], srv.MB, "pallas", srv.bs, first=first, last=last)
+
+    every = torch.arange(B, device=srv.device)
+    with torch.no_grad():
+        tick = srv._decode(tables, pos, feed, srv.MB)[:, -1]
+        whole = stack(every)[:, -1]
+        x = stack(every, 0, L // 2)
+        split = stack(every, L // 2, L, x)[:, -1]
+        halves = torch.cat([stack(every[: B // 2])[:, -1],
+                            stack(every[B // 2:])[:, -1]])
+    return {"kernel": float((tick - whole).abs().max()),
+            "boundary": float((split - whole).abs().max()),
+            "half_m": float((halves - whole).abs().max()),
+            "boundary_dtype": str(x.dtype)}
+
+
+def shard_pp_question(dec, params) -> dict:
+    """Where pp_stages=2's rows part from pp_stages=1's: the first
+    PP_QUESTION_REQS requests of the mix through pp 1 (K=1), pp 2 at
+    pp_inflight=1 and at 2 (windows of PP_WINDOW), every served row
+    recorded; for each pair the tokens in common and the largest row
+    gap up to each request's first parting token (rows past it follow
+    different prefixes); then one step of a seated pp 1 server
+    decomposed (`_pp_step_parts`). The boundary must be exact and keep
+    the compute dtype; the rest is reported."""
+    import torch
+
+    reqs = paged_requests(dec.cfg.vocab_size)[:PP_QUESTION_REQS]
+    runs = {}
+    for name, knobs in (
+            ("pp1", {}),
+            ("pp2_inflight1", dict(pp_stages=PP_STAGES, pp_inflight=1,
+                                   decode_window=PP_WINDOW)),
+            ("pp2_inflight2", dict(pp_stages=PP_STAGES, pp_inflight=2,
+                                   decode_window=PP_WINDOW))):
+        if "pp_stages" in knobs:
+            knobs["pp_devices"] = [torch.device(CARD)] * PP_STAGES
+        srv = paged_server(dec, params, **knobs)
+        served = ServedRows(srv)
+        outs, _, host, card = serve_counted(f"serve_sharded {name}", srv,
+                                            reqs)
+        rows = [torch.stack(served.of(r, p.shape[1], n))
+                for r, (p, n) in enumerate(reqs)]
+        served.close()
+        runs[name] = {"outs": outs, "rows": rows, "card": card}
+        del srv, served
+        release()
+    pairs = {}
+    for a, b in (("pp1", "pp2_inflight1"), ("pp1", "pp2_inflight2"),
+                 ("pp2_inflight1", "pp2_inflight2")):
+        same = gap = 0
+        for i, (p, n) in enumerate(reqs):
+            ta = runs[a]["outs"][i][0, p.shape[1]:]
+            tb = runs[b]["outs"][i][0, p.shape[1]:]
+            diff = (ta != tb).nonzero()
+            upto = int(diff[0, 0]) + 1 if diff.numel() else n
+            same += int((ta == tb).sum())
+            gap = max(gap, float((runs[a]["rows"][i][:upto]
+                                  - runs[b]["rows"][i][:upto]).abs().max()))
+        pairs[f"{a}_vs_{b}"] = {"same": same, "gap": gap}
+    srv = paged_server(dec, params)
+    for p, _ in reqs:
+        srv.submit(p, 64)
+    srv.step()
+    check(all(s is not None for s in srv.slots),
+          "serve_sharded pp question: the requests did not all get a slot")
+    parts = _pp_step_parts(srv)
+    del srv
+    release()
+    check(parts["boundary"] == 0.0
+          and parts["boundary_dtype"] == str(dec.compute_dtype),
+          f"serve_sharded pp question: the stage boundary changed the rows "
+          f"or the dtype: {parts}")
+    generated = sum(n for _, n in reqs)
+    log("serve_sharded: the pp question, the first "
+        f"{len(reqs)} requests of the mix ({generated} tokens): "
+        + "; ".join(f"{k}: {v['same']} of {generated} tokens identical, "
+                    f"rows up to the first parting token at most "
+                    f"{v['gap']:.4g} apart" for k, v in pairs.items())
+        + f" (the split check's bound 0.25). One step of the seated pp 1 "
+        f"server decomposed: its paged_flash_decode tick against the whole "
+        f"stack through paged_flash_prefill at T=1 (a stage's kernel) "
+        f"{parts['kernel']:.4g}; two stages at layer "
+        f"{dec.cfg.num_layers // 2} against one {parts['boundary']:.4g} "
+        f"(the boundary activation {parts['boundary_dtype']}, the compute "
+        f"dtype); the stack over each half of the slots (pp_inflight=2's "
+        f"GEMM M) against all four {parts['half_m']:.4g}")
+    return {"pairs": pairs, "parts": parts,
+            "launches": runs["pp2_inflight1"]["card"]["paged_flash_prefill"]}
+
+
+def _mesh_window_run(label: str, dec, params, mesh, ref_outs) -> dict:
+    """PagedDecodeServer(mesh=) at decode_window=MESH_WINDOW on phase 5's
+    knobs: a warm-up request of its own tokens (its first window
+    captures), then the mix under capture_sanitizer (nothing captured),
+    then the mix on the same mesh with the capture forced off (its
+    windows eager); every token identical between the two and to phase
+    5's (`ref_outs`; the caller checks them where it has none), replays
+    counted, paged_flash_decode's card runs replays x K x layers in the
+    sanitized mix; then a steady window's host and device ms and idle
+    share on a fresh server. Shared by the one-process {"model": 1} mesh
+    and the world-size-1 NCCL rank. (A second serve of the mix on one
+    server would hit its radix cache, prefill shorter chunks and round
+    differently: the warm-up shares no block with the mix.)"""
+    import torch
+
+    from defer_tpu_torch.analysis import capture_sanitizer
+
+    K, L = MESH_WINDOW, dec.cfg.num_layers
+    reqs = paged_requests(dec.cfg.vocab_size)
+    srv = paged_server(dec, params, mesh=mesh, decode_window=K)
+    check(srv._captures, f"{label}: the server does not capture")
+    gen = torch.Generator().manual_seed(5)
+    srv.submit(torch.randint(0, dec.cfg.vocab_size, (1, 24), generator=gen),
+               2 * K)
+    srv.run()
+    caps = srv.graph_captures
+    check(caps == 1 and srv.graph_replays > 0,
+          f"{label}: the warm-up made {caps} captures, "
+          f"{srv.graph_replays} replays")
+    srv.done.clear()
+    replays0 = srv.graph_replays
+    with capture_sanitizer(srv) as rep:
+        outs, wall, _, card = serve_counted(label, srv, reqs)
+    replays = srv.graph_replays - replays0
+    check(rep.captures == 0 and srv.graph_captures == caps and replays > 0,
+          f"{label}: {replays} replays, captures moved under the "
+          f"sanitizer: {rep.deltas}")
+    check(card["paged_flash_decode"] == replays * K * L,
+          f"{label}: the card ran {card['paged_flash_decode']} "
+          f"paged_flash_decode kernels, expected {replays} replays x {K} "
+          f"x {L}")
+    del srv
+    release()
+    eager = paged_server(dec, params, mesh=mesh, decode_window=K)
+    eager._captures = False
+    plain, wall_e, _, _ = serve_counted(label + " eager", eager, reqs)
+    check(eager.graph_replays == 0, f"{label}: the eager server replayed")
+    del eager
+    release()
+    for i, (a, b) in enumerate(zip(outs, plain)):
+        check(a.equal(b), f"{label}: request {i}'s tokens differ between "
+              "the captured and the eager window")
+    if ref_outs is not None:
+        check(all(a.equal(b) for a, b in zip(outs, ref_outs)),
+              f"{label}: the tokens differ from phase 5's")
+    tsrv = paged_server(dec, params, mesh=mesh, decode_window=K)
+    split = time_tick(steady_window(tsrv, dec.cfg.vocab_size))
+    del tsrv
+    release()
+    generated = sum(n for _, n in reqs)
+    return {"tokens_per_s": generated / wall, "eager_tokens_per_s":
+            generated / wall_e, "replays": replays,
+            "decode_runs": card["paged_flash_decode"],
+            "prefill_runs": card["paged_flash_prefill"],
+            "split": split, "generated": generated, "layers": L,
+            "outs": outs}
+
+
+def _log_mesh_window(label: str, run: dict, gloo_k4: float) -> None:
+    K, sp = MESH_WINDOW, run["split"]
+    log(f"serve_sharded: {label}, decode_window={K}, phase 5's knobs and "
+        f"mix: captured windows token-identical to the eager window "
+        f"(captures forced off) and to phase 5; {run['generated']} tokens "
+        f"at {run['tokens_per_s']:.1f} tokens/s captured (after a warm-up "
+        f"request, under capture_sanitizer: no capture), "
+        f"{run['eager_tokens_per_s']:.1f} eager; {run['replays']} replays, "
+        f"paged_flash_decode run on the card {run['decode_runs']} = "
+        f"replays x {K} x {run['layers']}; a steady window from depth "
+        f"{STEADY_DEPTH}: host {sp['host_ms']:.4f} ms to issue, device "
+        f"{sp['device_ms']:.4f} ms, wall {sp['wall_ms']:.4f} ms, idle share "
+        f"{sp['idle_share']:.4f}; beside tp 2 on gloo ranks at K={K}: "
+        f"{gloo_k4:.1f} tokens/s (windows eager, the same depth)")
+
+
+def shard_model1_windows(dec, params, paged_res: dict) -> dict:
+    """Captured windows on a one-process {"model": 1} mesh
+    (`_mesh_window_run`), then sync_sanitizer around one steady greedy
+    window of phase 5's one-process server at K=MESH_WINDOW: it may make
+    DRAIN_SYNCS synchronizing calls; the count found is printed."""
+    import torch
+
+    from defer_tpu_torch.analysis import sync_sanitizer
+    from defer_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"model": 1}, [torch.device(CARD)])
+    run = _mesh_window_run("serve_sharded model1 captured", dec, params,
+                           mesh, paged_res["outs"])
+    srv = paged_server(dec, params, decode_window=MESH_WINDOW)
+    window = steady_window(srv, dec.cfg.vocab_size)
+    window()
+    torch.cuda.synchronize()
+    with sync_sanitizer(allow=DRAIN_SYNCS) as rep:
+        srv.step()
+    check(rep.active, "serve_sharded: the sync sanitizer did not count")
+    log(f"serve_sharded: sync_sanitizer(allow={DRAIN_SYNCS}) around one "
+        f"steady greedy window of phase 5's server (K={MESH_WINDOW}, no "
+        f"eos, no stop, no streaming): {rep.syncs} synchronizing CUDA "
+        "call(s)")
+    del srv
+    release()
+    run["drain_syncs"] = rep.syncs
+    return run
+
+
+def nccl1_rank(port: int, out: str) -> int:
+    """Phase serve_sharded's world-size-1 NCCL rank on cuda:0: phase
+    decode's weights built here (mistral_bf16), `_mesh_window_run` on a
+    {"model": 1} mesh over the NCCL group (its collectives NCCL's, inside
+    the captured graphs), the tokens and numbers to `out`."""
+    import torch
+    import torch.distributed as dist
+
+    from defer_tpu_torch import GptDecoder, mistral_config
+    from defer_tpu_torch.parallel import multihost
+    from defer_tpu_torch.parallel.mesh import make_mesh
+
+    multihost.initialize(f"tcp://127.0.0.1:{port}", 1, 0, backend="nccl")
+    dev = torch.device(CARD)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh({"model": 1}, [dev])
+    check(mesh.distributed and dist.get_backend(mesh.everyone) == "nccl",
+          "serve_sharded nccl1: the mesh is not over the NCCL group")
+    dec = GptDecoder(mistral_config(), compute_dtype=torch.bfloat16,
+                     device=dev)
+    params = mistral_bf16(dec)
+    run = _mesh_window_run("serve_sharded nccl1 captured", dec, params,
+                           mesh, None)
+    run["outs"] = [o.tolist() for o in run["outs"]]
+    for mod in ("jax", "defer_tpu"):
+        check(mod not in sys.modules, f"serve_sharded nccl1 imported {mod}")
+    with open(out, "w") as f:
+        json.dump(run, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def phase_serve_sharded(dec, params, paged_res: dict, decode_res: dict,
                         here: str) -> dict:
     """Phase serve_sharded at Mistral-7B's width and depth on phase 4's
@@ -6310,6 +6601,28 @@ def phase_serve_sharded(dec, params, paged_res: dict, decode_res: dict,
         "these rates are not NCCL's")
     log(f"serve_sharded: tp2 done in {time.perf_counter() - t1:.1f}s")
     t1 = time.perf_counter()
+    gloo_k4 = sum(n for _, n in paged_requests(dec.cfg.vocab_size)) / (
+        res["k4"]["wall_s"])
+    model1 = shard_model1_windows(dec, params, paged_res)
+    model1.pop("outs")
+    _log_mesh_window("PagedDecodeServer(mesh={'model': 1}), one process",
+                     model1, gloo_k4)
+    res["model1"] = model1
+    out = os.path.join(tempfile.mkdtemp(prefix="nccl1-"), "report.json")
+    logs = _start_ranks(here, "--nccl-rank", 1, out, NCCL1_TIMEOUT,
+                        "serve_sharded nccl1")
+    with open(out) as f:
+        nccl1 = json.load(f)
+    check(all(torch.equal(torch.tensor(a, dtype=b.dtype), b.cpu())
+              for a, b in zip(nccl1.pop("outs"), paged_res["outs"])),
+          "serve_sharded nccl1: the NCCL rank's tokens differ from phase 5's")
+    _log_mesh_window("PagedDecodeServer(mesh={'model': 1}) over a "
+                     "world-size-1 NCCL group, one spawned rank", nccl1,
+                     gloo_k4)
+    res["nccl1"] = nccl1
+    log(f"serve_sharded: captured mesh windows done in "
+        f"{time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
     out = os.path.join(tempfile.mkdtemp(prefix="pptp-"), "report.json")
     logs = _start_ranks(here, "--sharded-rank", PPTP_WORLD, out,
                         SHARD_TIMEOUT, "serve_sharded pp x tp", "pptp")
@@ -6322,6 +6635,7 @@ def phase_serve_sharded(dec, params, paged_res: dict, decode_res: dict,
     t1 = time.perf_counter()
     res["pp"] = shard_pp(dec, params, paged_res["outs"])
     release()
+    res["pp_question"] = shard_pp_question(dec, params)
     log(f"serve_sharded: pp done in {time.perf_counter() - t1:.1f}s")
     t1 = time.perf_counter()
     res["pp_remote"] = shard_pp_remote(dec, params, here, res["pp"])
@@ -6598,6 +6912,15 @@ def main() -> int:
                      for label, _ in SHARD_PAGED}
             if name == "paged_flash_prefill":
                 shard["pp2"] = sharded_res["pp"]["launches"]
+                shard["pp2_inflight1"] = (
+                    sharded_res["pp_question"]["launches"])
+            # Captured mesh windows at K=4: the one-process {"model": 1}
+            # mesh and the world-size-1 NCCL rank (two serves of the mix
+            # each; replays included).
+            key = ("decode_runs" if name == "paged_flash_decode"
+                   else "prefill_runs")
+            shard["model1_captured"] = sharded_res["model1"][key]
+            shard["nccl1_captured"] = sharded_res["nccl1"][key]
             # The fleet's two model_axis_size=2 replicas on each rank, and
             # pp 2 x tp 2 by rank (each its stage's layers).
             shard["fleet_tp2_per_rank"] = (
@@ -6626,6 +6949,9 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         rank_main = pptp_rank if sys.argv[5:6] == ["pptp"] else sharded_rank
         sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--nccl-rank"]:  # serve_sharded's NCCL rank
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(nccl1_rank(int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--pp-stage"]:  # one of serve_sharded's workers
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(pp_stage_worker(int(sys.argv[2]), int(sys.argv[3])))

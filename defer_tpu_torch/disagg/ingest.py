@@ -78,6 +78,8 @@ class KVBlockIngest:
         )
         self._thread.start()
 
+    # analysis: domain(drain) owns the blocking receive; payloads park in
+    # _queue for the serving thread to pump
     def _drain_loop(self) -> None:
         while not self._closed:
             try:

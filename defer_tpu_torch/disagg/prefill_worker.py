@@ -105,6 +105,8 @@ def _to_device(tree: dict, device) -> dict:
             else v.to(device) for k, v in tree.items()}
 
 
+# analysis: domain(transport) one worker session per thread; all state is
+# session-local, results cross by wire only
 def serve_prefill(
     listen_port: int = 0,
     *,

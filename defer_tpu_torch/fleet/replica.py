@@ -109,6 +109,8 @@ class ThreadReplica:
             # (and any caller reading stored_bytes) see a final value.
             self.srv._spill.close()
 
+    # analysis: domain(any) test seam — one pointer store, read-and-cleared by
+    # the loop; tearing is impossible and loss is acceptable
     def inject_failure(self, exc: BaseException) -> None:
         """Test seam: one pointer store, read and cleared by the loop."""
         self._fail = exc
@@ -203,6 +205,8 @@ class ThreadReplica:
             headroom += len(srv.radix.lru)  # parked = evictable
         self.obs.pool_free[self.idx].set(headroom)
 
+    # analysis: domain(serving) the replica's loop IS its serving thread — all
+    # srv state is owned here, outside callers go through call()
     def _loop(self) -> None:
         """The serving thread: all srv state is owned here; outside
         callers go through call()."""
@@ -283,6 +287,9 @@ class FollowerReplica:
             target=self._follow, name=f"fleet-follower-{idx}", daemon=True
         )
 
+    # analysis: domain(serving) a follower replica's thread is its server's
+    # serving thread: it runs the controller's dispatches on the rank's own
+    # shards
     def _follow(self) -> None:
         try:
             self.srv.run()

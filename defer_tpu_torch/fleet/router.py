@@ -64,6 +64,8 @@ def chain_digests(tokens: Any, n_full: int, bs: int) -> list[bytes]:
     is a tensor (read to the host once a REQUEST, at admission) or an
     array."""
     if isinstance(tokens, torch.Tensor):
+        # analysis: ignore[host-sync-in-hot-loop] routing hashes prompt tokens
+        # once a request, at admission, not a tick
         tokens = tokens.cpu().numpy()
     flat = np.asarray(tokens).reshape(-1)[: n_full * bs].astype(np.int64)
     keys: list[bytes] = []

@@ -413,12 +413,15 @@ def sampled_decode_loop(
                 # Rows that already hit a stop sequence emit padding.
                 pinned = torch.as_tensor(stopped, device=nxt.device)
                 nxt = torch.where(pinned[:, None], pad_tok, nxt)
-            # The documented price of stop_sequences: one batched [B]
-            # transfer per step.
+            # analysis: ignore[host-sync-in-hot-loop] the documented price of
+            # stop_sequences: one batched [B] transfer a step, only with stops
+            # set
             host_nxt = nxt[:, 0].cpu().numpy()
             # The eos mask rides the same sync: it guards the matchers
             # (an eos-finished row's padding must never stop-match).
             eos_done = (
+                # analysis: ignore[host-sync-in-hot-loop] rides the same
+                # step's transfer as the tokens above
                 finished.cpu().numpy() if eos_id is not None else None
             )
             for r in range(b):
@@ -439,6 +442,8 @@ def sampled_decode_loop(
         elif (
             eos_id is not None
             and (i + 1) % EOS_POLL_EVERY == 0
+            # analysis: ignore[host-sync-in-hot-loop] the eos poll, once every
+            # EOS_POLL_EVERY steps by design
             and bool(finished.all())
         ):
             break
@@ -930,8 +935,8 @@ class GptDecoder:
                 "prefill needs a scalar-position cache (per-slot caches "
                 "admit through runtime/decode_server.py)"
             )
-        # One host sync per prefill (admission time, not per tick), to
-        # guard overflow.
+        # analysis: ignore[host-sync-in-hot-loop] one scalar sync a prefill,
+        # at admission, to refuse a write past max_len
         base = int(cache["pos"])
         if self.rolling_cache:
             # No end to overflow (slots recycle), but one step takes at

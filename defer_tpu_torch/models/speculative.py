@@ -174,6 +174,8 @@ def speculative_generate(
             sel = torch.arange(k, device=dev)
             # One batched transfer of (u, p, q) a round.
             u_h, p_h, q_h = (
+                # analysis: ignore[host-sync-in-hot-loop] one batched transfer
+                # of (u, p, q) a round: the accept test runs on the host
                 t.tolist() for t in (
                     u_vec, p_all[sel, prop[0].long()],
                     q_all[sel, prop[0].long()],
@@ -205,6 +207,8 @@ def speculative_generate(
             ).to(ids.dtype)  # [1, k]
             # One batched transfer of (props, preds) a round, into the
             # accept rule the paged speculative mode shares.
+            # analysis: ignore[host-sync-in-hot-loop] one batched transfer of
+            # (proposals, predictions) a round
             both = torch.cat([prop, preds]).tolist()
             a = int(accept_lengths([both[0]], [both[1]])[0])
             replacement = None if a == k else preds[:, a : a + 1]

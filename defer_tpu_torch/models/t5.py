@@ -465,6 +465,8 @@ class T5:
         [B, V], cache). The GUARDED entry for multi-token steps: the step
         clamps nothing, so a write past max_len is refused here (one
         host sync a prefill, at admission)."""
+        # analysis: ignore[host-sync-in-hot-loop] one scalar sync a prefill,
+        # at admission, to refuse a write past max_len
         base = int(cache["pos"])
         t = ids.shape[1]
         if base + t > self.cfg.max_len:

@@ -128,6 +128,8 @@ class PeriodicDumper:
             log.info("metrics: %s", text)
         return text
 
+    # analysis: domain(transport) periodic exposition writes leave the
+    # process; server state is only read
     def _run(self) -> None:
         while not self._stop.wait(self.interval_s):
             try:

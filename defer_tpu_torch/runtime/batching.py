@@ -14,6 +14,7 @@ padding would only add work.
 
 from __future__ import annotations
 
+import math
 import queue as queue_mod
 import time
 from typing import Any
@@ -265,3 +266,38 @@ def pp_schedule_occupancy(
     occ = [min(b / total_slots, 1.0) for b in busy_slots]
     mean = sum(occ) / len(occ) if occ else 0.0
     return occ, 1.0 - mean
+
+
+def _nest(vals: list, shape: tuple):
+    """A flat list as the nested lists `.tolist()` of `shape` gives."""
+    if len(shape) <= 1:
+        return vals if shape else vals[0]
+    n = math.prod(shape[1:])
+    return [_nest(vals[i * n:(i + 1) * n], shape[1:])
+            for i in range(shape[0])]
+
+
+def host_lists(tensors: list) -> list:
+    """Small int and bool device tensors as the host lists `.tolist()`
+    gives each, in ONE device-to-host transfer (one sync, where a
+    `.tolist()` each would sync once each); none for no tensors."""
+    if not tensors:
+        return []
+    if len(tensors) == 1:
+        # analysis: ignore[host-sync-in-hot-loop] this IS the tick's one
+        # batched transfer, here of one tensor: no copy before it
+        return [tensors[0].tolist()]
+    # Cast only where the dtypes differ (the one concatenation needs one).
+    same = all(t.dtype == tensors[0].dtype for t in tensors)
+    # analysis: ignore[host-sync-in-hot-loop] this IS the tick's one batched
+    # transfer: every caller folds its host reads into it
+    flat = torch.cat([t.reshape(-1) if same else t.reshape(-1).long()
+                      for t in tensors]).tolist()
+    out, at = [], 0
+    for t in tensors:
+        vals = flat[at:at + t.numel()]
+        at += t.numel()
+        if t.dtype == torch.bool:
+            vals = [bool(v) for v in vals]
+        out.append(_nest(vals, tuple(t.shape)))
+    return out

@@ -220,6 +220,8 @@ def prefetch_to_device(
             done.record(side)
         return out, done
 
+    # analysis: domain(prefetch) stages host batches onto the card; results
+    # cross to the consumer only through the queue
     def feed() -> None:
         try:
             for item in it:

@@ -92,7 +92,7 @@ from defer_tpu_torch.models.gpt import (
 )
 from defer_tpu_torch.obs.serving import ServerStats, ServingMetrics
 from defer_tpu_torch.parallel.lora import adapter_bank_info
-from defer_tpu_torch.runtime.batching import window_drain_order
+from defer_tpu_torch.runtime.batching import host_lists, window_drain_order
 from defer_tpu_torch.runtime.stopping import matcher_or_none, normalize_stops
 
 _DEAD_END = (
@@ -374,6 +374,9 @@ class DraftLanes:
         """Host round inputs on the lanes' device, as int32."""
         dev = self.ck.device
         return tuple(
+            # analysis: ignore[host-sync-in-hot-loop] host int arrays (the
+            # draft's seeds) going up, not down: np.asarray of host data syncs
+            # nothing
             torch.as_tensor(np.asarray(a), dtype=torch.int32).to(dev)
             for a in (posm, feed2, adv)
         )
@@ -773,6 +776,8 @@ class DecodeServer:
         if cid:
             _, state = settle(first[0].long())
             self._sampler.admit_constraint(i, cid, state[0])
+            # analysis: ignore[host-sync-in-hot-loop] once a constrained
+            # admission (its first token), not a tick
             self.obs.constrain_masked_frac.observe(float(frac[0]))
             self.obs.constrained_tokens.inc()
             self.constrained_tokens_n += 1
@@ -810,6 +815,8 @@ class DecodeServer:
             or self.on_token is not None
             or slot.stop is not None
         )
+        # analysis: ignore[host-sync-in-hot-loop] once an admission, only for
+        # a consumer of host tokens (eos, stops, streaming)
         tok_host = int(first[0, 0]) if need_host else None
         if self.eos_id is not None and tok_host == self.eos_id:
             slot.remaining = 0
@@ -877,11 +884,17 @@ class DecodeServer:
                 for s in self.slots
             )
         )
-        host_nxt = nxt.tolist() if need_host else None
+        # One transfer of the host tokens and, only while a constrained
+        # row is live, the dead-end flags; the masked fractions (floats)
+        # in a second.
+        got = iter(host_lists(([nxt] if need_host else [])
+                              + ([dead] if constrained else [])))
+        host_nxt = next(got) if need_host else None
         if constrained:
-            # One batched transfer of the dead-end flags and masked
-            # fractions, only while a constrained row is live.
-            dead_host = dead.tolist()
+            dead_host = next(got)
+            # analysis: ignore[host-sync-in-hot-loop] the masked fractions are
+            # floats, so they follow the tick's int transfer in a second; only
+            # while a constrained row is live
             mfrac_host = mfrac.tolist()
         for i, slot in enumerate(self.slots):
             if slot.req is None:
@@ -1060,21 +1073,28 @@ class DecodeServer:
         need_toks = self.on_token is not None or any(
             s.req is not None and s.stop is not None for s in self.slots
         )
-        if self.eos_id is not None:
-            # One batched per-window transfer of the valid lengths and
-            # alive flags: K tokens amortize this sync.
-            emitted = w["n"].tolist()
-            alive_host = self._active.tolist()
+        # ONE batched per-window transfer (K tokens amortize it): the
+        # valid lengths and alive flags when eos can freeze a row
+        # (without eos the device freezes rows on budget alone, which the
+        # host already knows), the tokens when they stream or
+        # stop-match, a constrained window's dead-end flags; its masked
+        # fractions, floats, follow in a second.
+        eos = self.eos_id is not None
+        wanted = ([w["n"], self._active] if eos else []) + (
+            [toks] if need_toks else []) + ([w["died"]] if constrained
+                                            else [])
+        got = iter(host_lists(wanted))
+        if eos:
+            emitted, alive_host = next(got), next(got)
         else:
-            # No eos: the device can only freeze rows on budget, which
-            # the host already knows.
             emitted = [min(b, K) for b in budget]
             alive_host = [b > K for b in budget]
-        toks_host = toks.tolist() if need_toks else None
-        died_host = fracs_host = None
-        if constrained:
-            died_host = w["died"].tolist()
-            fracs_host = w["fracs"].tolist()
+        toks_host = next(got) if need_toks else None
+        died_host = next(got) if constrained else None
+        # analysis: ignore[host-sync-in-hot-loop] the window's masked
+        # fractions (floats) after its one int transfer; only in a constrained
+        # window
+        fracs_host = w["fracs"].tolist() if constrained else None
         self._drain_window(toks, toks_host, emitted, alive_host, budget,
                            died_host, fracs_host)
 

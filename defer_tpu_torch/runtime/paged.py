@@ -131,12 +131,22 @@ view there. Full-head host K/V
 crosses ranks only there: split on its head axis as it lands (ingest,
 import, spill revival), gathered whole to the controller as it leaves
 (export, spill snapshots, which the controller's `HostKVSpill` holds
-whole). A gloo collective cannot be captured in a CUDA graph, and ranks
-sharing one card are gloo, so under a mesh a window runs its K
-sub-steps eagerly (the same sub-steps, the same tokens) and
-`graph_replays` stays 0. A one-process mesh serves a model axis of size
-1 (its collectives the identity). Counters: `tp_psums` (2L + 2 a
-sharded forward), KV rows per shard (1 / tp).
+whole). Which meshes capture their windows (`window_captures`): a
+one-process mesh, which serves a model axis of size 1 (its collectives
+the identity), and a mesh whose every group (each axis line and
+`everyone`) is NCCL. There each rank captures its own window program on
+first use, warmed up outside the capture (the warm-up runs the window's
+collectives once, so NCCL's communicators exist before a capture), and
+the controller sends ONE window program a window through the seam
+(`_window_run`, with the window's inputs), not K sub-step programs;
+every rank replays its own graph, and `graph_replays` counts on each. A
+gloo collective cannot be captured in a CUDA graph, and ranks sharing
+one card are gloo: on a mesh with a gloo group a window runs its K
+sub-steps eagerly (the same sub-steps, the same tokens), each a program
+through the seam, and `graph_replays` stays 0. A speculative window
+runs the draft on the controller alone, so over a process group it
+stays eager too. Counters: `tp_psums` (2L + 2 a sharded forward, a
+replay's forwards included), KV rows per shard (1 / tp).
 
 Pipeline-parallel serving, `pp_stages=S`: the layers cut into S
 contiguous stages (`pp_cuts`, or balanced: equal counts, or
@@ -213,6 +223,7 @@ from defer_tpu_torch.parallel.spmd_pipeline import check_process_group
 from defer_tpu_torch.parallel.transformer_stack import shard_tree
 from defer_tpu_torch.runtime.batching import (
     accept_lengths,
+    host_lists,
     microbatch_groups,
     pp_schedule_occupancy,
     window_drain_order,
@@ -250,6 +261,19 @@ def _to_wire(x):
     if isinstance(x, dict):
         return {k: _to_wire(v) for k, v in x.items()}
     return x
+
+
+def window_captures(device: torch.device, mesh) -> bool:
+    """Whether a server on `device` under `mesh` runs its windows as
+    captured CUDA graphs: on a card, without a mesh, on a one-process
+    mesh, or on a mesh over a process group whose every group is NCCL (a
+    gloo collective cannot be captured)."""
+    if device.type != "cuda":
+        return False
+    if mesh is None or not mesh.distributed:
+        return True
+    groups = [*mesh.groups.values(), mesh.everyone]
+    return all(dist.get_backend(g) == "nccl" for g in groups)
 
 
 def _from_wire(x, device: torch.device):
@@ -609,6 +633,9 @@ class HostKVSpill:
             time.sleep(1e-4)
         return tuple(host)
 
+    # analysis: domain(drain) owns every device->host copy of an evicted block
+    # and all store mutation (under _lock); the serving thread only offers and
+    # gets
     def _drain_loop(self) -> None:
         while True:
             item = self._q.get()
@@ -1351,11 +1378,11 @@ class PagedDecodeServer:
         # constrained).
         self.graph_replays = 0
         self.graph_captures = 0
-        # Windows are captured CUDA graphs on a card, but never under a
-        # mesh: a gloo collective cannot be captured, so a mesh window
-        # runs its K sub-steps eagerly (the same sub-steps, the same
-        # tokens), one dispatch of each program to the model group.
-        self._captures = self.device.type == "cuda" and mesh is None
+        # Windows are captured CUDA graphs on a card, under a mesh too
+        # unless a group of it is gloo, which cannot be captured: such a
+        # window runs its K sub-steps eagerly (the same sub-steps, the
+        # same tokens), one dispatch of each program to the model group.
+        self._captures = window_captures(self.device, mesh)
         self._graphs: dict[tuple, Any] = {}
         self._wbuf: dict | None = None
         # Prefill chunks run through the multi-token step (host count).
@@ -1826,6 +1853,9 @@ class PagedDecodeServer:
         # The host copy feeds the radix walk; the device copy, the steps
         # and the output.
         self.pending.append(
+            # analysis: ignore[host-sync-in-hot-loop] submit takes host
+            # prompts (a no-op copy then); a prompt already on the card is
+            # read to the host once a request, for the radix walk
             (rid, prompt_ids.cpu(), prompt_ids.to(self.device), num_steps,
              adapter_id, sampling, stop_seqs, cid)
         )
@@ -2007,8 +2037,8 @@ class PagedDecodeServer:
                 ).to(self.dec.compute_dtype)
             else:
                 blocks = pool[:, idx]
-            # The copy to host memory IS the operation: a migration ships
-            # the payload over a host wire.
+            # analysis: ignore[host-sync-in-hot-loop] the copy to host memory
+            # IS the operation: a migration ships the payload over a host wire
             out.append(self._all_heads(blocks).cpu())
         return out
 
@@ -2170,7 +2200,10 @@ class PagedDecodeServer:
         """Count the collectives `n_forwards` sharded forwards issue (2L
         + 2 each: the host mirror of defer_tp_psum_total); a no-op
         without a mesh."""
-        if self._psums_per_fwd:
+        # A capture records its forwards without running them; the
+        # window's replays count them (`_tick_window`).
+        if self._psums_per_fwd and not (
+                self._captures and torch.cuda.is_current_stream_capturing()):
             n = self._psums_per_fwd * n_forwards
             self.tp_psums += n
             self.obs.tp_psums.inc(n)
@@ -2226,6 +2259,8 @@ class PagedDecodeServer:
         type), without a host sync: on CUDA through a fresh pinned
         buffer that is never written again, so the asynchronous copy
         cannot race a later host write."""
+        # analysis: ignore[host-sync-in-hot-loop] host ints going up through a
+        # pinned buffer: np.array of host data syncs nothing
         t = torch.from_numpy(np.array(arr, dtype=np.int32))
         if self.device.type != "cuda":
             return t.to(self.device)
@@ -2475,6 +2510,8 @@ class PagedDecodeServer:
         if self.attention == "gathered":
             return self.B * self.MB * bs
         if self.attention == "blockwise":
+            # analysis: ignore[host-sync-in-hot-loop] posm is the host
+            # position mirror (numpy): no card read
             return self.B * ((int(posm.max()) + t - 1) // bs + 1) * bs
         win = self.dec.cfg.window
         hi = (posm + t - 1) // bs
@@ -2730,6 +2767,8 @@ class PagedDecodeServer:
         radix cache (every row written); returns them."""
         out = []
         for j in range(lo, hi):
+            # analysis: ignore[host-sync-in-hot-loop] table_row is the host
+            # block table (numpy): no card read
             blk = int(table_row[j])
             displaced = self.radix.register(keys[j], toks[j], blk)
             if displaced is not None:
@@ -2749,6 +2788,8 @@ class PagedDecodeServer:
         t0 = prompt.shape[1]
         n_full = t0 // bs
         total = -(-(t0 + steps) // bs)
+        # analysis: ignore[host-sync-in-hot-loop] the host copy submit keeps
+        # (a CPU tensor): .numpy() is a view, no sync
         plan = self._walk(prompt[0].numpy(), n_full, total)
         if plan is None:
             return False
@@ -2789,6 +2830,8 @@ class PagedDecodeServer:
         """[L, n, Hkv, bs, Dh] host block stack (a tensor or a numpy
         array) -> the flat [L, 1, Hkv, n * bs, Dh] lane `_insert` takes,
         on the device in the compute dtype."""
+        # analysis: ignore[host-sync-in-hot-loop] delivered KV arrives as host
+        # arrays (disagg, import, spill): np.asarray of host data syncs nothing
         t = self._heads(torch.as_tensor(np.asarray(blocks) if not isinstance(
             blocks, torch.Tensor) else blocks))
         L, n, hkv, bs, dh = t.shape
@@ -2842,6 +2885,8 @@ class PagedDecodeServer:
             owned = own
             self.blocks_peak = max(self.blocks_peak,
                                    self.blocks_in_use + total)
+        # analysis: ignore[host-sync-in-hot-loop] the delivered first-token
+        # logits row is host data: no card read
         lrow = torch.as_tensor(np.asarray(first_logits) if not isinstance(
             first_logits, torch.Tensor) else first_logits)
         lrow = lrow.to(self.device, torch.float32)
@@ -2947,6 +2992,8 @@ class PagedDecodeServer:
         if cid:
             _, state = settle(first[0].long())
             self._sampler.admit_constraint(i, cid, state[0])
+            # analysis: ignore[host-sync-in-hot-loop] once a constrained
+            # admission (its first token), not a tick
             self.obs.constrain_masked_frac.observe(float(frac[0]))
             self.obs.constrained_tokens.inc()
             self.constrained_tokens_n += 1
@@ -2980,22 +3027,29 @@ class PagedDecodeServer:
         if shared is not None:
             slot["shared"] = shared
         self.slots[i] = slot
-        if self._draft is not None and samp is None:
+        spec = self._draft is not None and samp is None
+        need_host = (
+            spec
+            or self.eos_id is not None
+            or self.on_token is not None
+            or slot["stop"] is not None
+        )
+        # One host read of the first token, where anything needs it.
+        # analysis: ignore[host-sync-in-hot-loop] once an admission, and only
+        # for a consumer of the host token (the draft lane, eos, stops,
+        # streaming)
+        first_host = int(first[0, 0]) if need_host else None
+        if spec:
             # The first token is the slot's first pending draft token;
             # the draft lane prefills the FULL prompt (radix hits are a
             # pool concept the draft does not share).
-            slot["pend"] = [int(first[0, 0])]
+            slot["pend"] = [first_host]
             self._draft.admit(i, prompt_dev)
         self._feed[i, 0] = first[0, 0]
         # ttft spans queue + prefill (popped here, the drain point).
         self.obs.ttft.observe(time.perf_counter() - self._submit_t.pop(rid))
         self._update_pool_gauges()
-        need_host = (
-            self.eos_id is not None
-            or self.on_token is not None
-            or slot["stop"] is not None
-        )
-        self._emit_token(i, slot, int(first[0, 0]) if need_host else None)
+        self._emit_token(i, slot, first_host)
 
     # -- mixed ticks (prefill_budget=) --------------------------------------
 
@@ -3239,9 +3293,16 @@ class PagedDecodeServer:
             or any(s is not None and s.get("stop") is not None
                    for s in self.slots)
         )
-        host_nxt = nxt.tolist() if need_host else None
+        # One transfer of the host tokens and the dead-end flags, the
+        # masked fractions (floats) in a second while constrained.
+        got = iter(host_lists(([nxt] if need_host else [])
+                              + ([dead] if constrained else [])))
+        host_nxt = next(got) if need_host else None
         if constrained:
-            dead_host = dead.tolist()
+            dead_host = next(got)
+            # analysis: ignore[host-sync-in-hot-loop] the masked fractions are
+            # floats, so they follow the tick's int transfer in a second; only
+            # while a constrained row is live
             mfrac_host = mfrac.tolist()
         accepted = 0
         for i, slot in enumerate(self.slots):
@@ -3334,11 +3395,17 @@ class PagedDecodeServer:
             or any(s is not None and s["stop"] is not None
                    for s in self.slots)
         )
-        host_nxt = nxt.tolist() if need_host else None
+        # One transfer of the host tokens and, only while a constrained
+        # row is live, the dead-end flags; the masked fractions (floats)
+        # in a second.
+        got = iter(host_lists(([nxt] if need_host else [])
+                              + ([dead] if constrained else [])))
+        host_nxt = next(got) if need_host else None
         if constrained:
-            # One batched transfer of the dead-end flags and masked
-            # fractions, only while a constrained row is live.
-            dead_host = dead.tolist()
+            dead_host = next(got)
+            # analysis: ignore[host-sync-in-hot-loop] the masked fractions are
+            # floats, so they follow the tick's int transfer in a second; only
+            # while a constrained row is live
             mfrac_host = mfrac.tolist()
         for i, slot in enumerate(self.slots):
             if slot is None:
@@ -3464,7 +3531,7 @@ class PagedDecodeServer:
         be reused under the graph). A capture that fails raises."""
         build = (self._window_body if kind == "decode"
                  else self._spec_window_body)
-        if not self._captures:
+        if not self._window_captured(kind):
             return build(mode, constrained)
         key = (kind, mode, constrained)
         if key not in self._graphs:
@@ -3472,6 +3539,54 @@ class PagedDecodeServer:
             self._graphs[key] = (self._capture(body, kind), body)
             self.graph_captures += 1
         return self._graphs[key][0].replay
+
+    def _window_captured(self, kind: str) -> bool:
+        """Whether windows of `kind` replay a captured graph: on a
+        capturing server, except a speculative window over a process
+        group, whose draft runs on the controller alone."""
+        return self._captures and (kind == "decode" or self._link is None)
+
+    def _window_buffers(self) -> dict:
+        """The buffers a decode window reads that the controller writes
+        between windows, by name."""
+        sm, w = self._sampler, self._window_state()
+        return {"tables": self._tables_dev, "pos": self._pos_dev,
+                "feed": self._feed, "active": self._active,
+                "budget": w["budget"], "u": w["u"], "temp": sm.temp,
+                "topk": sm.topk, "topp": sm.topp, "minp": sm.minp,
+                "cid": sm.cid, "cstate": sm.cstate,
+                "adapter": self._adapter_dev}
+
+    def _window_inputs(self, mode: str, constrained: bool) -> dict:
+        """Those of the buffers a (mode, constrained) window reads, for
+        the other ranks to copy in before their replay: the tables,
+        positions, feed, active mask and budgets; the sampling policy and
+        uniforms of a sampled window, the constraint rows of a
+        constrained one, and the adapter ids with adapter banks."""
+        names = ["tables", "pos", "feed", "active", "budget"]
+        if mode != "argmax":
+            names += ["u", "temp", "topk", "topp", "minp"]
+        if constrained:
+            names += ["cid", "cstate"]
+        if self.multi_lora:
+            names.append("adapter")
+        own = self._window_buffers()
+        return {name: own[name] for name in names}
+
+    @_program
+    def _window_run(self, mode: str, constrained: bool, inputs: dict) -> None:
+        """One captured decode window on every rank of a process group:
+        the other ranks copy the controller's `inputs` into their own
+        buffers (the controller's are the inputs), then each rank
+        replays its own graph of (mode, constrained), capturing it on
+        first use (the capture's warm-up runs the window's collectives
+        on every rank together)."""
+        if not self.controller:
+            own = self._window_buffers()
+            for name, t in inputs.items():
+                own[name].copy_(t)
+        self._window_program("decode", mode, constrained)()
+        self.graph_replays += 1
 
     def _capture(self, body, kind: str):
         """Warm the body up, then capture it. The warm-up (the kernels'
@@ -3525,32 +3640,45 @@ class PagedDecodeServer:
         posm = np.where(live, self.pos, 0)
         w = self._window_state()
         w["budget"].copy_(self._upload(budget))
-        program = self._window_program("decode", mode, constrained)
         if mode != "argmax":
             sm.fill_uniforms(w["u"])
-        program()
+        if self._captures and self._link is not None:
+            # One program a window through the seam; every rank replays.
+            self._window_run(mode, constrained,
+                             self._window_inputs(mode, constrained))
+        else:
+            self._window_program("decode", mode, constrained)()
+            if self._captures:
+                self.graph_replays += 1
         if self._captures:
-            self.graph_replays += 1
+            self._account_psums(K)
         toks = w["toks"].clone()  # the next window overwrites the buffer
         self._note_dispatch(sum(live))
         need_toks = self.on_token is not None or any(
             s is not None and s["stop"] is not None for s in self.slots
         )
-        if self.eos_id is not None:
-            # One batched per-window transfer of the valid lengths and
-            # alive flags: K tokens amortize this sync.
-            emitted = w["n"].tolist()
-            alive_host = w["alive"].tolist()
+        # ONE batched per-window transfer (K tokens amortize it) of what
+        # the host needs: the valid lengths and alive flags when eos can
+        # freeze a row (without eos the device freezes rows on budget
+        # alone, which the host already knows), the [B, K] tokens when
+        # they stream or stop-match, the dead-end flags of a constrained
+        # window; its masked fractions, floats, follow in a second.
+        eos = self.eos_id is not None
+        wanted = ([w["n"], w["alive"]] if eos else []) + (
+            [toks] if need_toks else []) + ([w["died"]] if constrained
+                                            else [])
+        got = iter(host_lists(wanted))
+        if eos:
+            emitted, alive_host = next(got), next(got)
         else:
-            # No eos: the device can only freeze rows on budget, which
-            # the host already knows.
             emitted = [min(b, K) for b in budget]
             alive_host = [b > K for b in budget]
-        toks_host = toks.tolist() if need_toks else None
-        died_host = fracs_host = None
-        if constrained:
-            died_host = w["died"].tolist()
-            fracs_host = w["fracs"].tolist()
+        toks_host = next(got) if need_toks else None
+        died_host = next(got) if constrained else None
+        # analysis: ignore[host-sync-in-hot-loop] the window's masked
+        # fractions (floats) after its one int transfer; only in a constrained
+        # window
+        fracs_host = w["fracs"].tolist() if constrained else None
         self._account_kv_rows_window(posm, emitted)
         self._drain_window(toks, toks_host, emitted, alive_host, budget,
                            died_host, fracs_host)
@@ -3681,22 +3809,26 @@ class PagedDecodeServer:
         self.obs.pp_bubble_fraction.set(bubble)
         for s, o in enumerate(occ):
             self.obs.pp_stage_occupancy[s].set(o)
-        if self.eos_id is not None:
-            # One batched per-window transfer a group, as _tick_window's.
+        need_toks = self.on_token is not None or any(
+            s is not None and s["stop"] is not None for s in self.slots
+        )
+        # One batched per-window transfer, as _tick_window's: each
+        # group's valid lengths and alive flags when eos is set, the
+        # tokens when they stream or stop-match.
+        eos = self.eos_id is not None
+        ran = [state for state in st if state is not None] if eos else []
+        wanted = [t for state in ran for t in (state["n"], state["active"])]
+        wanted += [toks] if need_toks else []
+        got = iter(host_lists(wanted))
+        if eos:
             emitted, alive_host = [0] * self.B, [False] * self.B
-            for state in st:
-                if state is None:
-                    continue
-                for i, e, a in zip(state["idx"], state["n"].tolist(),
-                                   state["active"].tolist()):
+            for state in ran:
+                for i, e, a in zip(state["idx"], next(got), next(got)):
                     emitted[i], alive_host[i] = e, a
         else:
             emitted = [min(b, K) for b in budget]
             alive_host = [b > K for b in budget]
-        need_toks = self.on_token is not None or any(
-            s is not None and s["stop"] is not None for s in self.slots
-        )
-        toks_host = toks.tolist() if need_toks else None
+        toks_host = next(got) if need_toks else None
         self._account_kv_rows_window(posm, emitted)
         self._drain_window(toks, toks_host, emitted, alive_host, budget)
 
@@ -3884,12 +4016,18 @@ class PagedDecodeServer:
         self._note_dispatch(n_live, 2, stall=False)
         self._account_kv_rows(self._rows_read_multi(posm, k + 1, True),
                               self.B * self.MB * self.bs)
-        # The ONE batched transfer of the round.
-        preds_host = preds.cpu().numpy()
-        props_host = props.cpu().numpy()
-        draw_host = draw.tolist() if draw is not None else None
+        # The ONE batched transfer of the round (the masked fractions,
+        # floats, in a second while constrained).
+        got = iter(host_lists([preds, props]
+                               + ([draw] if draw is not None else [])
+                               + ([dead_all] if constrained else [])))
+        preds_host, props_host = np.asarray(next(got)), np.asarray(next(got))
+        draw_host = next(got) if draw is not None else None
         if constrained:
-            dead_host = dead_all.tolist()
+            dead_host = next(got)
+            # analysis: ignore[host-sync-in-hot-loop] the round's masked
+            # fractions (floats) after its one int transfer; only while
+            # constrained
             fracs_host = fracs.tolist()
         a_vec = accept_lengths(props_host, preds_host[:, :k])
         proposed = accepted_draft = draft_toks = 0
@@ -4203,20 +4341,21 @@ class PagedDecodeServer:
         if mode != "argmax":
             sm.fill_uniforms(w["u"])
         program()
-        if self._captures:
+        if self._window_captured("spec"):
             self.graph_replays += 1
+            self._account_psums(W)
         self._note_dispatch(sum(live), stall=False)
         # The ONE batched sync of the window.
-        toks_h = w["rtoks"].tolist()
-        kept_h = w["kept"].tolist()
-        a_h = w["a"].tolist()
-        greedy_h = w["greedy"].tolist()
-        advu_h = w["advu"].tolist()
-        alive_h = w["alive"].tolist()
-        feed2_h = w["feed2"].tolist()
-        adv_h = w["adv"].tolist()
+        (toks_h, kept_h, a_h, greedy_h, advu_h, alive_h, feed2_h, adv_h,
+         *died) = host_lists(
+            [w[n] for n in ("rtoks", "kept", "a", "greedy", "advu", "alive",
+                            "feed2", "adv")] + ([w["died"]] if constrained
+                                                else []))
         if constrained:
-            died_h = w["died"].tolist()
+            died_h = died[0]
+            # analysis: ignore[host-sync-in-hot-loop] the window's masked
+            # fractions (floats) after its one int transfer; only in a
+            # constrained window
             fracs_h = w["rfracs"].tolist()
         # The verify's rows, round by round: active rows read through
         # pos_r + k, frozen rows sit at position 0.

@@ -302,6 +302,9 @@ def serve_stage(
     return count
 
 
+# analysis: domain(pp-stage-worker) the whole session — stage pools and
+# the result stream — is owned by this worker thread; the controller
+# only ever talks to it through the framed transport
 def serve_pp_stage(
     dec: Any,
     params: Any,

@@ -163,9 +163,13 @@ class ArraySender:
         if isinstance(arr, torch.Tensor):
             # One explicit device-to-host copy of the whole tensor (a
             # no-op for a CPU tensor); it waits for the tensor's work.
+            # analysis: ignore[host-sync-in-hot-loop] framing the payload IS
+            # the host copy: the wire carries host bytes
             a = arr.detach().cpu()
             floating = a.is_floating_point()
         else:
+            # analysis: ignore[host-sync-in-hot-loop] a host array (not a
+            # tensor) going onto the wire: no card read
             a = np.asarray(arr)
             floating = a.dtype.name == codec.BF16 or np.issubdtype(
                 a.dtype, np.floating
@@ -187,8 +191,9 @@ class ArraySender:
             )
             frame = codec.encode(a, level=level)
         with self._lock:
-            # Serializing whole frames onto one socket is this lock's
-            # entire job; concurrent senders queue behind the write.
+            # analysis: ignore[lock-discipline] serializing whole frames onto
+            # one socket is this lock's entire job; concurrent senders queue
+            # behind the write
             self._sock.sendall(_HEADER.pack(_TAG_ARRAY, len(frame)) + frame)
         _obs_tx_frames.inc()
         nbytes = _HEADER.size + len(frame)
@@ -200,8 +205,8 @@ class ArraySender:
         lacks) and close."""
         try:
             with self._lock:
-                # The STOP frame must not interleave mid-frame with a
-                # concurrent send.
+                # analysis: ignore[lock-discipline] the STOP frame must not
+                # interleave mid-frame with a concurrent send
                 self._sock.sendall(_HEADER.pack(_TAG_STOP, 0))
             self._sock.close()
         except OSError:

@@ -1781,3 +1781,168 @@ def test_sharded_checkpoint_and_inference_on_the_card(card, tmp_path):
         for got, x in zip(r["infer"]["outs"], xs):
             want = whole(torch.from_numpy(x).to(card)).cpu().numpy()
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# -- captured mesh windows, the capture and sync sanitizers -----------------
+
+
+def test_captured_model1_mesh_windows_equal_eager(card):
+    """PagedDecodeServer on a one-process {"model": 1} mesh at K=4
+    captures its windows (its collectives are the identity): after a
+    warm-up request of its own (the capture), the requests served under
+    capture_sanitizer capture nothing, replay, count each replay's
+    forwards in tp_psums, and give the same server's eager window's
+    tokens (captures forced off) and mesh=None's."""
+    from defer_tpu_torch.analysis import capture_sanitizer
+    from defer_tpu_torch.parallel.mesh import make_mesh
+
+    dec, params, reqs = _paged_model(card)
+    want, _ = serve_paged(dec, params, reqs, **PAGED_KNOBS)
+
+    def serve(srv):
+        srv.done.clear()
+        rids = [srv.submit(p, s) for p, s in reqs]
+        done = srv.run()
+        return [done[r] for r in rids]
+
+    mesh = make_mesh({"model": 1}, [card])
+    srv = PagedDecodeServer(dec, params, mesh=mesh, decode_window=4,
+                            **PAGED_KNOBS)
+    assert srv._captures
+    srv.submit(torch.arange(300, 311)[None], 8)  # shares no block with reqs
+    srv.run()
+    assert srv.graph_captures == 1
+    replays, psums = srv.graph_replays, srv.tp_psums
+    with capture_sanitizer(srv) as rep:
+        got = serve(srv)
+    assert rep.captures == 0 and rep.watched
+    assert srv.graph_replays > replays
+    eager = PagedDecodeServer(dec, params, mesh=mesh, decode_window=4,
+                              **PAGED_KNOBS)
+    eager._captures = False
+    plain = serve(eager)
+    assert eager.graph_replays == 0
+    # Each replay counts its K forwards, as each eager window does.
+    L = dec.cfg.num_layers
+    assert srv.tp_psums - psums == eager.tp_psums > 0
+    assert eager.tp_psums % (2 * L + 2) == 0
+    for a, c, d in zip(got, plain, want):
+        assert torch.equal(a, c) and torch.equal(a, d)
+
+
+def test_a_new_window_key_inside_a_sanitized_block_raises(card):
+    """A warmed greedy server that meets its first sampled request inside
+    capture_sanitizer captures a new window key: RecaptureError names
+    it. With allow=1 the same block passes and reports it."""
+    from defer_tpu_torch.analysis import RecaptureError, capture_sanitizer
+
+    dec, params, reqs = _paged_model(card)
+    for allow in (0, 1):
+        srv = PagedDecodeServer(dec, params, decode_window=4, **PAGED_KNOBS)
+        srv.submit(*reqs[0])
+        srv.run()
+        assert srv.graph_captures == 1
+        srv.submit(*reqs[1], sampling=SamplingParams(temperature=0.8,
+                                                     seed=5))
+        if allow == 0:
+            with pytest.raises(RecaptureError, match="nosort"):
+                with capture_sanitizer(srv):
+                    srv.run()
+        else:
+            with capture_sanitizer(srv, allow=1) as rep:
+                srv.run()
+            assert rep.captures == 1
+
+
+def test_sync_sanitizer_counts_a_steady_window_drain(card):
+    """A steady K=4 window with eos set drains its valid lengths and
+    alive flags in one batched transfer: the sanitizer counts that one
+    synchronizing call (and nothing else), allows it, raises below it,
+    and restores the sync debug mode."""
+    from defer_tpu_torch.analysis import HostSyncError, sync_sanitizer
+
+    dec, params, reqs = _paged_model(card)
+    srv = PagedDecodeServer(dec, params, decode_window=4, eos_id=511,
+                            **PAGED_KNOBS)
+    for p, _ in reqs[: srv.B]:
+        srv.submit(p, 60)
+    srv.step()
+    srv.step()
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    with sync_sanitizer(allow=1) as rep:
+        srv.step()
+    assert rep.active and rep.syncs == 1, rep.messages
+    assert torch.cuda.get_sync_debug_mode() == before
+    with pytest.raises(HostSyncError):
+        with sync_sanitizer(allow=0):
+            srv.step()
+    assert torch.cuda.get_sync_debug_mode() == before
+
+
+def test_captured_windows_on_a_world_size_1_nccl_group(card, tmp_path):
+    """The paged server on a world-size-1 NCCL process group at K=4
+    decides to capture, replays its windows with the NCCL all-reduce and
+    all-gather inside the graph, and serves mesh=None's tokens (f32)."""
+    import numpy as np
+
+    from test_torch_dist_worker import _paged, spawn
+
+    _, _, np_params, reqs = _shard_case(card)
+    case = dict(name="paged", run="paged", axes={"model": 1},
+                cfg=SHARD_CFG, params=np_params, phases=[reqs],
+                knobs=dict(num_blocks=16, block_size=4, max_batch=2,
+                           attention="pallas", decode_window=4))
+    (rank,) = spawn({"backend": "nccl", "device": "cuda", "cases": [case]},
+                    1, str(tmp_path))
+    got = rank["paged"]
+    assert got["captures"] and got["graph_replays"] > 0
+    assert got["tp_psums"] % (2 * SHARD_CFG["num_layers"] + 2) == 0
+    want = _paged(dict(case, device="cuda", knobs=dict(
+        case["knobs"], decode_window=1)), None)
+    for a, b in zip(got["tokens"], want["tokens"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def _pp_step_parts(srv):
+    """chip_smoke.py's `_pp_step_parts` (one decode step of a seated
+    pp_stages=1 server decomposed four ways), loaded from the file so
+    that the smoke and this test share one copy."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke._pp_step_parts(srv)
+
+
+def test_pp_rows_part_at_the_kernel_not_the_boundary(card):
+    """The pp 2 vs pp 1 question at Mistral-7B width (2 layers, phase
+    5's pool geometry, bf16): the stage boundary is exact (two stages
+    give the whole stack's rows bit for bit, the activation crosses in
+    the compute dtype), so the rows pp 2 serves can part from pp 1's
+    only through what differs inside a step: the attention kernel (pp 1
+    ticks through paged_flash_decode, a stage through
+    paged_flash_prefill at T=1) and a group's GEMM M. Both stay within
+    the split check's 0.25; the three servers' greedy tokens are
+    reported through the same rows by chip_smoke.py."""
+    cfg = mistral_config(num_layers=2)
+    dec = GptDecoder(cfg, compute_dtype=torch.bfloat16)
+    params = dec.cast_params(
+        dec.init(torch.Generator(device=card).manual_seed(0)))
+    gen = torch.Generator().manual_seed(4)
+    srv = PagedDecodeServer(dec, params, num_blocks=1025, block_size=16,
+                            max_batch=4, attention="pallas")
+    for n in (70, 90, 110, 130):
+        srv.submit(torch.randint(0, cfg.vocab_size, (1, n), generator=gen),
+                   50)
+    srv.step()
+    srv.step()
+    assert all(s is not None for s in srv.slots)
+    parts = _pp_step_parts(srv)
+    print(f"pp step parts: {parts}")
+    assert parts["boundary"] == 0.0, parts
+    assert parts["boundary_dtype"] == str(torch.bfloat16)
+    assert parts["kernel"] <= 0.25 and parts["half_m"] <= 0.25, parts

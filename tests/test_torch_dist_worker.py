@@ -410,6 +410,8 @@ def _paged(case, mesh):
     out = {}
     try:
         srv = PagedDecodeServer(dec, params, mesh=mesh, **knobs)
+        if case.get("seam_window"):
+            _seam_windows(srv)
         if not srv.controller:
             srv.run()
             if case.get("migrate"):
@@ -420,6 +422,7 @@ def _paged(case, mesh):
     finally:
         GptDecoder._final_logits = final
     out["forwards"] = forwards[0]
+    out["captures"] = srv._captures
     if srv.pp == 1:
         out["pool"] = [t.cpu().numpy().copy() for t in srv._leaves()]
     else:
@@ -430,6 +433,18 @@ def _paged(case, mesh):
         out["card_runs"] = {"paged_flash_decode": pfd.card_runs(),
                             "paged_flash_prefill": pfp.card_runs()}
     return out
+
+
+def _seam_windows(srv):
+    """Send each decode window through the seam as ONE program
+    (`_window_run`, the path an all-NCCL mesh takes on cards) while
+    running its body eagerly: gloo ranks on the CPU cannot capture, so
+    this exercises what the captured path adds, the controller's window
+    inputs copied into every rank's buffers before each rank runs its
+    own window."""
+    srv._captures = True
+    srv._window_captured = lambda kind: False
+    torch.cuda.is_current_stream_capturing = lambda: False
 
 
 def _control(case, srv, dec, params, mesh, knobs, out):

@@ -11,6 +11,12 @@ need a shard_map that this jax refuses):
     m-th head slice of the port's mesh=None pool (rtol / atol 1e-4, f32:
     the K/V projections are column slices and the psums add in another
     order), the two data replicas bit-equal;
+  * the window capture rule (`window_captures`): a one-process mesh and
+    NCCL groups capture, gloo does not; the gloo ranks' K = 4 windows
+    stay eager and still give the JAX package's tokens; and the one
+    window program an all-NCCL mesh sends through the seam
+    (`_window_run`, its body run eagerly here) gives the JAX package's
+    tokens greedy (eos_id set) and the port's mesh=None tokens sampled;
   * pp 2 x tp 2, {"stage": 2, "model": 2} through `stage_submeshes`:
     tokens identical to JAX's mesh=None server over the JAX pp test's
     S = 2 points and a pallas point with 2 microbatch groups at K = 4;
@@ -30,6 +36,8 @@ import torch
 
 from defer_tpu.models.gpt import tiny_gpt as jtiny_gpt
 from defer_tpu.runtime.paged import serve_paged as jserve_paged
+from defer_tpu_torch.parallel.mesh import Mesh, make_mesh
+from defer_tpu_torch.runtime import paged as port_paged
 from test_torch_dist_worker import _paged, spawn
 
 CPU = torch.device("cpu")
@@ -74,8 +82,21 @@ def _knobs(point):
                 decode_window=window, prefill_chunk=chunk)
 
 
+# Seam windows: sampled rows exercise the policy and uniforms the
+# controller hands every rank.
+SEAM_SAMPLED = [dict(temperature=0.8, top_k=20, seed=7), None,
+                dict(temperature=1.1, min_p=0.05, seed=3)]
+SEAM_POINT, SEAM_EOS = ("pallas", False, 4, None), 5
+
+
 def _cases(params):
     out = {}
+    for label, sampling in (("greedy", None), ("sampled", SEAM_SAMPLED)):
+        out[f"seam-{label}"] = dict(
+            name=f"seam-{label}", run="paged", axes={"data": 2, "model": 2},
+            cfg=GPT, params=params, seam_window=True,
+            knobs=dict(_knobs(SEAM_POINT), eos_id=SEAM_EOS),
+            phases=[_requests()], sampling=sampling)
     for point in DP:
         out[_mid("dp", point)] = dict(
             name=_mid("dp", point), run="paged",
@@ -110,6 +131,7 @@ def served(model, tmp_path_factory):
         case = dict(case)
         if "pp_stages" in case["knobs"]:
             case["knobs"] = dict(case["knobs"], pp_devices=[CPU])
+        case.pop("seam_window", None)
         ref[name] = _paged(case, None)
     return ranks, ref
 
@@ -121,11 +143,11 @@ def solo(model):
             for p, s in _requests()]
 
 
-def _jax_tokens(model, point):
+def _jax_tokens(model, point, **extra):
     dec, params, _ = model
     outs, _ = jserve_paged(dec, params, [(jnp.asarray(p), s)
                                          for p, s in _requests()],
-                           **_knobs(point))
+                           **_knobs(point), **extra)
     return [np.asarray(o) for o in outs]
 
 
@@ -195,3 +217,74 @@ def test_pp_x_tp_stages_hold_their_shards(served, point):
         chains = res["pp_dispatches"][0]
         assert res["forwards"] == (chains if stage == 1 else 0)
 
+
+
+def _fake_mesh(backends):
+    """A two-axis mesh over a process group whose groups report the
+    given backends (group objects are opaque; the rule reads each one's
+    backend)."""
+    groups = {"data": "g0", "model": "g1"}
+    return Mesh(np.empty((2, 2), dtype=object), ("data", "model"),
+                np.arange(4).reshape(2, 2), 0, groups, "g2"), dict(
+                    zip(["g0", "g1", "g2"], backends))
+
+
+@pytest.mark.parametrize("backends,want", [
+    (("nccl", "nccl", "nccl"), True),
+    (("gloo", "gloo", "gloo"), False),
+    (("nccl", "nccl", "gloo"), False),
+    (("nccl", "gloo", "nccl"), False),
+])
+def test_window_captures_nccl_groups_only(monkeypatch, backends, want):
+    mesh, by_group = _fake_mesh(backends)
+    monkeypatch.setattr(port_paged.dist, "get_backend", by_group.__getitem__)
+    card = torch.device("cuda", 0)  # a device name: no card is touched
+    assert port_paged.window_captures(card, mesh) is want
+    assert port_paged.window_captures(CPU, mesh) is False
+
+
+def test_window_captures_one_process_mesh():
+    card = torch.device("cuda", 0)
+    one = make_mesh({"model": 1}, [card])
+    assert not one.distributed
+    assert port_paged.window_captures(card, one) is True
+    assert port_paged.window_captures(card, None) is True
+    assert port_paged.window_captures(CPU, make_mesh({"model": 1}, [CPU])) \
+        is False
+
+
+def test_gloo_mesh_windows_stay_eager(model, served):
+    """The gloo ranks' K = 4 window point: every rank decided not to
+    capture, no replay was counted, and the tokens are the JAX
+    package's."""
+    ranks, _ = served
+    point = DP[2]
+    assert point[2] == 4
+    name = _mid("dp", point)
+    assert [r["captures"] for r in ranks[name]] == [False] * 4
+    ctl = ranks[name][0]
+    assert ctl["graph_replays"] == 0
+    for i, (got, want) in enumerate(zip(ctl["tokens"],
+                                        _jax_tokens(model, point))):
+        np.testing.assert_array_equal(got, want, err_msg=f"request {i}")
+
+
+@pytest.mark.parametrize("label", ["greedy", "sampled"])
+def test_one_window_program_through_the_seam(model, served, label):
+    """The controller sends one `_window_run` a window and every rank
+    runs it on the controller's inputs (a replay on cards). Greedy, the
+    tokens are the JAX package's at the same knobs, eos_id included;
+    sampled, whose draws come from the port's own generators, they are
+    the port's mesh=None server's."""
+    ranks, ref = served
+    name = f"seam-{label}"
+    ctl = ranks[name][0]
+    if label == "greedy":
+        want = _jax_tokens(model, SEAM_POINT, eos_id=SEAM_EOS)
+    else:
+        want = ref[name]["tokens"]
+    assert len(ctl["tokens"]) == len(want)
+    for i, (got, w) in enumerate(zip(ctl["tokens"], want)):
+        np.testing.assert_array_equal(got, w, err_msg=f"request {i}")
+    assert ctl["graph_replays"] == ctl["dispatches"] > 0
+    assert all(r["forwards"] == ctl["forwards"] > 0 for r in ranks[name])
