@@ -585,6 +585,7 @@ def check_flash_attention() -> dict:
     from defer_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
+        launch_plan,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -607,6 +608,8 @@ def check_flash_attention() -> dict:
         ("dh40_f32", (2, 4, 100, 40), 100, f32, False),
         ("f32", (4, 12, SEQ, 64), SEQ, f32, False),
         ("f32_causal", (4, 12, SEQ, 64), SEQ, f32, True),
+        # 16 K tiles through the 2-stage ring: its barriers' phases wrap.
+        ("s1024_causal", (2, 12, 1024, 64), 1024, bf16, True),
     ]
     errs = {}
     for label, (b, h, s_q, dh), s_k, dtype, causal in cases:
@@ -641,6 +644,15 @@ def check_flash_attention() -> dict:
         return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms}
 
+    plan = launch_plan(VIT_ATTN[2], VIT_ATTN[2], VIT_ATTN[3], False)
+    log(f"kernels: flash_attention at S={VIT_ATTN[2]} computes "
+        f"{plan.work_ratio:.4f}x the products it needs (derived from the "
+        f"launch plan: {plan.q_tiles} query tiles x {plan.k_tiles} K "
+        f"tiles of 64)")
+    q, k, v = _bert_qkv(gen, BATCH, 12, SEQ, 64, bf16)
+    host_us = host_time_us(lambda: flash_attention(q, k, v), iters=300)
+    log(f"kernels: flash_attention host_us a call at {tuple(q.shape)} bf16 "
+        f"{host_us:.2f} (300 calls on an idle card, tensor maps encoded)")
     # BERT's shape at the top (as in earlier runs), ViT-B/16's and GPT-2
     # small's causal training shape beside it.
     return {"max_abs_err": errs["bert"], **timed((BATCH, 12, SEQ, 64)),

@@ -1,32 +1,64 @@
 // Flash attention forward for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the TPU kernel defer_tpu/ops/pallas_attention.py::_flash_fwd_impl
-// (body _mha_kernel): softmax(q k^T * Dh^-0.5) v on (B, H, S, Dh) tensors,
-// online softmax over K tiles with f32 m/l/acc, optional causal mask with the
-// same finite mask value, output acc / l cast to q's dtype.
+// (body _mha_kernel, pallas_call at :134): softmax(q k^T * Dh^-0.5) v on
+// (B, H, S, Dh) tensors, online softmax over K tiles with f32 m/l/acc,
+// optional causal mask with the same finite mask value (-inf for the ragged
+// columns past S), P rounded to q's type before P V, output acc / l cast to
+// q's dtype.
 //
 // What bounds it on an H100: at BERT-base's shape (16, 12, 128, 64) bf16 the
-// call moves 12.6 MB and does 0.81 GFLOP: bytes (3.8 us) over tensor-core
-// operations (0.8 us). The products belong on the tensor cores; on the CUDA
-// cores' f32 FMAs they cost about 30x as much and set the time.
+// call moves 12.6 MB (q, k, v, o once each) and does 0.81 GFLOP: bytes,
+// 3.8 us at 3.35 TB/s, over tensor-core operations, 0.8 us. At ViT-B/16's
+// (32, 12, 197, 64) it is 11.6 us of bytes.
 //
-// Design for bf16 / f16 q, k, v (attn_tile.cuh has the tile engine):
-//   * one CTA = one (batch*head, 64-row q tile), 4 warps of 16 q rows; the
-//     K/V walk is a loop inside the CTA;
-//   * q, K and V tiles are copied into shared memory in their own 16-bit
-//     type by cp.async (16 bytes a copy), K/V double-buffered: tile t + 1
-//     is in flight while tile t computes;
-//   * S = Q K^T and O += P V on mma.sync m16n8k16 with f32 accumulation;
-//     S is scaled by Dh^-0.5 (times log2 e) in f32, not folded into q,
-//     since Dh^-0.5 is not exact at every Dh;
-//   * causal: only the K tiles inside the triangle are visited; only the
-//     diagonal tile and a ragged last tile are masked, full tiles take no
-//     per-element test;
-//   * any S >= 1; Dh a multiple of 8 up to 128, zero-padded in shared memory
-//     to the next 16 (Dh 40 and 72 compute as 48 and 80);
-//   * inputs are read through (b, h, s) strides with a unit Dh stride, so
-//     the head split of a (B, S, H*Dh) projection is a view, not a copy
-//     (rows 16-byte aligned, which the wrapper checks).
+// Design for bf16 / f16 (attn_wgmma.cuh has the engine), against what held
+// the sm_80 mma.sync tile back:
+//   * Products on wgmma, asynchronous. One CTA = one (batch*head, 64-row
+//     query tile) = one consumer warpgroup; an SM holds 4 of them at Dh
+//     64, and their softmaxes run under each other's products. Within a
+//     warpgroup, tile t's S = Q K^T and tile t - 1's O += P V are issued
+//     as two groups back to back and retired together (wgmma_wait<0>)
+//     before tile t's softmax. Running that softmax under the P V instead
+//     raced (ptxas put tile t's P into the registers the in-flight P V was
+//     reading; repeated calls differed), and was no faster. O is rescaled
+//     before the P V it feeds; no wait or refill runs while a wgmma is in
+//     flight.
+//   * Copies by TMA. One elected thread loads Q once and keeps a ring of 2
+//     K and 2 V stages full, each with a full mbarrier (the tile's bytes
+//     as its expected transaction count) and an empty mbarrier (one arrival
+//     per warp): tile t + 1 lands while tile t computes, and tile t + 2 is
+//     requested as soon as every warp is done with t. The 128-byte swizzle
+//     of the boxes is the layout the wgmma descriptors read. O / l goes
+//     out the same way: into Q's swizzled tile, then one TMA store. Maps
+//     are 4-D (Dh, S, H, B) over the caller's strides, so a head split of
+//     a (B, S, H*Dh) projection is read and written in place.
+//   * Ragged S. TMA zero-fills rows past S and columns past Dh, and every
+//     K tile is scored at N = 64 with its columns past s_k masked to -inf:
+//     at S = 197 the work is 256 x 256 where 197 x 197 is needed, 1.69x.
+//     Scoring the last tile at the smallest N in {16, 32, 48} that covers
+//     it (1.37x) picks the width at run time, and ptxas serializes the
+//     wgmma of a kernel that branches between groups (C7520, C7511): that
+//     build ran slower at ViT-B/16's shape than full tiles. Queries keep
+//     wgmma's 64 rows.
+//   * Short K loops: Q, K 0, V 0, K 1 and V 1 are requested at the CTA's
+//     start, without a register or an instruction of the other threads. An
+//     SM holds 4 CTAs (registers) at Dh 64.
+//   * Causal: only the K tiles inside the triangle are visited, only the
+//     diagonal tile and a ragged one are masked, and blockIdx.y runs the
+//     query tiles from the last (the heaviest) to the first (the plan's
+//     heaviest_first, set for causal calls).
+//   * Host cost: the dynamic shared-memory limit is raised once per
+//     instantiation and device, not on every launch; cuTensorMapEncodeTiled
+//     is reached through cudaGetDriverEntryPoint, so the library links no
+//     -lcuda.
+//   * Any S >= 1 (s_q != s_k without the mask), Dh a multiple of 8 up to
+//     128: both products run over the whole panel (64 or 128 columns, zeros
+//     past Dh).
+//
+// The launch takes its tiling from the caller (ops/flash_attention.py's
+// launch_plan): the panels of the head dim, the query tiles (the grid's
+// y), the K tiles of a row and whether query tiles run heaviest first.
 //
 // f32 q, k, v keep an f32 FMA loop (flash_fwd_f32 below), chosen by dtype in
 // defer_flash_attention_fwd. The tensor cores take f32 only as TF32 (about
@@ -34,23 +66,439 @@
 // runs f32. Its layout: 4 threads a q row, K/V tiles staged as f32 rows of
 // Dh + 1 floats, probabilities through shared memory.
 
+#include <atomic>
 #include <cmath>
+#include <type_traits>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
-#include "attn_tile.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
-using tile::kCols;
-using tile::kMaskValue;
-using tile::kRows;
-using tile::kThreads;
+using wg::kBoxBytes;
+using wg::kCols;
+using wg::kLog2e;
+using wg::kMaskValue;
+using wg::kPanel;
+using wg::kRowBytes;
+using wg::kRows;
+
+constexpr int kStages = 2;  // K (and V) tiles of the ring
+constexpr int kThreads = 128;  // one consumer warpgroup
+
+struct TileParams {
+  int heads, s_q, s_k;
+  float scale;  // Dh^-0.5 * log2(e)
+  int causal;
+  int k_tiles;         // K tiles of an unmasked query tile
+  int heaviest_first;  // blockIdx.y 0 takes the last query tile
+};
+
+// The warpgroup's 64 query rows: this thread's share of O, the scores of
+// the tile last issued, and the probabilities of two tiles in two buffers
+// that tiles take in turn (the K loop unrolled by two), so that no softmax
+// writes the registers of the P V issued just before it.
+template <typename T, int kPanels>
+struct Rows {
+  static constexpr int kD = kPanel * kPanels;
+  static constexpr int kSteps = kD / 16;  // k-steps of Q K^T
+  float o[kD / 2];
+  float s[kCols / 2];
+  uint32_t p[2][kCols / 16][4];  // P of tile t in buffer t % 2
+  float m[2], l[2], alpha[2];    // rows g and g + 8 (m unscaled)
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) s[i] = 0.f;
+    m[0] = m[1] = kMaskValue;
+    l[0] = l[1] = 0.f;
+    alpha[0] = alpha[1] = 0.f;
+  }
+
+  // Issues S = Q K^T as one wgmma group over every k-step of the panels
+  // (the columns past Dh are zeros). The descriptors are built before the
+  // fence.
+  __device__ __forceinline__ void issue_qk(const unsigned char* q,
+                                           const unsigned char* k) {
+    uint64_t dq[kSteps], dk[kSteps];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      dq[kk] = wg::desc(q + off, 16, 8 * kRowBytes);
+      dk[kk] = wg::desc(k + off, 16, 8 * kRowBytes);
+    }
+    wg::hold(dq);
+    wg::hold(dk);
+    wg::hold(s);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      wg::ss<T>(s, dq[kk], dk[kk], kk > 0);
+    }
+    wg::wgmma_commit();
+  }
+
+  // Issues O += P V (P from buffer kBuf) over the tile's 64 keys as one
+  // wgmma group.
+  template <int kBuf>
+  __device__ __forceinline__ void issue_pv(const unsigned char* v) {
+    uint64_t dv[kCols / 16];
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      dv[kk] = wg::desc(v + 16 * kk * kRowBytes, kBoxBytes, 8 * kRowBytes);
+    }
+    wg::hold(dv);
+    wg::hold(o);
+    wg::hold(p[kBuf]);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      wg::rs<T, kD>(o, p[kBuf][kk], dv[kk]);
+    }
+    wg::wgmma_commit();
+  }
+
+  // The online-softmax step on the retired scores of the tile at k0: mask,
+  // new row max over the quad, l rescaled and extended, P (in q's type)
+  // into buffer kBuf.
+  // The scale into the log2 domain rides in the exponent's FMA (max and
+  // mask commute with a positive scale). O is rescaled by `alpha` later,
+  // before the P V it feeds.
+  template <int kBuf>
+  __device__ __forceinline__ void softmax(int k0, int q0, int row0, int lane,
+                                          const TileParams& prm) {
+    const bool ragged = k0 + kCols > prm.s_k;
+    const bool diagonal = prm.causal && k0 + kCols - 1 > q0;
+    if (ragged || diagonal) {
+#pragma unroll
+      for (int e = 0; e < kCols / 2; ++e) {
+        const int col = k0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+        const int row = row0 + 8 * ((e / 2) % 2);
+        if (col >= prm.s_k) {
+          s[e] = -INFINITY;  // ragged edge: weighs exactly 0
+        } else if (prm.causal && col > row) {
+          s[e] = kMaskValue;
+        }
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    float shift[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = wg::fast_exp2((m[r] - mx[r]) * prm.scale);
+      m[r] = mx[r];
+      shift[r] = -mx[r] * prm.scale;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < kCols / 2; ++e) {
+      s[e] = wg::fast_exp2(fmaf(s[e], prm.scale, shift[(e / 2) % 2]));
+      sum[(e / 2) % 2] += s[e];
+    }
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      p[kBuf][kk][0] = wg::pack<T>(s[8 * kk], s[8 * kk + 1]);
+      p[kBuf][kk][1] = wg::pack<T>(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kBuf][kk][2] = wg::pack<T>(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kBuf][kk][3] = wg::pack<T>(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  }
+
+  // P of buffer 1 into buffer 0.
+  __device__ __forceinline__ void move_p() {
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[0][kk][e] = p[1][kk][e];
+    }
+  }
+
+  __device__ __forceinline__ void rescale() {
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  }
+
+  // O / l in q's type into the 128-byte-swizzled tile (Q's, which no wgmma
+  // reads any more): row r's 16-byte chunk c sits at chunk c ^ (r % 8) of
+  // its 128-byte row.
+  __device__ __forceinline__ void store(unsigned char* tile, int warp,
+                                        int lane) const {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = l[r];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      inv[r] = 1.f / x;
+    }
+    const int g = lane / 4;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * warp + g + 8 * r;
+        const int off = (j / 8) * kBoxBytes + row * kRowBytes +
+                        (((j % 8) ^ (row % 8)) * 16) + 4 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(tile + off) = wg::pack<T>(
+            o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+      }
+    }
+  }
+};
+
+template <typename T, int kPanels>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap to,
+                    const TileParams prm) {
+  constexpr int kTile = kPanels * kBoxBytes;  // 64 rows, every panel
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 4 * kStages];
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+  // Swizzled boxes start on 1024 bytes (the launch adds the slack).
+  unsigned char* q_tile =
+      smem_raw + ((1024 - (wg::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = q_tile + kTile;        // [kStages] tiles
+  unsigned char* vs = ks + kStages * kTile;  // [kStages] tiles
+
+  const int b = blockIdx.x / prm.heads;
+  const int h = blockIdx.x % prm.heads;
+  // Heaviest first (the plan sets it for causal calls): blockIdx.y 0 takes
+  // the last query tile, the one that walks the most K tiles under the
+  // mask.
+  const int q0 = (prm.heaviest_first ? gridDim.y - 1 - blockIdx.y
+                                     : blockIdx.y) * kRows;
+  const int n_k = prm.causal ? min(prm.k_tiles, q0 / kCols + 1)
+                             : prm.k_tiles;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = q0 + 16 * warp + lane / 4;
+  // The elected thread that issues every copy.
+  const bool leader = threadIdx.x == 0;
+
+  if (leader) {
+    wg::mbar_init(q_full, 1);
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      wg::mbar_init(k_full + st, 1);
+      wg::mbar_init(v_full + st, 1);
+      wg::mbar_init(k_empty + st, kThreads / 32);
+      wg::mbar_init(v_empty + st, kThreads / 32);
+    }
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // K or V tile t into stage t % kStages, completing on its full barrier.
+  auto load = [&](const CUtensorMap* map, unsigned char* ring,
+                  uint64_t* full, int t) {
+    const int st = t % kStages;
+    wg::mbar_expect_tx(full + st, kTile);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) {
+      wg::tma_load(ring + st * kTile + pn * kBoxBytes, map, full + st,
+                   pn * kPanel, t * kCols, h, b);
+    }
+  };
+  // Every warp has retired its reads of tile `done`: each arrives on the
+  // stage's empty barrier, and the leader, once all have, loads tile
+  // done + kStages into the stage.
+  auto release = [&](const CUtensorMap* map, unsigned char* ring,
+                     uint64_t* full, uint64_t* empty, int done) {
+    const int st = done % kStages;
+    if (lane == 0) wg::mbar_arrive(empty + st);
+    if (leader && done + kStages < n_k) {
+      wg::mbar_wait(empty + st, (done / kStages) & 1);
+      load(map, ring, full, done + kStages);
+    }
+  };
+
+  if (leader) {
+    wg::mbar_expect_tx(q_full, kTile);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) {
+      wg::tma_load(q_tile + pn * kBoxBytes, &tq, q_full, pn * kPanel, q0, h,
+                   b);
+    }
+    for (int t = 0; t < min(kStages, n_k); ++t) {
+      load(&tk, ks, k_full, t);
+      load(&tv, vs, v_full, t);
+    }
+  }
+
+  Rows<T, kPanels> rows;
+  rows.init();
+  wg::mbar_wait(q_full, 0);
+  wg::mbar_wait(k_full, 0);
+  rows.issue_qk(q_tile, ks);
+  wg::wgmma_wait<0>();
+  wg::hold(rows.s);
+  release(&tk, ks, k_full, k_empty, 0);
+  rows.template softmax<0>(0, q0, row0, lane, prm);
+  // Tile t (P of tile t - 1 in buffer kPrev): its scores and tile t - 1's
+  // P V issued back to back and retired together, then its softmax into
+  // buffer 1 - kPrev. Retiring both before the softmax is what keeps it
+  // off the registers of an in-flight wgmma: ptxas, given a softmax under
+  // the P V, put tile t's P in the registers that P V was reading (SASS:
+  // the exponentials' FFMA, MUFU and F2FP between the HGMMA and its
+  // DEPBAR), and repeated calls differed.
+  auto step = [&](auto prev, int t) {
+    constexpr int kPrev = decltype(prev)::value;
+    const int st = t % kStages;
+    const int sp = (t - 1) % kStages;
+    wg::mbar_wait(k_full + st, (t / kStages) & 1);
+    wg::mbar_wait(v_full + sp, ((t - 1) / kStages) & 1);
+    rows.rescale();
+    rows.issue_qk(q_tile, ks + st * kTile);
+    rows.template issue_pv<kPrev>(vs + sp * kTile);
+    wg::wgmma_wait<0>();
+    wg::hold(rows.s);
+    rows.template softmax<1 - kPrev>(t * kCols, q0, row0, lane, prm);
+    wg::hold(rows.o);
+    wg::hold(rows.p[kPrev]);
+    release(&tk, ks, k_full, k_empty, t);
+    release(&tv, vs, v_full, v_empty, t - 1);
+  };
+  int t = 1;
+  for (; t + 1 < n_k; t += 2) {
+    step(std::integral_constant<int, 0>{}, t);
+    step(std::integral_constant<int, 1>{}, t + 1);
+  }
+  if (t < n_k) {
+    step(std::integral_constant<int, 0>{}, t);
+    rows.move_p();  // the last tile's P is in buffer 1
+  }
+  const int sl = (n_k - 1) % kStages;
+  wg::mbar_wait(v_full + sl, ((n_k - 1) / kStages) & 1);
+  rows.rescale();
+  rows.template issue_pv<0>(vs + sl * kTile);
+  wg::wgmma_wait<0>();
+  wg::hold(rows.o);
+
+  // Every warp has retired its last wgmma before Q's tile takes O; the
+  // generic writes are fenced before TMA reads them.
+  __syncthreads();
+  rows.store(q_tile, warp, lane);
+  wg::fence_proxy_async();
+  __syncthreads();
+  if (leader) {
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) {
+      wg::tma_store(&to, q_tile + pn * kBoxBytes, pn * kPanel, q0, h, b);
+    }
+    wg::tma_store_commit_and_drain();
+  }
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (the attribute is per device): later launches skip the call.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned>& set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (set.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) set.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// A driver function found through the runtime (no -lcuda), or null.
+template <typename Fn>
+Fn driver_entry(const char* name) {
+  void* ptr = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &ptr, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &ptr, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+             ? reinterpret_cast<Fn>(ptr)
+             : nullptr;
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+using CtxGetCurrent = CUresult (*)(CUcontext*);
+
+// The 4-D map (Dh, S, H, B) of a (B, H, S, Dh) tensor with element strides
+// (b, h, s) and a unit Dh stride, boxes of 64 rows x 64 columns in the
+// 128-byte swizzle; reads past the tensor return zeros, writes past it are
+// dropped.
+bool encode(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+            int dh, int s, int heads, int batch, const long long* st) {
+  static const EncodeTiled fn =
+      driver_entry<EncodeTiled>("cuTensorMapEncodeTiled");
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(s),
+                              cuuint64_t(heads), cuuint64_t(batch)};
+  // Byte strides of S, H and B; a dimension of extent 1 is never stepped,
+  // so any legal stride stands for it.
+  cuuint64_t strides[3] = {cuuint64_t(st[2]) * 2, cuuint64_t(st[1]) * 2,
+                           cuuint64_t(st[0]) * 2};
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) strides[i] = 16;
+  }
+  const cuuint32_t box[4] = {kPanel, kRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int kPanels>
+cudaError_t launch_wgmma(const CUtensorMap (&maps)[4], const TileParams& p,
+                         int batch_heads, int q_tiles, cudaStream_t stream) {
+  constexpr int kSmem = 1024 + (1 + 2 * kStages) * kPanels * kBoxBytes;
+  static std::atomic<unsigned> ready{0};
+  const cudaError_t err =
+      allow_smem(flash_fwd_wgmma<T, kPanels>, kSmem, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch_heads, q_tiles);
+  flash_fwd_wgmma<T, kPanels><<<grid, kThreads, kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+// -- f32: the FMA loop ------------------------------------------------------
 
 struct Strides {
   long long b, h, s;  // in elements; the Dh stride is 1
 };
 
-struct Params {
+struct F32Params {
   const void* q;
   const void* k;
   const void* v;
@@ -61,156 +509,12 @@ struct Params {
   int causal;
 };
 
-// Rows [r0, r0 + 64) of a strided (s, Dh) matrix into a [64][ld] tile by
-// cp.async; rows past n and columns in [Dh, Dp) are zeros, columns past Dp
-// are never read.
-template <typename T, int kD>
-__device__ __forceinline__ void stage(T* dst, const T* src, long long stride,
-                                      int r0, int n, int dh, int dp,
-                                      int tid) {
-  constexpr int kChunks = kD / 8;  // 16-byte chunks of a row
-  constexpr int ld = tile::Rows<T, kD>::ld;
-#pragma unroll
-  for (int i = tid; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    if (c < dp) {
-      const bool in = r0 + r < n && c < dh;
-      tile::cp_async16(dst + r * ld + c,
-                       in ? src + (r0 + r) * stride + c : src, in ? 16 : 0);
-    }
-  }
-}
-
-template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma(Params p) {
-  using Rows = tile::Rows<T, kD>;
-  constexpr int ld = Rows::ld;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);  // [kRows][ld]
-  T* kbuf = qs + kRows * ld;           // [2][kCols][ld]
-  T* vbuf = kbuf + 2 * kCols * ld;     // [2][kCols][ld]
-
-  const int b = blockIdx.x / p.heads;
-  const int h = blockIdx.x % p.heads;
-  const int q0 = blockIdx.y * kRows;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int dp = (p.dh + 15) / 16 * 16;
-  const int nk = dp / 16;
-
-  const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
-
-  int num_k = (p.s_k + kCols - 1) / kCols;
-  if (p.causal) num_k = min(num_k, (q0 + kRows + kCols - 1) / kCols);
-
-  stage<T, kD>(qs, q, p.sq.s, q0, p.s_q, p.dh, dp, tid);
-  stage<T, kD>(kbuf, k, p.sk.s, 0, p.s_k, p.dh, dp, tid);
-  stage<T, kD>(vbuf, v, p.sv.s, 0, p.s_k, p.dh, dp, tid);
-  tile::cp_async_commit();
-
-  Rows rows;
-  rows.init();
-  const float scale = p.scale * tile::kLog2e;
-  // This thread's two q rows (accumulator rows g and g + 8).
-  const int row0 = q0 + 16 * warp + lane / 4;
-
-  for (int t = 0; t < num_k; ++t) {
-    const int k0 = t * kCols;
-    if (t + 1 < num_k) {
-      const int nb = (t + 1) % 2;
-      stage<T, kD>(kbuf + nb * kCols * ld, k, p.sk.s, k0 + kCols, p.s_k,
-                   p.dh, dp, tid);
-      stage<T, kD>(vbuf + nb * kCols * ld, v, p.sv.s, k0 + kCols, p.s_k,
-                   p.dh, dp, tid);
-    }
-    tile::cp_async_commit();  // possibly empty: keeps the group count even
-    tile::cp_async_wait<1>();  // tile t (and q) have landed
-    __syncthreads();
-    if (t == 0) rows.load_q(qs, warp, lane, nk);
-
-    float s[kCols / 8][4];
-    rows.scores(kbuf + (t % 2) * kCols * ld, lane, nk, s);
-    const bool ragged = k0 + kCols > p.s_k;
-    const bool diagonal = p.causal && k0 + kCols - 1 > q0;
-#pragma unroll
-    for (int n = 0; n < kCols / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= scale;
-    }
-    if (ragged || diagonal) {
-#pragma unroll
-      for (int n = 0; n < kCols / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * n + 2 * (lane % 4) + (e % 2);
-          const int row = row0 + 8 * (e / 2);
-          if (col >= p.s_k) {
-            s[n][e] = -INFINITY;  // ragged edge: weighs exactly 0
-          } else if (p.causal && col > row) {
-            s[n][e] = kMaskValue;
-          }
-        }
-      }
-    }
-    rows.softmax(s);
-    rows.accumulate(s, vbuf + (t % 2) * kCols * ld, lane, nk);
-    __syncthreads();  // every warp is done with buffer t % 2
-  }
-
-  float l[2];
-  rows.row_sums(l);
-  T* o = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row < p.s_q) {
-      const float inv = 1.f / l[r];
-      T* orow = o + row * p.so.s + 2 * (lane % 4);
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        if (8 * j < p.dh) {
-          *reinterpret_cast<typename tile::Op<T>::Pair*>(orow + 8 * j) =
-              tile::Op<T>::pair(rows.o[j][2 * r] * inv,
-                                rows.o[j][2 * r + 1] * inv);
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int kD>
-cudaError_t launch_mma(const Params& p, int batch_heads, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(T) * size_t(kRows + 4 * kCols) * tile::Rows<T, kD>::ld;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch_heads, (p.s_q + kRows - 1) / kRows);
-  flash_fwd_mma<T, kD><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_mma_dh(const Params& p, int batch_heads,
-                          cudaStream_t stream) {
-  if (p.dh <= 32) return launch_mma<T, 32>(p, batch_heads, stream);
-  if (p.dh <= 64) return launch_mma<T, 64>(p, batch_heads, stream);
-  return launch_mma<T, 128>(p, batch_heads, stream);
-}
-
-// -- f32: the FMA loop ------------------------------------------------------
-
 constexpr int kLanes = 4;  // threads per q row
 constexpr int kF32Threads = kRows * kLanes;
 constexpr int kF32Cols = kCols / kLanes;  // scores per thread per K tile
 
 template <int kMaxDh>
-__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Params p) {
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(F32Params p) {
   extern __shared__ float fsmem[];
   const int dh = p.dh;
   const int ld = dh + 1;
@@ -326,25 +630,89 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Params p) {
 }
 
 template <int kMaxDh>
-cudaError_t launch_f32(const Params& p, int batch_heads,
+cudaError_t launch_f32(const F32Params& p, int batch_heads,
                        cudaStream_t stream) {
+  constexpr int kMaxSmem = sizeof(float) * (3 * kRows * (kMaxDh + 1) +
+                                            kRows * (kCols + 1));
+  static std::atomic<unsigned> ready{0};
+  const cudaError_t err = allow_smem(flash_fwd_f32<kMaxDh>, kMaxSmem, ready);
+  if (err != cudaSuccess) return err;
   const size_t smem =
       sizeof(float) * (size_t(3) * kRows * (p.dh + 1) +
                        size_t(kRows) * (kCols + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<kMaxDh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
   const dim3 grid(batch_heads, (p.s_q + kRows - 1) / kRows);
   flash_fwd_f32<kMaxDh><<<grid, kF32Threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32_dh(const Params& p, int batch_heads,
+cudaError_t launch_f32_dh(const F32Params& p, int batch_heads,
                           cudaStream_t stream) {
   if (p.dh <= 32) return launch_f32<32>(p, batch_heads, stream);
   if (p.dh <= 64) return launch_f32<64>(p, batch_heads, stream);
   return launch_f32<128>(p, batch_heads, stream);
+}
+
+// The tiling of a 16-bit call, as the caller planned it.
+struct Plan {
+  int panels;          // 64-column boxes of the head dim: 1 or 2
+  int q_tiles;         // 64-row query tiles: the grid's y
+  int k_tiles;         // 64-column K/V tiles of an unmasked query tile
+  int heaviest_first;  // blockIdx.y 0 takes the last query tile
+};
+
+// The launch of one call on the current device (the checks are the
+// caller's). The f32 loop sizes its own grid and ignores `plan`.
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int dtype, int batch, int heads, int s_q, int s_k, int dh,
+                   const long long* strides, float scale, int causal,
+                   const Plan& plan, cudaStream_t stream) {
+  const int bh = batch * heads;
+  if (dtype == 0) {
+    F32Params p;
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.o = o;
+    p.sq = {strides[0], strides[1], strides[2]};
+    p.sk = {strides[3], strides[4], strides[5]};
+    p.sv = {strides[6], strides[7], strides[8]};
+    p.so = {strides[9], strides[10], strides[11]};
+    p.heads = heads;
+    p.s_q = s_q;
+    p.s_k = s_k;
+    p.dh = dh;
+    p.scale = scale;
+    p.causal = causal;
+    return launch_f32_dh(p, bh, stream);
+  }
+  if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
+  const CUtensorMapDataType type = dtype == 1
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap maps[4];
+  if (!encode(&maps[0], q, type, dh, s_q, heads, batch, strides) ||
+      !encode(&maps[1], k, type, dh, s_k, heads, batch, strides + 3) ||
+      !encode(&maps[2], v, type, dh, s_k, heads, batch, strides + 6) ||
+      !encode(&maps[3], o, type, dh, s_q, heads, batch, strides + 9)) {
+    return cudaErrorInvalidValue;
+  }
+  TileParams p;
+  p.heads = heads;
+  p.s_q = s_q;
+  p.s_k = s_k;
+  p.scale = scale * kLog2e;
+  p.causal = causal;
+  p.k_tiles = plan.k_tiles;
+  p.heaviest_first = plan.heaviest_first;
+  if (dtype == 1) {
+    return plan.panels == 2
+               ? launch_wgmma<__half, 2>(maps, p, bh, plan.q_tiles, stream)
+               : launch_wgmma<__half, 1>(maps, p, bh, plan.q_tiles, stream);
+  }
+  return plan.panels == 2
+             ? launch_wgmma<__nv_bfloat16, 2>(maps, p, bh, plan.q_tiles, stream)
+             : launch_wgmma<__nv_bfloat16, 1>(maps, p, bh, plan.q_tiles,
+                                              stream);
 }
 
 }  // namespace
@@ -352,37 +720,49 @@ cudaError_t launch_f32_dh(const Params& p, int batch_heads,
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16.
 // strides: 12 element strides, (b, h, s) for q, k, v and o in that order;
 // for float16 / bfloat16 every row must start on 16 bytes.
+// panels, q_tiles, k_tiles, heaviest_first: the tiling of a float16 /
+// bfloat16 call (ops/flash_attention.py's launch_plan); it must cover Dh,
+// s_q and s_k.
+// device: the CUDA device of the tensors; stream: a stream on it.
 // Returns a cudaError_t value; 0 means the kernel was launched.
 extern "C" int defer_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int heads, int s_q, int s_k, int dh,
-    const long long* strides, float scale, int causal, void* stream) {
+    const long long* strides, float scale, int causal, int panels,
+    int q_tiles, int k_tiles, int heaviest_first, int device, void* stream) {
   if (dh < 8 || dh > 128 || dh % 8 || s_q < 1 || s_k < 1 || batch < 1 ||
       heads < 1 || (causal && s_q != s_k) ||
       (long long)(s_q + kRows - 1) / kRows > 65535) {
     return int(cudaErrorInvalidValue);
   }
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.sq = {strides[0], strides[1], strides[2]};
-  p.sk = {strides[3], strides[4], strides[5]};
-  p.sv = {strides[6], strides[7], strides[8]};
-  p.so = {strides[9], strides[10], strides[11]};
-  p.heads = heads;
-  p.s_q = s_q;
-  p.s_k = s_k;
-  p.dh = dh;
-  p.scale = scale;
-  p.causal = causal;
-  const int bh = batch * heads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return int(launch_f32_dh(p, bh, st));
-    case 1: return int(launch_mma_dh<__half>(p, bh, st));
-    case 2: return int(launch_mma_dh<__nv_bfloat16>(p, bh, st));
-    default: return int(cudaErrorInvalidValue);
+  if (dtype != 0 &&
+      (panels < 1 || panels > 2 || panels * kPanel < dh || q_tiles > 65535 ||
+       (long long)q_tiles * kRows < s_q || (long long)k_tiles * kCols < s_k)) {
+    return int(cudaErrorInvalidValue);
   }
+  // The launch runs on `device`. A thread with a current context gets its
+  // device back afterwards; one with none yet (a serving thread whose
+  // tensors came from PyTorch's cache), whose cudaGetDevice would say 0
+  // whatever card it works on, is left on `device`, whose primary context
+  // the driver's tensor-map encode needs.
+  static const CtxGetCurrent ctx_current =
+      driver_entry<CtxGetCurrent>("cuCtxGetCurrent");
+  CUcontext ctx = nullptr;
+  if (ctx_current == nullptr || ctx_current(&ctx) != CUDA_SUCCESS) {
+    return int(cudaErrorInitializationError);
+  }
+  int current = device;
+  cudaError_t err;
+  if (ctx != nullptr && (err = cudaGetDevice(&current)) != cudaSuccess) {
+    return int(err);
+  }
+  if ((ctx == nullptr || current != device) &&
+      (err = cudaSetDevice(device)) != cudaSuccess) {
+    return int(err);
+  }
+  err = launch(q, k, v, o, dtype, batch, heads, s_q, s_k, dh, strides, scale,
+               causal, Plan{panels, q_tiles, k_tiles, heaviest_first},
+               static_cast<cudaStream_t>(stream));
+  if (current != device) cudaSetDevice(current);
+  return int(err);
 }

@@ -11,16 +11,21 @@ What bounds it on an H100: at BERT-base's shape (B=16, H=12, S=128,
 Dh=64, bf16) the call moves 12.6 MB (q, k, v, o once each) and does
 0.81 GFLOP, i.e. 3.8 us at 3.35 TB/s against 0.8 us at 989 TFLOP/s:
 memory-bound, once the products run on the tensor cores. The design
-keeps the S x S scores out of device memory, as the TPU kernel did: one
-CTA of 4 warps per (batch*head, 64-row q tile), K/V tiles of 64 rows
-copied into shared memory in q's own type by cp.async, double-buffered,
-and S = Q K^T and O += P V on `mma.sync` bf16/f16 -> f32 with the
-online softmax in registers (`csrc/attn_tile.cuh`). The scores are
-scaled by Dh**-0.5 in f32; P is rounded to q's type before P V, as the
-TPU kernel's f32 dots, one bf16 MXU pass at default precision, round
-their operands. f32 inputs keep an f32 FMA loop, chosen by dtype: the
-tensor cores take f32 only as TF32, which misses the f32 tolerance.
-`csrc/flash_attention.cu` has the layout.
+keeps the S x S scores out of device memory, as the TPU kernel did, and
+is built for Hopper (`csrc/attn_wgmma.cuh`): a CTA is one warpgroup of
+64 query rows; Q, K, V and O move by TMA on 4-D tensor maps (Dh, S, H,
+B) over the caller's strides, K/V through a ring of two stages with
+mbarriers, issued by one elected thread; S = Q K^T and O += P V are
+asynchronous `wgmma`, tile t's scores issued with tile t - 1's P V and
+both retired before tile t's softmax, while the SM's other CTAs keep the
+tensor cores busy. Every K tile is scored 64 columns wide, the columns
+past S masked; causal query tiles run heaviest first. The wrapper plans
+that tiling (`launch_plan`) and the launch takes it.
+The scores are scaled by Dh**-0.5 in f32; P is rounded to q's type
+before P V, as the TPU kernel's f32 dots, one bf16 MXU pass at default
+precision, round their operands. f32 inputs keep an f32 FMA loop,
+chosen by dtype: the tensor cores take f32 only as TF32, which misses
+the f32 tolerance. `csrc/flash_attention.cu` has the layout.
 
 Dispatch follows the tensor's device and nothing else: a CUDA tensor
 launches the kernel or raises; a CPU or meta tensor takes the plain
@@ -30,6 +35,7 @@ version. There is no fallback from the kernel to the plain path.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -43,19 +49,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool):
-    if q.ndim != 4:
-        raise ValueError(f"expected (B, H, S, Dh), got {tuple(q.shape)}")
-    if k.shape != v.shape or k.ndim != 4:
+    # Plain tuples: comparing torch.Size objects costs microseconds a call.
+    qs, ks, vs = tuple(q.shape), tuple(k.shape), tuple(v.shape)
+    if len(qs) != 4:
+        raise ValueError(f"expected (B, H, S, Dh), got {qs}")
+    if ks != vs or len(ks) != 4:
+        raise ValueError(f"k/v must be (B, H, S_k, Dh) alike: {ks} vs {vs}")
+    if ks[:2] != qs[:2] or ks[3] != qs[3]:
         raise ValueError(
-            f"k/v must be (B, H, S_k, Dh) alike: {tuple(k.shape)} vs "
-            f"{tuple(v.shape)}"
+            f"q {qs} and k {ks} disagree on batch, heads or head dim"
         )
-    if k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
-        raise ValueError(
-            f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on "
-            "batch, heads or head dim"
-        )
-    if causal and q.shape[2] != k.shape[2]:
+    if causal and qs[2] != ks[2]:
         raise ValueError("causal flash attention requires s_q == s_k")
 
 
@@ -83,8 +87,61 @@ def flash_attention_plain(
     return (out / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
-def _strides(t: torch.Tensor) -> tuple[int, int, int]:
-    return t.stride(0), t.stride(1), t.stride(2)
+# The card kernel's tile: wgmma's 64 query rows a consumer warpgroup, 64
+# key columns a K/V tile, 64 head-dim columns a TMA box (panel).
+_ROWS = _COLS = _PANEL = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the card kernel tiles a float16 / bfloat16 call of (s_q, s_k,
+    Dh, causal). `_flash_cuda` hands the first four fields to the C entry,
+    which sizes the grid and the K loop from them.
+
+    panels: 64-column TMA boxes of the head dim (1 up to Dh 64, else 2),
+      which pick the kernel's instantiation; both products run over all
+      64 * panels columns (zeros past Dh).
+    q_tiles: 64-row query tiles, the grid's y extent.
+    k_tiles: 64-column K/V tiles an unmasked query tile walks; every one
+      is scored at N = 64, the last one's columns past s_k masked out.
+    heaviest_first: blockIdx.y 0 takes the last query tile, the one that
+      walks the most K tiles under the causal mask (set for causal calls).
+    ctas: (first query row, K tiles walked) of each blockIdx.y in launch
+      order, as the kernel derives them from the fields above.
+    work_ratio: the query-key products the tiles compute over the ones
+      the call needs (s_q x s_k, or the causal triangle with its
+      diagonal); derived from the tiling, not measured.
+    """
+
+    panels: int
+    q_tiles: int
+    k_tiles: int
+    heaviest_first: bool
+    ctas: tuple[tuple[int, int], ...]
+    work_ratio: float
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(s_q: int, s_k: int, dh: int, causal: bool) -> LaunchPlan:
+    """The card kernel's tiling of a call (cached: the wrapper computes it
+    on every launch)."""
+    q_tiles = -(-s_q // _ROWS)
+    k_tiles = -(-s_k // _COLS)
+    order = range(q_tiles - 1, -1, -1) if causal else range(q_tiles)
+    ctas = tuple(
+        (y * _ROWS, min(k_tiles, y + 1) if causal else k_tiles)
+        for y in order
+    )
+    computed = sum(_ROWS * _COLS * n_k for _, n_k in ctas)
+    needed = s_q * (s_q + 1) // 2 if causal else s_q * s_k
+    return LaunchPlan(
+        panels=1 if dh <= _PANEL else 2,
+        q_tiles=q_tiles,
+        k_tiles=k_tiles,
+        heaviest_first=causal,
+        ctas=ctas,
+        work_ratio=computed / needed,
+    )
 
 
 @functools.cache
@@ -98,7 +155,8 @@ def _kernel():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
 
@@ -112,7 +170,9 @@ def _flash_cuda(
     in memory, so merging the heads back is a free view."""
     b, h, s_q, dh = q.shape
     s_k = k.shape[2]
-    if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
+    dtype, device = q.dtype, q.device
+    code = _DTYPE_CODE.get(dtype)
+    if code is None or k.dtype != dtype or v.dtype != dtype:
         raise TypeError(
             "the CUDA flash kernel takes float32, float16 or bfloat16 "
             f"q/k/v of one dtype; got {q.dtype}/{k.dtype}/{v.dtype}"
@@ -122,36 +182,47 @@ def _flash_cuda(
             f"the CUDA flash kernel takes Dh a multiple of 8 up to 128, "
             f"got {dh}"
         )
-    if not (q.device == k.device == v.device):
+    if k.device != device or v.device != device:
         raise ValueError(
             f"q/k/v on different devices: {q.device}/{k.device}/{v.device}"
         )
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("the CUDA flash kernel needs a unit Dh stride")
-    # 16-bit rows are staged by 16-byte cp.async copies.
-    if q.dtype != torch.float32 and any(
-        t.data_ptr() % 16 or any(st * t.element_size() % 16
-                                 for st in t.stride()[:3])
-        for t in (q, k, v)
-    ):
-        raise ValueError(
-            "the CUDA flash kernel needs float16/bfloat16 rows that start "
-            "on 16 bytes"
-        )
+    # One pass over each tensor's strides (ints, not tensor calls): the
+    # wrapper's host time is the BERT stream's bottleneck.
+    strides = []
+    for t in (q, k, v):
+        st = t.stride()
+        if st[3] != 1:
+            raise ValueError("the CUDA flash kernel needs a unit Dh stride")
+        if code:
+            # 16-bit tensors are read by TMA: rows and strides on 16
+            # bytes, none of the strides 0 along a dimension it steps.
+            if t.data_ptr() % 16 or (st[0] | st[1] | st[2]) % 8:
+                raise ValueError(
+                    "the CUDA flash kernel needs float16/bfloat16 rows that "
+                    "start on 16 bytes"
+                )
+            if 0 in st[:3] and any(
+                n > 1 and d == 0 for n, d in zip(t.shape[:3], st[:3])
+            ):
+                raise ValueError(
+                    "the CUDA flash kernel needs a nonzero stride along "
+                    "every batch, head and sequence dimension longer than 1"
+                )
+        strides += st[:3]
     fn = _kernel()
+    # O is laid out (B, S, H, Dh) in memory: strides (S*H*Dh, Dh, H*Dh).
     out = torch.empty(
-        (b, s_q, h, dh), dtype=q.dtype, device=q.device
+        (b, s_q, h, dh), dtype=dtype, device=device
     ).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out)
+    strides += (s_q * h * dh, dh, h * dh)
+    plan = launch_plan(s_q, s_k, dh, causal)
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        code, b, h, s_q, s_k, dh, (ctypes.c_longlong * 12)(*strides),
+        dh**-0.5, int(causal), plan.panels, plan.q_tiles, plan.k_tiles,
+        int(plan.heaviest_first), device.index,
+        torch.cuda.current_stream(device).cuda_stream,
     )
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, h, s_q, s_k, dh, strides,
-            dh**-0.5, int(causal), stream,
-        )
     if rc != 0:
         raise RuntimeError(
             f"flash attention kernel launch failed with CUDA error {rc} "
@@ -208,8 +279,14 @@ def flash_attention(
     CUDA tensors run the hand-written kernel (any S >= 1, Dh a multiple
     of 8 up to 128, float32/float16/bfloat16) and raise on what it does
     not take; CPU and meta tensors run `flash_attention_plain`.
-    `flash_attention.launches` counts kernel launches."""
-    return _Flash.apply(q, k, v, causal)
+    `flash_attention.launches` counts kernel launches. Where no input
+    needs a gradient the call skips the autograd node (about 10 us of
+    host time a call)."""
+    if torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        return _Flash.apply(q, k, v, causal)
+    return _flash_forward(q, k, v, causal)
 
 
 flash_attention.launches = 0

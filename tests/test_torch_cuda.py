@@ -94,6 +94,14 @@ def card():
         # vit_tiny (Dh 16, S = 17).
         ((2, 12, 197, 64), 197, torch.bfloat16, False, 1e-2),
         ((2, 4, 17, 16), 17, torch.bfloat16, False, 1e-2),
+        # What only the TMA / wgmma design can break: 16 K tiles through
+        # the 2-stage ring (its barriers' phases wrap), two 64-column boxes
+        # a tile at Dh 128 with a 16-wide last tile, and a 1030-key cross
+        # attention in f16 (a 16-wide last tile after 16 full ones).
+        ((2, 4, 1024, 64), 1024, torch.bfloat16, False, 1e-2),
+        ((2, 4, 1024, 64), 1024, torch.bfloat16, True, 1e-2),
+        ((2, 4, 197, 128), 197, torch.bfloat16, False, 1e-2),
+        ((2, 4, 77, 64), 1030, torch.float16, False, 2e-3),
     ],
 )
 def test_kernel_matches_plain(card, shape, s_k, dtype, causal, tol):
@@ -140,6 +148,21 @@ def test_kernel_takes_strided_heads(card):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_takes_strided_heads_at_dh40(card, causal):
+    """Dh 40: each row is 80 bytes of a (B, S, H*40) projection, and the
+    TMA box reads 64 columns of it, the 24 past Dh as zeros."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (
+        torch.randn(2, 90, 5 * 40, generator=gen, device=card).bfloat16()
+        .view(2, 90, 5, 40).transpose(1, 2)
+        for _ in range(3)
+    )
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+
+
 @pytest.mark.parametrize(
     "make,err",
     [
@@ -152,6 +175,79 @@ def test_kernel_refuses_what_it_does_not_take(card, make, err):
     t = make(card)
     with pytest.raises(err):
         flash_attention(t, t, t)
+
+
+@pytest.mark.parametrize(
+    "shape,causal",
+    [((16, 12, 128, 64), False), ((4, 12, 512, 64), True),
+     ((2, 12, 1024, 64), False), ((2, 12, 197, 64), False)],
+)
+def test_kernel_gives_the_same_bits_every_call(card, shape, causal):
+    """A register read or written while a wgmma that owns it is in flight
+    shows as calls that differ (a build that ran the softmax under the
+    P V gave a few calls in a hundred with inf); strided heads as the
+    main path hands them over, with allocations between the calls so
+    the output lands at other addresses."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    b, h, s, dh = shape
+    q, k, v = (
+        torch.randn(b, s, h * dh, generator=gen, device=card).bfloat16()
+        .view(b, s, h, dh).transpose(1, 2)
+        for _ in range(3)
+    )
+    first = flash_attention(q, k, v, causal=causal)
+    junk = []
+    for i in range(100):
+        junk.append(torch.empty(1 + 997 * i % 5000, device=card))
+        got = flash_attention(q, k, v, causal=causal)
+        assert torch.equal(got, first), f"call {i} differs"
+        junk = junk[-8:]
+
+
+def test_kernel_refuses_a_zero_stride(card):
+    """A head broadcast by expand has stride 0, which a TMA map cannot
+    step: the wrapper raises before the launch."""
+    q = torch.zeros(1, 4, 16, 64, device=card, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 16, 64, device=card,
+                     dtype=torch.bfloat16).expand(1, 4, 16, 64)
+    with pytest.raises(ValueError, match="nonzero stride"):
+        flash_attention(q, kv, kv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_runs_from_a_fresh_thread(card, dtype):
+    """A thread that has made no CUDA call (a serving thread handed
+    tensors from the main one) launches the kernel on the tensors' card,
+    the last one, and is left on that card: the entry point binds its
+    context there and sets no other card current."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (
+        torch.randn(2, 4, 150, 64, generator=gen, device=dev).to(dtype)
+        for _ in range(3)
+    )
+    torch.cuda.synchronize(dev)
+    res = {}
+
+    def work():
+        try:
+            res["got"] = flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize(dev)
+            res["device"] = torch.cuda.current_device()
+        except Exception as exc:  # raised again in the test's thread
+            res["error"] = exc
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    if "error" in res:
+        raise res["error"]
+    assert res["device"] == dev.index
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(
+        res["got"], flash_attention_plain(q, k, v, causal=True),
+        atol=tol, rtol=tol,
+    )
 
 
 def test_run_defer_goes_through_the_kernel(card):

@@ -7,6 +7,8 @@ handed to both. Tolerance: atol = rtol = 1e-5 in float32 (the two sides
 sum in different orders).
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,10 +16,12 @@ import torch
 
 from defer_tpu.ops.attention import attention_reference as jax_reference
 from defer_tpu.ops.pallas_attention import flash_attention as jax_flash
+from defer_tpu_torch.ops import flash_attention as fa
 from defer_tpu_torch.ops.attention import attention_reference
 from defer_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
+    launch_plan,
 )
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -137,3 +141,91 @@ def test_bf16_probabilities_stay_within_the_card_tolerance(causal):
     err = (got.float() - want.float()).abs()
     assert (err <= 1e-2 + 1e-2 * want.float().abs()).all()
     assert err.max() > 0  # the rounding is real, not a no-op
+
+
+# The card kernel's tiling (`launch_plan`), which the wrapper hands to the
+# C entry on every launch; checked here since the kernel itself runs only
+# on a card.
+PLAN_S = [1, 8, 16, 17, 77, 128, 197, 200, 512]
+PLAN_DH = [16, 40, 64, 72, 128]
+
+
+def _covered_once(spans, n):
+    """Every index in [0, n) lies in exactly one [start, start + width)."""
+    hits = np.zeros(n + 128, dtype=int)
+    for start, width in spans:
+        hits[start:start + width] += 1
+    return (hits[:n] == 1).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", PLAN_DH)
+@pytest.mark.parametrize("s", PLAN_S)
+def test_launch_plan_covers_every_row_and_column_once(s, dh, causal):
+    plan = launch_plan(s, s, dh, causal)
+    assert plan.panels == (1 if dh <= 64 else 2)
+    assert dh <= 64 * plan.panels < dh + 64
+    assert len(plan.ctas) == plan.q_tiles
+    assert _covered_once([(q0, 64) for q0, _ in plan.ctas], s)
+    assert 64 * plan.k_tiles - 64 < s <= 64 * plan.k_tiles
+    for q0, n_k in plan.ctas:
+        # Columns this tile's rows may attend to: all of them, or those up
+        # to its last valid row under the mask; the last K tile walked
+        # holds the last of them.
+        need = min(s, q0 + 64) if causal else s
+        assert _covered_once([(64 * t, 64) for t in range(n_k)], need)
+        assert 64 * (n_k - 1) < need <= 64 * n_k
+    # Launch order: the heaviest query tiles first where the mask makes
+    # them differ.
+    work = [n_k for _, n_k in plan.ctas]
+    assert work == sorted(work, reverse=True)
+    assert plan.heaviest_first == causal
+    if causal:
+        assert plan.ctas[0][0] == max(q0 for q0, _ in plan.ctas)
+    computed = 64 * 64 * sum(work)
+    needed = s * (s + 1) // 2 if causal else s * s
+    assert plan.work_ratio == pytest.approx(computed / needed)
+
+
+def test_launch_plan_at_vit_scores_full_tiles():
+    """ViT-B/16's S = 197: four 64-row query tiles, each walking four
+    64-column K tiles, so the kernel computes 256 x 256 products where
+    197 x 197 are needed."""
+    plan = launch_plan(197, 197, 64, False)
+    assert plan.ctas == ((0, 4), (64, 4), (128, 4), (192, 4))
+    assert plan.work_ratio == pytest.approx(256 * 256 / 197**2)
+
+
+def test_launch_plan_cross_attention_walks_every_key_tile():
+    plan = launch_plan(77, 1030, 64, False)
+    assert plan.k_tiles == 17
+    assert plan.ctas == ((0, 17), (64, 17))
+    assert _covered_once([(q0, 64) for q0, _ in plan.ctas], 77)
+
+
+@pytest.mark.parametrize(
+    "shape,s_k,causal",
+    [((1, 2, 197, 72), 197, False), ((2, 3, 130, 64), 130, True),
+     ((1, 2, 77, 40), 1030, False)],
+)
+def test_the_launch_takes_the_plan(monkeypatch, shape, s_k, causal):
+    """The wrapper hands the C entry the plan's tiling: panels, query
+    tiles, K tiles and the order (the entry point recorded in place of
+    the built library, a stream stubbed in place of the card's)."""
+    calls = []
+    monkeypatch.setattr(fa, "_kernel", lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(
+        torch.cuda, "current_stream",
+        lambda device=None: types.SimpleNamespace(cuda_stream=0),
+    )
+    monkeypatch.setattr(flash_attention, "launches", 0)
+    b, h, s_q, dh = shape
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(b, h, s_q, dh, generator=gen).bfloat16()
+    k, v = (torch.randn(b, h, s_k, dh, generator=gen).bfloat16()
+            for _ in range(2))
+    fa._flash_cuda(q, k, v, causal)
+    plan = launch_plan(s_q, s_k, dh, causal)
+    assert len(calls) == 1 and flash_attention.launches == 1
+    assert calls[0][13:17] == (plan.panels, plan.q_tiles, plan.k_tiles,
+                               int(plan.heaviest_first))
