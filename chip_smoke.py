@@ -23,7 +23,8 @@ printing one line per check and failing loudly:
                 with per-(block, head) scales (the int8 one also with its
                 dead blocks poisoned: payload garbage, scale NaN); the
                 prefill kernel also at deep chunks (starts 1984 and
-                4032, where it splits the live columns and merges), its
+                4032, where a cluster's ranks split the live columns and
+                merge inside the launch), at bs 4 (TMA boxes of 4 rows), its
                 start-1984 times reported beside the main chunk's;
   3. main     — DEFER().run_defer on BERT-base at its published width
                 (12 layers, dim 768, 12 heads, FFN 3072, vocab 30522),
@@ -880,9 +881,10 @@ def check_paged_flash_prefill() -> dict:
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     # (label, (B, Hq, Hkv, T, Dh, bs, MB), dtype, start, window): the
-    # phase-5 chunk after a 4-block hit, deep chunks (the split-K merge
-    # runs), a deep and a shallow slot together (splits exit early), then
-    # the edges.
+    # phase-5 chunk after a 4-block hit, deep chunks (a cluster's ranks
+    # split the live range and merge), a deep and a shallow slot together
+    # (the shallow slot's late ranks walk nothing), then the edges (bs 4:
+    # TMA boxes of 4 rows land inside a swizzle atom).
     cases = [
         ("after_hit", (1, 32, 8, 64, 128, 16, 256), bf16, [64], 4096),
         ("deep", (1, 32, 8, 64, 128, 16, 256), bf16, [1984], 4096),
@@ -897,6 +899,7 @@ def check_paged_flash_prefill() -> dict:
          None),
         ("f16_bs8", (2, 16, 4, 24, 64, 8, 64), f16, [100, 7], None),
         ("f32_bs32", (2, 32, 8, 40, 128, 32, 32), f32, [600, 3], 200),
+        ("bf16_bs4", (2, 16, 4, 24, 128, 4, 64), bf16, [100, 7], None),
     ]
     main_err = None
     for seed, (label, (b, hq, hkv, t, dh, bs, mb), dtype, start, window) in (

@@ -1,6 +1,7 @@
-// The Hopper attention engine of flash_attention.cu (sm_90a): tiles come
-// into shared memory by TMA, the products run on wgmma, and a consumer
-// warpgroup of 128 threads owns 64 query rows (wgmma's M).
+// The Hopper attention engine of flash_attention.cu and
+// paged_flash_prefill.cu (sm_90a): tiles come into shared memory by TMA,
+// the products run on wgmma, and a consumer warpgroup of 128 threads owns
+// 64 query rows (wgmma's M).
 //
 //   * Tiles are 64 rows by 64 head-dim columns of 16-bit values (bf16 or
 //     f16, q's type): one TMA box of 128-byte rows in the 128-byte swizzle
@@ -28,11 +29,13 @@
 
 #pragma once
 
+#include <atomic>
 #include <cfloat>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 
 namespace wg {
 
@@ -67,6 +70,18 @@ template <>
 __device__ __forceinline__ uint32_t pack<__half>(float lo, float hi) {
   const __half2 h = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The two values of q's 16-bit type in a register as f32, `lo` first.
+template <typename T>
+__device__ __forceinline__ float2 unpack(uint32_t w);
+template <>
+__device__ __forceinline__ float2 unpack<__nv_bfloat16>(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+template <>
+__device__ __forceinline__ float2 unpack<__half>(uint32_t w) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
 }
 
 // -- mbarriers ---------------------------------------------------------------
@@ -108,6 +123,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // -- TMA ---------------------------------------------------------------------
 
+// Brings a tensor map's descriptor into the TMA unit's cache ahead of its
+// first copy.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // One box of the 4-D map (Dh, S, H, B) at (c0, c1, c2, c3) into shared
 // memory; completes `bytes` of `bar`'s transaction count.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -142,6 +165,38 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// -- distributed shared memory --------------------------------------------
+
+// The shared::cluster address of `p` (this CTA's shared memory) in the CTA
+// of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ uint4 ld_cluster16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -- wgmma -------------------------------------------------------------------
@@ -365,6 +420,156 @@ __device__ __forceinline__ void rs<__half, 128>(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// A consumer warpgroup's 64 query rows: this thread's share of O, the
+// scores of the tile last issued, and the probabilities of two tiles in two
+// buffers that tiles take in turn (the K loop unrolled by two), so that no
+// softmax writes the registers of the P V issued just before it. Each
+// kernel adds its softmax (its mask and scaling) and its epilogue.
+template <typename T, int kPanels>
+struct Acc {
+  static constexpr int kD = kPanel * kPanels;
+  static constexpr int kSteps = kD / 16;  // k-steps of Q K^T
+  float o[kD / 2];
+  float s[kCols / 2];
+  uint32_t p[2][kCols / 16][4];  // P of tile t in buffer t % 2
+  float m[2], l[2], alpha[2];    // rows g and g + 8
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) s[i] = 0.f;
+    m[0] = m[1] = kMaskValue;
+    l[0] = l[1] = 0.f;
+    alpha[0] = alpha[1] = 0.f;
+  }
+
+  // Issues S = Q K^T as one wgmma group over every k-step of the panels
+  // (the columns past Dh are zeros). The descriptors are built before the
+  // fence.
+  __device__ __forceinline__ void issue_qk(const unsigned char* q,
+                                           const unsigned char* k) {
+    uint64_t dq[kSteps], dk[kSteps];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      dq[kk] = desc(q + off, 16, 8 * kRowBytes);
+      dk[kk] = desc(k + off, 16, 8 * kRowBytes);
+    }
+    hold(dq);
+    hold(dk);
+    hold(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      ss<T>(s, dq[kk], dk[kk], kk > 0);
+    }
+    wgmma_commit();
+  }
+
+  // Issues O += P V (P from buffer kBuf) over the tile's 64 keys as one
+  // wgmma group.
+  template <int kBuf>
+  __device__ __forceinline__ void issue_pv(const unsigned char* v) {
+    uint64_t dv[kCols / 16];
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      dv[kk] = desc(v + 16 * kk * kRowBytes, kBoxBytes, 8 * kRowBytes);
+    }
+    hold(dv);
+    hold(o);
+    hold(p[kBuf]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      rs<T, kD>(o, p[kBuf][kk], dv[kk]);
+    }
+    wgmma_commit();
+  }
+
+  // P of buffer 1 into buffer 0.
+  __device__ __forceinline__ void move_p() {
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[0][kk][e] = p[1][kk][e];
+    }
+  }
+
+  __device__ __forceinline__ void rescale() {
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  }
+};
+
+// -- host ------------------------------------------------------------------
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (the attribute is per device): later launches skip the call.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned>& set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (set.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) set.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// A driver function found through the runtime (no -lcuda), or null.
+template <typename Fn>
+Fn driver_entry(const char* name) {
+  void* ptr = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &ptr, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &ptr, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+             ? reinterpret_cast<Fn>(ptr)
+             : nullptr;
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+using CtxGetCurrent = CUresult (*)(CUcontext*);
+
+// Makes `device` current for a launch and sets `restore` to the device to
+// make current again after it (restore != device). A thread with a
+// current context keeps its device; one with none yet (a serving thread
+// whose tensors came from PyTorch's cache), whose cudaGetDevice would say
+// 0 whatever card it works on, is left on `device`, whose primary context
+// the driver's tensor-map encode needs.
+inline cudaError_t enter_device(int device, int& restore) {
+  static const CtxGetCurrent ctx_current =
+      driver_entry<CtxGetCurrent>("cuCtxGetCurrent");
+  CUcontext ctx = nullptr;
+  if (ctx_current == nullptr || ctx_current(&ctx) != CUDA_SUCCESS) {
+    return cudaErrorInitializationError;
+  }
+  restore = device;
+  cudaError_t err;
+  if (ctx != nullptr && (err = cudaGetDevice(&restore)) != cudaSuccess) {
+    return err;
+  }
+  if (ctx == nullptr || restore != device) return cudaSetDevice(device);
+  return cudaSuccess;
 }
 
 }  // namespace wg

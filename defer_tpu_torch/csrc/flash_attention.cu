@@ -95,71 +95,18 @@ struct TileParams {
   int heaviest_first;  // blockIdx.y 0 takes the last query tile
 };
 
-// The warpgroup's 64 query rows: this thread's share of O, the scores of
-// the tile last issued, and the probabilities of two tiles in two buffers
-// that tiles take in turn (the K loop unrolled by two), so that no softmax
-// writes the registers of the P V issued just before it.
+// The warpgroup's 64 query rows (wg::Acc; m unscaled, the scale riding in
+// the exponent) and flash attention's softmax and epilogue.
 template <typename T, int kPanels>
-struct Rows {
-  static constexpr int kD = kPanel * kPanels;
-  static constexpr int kSteps = kD / 16;  // k-steps of Q K^T
-  float o[kD / 2];
-  float s[kCols / 2];
-  uint32_t p[2][kCols / 16][4];  // P of tile t in buffer t % 2
-  float m[2], l[2], alpha[2];    // rows g and g + 8 (m unscaled)
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCols / 2; ++i) s[i] = 0.f;
-    m[0] = m[1] = kMaskValue;
-    l[0] = l[1] = 0.f;
-    alpha[0] = alpha[1] = 0.f;
-  }
-
-  // Issues S = Q K^T as one wgmma group over every k-step of the panels
-  // (the columns past Dh are zeros). The descriptors are built before the
-  // fence.
-  __device__ __forceinline__ void issue_qk(const unsigned char* q,
-                                           const unsigned char* k) {
-    uint64_t dq[kSteps], dk[kSteps];
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      dq[kk] = wg::desc(q + off, 16, 8 * kRowBytes);
-      dk[kk] = wg::desc(k + off, 16, 8 * kRowBytes);
-    }
-    wg::hold(dq);
-    wg::hold(dk);
-    wg::hold(s);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      wg::ss<T>(s, dq[kk], dk[kk], kk > 0);
-    }
-    wg::wgmma_commit();
-  }
-
-  // Issues O += P V (P from buffer kBuf) over the tile's 64 keys as one
-  // wgmma group.
-  template <int kBuf>
-  __device__ __forceinline__ void issue_pv(const unsigned char* v) {
-    uint64_t dv[kCols / 16];
-#pragma unroll
-    for (int kk = 0; kk < kCols / 16; ++kk) {
-      dv[kk] = wg::desc(v + 16 * kk * kRowBytes, kBoxBytes, 8 * kRowBytes);
-    }
-    wg::hold(dv);
-    wg::hold(o);
-    wg::hold(p[kBuf]);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kCols / 16; ++kk) {
-      wg::rs<T, kD>(o, p[kBuf][kk], dv[kk]);
-    }
-    wg::wgmma_commit();
-  }
+struct Rows : wg::Acc<T, kPanels> {
+  using Base = wg::Acc<T, kPanels>;
+  using Base::alpha;
+  using Base::kD;
+  using Base::l;
+  using Base::m;
+  using Base::o;
+  using Base::p;
+  using Base::s;
 
   // The online-softmax step on the retired scores of the tile at k0: mask,
   // new row max over the quad, l rescaled and extended, P (in q's type)
@@ -213,25 +160,6 @@ struct Rows {
       p[kBuf][kk][1] = wg::pack<T>(s[8 * kk + 2], s[8 * kk + 3]);
       p[kBuf][kk][2] = wg::pack<T>(s[8 * kk + 4], s[8 * kk + 5]);
       p[kBuf][kk][3] = wg::pack<T>(s[8 * kk + 6], s[8 * kk + 7]);
-    }
-  }
-
-  // P of buffer 1 into buffer 0.
-  __device__ __forceinline__ void move_p() {
-#pragma unroll
-    for (int kk = 0; kk < kCols / 16; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[0][kk][e] = p[1][kk][e];
-    }
-  }
-
-  __device__ __forceinline__ void rescale() {
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      o[4 * j] *= alpha[0];
-      o[4 * j + 1] *= alpha[0];
-      o[4 * j + 2] *= alpha[1];
-      o[4 * j + 3] *= alpha[1];
     }
   }
 
@@ -413,53 +341,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Raises `kernel`'s dynamic shared-memory limit to `bytes` once per device
-// (the attribute is per device): later launches skip the call.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned>& set) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (set.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) set.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
-// A driver function found through the runtime (no -lcuda), or null.
-template <typename Fn>
-Fn driver_entry(const char* name) {
-  void* ptr = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err = cudaGetDriverEntryPointByVersion(
-      name, &ptr, 12000, cudaEnableDefault, &found);
-#else
-  const cudaError_t err =
-      cudaGetDriverEntryPoint(name, &ptr, cudaEnableDefault, &found);
-#endif
-  return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-             ? reinterpret_cast<Fn>(ptr)
-             : nullptr;
-}
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-using CtxGetCurrent = CUresult (*)(CUcontext*);
-
 // The 4-D map (Dh, S, H, B) of a (B, H, S, Dh) tensor with element strides
 // (b, h, s) and a unit Dh stride, boxes of 64 rows x 64 columns in the
 // 128-byte swizzle; reads past the tensor return zeros, writes past it are
 // dropped.
 bool encode(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
             int dh, int s, int heads, int batch, const long long* st) {
-  static const EncodeTiled fn =
-      driver_entry<EncodeTiled>("cuTensorMapEncodeTiled");
+  static const wg::EncodeTiled fn =
+      wg::driver_entry<wg::EncodeTiled>("cuTensorMapEncodeTiled");
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(s),
                               cuuint64_t(heads), cuuint64_t(batch)};
@@ -484,7 +373,7 @@ cudaError_t launch_wgmma(const CUtensorMap (&maps)[4], const TileParams& p,
   constexpr int kSmem = 1024 + (1 + 2 * kStages) * kPanels * kBoxBytes;
   static std::atomic<unsigned> ready{0};
   const cudaError_t err =
-      allow_smem(flash_fwd_wgmma<T, kPanels>, kSmem, ready);
+      wg::allow_smem(flash_fwd_wgmma<T, kPanels>, kSmem, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch_heads, q_tiles);
   flash_fwd_wgmma<T, kPanels><<<grid, kThreads, kSmem, stream>>>(
@@ -635,7 +524,8 @@ cudaError_t launch_f32(const F32Params& p, int batch_heads,
   constexpr int kMaxSmem = sizeof(float) * (3 * kRows * (kMaxDh + 1) +
                                             kRows * (kCols + 1));
   static std::atomic<unsigned> ready{0};
-  const cudaError_t err = allow_smem(flash_fwd_f32<kMaxDh>, kMaxSmem, ready);
+  const cudaError_t err =
+      wg::allow_smem(flash_fwd_f32<kMaxDh>, kMaxSmem, ready);
   if (err != cudaSuccess) return err;
   const size_t smem =
       sizeof(float) * (size_t(3) * kRows * (p.dh + 1) +
@@ -740,26 +630,10 @@ extern "C" int defer_flash_attention_fwd(
        (long long)q_tiles * kRows < s_q || (long long)k_tiles * kCols < s_k)) {
     return int(cudaErrorInvalidValue);
   }
-  // The launch runs on `device`. A thread with a current context gets its
-  // device back afterwards; one with none yet (a serving thread whose
-  // tensors came from PyTorch's cache), whose cudaGetDevice would say 0
-  // whatever card it works on, is left on `device`, whose primary context
-  // the driver's tensor-map encode needs.
-  static const CtxGetCurrent ctx_current =
-      driver_entry<CtxGetCurrent>("cuCtxGetCurrent");
-  CUcontext ctx = nullptr;
-  if (ctx_current == nullptr || ctx_current(&ctx) != CUDA_SUCCESS) {
-    return int(cudaErrorInitializationError);
-  }
+  // The launch runs on `device` (wg::enter_device).
   int current = device;
-  cudaError_t err;
-  if (ctx != nullptr && (err = cudaGetDevice(&current)) != cudaSuccess) {
-    return int(err);
-  }
-  if ((ctx == nullptr || current != device) &&
-      (err = cudaSetDevice(device)) != cudaSuccess) {
-    return int(err);
-  }
+  cudaError_t err = wg::enter_device(device, current);
+  if (err != cudaSuccess) return int(err);
   err = launch(q, k, v, o, dtype, batch, heads, s_q, s_k, dh, strides, scale,
                causal, Plan{panels, q_tiles, k_tiles, heaviest_first},
                static_cast<cudaStream_t>(stream));

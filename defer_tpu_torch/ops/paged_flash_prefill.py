@@ -17,25 +17,28 @@ cast to q's dtype once.
 What bounds it on an H100: the live pool rows and q/o, read and written
 once, and 4 * T * Hq * Dh FLOP a live column: at a 2k-deep 64-token
 chunk of Mistral-7B about 3 us of bytes and 2 us of tensor-core
-operations. `csrc/paged_flash_prefill.cu` (on the tile engine of
-`csrc/attn_tile.cuh`) puts both products on the tensor cores: one CTA
-per (64 token-major query rows, KV head, slot, split), K/V tiles of 64
-pool rows resolved through the table and staged in shared memory in
-their own type by cp.async, double-buffered, `mma.sync` bf16/f16 -> f32
-with P rounded to q's type in registers. The CTA reads start[b] on the
-card and walks only the live columns of its rows, from the edge of the
-first live block. Split-K: the live tiles of each (row tile, KV head,
-slot) are cut into `splits` chunks of whole 64-column tiles; `splits`
-comes from the SM count and the table span (`_prefill_splits`), never
-from start, so the launch needs no host sync; with more than one split a
-second small kernel merges the splits that ran from an f32 workspace.
+operations. `csrc/paged_flash_prefill.cu` (on the Hopper engine of
+`csrc/attn_wgmma.cuh`) runs both products on wgmma: a CTA of one
+consumer warpgroup (64 token-major query rows) per (row tile, KV head,
+slot, split), K/V tiles of 64 pool rows brought by TMA through the
+table (a producer warp reads the entries ahead) into a ring of 2-4
+stages, P rounded to q's type in registers. The CTA reads start[b] on
+the card and walks only the live columns of its rows, from the edge of
+the first live block. Split-K: the live tiles of each (row tile, KV
+head, slot) are cut into `splits` chunks of whole 64-column tiles (two
+at least), one CTA each, and the CTAs are one thread block cluster that
+merges the chunks' f32 states through distributed shared memory: one
+kernel a call, no workspace; a shallow chunk, one rank's whole, is
+written by that rank with no merge. `splits` comes from the SM count and
+the shapes (`_prefill_plan`), never from start, so the launch needs no
+host sync.
 Rows padded past T * G are never written. f32 q keeps the f32 FMA loop
 of the first form (TF32 would miss the f32 tolerance).
 
 The pool is q's dtype, or int8 with per-(block, head) f32 scales
 `scale_k`/`scale_v` [NB, Hkv], as in `paged_flash_decode`: the kernel
-copies the int8 payload (16 columns a copy), widens each tile once to
-q's type in shared memory (exact), and folds the scales per column:
+copies the int8 payload by TMA, widens each tile once to q's type in
+shared memory (exact), and folds the scales per column:
 scores times the column's K scale, probabilities times its V scale
 before P V. Dead columns read neither payload nor scale.
 
@@ -70,29 +73,26 @@ from defer_tpu_torch.ops.paged_flash_decode import (
 )
 
 _SOURCE = "paged_flash_prefill.cu"
-# Query rows of a CTA and key columns of a tile (kRows / kCols in
-# csrc/attn_tile.cuh).
+# Query rows of a consumer warpgroup and key columns of a tile (kRows /
+# kCols in csrc/attn_wgmma.cuh).
 _TILE = 64
-# CTAs of the tensor-core kernel an SM holds at once (about 90 KB of
-# shared memory each at Dh 128).
-_CTAS_PER_SM = 2
-# Fewest rows one split of `_split_count` takes, rounded up to whole
-# blocks, and the most splits.
-_MIN_CHUNK = 32
-_MAX_SPLITS = 64
+# The most CTAs of a cluster (the portable cluster size), and the fewest
+# 64-column tiles a rank of one walks (kMaxCluster, kMinChunk).
+_MAX_CLUSTER = 8
+_MIN_CHUNK = 2
 
 
-def _split_count(sms: int, ctas: int, bs: int, mb: int,
-                 per_sm: int = 4) -> int:
-    """Splits of each slot's live range on a card of `sms` streaming
-    multiprocessors: enough CTAs for about `per_sm` an SM, no more than
-    the table span of `mb` blocks of `bs` rows holds chunks of whole
-    blocks of at least `_MIN_CHUNK` rows. Depends on shapes only, never
-    on pos. (The decode kernel's split plan before its cluster merge;
-    `_prefill_splits` calls it with 64-row tiles for blocks.)"""
-    want = math.ceil(per_sm * sms / ctas)
-    chunk_blocks = math.ceil(_MIN_CHUNK / bs)
-    return max(1, min(want, math.ceil(mb / chunk_blocks), _MAX_SPLITS))
+def _prefill_plan(sms: int, b: int, hq: int, hkv: int, t_q: int, bs: int,
+                  mb: int) -> int:
+    """`splits` of the tensor-core kernel on a card of `sms` SMs: the
+    CTAs of a cluster, each a chunk of the live range of 64 token-major
+    query rows, enough for two CTAs an SM (as many as fit on a float
+    pool; the launch lowers `splits` where fewer clusters fit, as on an
+    int8 pool), at most a portable cluster, no more than the table span
+    holds tiles. From shapes only, never from start."""
+    ctas = b * hkv * math.ceil(t_q * (hq // hkv) / _TILE)
+    want = math.ceil(2 * sms / ctas)
+    return max(1, min(want, _MAX_CLUSTER, math.ceil(mb * bs / _TILE)))
 
 
 def _prefill_lo_hi(p0: int, t_q: int, block_size: int, window: int | None):
@@ -107,52 +107,34 @@ def _prefill_lo_hi(p0: int, t_q: int, block_size: int, window: int | None):
 
 def _live_span(start: int, r0: int, group: int, t_q: int, bs: int, mb: int,
                window: int | None, splits: int):
-    """`live_span` of the CUDA source for the token-major rows r0 ..
-    r0 + 63: the first and last live column (c0 on a block edge), the
-    64-column tiles between them, and the tiles one split takes."""
+    """`live_span` of the CUDA source for the 64 token-major rows of the
+    CTA at r0: the first and last live column (c0 on a block edge), the
+    64-column tiles between them, and the tiles one rank of a cluster of
+    `splits` takes (at least `_MIN_CHUNK`, so a shallow chunk is one
+    rank's and merges nothing)."""
     t_first = r0 // group
     t_last = min((r0 + _TILE - 1) // group, t_q - 1)
     hi = min(start + t_last, mb * bs - 1)
     lo = max(start + t_first - window + 1, 0) if window is not None else 0
     c0 = lo // bs * bs
     ntiles = max(1, (hi - c0) // _TILE + 1)
-    return c0, hi, ntiles, math.ceil(ntiles / splits)
+    return c0, hi, ntiles, max(_MIN_CHUNK, math.ceil(ntiles / splits))
 
 
 def _split_columns(start: int, r0: int, group: int, t_q: int, bs: int,
                    mb: int, window: int | None, splits: int):
-    """The columns [first, last] each split of the row tile at r0 walks,
-    for the splits that run: split s takes tiles s * chunk .. (s + 1) *
-    chunk - 1 and exits when its first tile lies past the live range
-    (split 0 always runs); columns past hi weigh nothing."""
+    """The columns [first, last] each rank of the cluster at r0 walks,
+    for the ranks that have tiles: rank s takes tiles s * chunk ..
+    (s + 1) * chunk - 1 (rank 0 always has one); columns past hi weigh
+    nothing. The cluster's merge reads exactly these ranks' states (with
+    one such rank, it writes O itself and nothing merges). The launch
+    may lower `splits` until every cluster is resident; the cut is the
+    same for any value."""
     c0, hi, ntiles, chunk = _live_span(start, r0, group, t_q, bs, mb,
                                        window, splits)
-    out = []
-    for s in range(splits):
-        if s * chunk >= ntiles and s > 0:
-            continue
-        first = c0 + s * chunk * _TILE
-        out.append((first, min(first + chunk * _TILE - 1, hi)))
-    return out
-
-
-def _active_splits(start: int, r0: int, group: int, t_q: int, bs: int,
-                   mb: int, window: int | None, splits: int) -> int:
-    """How many splits the merge kernel combines for the row tile at r0."""
-    _, _, ntiles, chunk = _live_span(start, r0, group, t_q, bs, mb, window,
-                                     splits)
-    return math.ceil(ntiles / chunk)
-
-
-def _prefill_splits(sms: int, b: int, hq: int, hkv: int, t_q: int, bs: int,
-                    mb: int) -> int:
-    """Split-K count of the tensor-core kernel on a card of `sms` SMs:
-    `paged_flash_decode`'s arithmetic with 64-column tiles for blocks,
-    about `_CTAS_PER_SM` CTAs an SM, no more splits than the table span
-    holds tiles. From shapes only, never from start."""
-    ctas = b * hkv * math.ceil(t_q * (hq // hkv) / _TILE)
-    return _split_count(sms, ctas, _TILE, math.ceil(mb * bs / _TILE),
-                        per_sm=_CTAS_PER_SM)
+    return [(c0 + s * chunk * _TILE,
+             min(c0 + (s + 1) * chunk * _TILE - 1, hi))
+            for s in range(splits) if s * chunk < ntiles]
 
 
 def _check(q, pool_k, pool_v, tables, window) -> None:
@@ -231,22 +213,18 @@ def _kernel():
     fn.restype = ctypes.c_int
     fn.argtypes = [
         # q, pool_k, pool_v, o, tables, scale_k, scale_v, start
-        *[ctypes.c_void_p] * 8,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        # dtype, pool_dtype, batch, hq, hkv, t_q, bs, mb, dh
-        *[ctypes.c_int] * 9,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 8, ctypes.c_longlong,
+        # dtype, pool_dtype, batch, hq, hkv, t_q, nb, bs, mb, dh
+        *[ctypes.c_int] * 10,
+        ctypes.POINTER(ctypes.c_longlong),
+        # window, splits
+        *[ctypes.c_int] * 2,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     return fn
 
 
 _runs, card_runs, reset_card_runs = run_counter("paged_flash_prefill")
-# The split-K merge kernel's own count: a call that splits runs the main
-# kernel once and the merge once; one that does not, no merge.
-_merge_runs, merge_card_runs, reset_merge_card_runs = run_counter(
-    "paged_flash_prefill's split-K merge"
-)
 
 
 @functools.lru_cache(maxsize=256)
@@ -263,7 +241,9 @@ def _launch_plan(q_shape, q_stride, pool_shape, k_stride, v_stride,
             f"the CUDA paged flash-prefill kernel takes Dh in {_HEAD_DIMS}, "
             f"got {dh}"
         )
-    # The kernel stages rows in 16-byte copies: rows must be aligned to 16.
+    # Rows are read 16 bytes at a time, and a 16-bit or int8 pool by TMA,
+    # whose strides must be multiples of 16 bytes and not 0 along a
+    # dimension longer than 1.
     for name, stride, dtype in (("q", q_stride, dtypes[0]),
                                 ("pool_k", k_stride, dtypes[1]),
                                 ("pool_v", v_stride, dtypes[2])):
@@ -271,8 +251,12 @@ def _launch_plan(q_shape, q_stride, pool_shape, k_stride, v_stride,
             raise ValueError(f"{name} needs a unit Dh stride")
         if any(st * dtype.itemsize % 16 for st in stride[:-1]):
             raise ValueError(f"{name} rows are not 16-byte aligned")
-    # f32 q runs the FMA loop, which does not split.
-    splits = 1 if dtypes[0] == torch.float32 else _prefill_splits(
+    if any(st == 0 and n > 1 for stride in (k_stride, v_stride)
+           for st, n in zip(stride[:3], pool_shape[:3])):
+        raise ValueError("pool_k/pool_v need a nonzero stride along every "
+                         "dimension longer than 1")
+    # f32 q runs the FMA loop: one CTA a row tile, no cluster.
+    splits = 1 if dtypes[0] == torch.float32 else _prefill_plan(
         _sm_count(device.index or 0), b, hq, hkv, t, bs, mb
     )
     # The output is [B, T, Hq, Dh], contiguous.
@@ -288,7 +272,8 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
     """Launch the sm_90a kernel on q's current stream; tables, start and
     the scales stay on the card."""
     b, hq, t, dh = q.shape
-    if not (q.device == pool_k.device == pool_v.device == tables.device):
+    device = q.device
+    if not (device == pool_k.device == pool_v.device == tables.device):
         raise ValueError(
             f"q/pool/tables on different devices: {q.device}/"
             f"{pool_k.device}/{pool_v.device}/{tables.device}"
@@ -296,9 +281,9 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
     if tables.dtype != torch.int32 or tables.stride(1) != 1:
         tables = tables.to(torch.int32).contiguous()  # on the card
     if isinstance(start, int):
-        start = torch.full((b,), start, dtype=torch.int32, device=q.device)
-    if start.device != q.device:
-        raise ValueError(f"start on {start.device}, q on {q.device}")
+        start = torch.full((b,), start, dtype=torch.int32, device=device)
+    if start.device != device:
+        raise ValueError(f"start on {start.device}, q on {device}")
     if start.ndim > 1 or (start.ndim == 1 and start.shape[0] != b):
         raise ValueError(
             f"start must be () or ({b},), got {tuple(start.shape)}"
@@ -309,42 +294,25 @@ def _prefill_cuda(q, pool_k, pool_v, tables, start, window, scale_k,
         tuple(q.shape), q.stride(), tuple(pool_k.shape), pool_k.stride(),
         pool_v.stride(), tables.stride(0), tables.shape[1],
         _scale_strides(scale_k, scale_v),
-        (q.dtype, pool_k.dtype, pool_v.dtype), q.device,
+        (q.dtype, pool_k.dtype, pool_v.dtype), device,
     )
     # Token-major rows land in [B, T, Hq, Dh]; the caller gets the
     # [B, Hq, T, Dh] view, whose transpose back is free.
-    out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
-    part_acc = part_ml = None
-    if splits > 1:
-        # One f32 workspace: the partial acc [B, Hkv, splits, R, Dh], then
-        # the partial (m, l) [B, Hkv, splits, R, 2], R the token-major
-        # rows of a KV head padded to whole 64-row tiles.
-        slots = (b * pool_k.shape[1] * splits
-                 * math.ceil(t * hq // pool_k.shape[1] / _TILE) * _TILE)
-        ws = torch.empty(slots * (dh + 2), dtype=torch.float32,
-                         device=q.device)
-        part_acc = ws.data_ptr()
-        part_ml = part_acc + 4 * slots * dh
+    out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=device)
     if any(x.data_ptr() % 16 for x in (q, pool_k, pool_v)):
         raise ValueError("q/pool rows are not 16-byte aligned")
     quantized = scale_k is not None
-    args = (
+    rc = _kernel()(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
         tables.data_ptr(), scale_k.data_ptr() if quantized else None,
         scale_v.data_ptr() if quantized else None, start.data_ptr(),
-        start.stride(0) if start.ndim == 1 else 0, part_acc, part_ml,
+        start.stride(0) if start.ndim == 1 else 0,
         _DTYPE_CODE[q.dtype], pool_code, b, hq, pool_k.shape[1], t,
-        pool_k.shape[2], tables.shape[1], dh, strides,
+        pool_k.shape[0], pool_k.shape[2], tables.shape[1], dh, strides,
         0 if window is None else int(window), splits, dh**-0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
-        _runs(q.device.index).data_ptr(),
-        _merge_runs(q.device.index).data_ptr(),
+        device.index, torch.cuda.current_stream(device).cuda_stream,
+        _runs(device.index).data_ptr(),
     )
-    if torch.cuda.current_device() == q.device.index:
-        rc = _kernel()(*args)
-    else:
-        with torch.cuda.device(q.device):
-            rc = _kernel()(*args)
     if rc != 0:
         raise RuntimeError(
             f"paged flash-prefill kernel launch failed with CUDA error {rc} "
@@ -381,7 +349,7 @@ def paged_flash_prefill(
     in 32/64/128, float32/float16/bfloat16 q) and raise on what it does
     not take; CPU and meta tensors run `paged_flash_prefill_plain`.
     `paged_flash_prefill.launches` counts calls that launch the kernel
-    (and its merge, when it splits) on a float pool,
+    (one kernel a call, its split-K merge inside) on a float pool,
     `paged_flash_prefill.launches_int8` those on an int8 pool. Both are
     host counts; `card_runs` counts the kernel's runs on the card,
     graph replays included."""

@@ -13,8 +13,11 @@ at the serving tick's depths [170, 176, 182, 188]; the paged kernels on a
 bf16 and an int8 pool; inputs from chip_smoke's seeded helpers. For each
 it prints the mean device time a call of every CUDA kernel the call
 launched (torch.profiler), so a kernel that merges its splits in a second
-launch shows its main kernel and its merge apart, and the call's time by
-CUDA events over back-to-back calls (chip_smoke.cuda_time_ms). It runs
+launch shows its main kernel and its merge apart (every kernel here now
+merges inside its launch; an older tree's prefill did not), and the
+call's time by CUDA events over back-to-back calls
+(chip_smoke.cuda_time_ms). `scripts/profile_paged_prefill.py` has the
+prefill in detail. It runs
 against the package beside it, so the same script, copied into an older
 tree, times that tree's kernels. Needs one CUDA card; imports neither jax
 nor defer_tpu.

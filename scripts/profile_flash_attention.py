@@ -47,12 +47,16 @@ SHAPES = {
     "vit": ((32, 12, 197, 64), False),
     "gpt2_causal": ((4, 12, 512, 64), True),
 }
-# (old, new) text replacements, each of which must match exactly once.
+# (old, new) text replacements of flash_attention.cu, each of which must
+# match exactly once; HEADER_SKELETON's are of attn_wgmma.cuh (the products
+# of wg::Acc).
 SKELETON = [
-    ("      wg::ss<T>(s, dq[kk], dk[kk], kk > 0);\n", ""),
-    ("      wg::rs<T, kD>(o, p[kBuf][kk], dv[kk]);\n", ""),
     ("wg::fast_exp2(fmaf(s[e], prm.scale, shift[(e / 2) % 2]))",
      "fmaf(s[e], prm.scale, shift[(e / 2) % 2])"),
+]
+HEADER_SKELETON = [
+    ("      ss<T>(s, dq[kk], dk[kk], kk > 0);\n", ""),
+    ("      rs<T, kD>(o, p[kBuf][kk], dv[kk]);\n", ""),
 ]
 STAMP_DEFS = r"""
 namespace {
@@ -104,25 +108,39 @@ PHASES = {1: "Q and K 0 landed", 2: "scores of tile 0", 3: "softmax of 0",
           12: "last P V", 13: "store"}
 
 
-def _patched(source: str, patches) -> str:
+def _replaced(source: str, patches) -> str:
     for old, new in patches:
         if source.count(old) != 1:
             raise RuntimeError(f"patch target not found once: {old!r}")
         source = source.replace(old, new)
-    return source + (STAMP_EXPORTS if patches is STAMPS else "")
+    return source
+
+
+def _patched(source: str, patches) -> str:
+    return _replaced(source, patches) + (STAMP_EXPORTS if patches is STAMPS
+                                         else "")
 
 
 def _build(name: str, patches, out_dir: str):
+    """The source (and the engine header, patched for the skeleton) built
+    in a directory of its own under `out_dir`."""
     from defer_tpu_torch.utils import nvcc
 
-    src = os.path.join(out_dir, f"fa_{name}.cu")
+    work = os.path.join(out_dir, name)
+    os.makedirs(work)
+    header = (nvcc.CSRC / "attn_wgmma.cuh").read_text()
+    if patches is SKELETON:
+        header = _replaced(header, HEADER_SKELETON)
+    with open(os.path.join(work, "attn_wgmma.cuh"), "w") as f:
+        f.write(header)
+    src = os.path.join(work, f"fa_{name}.cu")
     with open(src, "w") as f:
         f.write(_patched((nvcc.CSRC / "flash_attention.cu").read_text(),
                          patches))
-    out = os.path.join(out_dir, f"libfa_{name}.so")
+    out = os.path.join(work, f"libfa_{name}.so")
     proc = subprocess.run(
-        [nvcc.nvcc_path(), *nvcc.NVCC_FLAGS, "-I", str(nvcc.CSRC),
-         "-Xptxas", "-v", "-o", out, src],
+        [nvcc.nvcc_path(), *nvcc.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+         src],
         capture_output=True, text=True,
     )
     return name, proc.returncode, out, proc.stdout + proc.stderr

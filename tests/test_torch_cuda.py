@@ -5,8 +5,8 @@ decode server's windows as captured CUDA graphs against its
 decode_window=1 ticks; the CNN ops through cuDNN against their CPU path,
 and the image models' stages; a remote stage worker on the card behind a
 loopback socket, and run_defer with replicas=2; what a kernel call runs
-on the card (each kernel's own run counter, the split-K merge's among
-them, and the aten ops it dispatches); and fleet serving on one card
+on the card (each kernel's own run counter and the aten ops it
+dispatches); and fleet serving on one card
 (prefix migration between two servers, two windowed replicas capturing
 at once, device= placement); training on the card (a BERT-base-width
 train step's flash_attention launches with and without remat, the
@@ -458,10 +458,11 @@ def test_paged_flash_decode_matches_plain(card, b, hq, hkv, dh, bs, mb,
 
 
 # (B, Hq, Hkv, T, Dh, bs, MB, dtype, start, window): the phase-5 chunk
-# after a 4-block hit, deep chunks (the split-K merge runs), a deep and a
-# shallow slot (the shallow slot's late splits exit at once), start 0, a
-# window crossing a block edge, G=1 at Dh 64, G=8, B=4 with T=5, fp16 at
-# bs 8, f32 at bs 32.
+# after a 4-block hit, deep chunks (a cluster's ranks split the live range
+# and merge), a deep and a shallow slot (the shallow slot's late ranks walk
+# nothing), start 0, a window crossing a block edge, G=1 at Dh 64, G=8,
+# B=4 with T=5, fp16 at bs 8, bf16 at bs 4 (a TMA box of 4 rows lands
+# inside a swizzle atom), f32 at bs 32.
 PAGED_PREFILL_CASES = [
     (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [64], 4096),
     (1, 32, 8, 64, 128, 16, 256, torch.bfloat16, [1984], 4096),
@@ -473,6 +474,7 @@ PAGED_PREFILL_CASES = [
     (1, 64, 8, 32, 128, 16, 64, torch.bfloat16, [300], None),
     (4, 32, 8, 5, 128, 16, 64, torch.bfloat16, [0, 17, 400, 1000], None),
     (2, 16, 4, 24, 64, 8, 64, torch.float16, [100, 7], None),
+    (2, 16, 4, 24, 128, 4, 64, torch.bfloat16, [100, 7], None),
     (2, 32, 8, 40, 128, 32, 32, torch.float32, [600, 3], 200),
 ]
 
@@ -772,14 +774,14 @@ def test_decode_kernels_read_only_live_rows_at_mistral_shape(card, kind,
 
 
 def _counters() -> dict:
-    """Every kernel's own count of its runs on the card, the split-K
-    merge's among them."""
+    """Every decode and paged kernel's own count of its runs on the
+    card."""
     from defer_tpu_torch.ops import flash_decode as fd
     from defer_tpu_torch.ops import paged_flash_decode as pfd
     from defer_tpu_torch.ops import paged_flash_prefill as pfp
 
     return {"flat": fd.card_runs, "paged": pfd.card_runs,
-            "prefill": pfp.card_runs, "merge": pfp.merge_card_runs}
+            "prefill": pfp.card_runs}
 
 
 class _CudaOps(TorchDispatchMode):
@@ -829,25 +831,85 @@ def test_a_decode_call_is_one_cuda_kernel(card, kind):
 
 
 @pytest.mark.parametrize("mb,start", [(256, 0), (256, 1984), (4, 0)])
-def test_a_prefill_call_counts_its_merge(card, mb, start):
+def test_a_prefill_call_is_one_cuda_kernel(card, mb, start):
     """A 64-token chunk of Mistral-7B's heads runs the prefill kernel
-    once on the card, plus the split-K merge once where the launch plan
-    splits the table span (256 blocks: a phase-5 chunk and a deep one)
-    and never where it does not (4 blocks); the workspace is allocated,
-    never filled."""
-    from defer_tpu_torch.ops.paged_flash_prefill import _prefill_splits
+    once on the card (its own `card_runs`), whether the launch plan cuts
+    the table span among the ranks of a cluster (256 blocks: a phase-5
+    chunk and a deep one) or not (4 blocks): the ranks merge inside the
+    launch. No other counted kernel runs, and no fill or copy is
+    dispatched beside it: the only aten ops on CUDA tensors are the
+    output's allocation and its transposed view."""
+    from defer_tpu_torch.ops.paged_flash_prefill import _prefill_plan
 
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    splits = _prefill_splits(sms, 1, 32, 8, 64, 16, mb)
+    splits = _prefill_plan(sms, 1, 32, 8, 64, 16, mb)
     q, pk, pv, tables, _ = _paged_inputs(card, 1, 32, 8, 64, 128, 16, mb,
                                          torch.bfloat16, [start])
     at = torch.tensor([start], dtype=torch.int32, device=card)
     ops, runs = _ops_and_runs(
         lambda: paged_flash_prefill(q, pk, pv, tables, at, window=4096))
     assert (mb == 4) == (splits == 1)
-    assert runs == {"flat": 0, "paged": 0, "prefill": 1,
-                    "merge": int(splits > 1)}, runs
-    assert not [op for op in ops if any(w in op for w in _FILL_COPY)], ops
+    assert runs == {"flat": 0, "paged": 0, "prefill": 1}, runs
+    assert ops == ["aten.empty", "aten.transpose"], ops
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_prefill_gives_the_same_bits_every_call(card, int8):
+    """A register read or written while a wgmma that owns it is in
+    flight, or a rank's state read before it is written, shows as calls
+    that differ: a deep chunk (start 1984, the ranks of each cluster
+    walk their share of the live range and merge) on a bf16 and an int8
+    pool, with allocations between the calls so the output lands at
+    other addresses."""
+    q, pk, pv, tables, at = _paged_inputs(card, 1, 32, 8, 64, 128, 16, 256,
+                                          torch.bfloat16, [1984])
+    scales = {}
+    if int8:
+        (pk, ks), (pv, vs) = _int8(pk), _int8(pv)
+        scales = {"scale_k": ks, "scale_v": vs}
+    first = paged_flash_prefill(q, pk, pv, tables, at, window=4096,
+                                **scales)
+    junk = []
+    for i in range(100):
+        junk.append(torch.empty(1 + 997 * i % 5000, device=card))
+        got = paged_flash_prefill(q, pk, pv, tables, at, window=4096,
+                                  **scales)
+        assert torch.equal(got, first), f"call {i} differs"
+        junk = junk[-8:]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_runs_from_a_fresh_thread(card, dtype):
+    """A thread that has made no CUDA call (a fleet replica's serving
+    thread) launches the prefill kernel on the tensors' card, the last
+    one, and is left on that card: the entry point binds its context
+    there (the pool maps are encoded under it) and sets no other card
+    current."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    q, pk, pv, tables, at = _paged_inputs(dev, 2, 32, 8, 64, 128, 16, 64,
+                                          dtype, [500, 37])
+    torch.cuda.synchronize(dev)
+    res = {}
+
+    def work():
+        try:
+            res["got"] = paged_flash_prefill(q, pk, pv, tables, at,
+                                             window=100)
+            torch.cuda.synchronize(dev)
+            res["device"] = torch.cuda.current_device()
+        except Exception as exc:  # raised again in the test's thread
+            res["error"] = exc
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    if "error" in res:
+        raise res["error"]
+    assert res["device"] == dev.index
+    want = paged_flash_prefill_plain(q, pk, pv, tables, at, window=100,
+                                     num_blocks=(500 + 63) // 16 + 1)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(res["got"], want, atol=tol, rtol=tol)
 
 
 # -- the CNN ops and the image models --------------------------------------
@@ -1268,7 +1330,7 @@ def test_captured_paged_window_equals_eager_k1(card, kv_dtype):
 def test_paged_card_runs_count_each_eager_launch(card, dtype, kv_dtype):
     """Each eager launch of either paged kernel adds one to the kernel's
     own count of its runs on the card, as to the wrapper's host count
-    (a split prefill and its merge count once)."""
+    (a split prefill is one run: its ranks merge inside the launch)."""
     from defer_tpu_torch.ops import paged_flash_decode as pfd
     from defer_tpu_torch.ops import paged_flash_prefill as pfp
 

@@ -41,11 +41,9 @@ from defer_tpu_torch.ops.paged_flash_decode import (
     paged_flash_decode_plain,
 )
 from defer_tpu_torch.ops.paged_flash_prefill import (
-    _active_splits,
     _prefill_lo_hi,
-    _prefill_splits,
+    _prefill_plan,
     _split_columns,
-    _split_count,
     paged_flash_prefill,
     paged_flash_prefill_plain,
 )
@@ -283,23 +281,22 @@ def test_validation_and_int8_scales(fn, q_shape):
 ])
 def test_split_plan_covers_the_live_range_once(start, t, g, bs, window, mb,
                                                sms):
-    """The tensor-core prefill kernel's split-K plan: for every 64-row
-    tile of the T*G token-major rows, the splits that run cover the
-    tile's live columns exactly once, in whole 64-column tiles from the
-    edge of the first live block, never past the deepest row's position;
-    the merge combines exactly the splits that ran; and over the chunk
-    the live columns are `_prefill_lo_hi`'s blocks."""
-    splits = _prefill_splits(sms, 1, 8 * g, 8, t, bs, mb)
-    assert 1 <= splits <= math.ceil(mb * bs / 64)
+    """The tensor-core prefill kernel's plan: for every CTA's 64
+    token-major rows, the cluster's ranks that have tiles cover the
+    rows' live columns exactly once, in whole 64-column tiles from the
+    edge of the first live block, never past the deepest row's position,
+    and every column a row attends lies in them; the cluster is at most
+    8 CTAs and holds every rank that has tiles; over the chunk the live
+    columns are `_prefill_lo_hi`'s blocks."""
+    splits = _prefill_plan(sms, 1, 8 * g, 8, t, bs, mb)
+    assert 1 <= splits <= min(8, math.ceil(mb * bs / 64))
     lo, hi = _prefill_lo_hi(start, t, bs, window)
-    rows = t * g
+    rows, cta_rows = t * g, 64
     spans = []
-    for r0 in range(0, rows, 64):
+    for r0 in range(0, rows, cta_rows):
         ranges = _split_columns(start, r0, g, t, bs, mb, window, splits)
         assert 1 <= len(ranges) <= splits
-        assert len(ranges) == _active_splits(start, r0, g, t, bs, mb, window,
-                                             splits)
-        t_first, t_last = r0 // g, min((r0 + 63) // g, t - 1)
+        t_first, t_last = r0 // g, min((r0 + cta_rows - 1) // g, t - 1)
         first = (max(start + t_first - window + 1, 0) // bs * bs
                  if window is not None else 0)
         last = min(start + t_last, mb * bs - 1)
@@ -308,6 +305,10 @@ def test_split_plan_covers_the_live_range_once(start, t, g, bs, window, mb,
             assert c == b + 1  # contiguous: no column twice, none skipped
         for a, b in ranges:
             assert (a - first) % 64 == 0 and a <= b <= last
+        for r in range(r0, min(r0 + cta_rows, rows)):
+            pos = start + r // g
+            low = max(pos - window + 1, 0) if window is not None else 0
+            assert first <= low and pos <= last
         spans.append((first, last))
     assert spans[0][0] == lo * bs
     assert spans[-1][1] // bs == hi
@@ -361,14 +362,18 @@ def test_decode_split_reads_each_live_row_once(pos, mb_rows, window, bs):
 
 
 def test_split_count_results_are_pinned_for_the_prefill():
-    """`_split_count` now serves only the prefill's split-K plan: its
-    results are those it gave as the decode kernel's plan."""
-    assert _split_count(132, 32, 16, 256) == 17
-    assert _split_count(132, 8, 64, 64, per_sm=2) == 33
-    assert _split_count(132, 1, 64, 64, per_sm=2) == 64
-    assert _split_count(1, 1000, 16, 4) == 1
-    assert _split_count(16, 8, 1, 16) == 1
-    assert _split_count(132, 64, 64, 1, per_sm=2) == 1
-    assert _split_count(132, 16, 4, 1000) == 33
-    # The phase-5 chunk of Mistral-7B: 9 splits of the 64-column tiles.
-    assert _prefill_splits(132, 1, 32, 8, 64, 16, 256) == 9
+    """The prefill's launch plan on a card of 132 SMs and beside it:
+    clusters of up to 8 CTAs of 64 rows, enough for two CTAs an SM,
+    fewer where the table span holds fewer 64-column tiles or the grid
+    alone fills the card."""
+    # The phase-5 chunk of Mistral-7B: 32 CTAs of 64 rows, 8 ranks each.
+    assert _prefill_plan(132, 1, 32, 8, 64, 16, 256) == 8
+    # A decode round at T=1 (pp's stages): 8 CTAs.
+    assert _prefill_plan(132, 1, 32, 8, 1, 16, 256) == 8
+    assert _prefill_plan(132, 4, 32, 8, 5, 16, 64) == 8
+    assert _prefill_plan(132, 1, 32, 8, 64, 16, 4) == 1
+    # A 512-token chunk: 256 CTAs, so 2 ranks fill two an SM.
+    assert _prefill_plan(132, 1, 32, 8, 512, 16, 256) == 2
+    assert _prefill_plan(132, 64, 32, 8, 512, 16, 256) == 1
+    assert _prefill_plan(16, 1, 8, 8, 16, 16, 32) == 4
+    assert _prefill_plan(1, 1, 4, 2, 3, 4, 4) == 1
