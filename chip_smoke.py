@@ -246,13 +246,32 @@ printing one line per check and failing loudly:
                 held by the split greedy check against a teacher-forced
                 f32 forward (T5's own bound, T5_LOGIT_BOUND); the
                 encode's and a step's ms;
+     examples — the single-process example drivers of
+                defer_tpu_torch/examples/, each `run()` in this process
+                at the JAX examples' default widths with only the
+                durations cut (EXAMPLE_MINUTES): local_infer and then
+                distributed_infer on ResNet50 at --batch 32 --synthetic,
+                4 stages on the card from --cuts (images/s of each, the
+                pipeline's from its first result, and their ratio; the
+                same seed-0 weights, so the pipeline's first result is
+                held against the baseline's), ViT-B/16
+                through distributed_infer (flash_attention launched),
+                generate --family llama --speculate 4 (the plain loop,
+                then the speculative run; every greedy token of both
+                held to the teacher-forced forward within a tie
+                tolerance) and serve_decode --check (flash_decode run
+                on the card),
+                serving_batched briefly, long_context at --seq 4096
+                --check on a seq axis of 1, and pretrained_infer offline
+                (its SKIP: line);
   7. report   — a JSON line of every kernel, the card's name and power
                 limit, and last the line {"ok": true, "device": {...}}.
 
 Every kernel launch count is zeroed just before each path (3, cnn,
 socket, each sub-path of train, each layout of dist on each rank, 4,
 each sub-path of family, 5, 6, each sub-path of
-paged_family, of fleet and of serve_sharded, on each rank, t5) and read
+paged_family, of fleet and of serve_sharded, on each rank, t5, each
+driver of examples) and read
 just after it; a path that did not launch its
 kernels fails (a rolling one fails if it launched flash_decode). A
 captured window's replays run kernels the wrappers' host counts cannot
@@ -6765,6 +6784,187 @@ def phase_t5() -> dict:
             "max_err": err}
 
 
+# -- phase examples: the example drivers on the card ------------------------
+
+# The timed loops' length a driver (the JAX examples' defaults are 10 and
+# 5 minutes); serving_batched's two sessions' seconds each.
+EXAMPLE_MINUTES, EXAMPLE_VIT_MINUTES, EXAMPLE_SERVING_S = 0.1, 0.05, 2.0
+# A generated token is a valid greedy choice when its teacher-forced
+# logit is within this of its row's max: serve_decode --check's bf16 tie
+# tolerance.
+EXAMPLE_TIE_TOL = 0.08
+
+
+def drive(name: str, module, *argv: str, params=None) -> tuple:
+    """One driver's run() in this process, its printed lines logged under
+    `examples <name>:`; returns (its result, its text, its seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = module.run(module.parser().parse_args(list(argv)),
+                         params=params)
+    dt = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"examples {name}: {line}")
+    log(f"examples {name}: {dt:.1f}s")
+    return res, text, dt
+
+
+def stream_gaps(dec, params, ids, start: int):
+    """How far below its teacher-forced row's max each token of `ids`
+    [1, T] from position `start` on lies (0 for the argmax), on the CPU."""
+    logits = dec.reference_logits(params, ids[:, :-1]).float().cpu()
+    rows = logits[0, start - 1:]
+    return rows.amax(-1) - rows.gather(-1, ids[0, start:, None].cpu())[:, 0]
+
+
+def phase_examples() -> dict:
+    """Phase examples: every single-process driver of
+    defer_tpu_torch/examples/ through its run(), at the JAX examples'
+    default widths (module docstring), each kernel its path should reach
+    counted from 0 over its run and required above 0."""
+    import importlib.util
+
+    import torch
+
+    from defer_tpu_torch.examples import (
+        distributed_infer,
+        generate,
+        local_infer,
+        long_context,
+        pretrained_infer,
+        serve_decode,
+        serving_batched,
+    )
+    from defer_tpu_torch.models import get_model
+    from defer_tpu_torch.models.gpt import GptDecoder
+
+    t0 = time.perf_counter()
+    res = {}
+    minutes = str(EXAMPLE_MINUTES)
+    local, _, _ = drive("local_infer", local_infer, "--batch", "32",
+                        "--synthetic", "--minutes", minutes)
+    cuts = ",".join(get_model("resnet50").default_cuts(4))
+    pipe, text, _ = drive("distributed_infer", distributed_infer,
+                          "--batch", "32", "--synthetic", "--cuts", cuts,
+                          "--minutes", minutes)
+    check("resnet50: 4 stages over 1 device(s)" in text
+          and pipe["count"] > 1,
+          "examples distributed_infer: not 4 stages on the card")
+    first = pipe["first_output"].float()
+    base = local["output"].float()
+    gap = float((first - base).abs().max())
+    check(tuple(first.shape) == (32, 1000)
+          and bool(torch.isfinite(first).all()) and gap <= 1e-3,
+          f"examples distributed_infer: the first result is {gap:.3g} from "
+          "local_infer's on the same weights (bound 1e-3)")
+    # Both rates leave out set-up: local_infer times its loop after a
+    # warm-up call, the pipeline's steady rate starts at its first result.
+    steady = pipe["steady_images_per_sec"]
+    res["resnet50"] = {"local_images_s": local["items_per_sec"],
+                       "pipeline_images_s": steady,
+                       "pipeline_window_images_s": pipe["images_per_sec"],
+                       "ratio": steady / local["items_per_sec"], "gap": gap}
+    log(f"examples: ResNet50 batch 32 on one card: local_infer "
+        f"{local['items_per_sec']:.2f} images/s (after a warm-up call), "
+        f"distributed_infer (4 stages on cuda:0) {steady:.2f} images/s "
+        f"from its first result ({pipe['images_per_sec']:.2f} over the "
+        f"whole window, set-up included), ratio "
+        f"{res['resnet50']['ratio']:.4f}; first results within {gap:.3g}")
+
+    zero_launches()
+    vit, _, _ = drive("distributed_infer vit_b16", distributed_infer,
+                      "--model", "vit_b16", "--synthetic", "--minutes",
+                      str(EXAMPLE_VIT_MINUTES))
+    launches = read_launches()["flash_attention"]
+    out = vit["first_output"].float()
+    check(launches > 0 and tuple(out.shape) == (1, 1000)
+          and bool(torch.isfinite(out).all()),
+          f"examples vit_b16: flash_attention launched {launches} times")
+    res["vit_b16"] = {"images_s": vit["images_per_sec"],
+                      "steady_images_s": vit.get("steady_images_per_sec"),
+                      "launches": launches}
+
+    # generate --family llama --speculate 4: the plain loop at the
+    # defaults, then the speculative run, on weights the phase keeps to
+    # hold both greedy streams against a teacher-forced forward.
+    argv = ("--family", "llama", "--speculate", "4")
+    dec = GptDecoder(generate.config(generate.parser().parse_args(argv)),
+                     compute_dtype=torch.bfloat16, device="cuda")
+    whole = dec.init(torch.Generator(dec.device).manual_seed(0))
+    zero_launches()
+    gen, text, _ = drive("generate", generate, *argv, params=whole)
+    runs = read_card_runs()["flash_decode"]
+    toks = gen["tokens"]
+    check(runs > 0 and "steady decode" in text
+          and "speculative (k=4" in text and toks.shape == (1, 65)
+          and int(toks.min()) >= 0 and int(toks.max()) < 32000,
+          f"examples generate: flash_decode ran {runs} times on the card")
+    spec = gen["speculative"]
+    prompt = gen["prompt"]
+    plen = prompt.shape[1]
+    params = dec.cast_params(whole)
+    plain_gaps = stream_gaps(dec, params, torch.cat([prompt, toks], 1), plen)
+    spec_gaps = stream_gaps(dec, params, spec["ids"], plen)
+    differ = (spec["ids"][0, plen:] != toks[0, :64]).nonzero()
+    same = int(differ[0, 0]) if len(differ) else 64
+    parted = (f"at position {same} of 64, where the plain token lies "
+              f"{float(plain_gaps[same]):.4f} and the speculative one "
+              f"{float(spec_gaps[same]):.4f} below the teacher-forced max"
+              if same < 64 else "nowhere")
+    worst = max(float(plain_gaps.max()), float(spec_gaps.max()))
+    check(worst <= EXAMPLE_TIE_TOL,
+          f"examples generate: a greedy token lies {worst:.4f} below its "
+          f"teacher-forced max (tie tolerance {EXAMPLE_TIE_TOL})")
+    log(f"examples generate: every token of both greedy streams is a valid "
+        f"greedy choice (largest gap: plain {float(plain_gaps.max()):.4f}, "
+        f"speculative {float(spec_gaps.max()):.4f}; tie tolerance "
+        f"{EXAMPLE_TIE_TOL}); the streams part {parted}")
+    res["generate"] = {"ms_per_token": gen["ms_per_token"],
+                       "spec_ms_per_token": spec["ms_per_token"],
+                       "card_runs": runs, "acceptance": spec["acceptance"],
+                       "same_as_plain": same, "max_gap": worst}
+    del dec, whole, params
+
+    zero_launches()
+    srv, text, _ = drive("serve_decode", serve_decode, "--check")
+    runs = read_card_runs()["flash_decode"]
+    check(runs > 0 and "valid greedy choices" in text,
+          f"examples serve_decode: flash_decode ran {runs} times on the card")
+    res["serve_decode"] = {"tokens_per_s": srv["tokens_per_s"],
+                           "card_runs": runs}
+
+    batching, _, _ = drive("serving_batched", serving_batched, "--seconds",
+                           str(EXAMPLE_SERVING_S))
+    for mode in ("off", "on"):
+        s = batching[mode]
+        check(s["completed"] == s["sent"] > 0 and "warning" not in s,
+              f"examples serving_batched: batching {mode} {s}")
+    res["serving_batched"] = {m: batching[m]["items_per_sec"]
+                              for m in ("off", "on")}
+
+    lc, _, _ = drive("long_context", long_context, "--seq", "4096",
+                     "--check")
+    res["long_context"] = {"ms_per_step": lc["ms_per_step"],
+                           "max_abs_err": lc["max_abs_err"]}
+
+    # Offline: no tensorflow on this machine means no checkpoint source;
+    # where tensorflow is importable a missing file keeps it offline.
+    argv = (() if importlib.util.find_spec("tensorflow") is None
+            else ("--weights", os.path.join(os.sep, "nonexistent.h5")))
+    pre, text, _ = drive("pretrained_infer", pretrained_infer, *argv)
+    check(pre["code"] == 0 and pre["skipped"] and "SKIP:" in text,
+          "examples pretrained_infer: no SKIP line offline")
+    for mod in ("jax", "defer_tpu"):
+        check(mod not in sys.modules, f"examples imported {mod}")
+    log(f"examples: phase done in {time.perf_counter() - t0:.1f}s")
+    return res
+
+
 # -- entry point -----------------------------------------------------------
 
 def main() -> int:
@@ -6824,6 +7024,7 @@ def main() -> int:
                             params, paged_res, decode_res, here)
         del dec, params
         timed("t5", phase_t5)
+        examples_res = timed("examples", phase_examples)
         for name in ("jax", "defer_tpu"):
             check(name not in sys.modules, f"{name} was imported")
     except Exception as e:  # every phase failure ends the run non-zero
@@ -6890,10 +7091,19 @@ def main() -> int:
             }
             # The trained GPT-2 small tree served at K=1 (phase train).
             report[-1]["train_serve"] = train_res["lm"]["serve_launches"]
+            # The drivers' runs on the card (phase examples).
+            report[-1]["examples"] = {
+                label: examples_res[label]["card_runs"]
+                for label in ("generate", "serve_decode")}
             # SpmdGptDecoder at tp 2, on each rank (phase serve_sharded).
             report[-1]["serve_sharded"] = {
                 "flat_tp2_per_rank": sharded_res["flat"]["launches"]}
         if name == "flash_attention":
+            # ViT-B/16 through the distributed_infer driver (phase
+            # examples).
+            report[-1]["examples"] = {
+                "distributed_infer_vit_b16":
+                    examples_res["vit_b16"]["launches"]}
             # ShardedInference of BERT-base over {"data": 2}, a call, by
             # rank (phase dist); SpmdT5 launches none.
             report[-1]["sharded_inference_by_rank"] = [

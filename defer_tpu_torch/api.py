@@ -442,11 +442,12 @@ def run_local_inference(
     compute_dtype: Any = None,
     example: Any = None,
     device: torch.device | str | None = None,
-) -> dict[str, float]:
+) -> dict[str, Any]:
     """Single-device baseline: the whole model as one stage on one
     device (default: the current CUDA device), looped for `duration_s`
     — the denominator of every pipelining speedup. `example` supplies
-    the looped input; default is the model's example input."""
+    the looped input; default is the model's example input. The
+    warm-up call's result comes back as "output"."""
     cfg = DeferConfig()
     if compute_dtype is not None:
         cfg = cfg.replace(compute_dtype=compute_dtype)
@@ -464,7 +465,8 @@ def run_local_inference(
     ).to(dev)
     # Count what actually runs: the example's leading dim is the batch.
     batch_size = int(x.shape[0]) if x.ndim > 0 else 1
-    hard_sync(pipe(x))  # warm-up
+    output = pipe(x)
+    hard_sync(output)  # warm-up
 
     count = 0
     t0 = time.perf_counter()
@@ -480,4 +482,5 @@ def run_local_inference(
         "seconds": dt,
         "batches_per_sec": count / dt,
         "items_per_sec": count * batch_size / dt,
+        "output": output,
     }

@@ -13,7 +13,8 @@ train step's flash_attention launches with and without remat, the
 kernel's gradient, the MoE dispatches); the training collectives on the
 card (two gloo ranks sharing cuda:0 under tp, FSDP and the stage axis
 across ranks, against one process; every collective on a world-size-1
-NCCL group).
+NCCL group); the multi-rank example drivers under torchrun, their ranks
+sharing cuda:0 on gloo.
 
 Every test here is marked `cuda` and skips without a CUDA card. The
 file imports neither jax nor defer_tpu, so on the card it runs on its
@@ -2104,3 +2105,58 @@ def test_pp_rows_part_at_the_kernel_not_the_boundary(card):
     assert parts["boundary"] == 0.0, parts
     assert parts["boundary_dtype"] == str(torch.bfloat16)
     assert parts["kernel"] <= 0.25 and parts["half_m"] <= 0.25, parts
+
+
+# -- the example drivers over torchrun ranks sharing cuda:0 -----------------
+
+
+def _torchrun(module: str, ranks: int, *argv: str, timeout: float = 600):
+    """`torchrun --nproc-per-node ranks -m defer_tpu_torch.examples.module`
+    on the one card (the ranks share cuda:0, so the drivers join gloo);
+    returns rank 0's printed lines."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(ranks), "--master-addr", "127.0.0.1", "--master-port",
+         str(port), "-m", f"defer_tpu_torch.examples.{module}", *argv],
+        cwd=repo, env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    print(proc.stdout)
+    return proc.stdout
+
+
+def test_example_generate_tp2_on_two_gloo_ranks(card):
+    out = _torchrun("generate", 2, "--tp", "2")
+    assert "tensor-parallel decode over 2 ranks (NVIDIA" in out
+    assert out.count("steady decode") == 1
+
+
+def test_example_long_context_on_two_gloo_ranks(card):
+    out = _torchrun("long_context", 2, "--seq", "4096", "--check")
+    assert "over 2 ranks" in out and "matches unsharded reference" in out
+
+
+def test_example_spmd_train_on_four_gloo_ranks_resumes(card, tmp_path):
+    """The defaults (--stages 2 --tp 2, data = 1) on 4 ranks with a
+    sharded checkpoint every 10 steps; a second run resumes it."""
+    out = _torchrun("spmd_train", 4, "--ckpt-dir", str(tmp_path))
+    assert "mesh dp=1 pp=2 tp=2" in out and "resumed" not in out
+    assert "saved sharded checkpoint at step 19" in out
+    out = _torchrun("spmd_train", 4, "--ckpt-dir", str(tmp_path), "--steps",
+                    "2")
+    assert f"resumed sharded state from {tmp_path}" in out
+
+
+def test_example_finetune_lora_fsdp_on_four_gloo_ranks(card):
+    out = _torchrun("finetune_lora", 4, "--fsdp")
+    assert "mesh={'data': 2, 'stage': 2}, base FSDP-sharded" in out
+    assert "finetune_lora OK" in out
