@@ -1,0 +1,9 @@
+"""The benchmark's tests import it as `benchmark` from the checkout's
+root, wherever pytest is started."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
