@@ -31,8 +31,8 @@ from defer_tpu_torch.parallel.mesh import cuda_devices, pipeline_devices
 from defer_tpu_torch.parallel.pipeline import Pipeline, resolve_device
 from defer_tpu_torch.runtime.batching import split_output
 from defer_tpu_torch.runtime.host_io import STOP, ProgressMonitor
-from defer_tpu_torch.utils import profiling
 from defer_tpu_torch.utils.logging import get_logger
+from defer_tpu_torch.utils.profiling import SPANS, WindowTrace, annotate, clock
 from defer_tpu_torch.utils.sync import (
     Pending,
     Retirer,
@@ -62,6 +62,17 @@ class DEFER:
         )
         self.config = config or DeferConfig()
         self._stop = threading.Event()
+        # The stream thread's host seconds blocked: for input (queue
+        # gets, or the gather with batching on) and on the card (the
+        # Retirer's barriers).
+        self._obs_wait = {
+            on: get_registry().counter(
+                "defer_stream_wait_seconds_total",
+                "Host seconds run_defer's stream thread spent blocked",
+                {"on": on},
+            )
+            for on in ("input", "card")
+        }
         self.last_pipeline: Pipeline | None = None
         # Filled by run_defer when config.probe_every > 0.
         self.last_stage_latencies: list[dict[str, float]] | None = None
@@ -280,12 +291,14 @@ class DEFER:
             replicas=replicas,
         )
         monitor = ProgressMonitor(self.config.collective_timeout_s)
+        card_waited = self._obs_wait["card"]
 
         def watchdog_sync(item: Pending) -> None:
             # Event barrier with a deadline so a stuck stage trips the
             # watchdog instead of hanging forever. A barrier may cover
             # many microbatches; on timeout we only raise if the
             # completed prefix stopped growing — genuinely zero progress.
+            t0 = clock()
             last_ready = -1
             while not hard_sync_timeout(
                 item, self.config.collective_timeout_s
@@ -298,6 +311,10 @@ class DEFER:
                         "or transfer is stuck"
                     )
                 last_ready = ready
+            t1 = clock()
+            card_waited.inc((t1 - t0) * 1e-9)
+            if SPANS.on:
+                SPANS.record("defer:card_wait", t0, t1)
 
         # Replicated runtimes supply their own retirer bank: the shared
         # windowed barrier is only sound within one stage chain (see
@@ -341,7 +358,7 @@ class DEFER:
         # Unlike Pipeline.stream (pull-based), this loop must keep
         # emitting results while the input queue idles. Trace only a
         # bounded window of the (potentially unbounded) serving loop.
-        tracer = profiling.WindowTrace()
+        tracer = WindowTrace()
         try:
             self._stream_loop(
                 pipe, input_stream, emit, retirer, monitor, tracer,
@@ -355,34 +372,43 @@ class DEFER:
         gatherer=None, splits=None,
     ):
         since_probe = 0
+        seq = 0  # the next microbatch's sequence id, for its spans
         retries_left = self.config.redispatch_attempts
+        input_waited = self._obs_wait["input"]
         eos = False
         while not self._stop.is_set() and not eos:
+            t0 = clock()
             if gatherer is None:
+                sizes = None
                 try:
                     item = input_stream.get(timeout=0.05)
                 except queue.Empty:
-                    emit(retirer.collect())
-                    monitor.check()
-                    continue
-                if item is None or item is STOP:
-                    break
-                sizes = None
+                    item = None
+                else:
+                    eos = item is None or item is STOP
+                    if eos:
+                        item = None
             else:
                 item, sizes, eos = gatherer.gather(input_stream)
-                if item is None:
-                    if eos:
-                        break
-                    emit(retirer.collect())
-                    monitor.check()
-                    continue
+            t1 = clock()
+            input_waited.inc((t1 - t0) * 1e-9)
+            if SPANS.on:
+                SPANS.record("defer:input_wait", t0, t1, seq=seq)
+            if item is None:
+                if eos:
+                    break
+                emit(retirer.collect())
+                monitor.check()
+                continue
             monitor.submitted()
             tracer.tick()
             while True:
                 try:
                     if sizes is not None:
                         splits.append(sizes)
-                    emit(retirer.add(pipe.submit(item)))
+                    with annotate("defer:submit", seq):
+                        pending = pipe.submit(item)
+                    emit(retirer.add(pending))
                     break
                 except Exception as e:  # noqa: BLE001 — recovery below
                     if retries_left <= 0:
@@ -413,6 +439,7 @@ class DEFER:
                         ).inc(lost)
                     pipe = self._redispatch(e)
             monitor.check()
+            seq += 1
             since_probe += 1
             if (
                 self.config.probe_every

@@ -6,12 +6,13 @@ the same metric names (`defer_pipeline_microbatches_total`,
 `defer_stream_items_total`, ...) without importing the JAX package.
 The pipeline and stream runtimes increment always-on instruments, and
 export sinks (`obs/export.py`) read them on demand — nothing is paid per
-sample beyond an int add under a lock.
+sample beyond an add under a lock. Counters of time (`..._seconds_total`)
+add float seconds, from one `time.perf_counter_ns()` pair a boundary.
 
 Design constraints, in order:
 
   * **Hot-path cost**: instrument handles are resolved ONCE (at
-    construction) and cached; an event is then a lock acquire + int
+    construction) and cached; an event is then a lock acquire + an
     add, no allocation. Histograms use FIXED log-spaced bucket edges
     found by `bisect`, so observing never allocates either.
   * **Thread safety**: every mutation takes the instrument's own lock

@@ -11,6 +11,13 @@
 
 Backpressure is a cap on in-flight microbatches, enforced through
 `Retirer` (utils/sync.py): one event barrier per window, never per item.
+
+Each stage call is timed on the host in two phases, `place` (the input's
+move to the stage's device: the HtoD copy's enqueue for stage 0, the
+card-to-card hop after it) and `launch` (enqueueing the stage's
+kernels), into `defer_stage_host_seconds_total{stage,phase}`, and, while
+span recording is on, as a `defer:stage<i>` span with the two as
+children (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from defer_tpu_torch.config import DeferConfig
 from defer_tpu_torch.graph.ir import Graph, GraphParams
 from defer_tpu_torch.graph.partition import StageGraph, stage_params
 from defer_tpu_torch.obs.metrics import get_registry
-from defer_tpu_torch.utils.profiling import annotate
+from defer_tpu_torch.utils.profiling import SPANS, clock
 from defer_tpu_torch.utils.sync import Pending, Retirer, hard_sync
 
 
@@ -244,10 +251,24 @@ class Pipeline(StreamMeasure):
         ]
         # One shared counter across every Pipeline: total microbatches
         # dispatched process-wide.
-        self._obs_microbatches = get_registry().counter(
+        reg = get_registry()
+        self._obs_microbatches = reg.counter(
             "defer_pipeline_microbatches_total",
             "Microbatches dispatched through a stage chain",
         )
+        # Per stage: its span's name and its place and launch counters.
+        self._stage_obs = [
+            (f"defer:stage{i}", *(
+                reg.counter(
+                    "defer_stage_host_seconds_total",
+                    "Host seconds a stage call spent placing its input "
+                    "and enqueueing its kernels",
+                    {"stage": str(i), "phase": phase},
+                )
+                for phase in ("place", "launch")
+            ))
+            for i in range(len(self.stages))
+        ]
 
     @property
     def num_stages(self) -> int:
@@ -272,9 +293,19 @@ class Pipeline(StreamMeasure):
         self._obs_microbatches.inc()
         with torch.inference_mode():
             h = x
-            for i, stage in enumerate(self.stage_modules):
-                with annotate(f"defer:stage{i}"):
-                    h = stage(self._place(h, stage.device))
+            for stage, (span, placed, launched) in zip(
+                self.stage_modules, self._stage_obs
+            ):
+                t0 = clock()
+                h = self._place(h, stage.device)
+                t1 = clock()
+                h = stage(h)
+                t2 = clock()
+                placed.inc((t1 - t0) * 1e-9)
+                launched.inc((t2 - t1) * 1e-9)
+                if SPANS.on:
+                    SPANS.record(span, t0, t2, (("defer:place", t0, t1),
+                                                ("defer:launch", t1, t2)))
         return h
 
     def submit(self, x: Any) -> Pending:

@@ -152,10 +152,8 @@ def main() -> int:
     launches = 0
     for e in prof.key_averages():
         dt = e.self_device_time_total
-        # Device-side kernels and copies only: the GPU copies of the
-        # stage annotations span their kernels and would count twice.
-        if (dt <= 0 or e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith("defer:")):
+        # Device-side kernels and copies only.
+        if dt <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         fam = _family(e.key)
         fam_us[fam] = fam_us.get(fam, 0.0) + dt

@@ -80,11 +80,9 @@ def profile_window(torch, run, n: int) -> dict:
     busy_us = 0.0
     launches = 0
     for e in prof.key_averages():
-        # Device-side kernels and copies only: the GPU copies of the
-        # stage annotations span their kernels and would count twice.
+        # Device-side kernels and copies only.
         if (e.self_device_time_total <= 0
-                or e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith("defer:")):
+                or e.device_type != torch.autograd.DeviceType.CUDA):
             continue
         busy_us += e.self_device_time_total
         launches += e.count
